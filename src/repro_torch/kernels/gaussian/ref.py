@@ -1,0 +1,41 @@
+"""Plain PyTorch versions of the Gaussian sketch→Gram kernels.
+
+They materialize the same counter-derived S the kernels generate tile by tile
+(threefry2x32 + Box-Muller, element (i, j) keyed by counters (i, j)), in blocks
+of data rows, and contract it with plain matrix products in full float32. The
+CPU path of every wrapper in ``ops.py`` is this module; on the card it is the
+version the kernels are compared with.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import common
+
+PLAIN_BLOCK_ROWS = 8192
+
+
+def columns(k0: int, k1: int, m: int, j0: int, block: int, device=None) -> torch.Tensor:
+    """``S[:, j0 : j0+block]``, S ~ N(0, 1/m) from the counter stream."""
+    rows = torch.arange(m, dtype=torch.int64, device=device)[:, None]
+    cols = j0 + torch.arange(block, dtype=torch.int64, device=device)[None, :]
+    z = common.counter_normal(k0, k1, rows, cols)
+    return z * common.inv_sqrt(m)
+
+
+def sketch_matrix(key: torch.Tensor, m: int, n: int, *, device=None) -> torch.Tensor:
+    """The full S ∈ R^{m×n} (small problems only)."""
+    k0, k1 = common.key_words(key)
+    return columns(k0, k1, m, 0, n, device)
+
+
+def gaussian_gram(
+    key: torch.Tensor, A: torch.Tensor, m: int, *, block_rows: int = PLAIN_BLOCK_ROWS
+) -> torch.Tensor:
+    """G = (SA)ᵀ(SA) ∈ R^{d×d}, float32, with S drawn in blocks of ``block_rows`` columns."""
+    return common.plain_gram(columns, key, A, m, block_rows)
+
+
+def gaussian_gram_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:
+    """(q, d, d): slice w is :func:`gaussian_gram` on ``keys[w]``."""
+    return torch.stack([gaussian_gram(k, A, m) for k in keys])

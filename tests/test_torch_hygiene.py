@@ -1,0 +1,119 @@
+"""Boundaries of the PyTorch port: what it imports, where it runs, how it fails.
+
+* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX or the
+  JAX package ``repro`` (an AST scan, so a lazy import inside a function counts).
+* Every module imports on CPU-only PyTorch without building anything.
+* The entry points run on CUDA by default and raise when it is absent.
+* ``chip_smoke.py`` exits non-zero, printing no result, without CUDA and outside
+  a checkout.
+"""
+import ast
+import importlib
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SMOKE = ROOT / "chip_smoke.py"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [SMOKE]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_no_jax_and_nothing_of_repro(path):
+    bad = [(root, line) for root, line in _imported_roots(path) if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_catches_forbidden_imports(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f():\n    import jax.numpy\n    from repro.core import solve\n    import repro_torch\n")
+    assert [r for r, _ in _imported_roots(probe) if r in FORBIDDEN] == ["jax", "repro"]
+
+
+def test_every_port_module_imports_without_building(monkeypatch, tmp_path):
+    from repro_torch.kernels import cuda
+
+    names = sorted(
+        ".".join(p.relative_to(PORT.parent).with_suffix("").parts).replace(".__init__", "")
+        for p in PORT.rglob("*.py")
+    )
+    for name in names:
+        importlib.import_module(name)
+    assert cuda._LIBS == {}
+    assert len(names) >= 20
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.core import distributed, sketches
+    from repro_torch.data import regression
+    from repro_torch.utils import prng
+    from repro_torch.utils.device import resolve_device
+
+    _no_cuda(monkeypatch)
+    A, b = torch.zeros(64, 3), torch.zeros(64)
+    spec = sketches.SketchSpec("gaussian", 8)
+    for entry in (distributed.distributed_sketch_solve, distributed.distributed_sketch_solve_master):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry(spec, prng.prng_key(0), A, b, q=2)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry(spec, prng.prng_key(0), A, b, q=2, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        regression.gaussian_regression(0, 16, 2)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _run_smoke(cwd: pathlib.Path, script: pathlib.Path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    return subprocess.run(
+        [sys.executable, str(script)], cwd=cwd, env=env, capture_output=True, text=True, timeout=300
+    )
+
+
+def test_chip_smoke_fails_without_cuda():
+    res = _run_smoke(ROOT, SMOKE)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    assert "CUDA is not available" in res.stderr
+
+
+def test_chip_smoke_fails_outside_a_checkout(tmp_path):
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(SMOKE, lone)
+    res = _run_smoke(tmp_path, lone)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    assert "run it from a checkout" in res.stderr
+
+
+def test_straggler_mask_accepts_numpy_and_tensors():
+    from repro_torch.core import distributed
+
+    m = distributed._checked_mask(np.array([1, 0], np.float32), 2, torch.device("cpu"))
+    assert m.dtype == torch.float32 and m.tolist() == [1.0, 0.0]
+    assert distributed._checked_mask(None, 3, "cpu").tolist() == [1.0, 1.0, 1.0]

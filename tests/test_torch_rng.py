@@ -1,0 +1,164 @@
+"""The PyTorch port's counter-RNG contract and key derivation against the JAX reference.
+
+Integer streams (threefry words, packed signs, worker key words) must match
+bitwise. Gaussian values go through ``log``/``cos`` of another math library, so
+they match to a stated tolerance.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import common as jc
+from repro.utils import prng as jprng
+from repro_torch.kernels import common as tc
+from repro_torch.utils import env as tenv
+from repro_torch.utils import prng as tprng
+
+# |Δz| bound for counter normals: measured ≤ 4.8e-7 over 1e5 draws (|z| ≤ 4.3); 2e-6
+# is a few float32 ulps at the largest |z| a 32-bit uniform can give (6.7).
+NORMAL_ATOL = 2e-6
+K0, K1 = 0x12345678, 0x9ABCDEF0
+EDGES = np.array([0, 1, 31, 32, 2**31 - 1, 2**31, 2**32 - 1], np.uint32)
+
+
+def _counters(seed, count=4096):
+    rs = np.random.default_rng(seed)
+    c0 = np.concatenate([EDGES, rs.integers(0, 2**32, count, dtype=np.uint64).astype(np.uint32)])
+    c1 = np.concatenate([EDGES[::-1], rs.integers(0, 2**32, count, dtype=np.uint64).astype(np.uint32)])
+    return c0, c1
+
+
+def _t(u32: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(u32.astype(np.int64))
+
+
+@pytest.mark.parametrize("rounds", [20, 8])
+def test_threefry_words_bitwise(rounds):
+    c0, c1 = _counters(rounds)
+    j0, j1 = jc.threefry2x32(jnp.uint32(K0), jnp.uint32(K1), jnp.asarray(c0), jnp.asarray(c1), rounds=rounds)
+    t0, t1 = tc.threefry2x32(K0, K1, _t(c0), _t(c1), rounds=rounds)
+    np.testing.assert_array_equal(np.asarray(j0).astype(np.int64), t0.numpy())
+    np.testing.assert_array_equal(np.asarray(j1).astype(np.int64), t1.numpy())
+
+
+def test_threefry_broadcasts_and_rejects_bad_rounds():
+    rows = torch.arange(5, dtype=torch.int64)[:, None]
+    cols = torch.arange(7, dtype=torch.int64)[None, :]
+    x0, x1 = tc.threefry2x32(K0, K1, rows, cols)
+    assert x0.shape == x1.shape == (5, 7)
+    y0, _ = tc.threefry2x32(K0, K1, 3, 4)
+    assert int(y0) == int(x0[3, 4])
+    for bad in (0, 6, -4):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            tc.threefry2x32(K0, K1, rows, cols, rounds=bad)
+
+
+def test_bits_to_open_unit_bitwise():
+    c0, _ = _counters(1)
+    np.testing.assert_array_equal(np.asarray(jc.bits_to_open_unit(jnp.asarray(c0))), tc.bits_to_open_unit(_t(c0)).numpy())
+
+
+@pytest.mark.parametrize("rounds", [20, 8])
+def test_counter_normal_to_tolerance(rounds):
+    c0, c1 = _counters(100 + rounds)
+    zj = np.asarray(jc.counter_normal(jnp.uint32(K0), jnp.uint32(K1), jnp.asarray(c0), jnp.asarray(c1), rounds=rounds))
+    zt = tc.counter_normal(K0, K1, _t(c0), _t(c1), rounds=rounds).numpy()
+    assert zt.dtype == np.float32
+    np.testing.assert_allclose(zt, zj, rtol=0, atol=NORMAL_ATOL)
+
+
+def test_counter_normal_reads_rng_rounds(monkeypatch):
+    c0, c1 = _counters(3, 64)
+    monkeypatch.setenv("REPRO_RNG_ROUNDS", "8")
+    assert tc.rng_rounds() == 8
+    np.testing.assert_array_equal(
+        tc.counter_normal(K0, K1, _t(c0), _t(c1)).numpy(),
+        tc.counter_normal(K0, K1, _t(c0), _t(c1), rounds=8).numpy(),
+    )
+    monkeypatch.setenv("REPRO_RNG_ROUNDS", "6")
+    with pytest.raises(ValueError, match="REPRO_RNG_ROUNDS"):
+        tc.rng_rounds()
+    monkeypatch.delenv("REPRO_RNG_ROUNDS")
+    assert tc.rng_rounds() == tc.DEFAULT_ROUNDS == jc.DEFAULT_ROUNDS
+
+
+def test_packed_sign_words_and_counter_rademacher_bitwise():
+    c0, c1 = _counters(7)
+    wj = jc.packed_sign_words(jnp.uint32(K0), jnp.uint32(K1), jnp.asarray(c0), jnp.asarray(c1))
+    wt = tc.packed_sign_words(K0, K1, _t(c0), _t(c1))
+    np.testing.assert_array_equal(np.asarray(wj).astype(np.int64), wt.numpy())
+    sj = jc.counter_rademacher(jnp.uint32(K0), jnp.uint32(K1), jnp.asarray(c0), jnp.asarray(c1))
+    np.testing.assert_array_equal(np.asarray(sj), tc.counter_rademacher(K0, K1, _t(c0), _t(c1)).numpy())
+    bit = c1 % 32
+    uj = jc.unpack_signs(wj, jnp.asarray(bit))
+    np.testing.assert_array_equal(np.asarray(uj), tc.unpack_signs(wt, _t(bit)).numpy())
+
+
+@pytest.mark.parametrize("row0,col0,nrows,ncols", [(0, 0, 8, 64), (3, 32, 5, 96), (40, 4096, 2, 32)])
+def test_packed_sign_tile_bitwise(row0, col0, nrows, ncols):
+    tj = jc.packed_sign_tile(jnp.uint32(K0), jnp.uint32(K1), row0, col0, nrows, ncols)
+    tt = tc.packed_sign_tile(K0, K1, row0, col0, nrows, ncols)
+    np.testing.assert_array_equal(np.asarray(tj), tt.numpy())
+    with pytest.raises(ValueError, match="multiples of 32"):
+        tc.packed_sign_tile(K0, K1, row0, col0 + 1, nrows, ncols)
+
+
+@pytest.mark.parametrize("col0", [0, 5, 31, 33, 100, 1023])
+@pytest.mark.parametrize("ncols", [1, 45, 64])
+def test_counter_rademacher_block_unaligned_bitwise(col0, ncols):
+    bj = jc.counter_rademacher_block(jnp.uint32(K0), jnp.uint32(K1), 2, col0, 6, ncols)
+    bt = tc.counter_rademacher_block(K0, K1, 2, col0, 6, ncols)
+    assert bt.shape == (6, ncols)
+    np.testing.assert_array_equal(np.asarray(bj), bt.numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 7, 12345, -3, 2**31 - 1])
+@pytest.mark.parametrize("round_id", [0, 1, 9])
+def test_worker_keys_bitwise(seed, round_id):
+    base = jax.random.PRNGKey(seed)
+    tkey = tprng.prng_key(seed)
+    np.testing.assert_array_equal(np.asarray(jax.random.key_data(base)).astype(np.int64), tkey.numpy())
+    want = np.asarray(jax.random.key_data(jprng.worker_keys(base, 5, round_id))).astype(np.int64)
+    np.testing.assert_array_equal(tprng.worker_keys(tkey, 5, round_id).numpy(), want)
+    one = np.asarray(jax.random.key_data(jprng.worker_key(base, 3, round_id))).astype(np.int64)
+    np.testing.assert_array_equal(tprng.worker_key(tkey, 3, round_id).numpy(), one)
+
+
+def test_fold_in_and_key_data_round_trip():
+    base = jax.random.PRNGKey(11)
+    for data in (0, 1, 2**31 + 5):
+        want = np.asarray(jax.random.key_data(jax.random.fold_in(base, data))).astype(np.int64)
+        np.testing.assert_array_equal(tprng.fold_in(tprng.prng_key(11), data).numpy(), want)
+    keys = jprng.worker_keys(base, 3)
+    words = tprng.from_key_data(np.asarray(jax.random.key_data(keys)))
+    assert words.shape == (3, 2) and words.dtype == torch.int64
+    with pytest.raises(ValueError, match="uint32"):
+        tprng.from_key_data(np.zeros((2,), np.int64))
+    with pytest.raises(ValueError, match="32 signed bits"):
+        tprng.prng_key(2**31)
+
+
+def test_key_words_and_round_up():
+    assert tc.key_words(torch.tensor([5, 2**32 - 1])) == (5, 2**32 - 1)
+    with pytest.raises(ValueError, match=r"\(2,\)"):
+        tc.key_words(torch.zeros((3, 2), dtype=torch.int64))
+    assert [tc.round_up(x, 32) for x in (1, 32, 33)] == [jc.round_up(x, 32) for x in (1, 32, 33)] == [32, 32, 64]
+    assert tc.inv_sqrt(2500) == float(np.float32(1 / 50))
+
+
+@pytest.mark.parametrize(
+    "raw,want", [("1", True), ("yes", True), ("off", False), ("", None)]
+)
+def test_env_copy_matches_reference_parsing(monkeypatch, raw, want):
+    from repro.utils import env as jenv
+
+    monkeypatch.setenv("REPRO_TORCH_TEST_FLAG", raw)
+    assert tenv.read_bool("REPRO_TORCH_TEST_FLAG") is want
+    assert jenv.read_bool("REPRO_TORCH_TEST_FLAG") is want
+    monkeypatch.setenv("REPRO_TORCH_TEST_INT", "12")
+    assert tenv.read_int("REPRO_TORCH_TEST_INT", 20, positive=True, multiple_of=4) == 12
+    monkeypatch.setenv("REPRO_TORCH_TEST_INT", "x")
+    with pytest.raises(ValueError, match="REPRO_TORCH_TEST_INT"):
+        tenv.read_int("REPRO_TORCH_TEST_INT")
