@@ -10,7 +10,11 @@ in parallel), checks the device counter RNG against the plain PyTorch contract,
 holds each sketch→Gram kernel against its plain version at the FIG3A shape
 (n = 500,000, d = 250, m = 2,500), then runs Algorithm 1 end to end: master-sketch
 mode with the Gaussian family at q = 200 (twice, bitwise equal), and worker-side
-mode plus the Rademacher family at q = 8. Each phase prints one JSON line; any
+mode plus the Rademacher family at q = 8. Each path runs with the launch counts
+at 0 and must make exactly the calls into the kernels' C entries that its worker
+chunks call for. The multi-key Grams of the main path (q = 200 and q = 8) are
+held, at the edges of their worker chunks, against single-key calls (bitwise)
+and the plain version (per entry). Each phase prints one JSON line; any
 failed check exits non-zero. The second-to-last line is the kernels summary; the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -28,7 +32,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 20260
-KERNEL_REL_TOL = 1e-4  # max|G_kernel − G_plain| / max|G_plain|: fp32 sums of 5e5 terms in two orders
+# Kernel against plain, per entry: max |ΔG_ij| / sqrt(G_ii·G_jj) over the plain G.
+# Both sum 5e5 float32 products per S·X entry and 2,500 per G entry, in two orders.
+GRAM_TOL = 1e-5
 NORMAL_ABS_TOL = 2e-6  # device logf/cosf vs the plain version: a few float32 ulps at |z| ≤ 6.7
 THEORY_FACTOR = 3.0  # rel_err must lie within [pred/3, 3·pred] of Theorem 1
 CHECK_Q = 2  # workers in the kernel-against-plain phase
@@ -74,9 +80,9 @@ def bound_ms(family: str, n: int, dx: int, m: int, q: int, rounds: int) -> tuple
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def cuda_ms(fn, reps: int, *, warmup: bool = True) -> float:
-    """Mean device time of ``fn()`` over ``reps`` runs, after one warm-up run unless
-    ``warmup`` is False (CUDA events)."""
+def cuda_ms(fn, reps: int, *, warmup: bool = True):
+    """(mean device time of ``fn()`` over ``reps`` runs, the last run's result),
+    after one warm-up run unless ``warmup`` is False (CUDA events)."""
     import torch
 
     if warmup:
@@ -85,10 +91,19 @@ def cuda_ms(fn, reps: int, *, warmup: bool = True) -> float:
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / reps, out
+
+
+def gram_err(G, want) -> float:
+    """max |G_ij − want_ij| / sqrt(want_ii·want_jj) over a stack of Grams."""
+    import torch
+
+    G, want = G.double().reshape(-1, *G.shape[-2:]), want.double().reshape(-1, *want.shape[-2:])
+    diag = torch.diagonal(want, dim1=-2, dim2=-1).clamp_min(0)
+    return float(((G - want).abs() / (diag[:, :, None] * diag[:, None, :]).sqrt()).max())
 
 
 def host_s(fn):
@@ -206,9 +221,9 @@ def phase_kernels(X, m: int, rows: dict) -> None:
         bitwise = all(torch.equal(G_multi[w], G_single[w]) for w in range(CHECK_Q))
         rerun = torch.equal(fn_multi(keys, X, m), G_multi)
         G_plain, plain_s = host_s(lambda: getattr(ref, multi)(keys, X, m))
-        scale = float(G_plain.abs().max())
-        err_multi = float((G_multi - G_plain).abs().max())
-        err_single = float((G_single[0] - G_plain[0]).abs().max())
+        abs_multi = float((G_multi - G_plain).abs().max())
+        abs_single = float((G_single[0] - G_plain[0]).abs().max())
+        err_multi, err_single = gram_err(G_multi, G_plain), gram_err(G_single[0], G_plain[0])
         _, plain_single_s = host_s(lambda: getattr(ref, single)(keys[0], X, m))
         S = predrawn_sketches(ref, keys, m, n, X.device)
 
@@ -216,30 +231,31 @@ def phase_kernels(X, m: int, rows: dict) -> None:
             with common.full_fp32_matmul():
                 return [sx.T @ sx for sx in (s @ X for s in S[:q])]
 
-        lib_single = cuda_ms(lambda: library(1), 3)
-        lib_multi = cuda_ms(lambda: library(CHECK_Q), 3)
+        lib_single, _ = cuda_ms(lambda: library(1), 3)
+        lib_multi, _ = cuda_ms(lambda: library(CHECK_Q), 3)
         del S
-        ms_single = cuda_ms(lambda: fn_single(keys[0], X, m), 3)
-        ms_multi = cuda_ms(lambda: fn_multi(keys, X, m), 3)
-        for name, src, q, ms, plain_ms, lib_ms, err in (
-            (single, src_single, 1, ms_single, plain_single_s * 1e3, lib_single, err_single),
-            (multi, src_multi, CHECK_Q, ms_multi, plain_s * 1e3, lib_multi, err_multi),
+        ms_single, _ = cuda_ms(lambda: fn_single(keys[0], X, m), 3)
+        ms_multi, _ = cuda_ms(lambda: fn_multi(keys, X, m), 3)
+        for name, src, q, ms, plain_ms, lib_ms, abs_err, err in (
+            (single, src_single, 1, ms_single, plain_single_s * 1e3, lib_single, abs_single, err_single),
+            (multi, src_multi, CHECK_Q, ms_multi, plain_s * 1e3, lib_multi, abs_multi, err_multi),
         ):
             b_ms, b_by = bound_ms(family, n, dx, m, q, rounds)
             rows[name] = {
                 "name": name, "route": "cuda", "source": "src/repro_torch/csrc/sketch_gram.cu",
-                "replaces": src, "launches": 0, "max_abs_err": err, "max_rel_err": err / scale,
+                "replaces": src, "launches": 0, "max_abs_err": abs_err, "max_entry_rel_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": lib_ms, "shape": {"n": n, "d": dx, "m": m, "q": q},
             }
         emit({"phase": "kernels", "family": family, "n": n, "d": dx, "m": m, "q": CHECK_Q,
-              "max_rel_err_multi": err_multi / scale, "max_rel_err_single": err_single / scale,
-              "tol": KERNEL_REL_TOL, "multi_slices_bitwise_equal_single": bitwise,
+              "max_abs_err_multi": abs_multi, "max_abs_err_single": abs_single,
+              "max_entry_rel_err_multi": err_multi, "max_entry_rel_err_single": err_single,
+              "tol": GRAM_TOL, "multi_slices_bitwise_equal_single": bitwise,
               "rerun_bitwise": rerun, "ms_single": ms_single, "ms_multi": ms_multi,
               "plain_ms_single": plain_single_s * 1e3, "plain_ms_multi": plain_s * 1e3,
               "library_ms_single": lib_single, "library_ms_multi": lib_multi})
-        check(err_multi <= KERNEL_REL_TOL * scale, f"{multi} disagrees with its plain version")
-        check(err_single <= KERNEL_REL_TOL * scale, f"{single} disagrees with its plain version")
+        check(err_multi <= GRAM_TOL, f"{multi} disagrees with its plain version")
+        check(err_single <= GRAM_TOL, f"{single} disagrees with its plain version")
         check(bitwise, f"{multi} slices are not bitwise equal to single launches")
         check(rerun, f"{multi} is not bitwise equal run to run")
 
@@ -278,13 +294,36 @@ def run_path(label: str, solve, expect: dict, A64, b64, fstar, m: int, q: int):
     return xbar, counts
 
 
+def check_main_path_slices(family: str, keys, X, m: int, G) -> None:
+    """Slices of a main-path multi-key Gram at the edges of its worker chunks:
+    bitwise equal to single-key calls, and the last held against the plain version."""
+    import torch
+
+    from repro_torch.kernels import cuda
+
+    single, multi, *_ = FAMILY_ROUTES[family]
+    ops, ref = family_modules(family)
+    n, dx = X.shape
+    q = keys.shape[0]
+    chunk = cuda.worker_chunk(n, m, dx, q)
+    ws = sorted({0, chunk - 1, chunk, q - 1} & set(range(q)))
+    bitwise = {str(w): torch.equal(G[w], getattr(ops, single)(keys[w], X, m)) for w in ws}
+    err = gram_err(G[q - 1], getattr(ref, single)(keys[q - 1], X, m))
+    emit({"phase": "main_path_slices", "name": multi, "q": q, "workers_per_call": chunk,
+          "slices_bitwise_equal_single": bitwise, "last_slice_entry_rel_err": err,
+          "tol": GRAM_TOL})
+    check(all(bitwise.values()), f"{multi} at q = {q}: slices {bitwise} not all bitwise equal to {single}")
+    check(err <= GRAM_TOL, f"{multi} at q = {q}: slice {q - 1} off its plain version by {err}")
+
+
 def phase_main_path(cfg, rows: dict):
     import torch
 
     from repro_torch.core import distributed, sketches as sk, solve
     from repro_torch.data import regression
-    from repro_torch.kernels import common
+    from repro_torch.kernels import common, cuda
     from repro_torch.kernels.gaussian import ops as gops
+    from repro_torch.kernels.rademacher import ops as rops
     from repro_torch.utils import prng
 
     A, b, _ = regression.gaussian_regression(SEED, cfg.n, cfg.d, device="cuda")
@@ -292,10 +331,14 @@ def phase_main_path(cfg, rows: dict):
     (xstar, fstar), xs_s = host_s(lambda: _exact(solve, A64, b64))
     emit({"phase": "exact_solve", "seconds": xs_s, "fstar": float(fstar)})
     key = prng.prng_key(SEED)
+    dx = cfg.d + 1
+
+    def calls(q: int) -> int:
+        return -(-q // cuda.worker_chunk(cfg.n, cfg.m, dx, q))
 
     gauss = sk.SketchSpec("gaussian", cfg.m, use_kernel=True)
     master = lambda: distributed.distributed_sketch_solve_master(gauss, key, A, b, q=cfg.q)
-    x1, counts = run_path("master_gaussian", master, {"gaussian_gram_multi": 1},
+    x1, counts = run_path("master_gaussian", master, {"gaussian_gram_multi": calls(cfg.q)},
                           A64, b64, fstar, cfg.m, cfg.q)
     rows["gaussian_gram_multi"]["launches"] = counts["gaussian_gram_multi"]
     x2, seconds2 = host_s(master)
@@ -304,20 +347,22 @@ def phase_main_path(cfg, rows: dict):
     check(same, "master-mode x̄ is not bitwise equal run to run")
     phase_trace("master_gaussian_traced", master)
 
+    # The master path's own kernel call, timed alone and then checked.
     X = torch.cat([A, b[:, None]], dim=1)
     keys = prng.worker_keys(key, cfg.q)
-    ms = cuda_ms(lambda: gops.gaussian_gram_multi(keys, X, cfg.m), 1, warmup=False)
-    b_ms, b_by = bound_ms("gaussian", cfg.n, cfg.d + 1, cfg.m, cfg.q, common.rng_rounds())
+    ms, G = cuda_ms(lambda: gops.gaussian_gram_multi(keys, X, cfg.m), 1, warmup=False)
+    b_ms, b_by = bound_ms("gaussian", cfg.n, dx, cfg.m, cfg.q, common.rng_rounds())
     rows["gaussian_gram_multi"].update(main_path_q=cfg.q, main_path_ms=ms, main_path_bound_ms=b_ms)
     emit({"phase": "main_path_kernel", "name": "gaussian_gram_multi", "q": cfg.q, "ms": ms,
           "bound_ms": b_ms, "bound_by": b_by, "solve_seconds": seconds2})
-    del X
+    check_main_path_slices("gaussian", keys, X, cfg.m, G)
+    del G
 
     rad = sk.SketchSpec("rademacher", cfg.m, use_kernel=True)
     for label, fn, expect in (
         ("worker_gaussian", distributed.distributed_sketch_solve, {"gaussian_gram": SIDE_Q}),
         ("master_rademacher", distributed.distributed_sketch_solve_master,
-         {"rademacher_gram_multi": 1}),
+         {"rademacher_gram_multi": calls(SIDE_Q)}),
         ("worker_rademacher", distributed.distributed_sketch_solve, {"rademacher_gram": SIDE_Q}),
     ):
         spec = gauss if label.endswith("gaussian") else rad
@@ -325,6 +370,14 @@ def phase_main_path(cfg, rows: dict):
                              A64, b64, fstar, cfg.m, SIDE_Q)
         for name in expect:
             rows[name]["launches"] = counts[name]
+
+    keys = prng.worker_keys(key, SIDE_Q)
+    ms, G = cuda_ms(lambda: rops.rademacher_gram_multi(keys, X, cfg.m), 1, warmup=False)
+    b_ms, b_by = bound_ms("rademacher", cfg.n, dx, cfg.m, SIDE_Q, common.DEFAULT_ROUNDS)
+    rows["rademacher_gram_multi"].update(main_path_q=SIDE_Q, main_path_ms=ms, main_path_bound_ms=b_ms)
+    emit({"phase": "main_path_kernel", "name": "rademacher_gram_multi", "q": SIDE_Q, "ms": ms,
+          "bound_ms": b_ms, "bound_by": b_by})
+    check_main_path_slices("rademacher", keys, X, cfg.m, G)
 
 
 def phase_trace(label: str, solve) -> None:

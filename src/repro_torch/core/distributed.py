@@ -79,8 +79,8 @@ def distributed_sketch_solve_master(
     """Algorithm 1 in master-sketch mode (the paper's privacy deployment: only the
     master touches raw rows; workers see only their (G_k, c_k)).
 
-    The master streams all q fused Grams in one batched pass over [A | b] (one
-    multi-worker kernel launch when ``spec.use_kernel``), each worker solves its
+    The master streams all q fused Grams in one batched pass over [A | b] (the
+    multi-worker kernel when ``spec.use_kernel``), each worker solves its
     d×d system, and the master averages the arrivals. Worker keys match
     :func:`distributed_sketch_solve`, so the two modes agree to float tolerance.
     """

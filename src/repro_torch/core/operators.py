@@ -12,7 +12,8 @@ and ``rademacher``. An operator is built once from ``(SketchSpec, key, n)``:
                                    fused sketch→Gram kernel (``kernels/*/ops.py``).
 
 :func:`gram_batched` gives all q workers' ``(G_k, c_k)``; with ``spec.use_kernel``
-that is one multi-worker kernel launch over one read of A.
+that is the multi-worker kernel, launched for all q workers at once (in chunks
+of workers when q is large).
 """
 from __future__ import annotations
 
@@ -303,8 +304,9 @@ def gram_batched(
     """All q workers' fused Grams ``(Gs, cs)``, shapes (q, d, d) and (q, d[, k]);
     ``cs`` is None when b is. ``keys``: (q, 2) words (``prng.worker_keys``).
 
-    With ``spec.use_kernel`` this is one multi-worker kernel launch over one read
-    of A, whose worker slices are bitwise equal to the per-key kernel path;
+    With ``spec.use_kernel`` this is the multi-worker kernel, launched for all q
+    workers at once (in chunks of ``kernels.cuda.worker_chunk`` workers on the
+    card), whose worker slices are bitwise equal to the per-key kernel path;
     otherwise a loop of per-key streamed Grams.
     """
     cls = _operator_class(spec)

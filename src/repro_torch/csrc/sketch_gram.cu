@@ -7,8 +7,12 @@
 // G_w = (S_w X)^T (S_w X), with S_w[i, j] drawn in-core from the counter stream
 // (rng.cuh): neither S nor S X is ever written to device memory whole.
 //
-// What bounds it on this card. The bytes are small: X is read once per m-tile
-// (about 0.5 GB at n = 500,000, d = 251), and S never leaves the SM. The work is
+// What bounds it on this card. The bytes are small: S never leaves the SM, and
+// each worker's blocks read X (about 0.5 GB at n = 500,000, d = 251) once per
+// m-tile. Workers never share a block (grid z = worker), so a q-key call reads X
+// q * m_tiles times from the SMs' side, not once for all q as the TPU's _multi
+// kernel does. The m-tiles of one split are neighbours in the grid and can meet
+// in L2; how many of those reads reach device memory is not measured. The work is
 // m*n*d FFMA on the fp32 pipe plus the RNG: per Gaussian entry one threefry
 // (about 75 integer operations at 20 rounds) and logf/sqrtf/cosf, per Rademacher
 // entry 1/32 of a threefry. So the Gaussian kernel is bound by the integer RNG
@@ -28,8 +32,11 @@
 //   Each G entry is one fmaf chain over m in ascending order, so G is bitwise
 //   symmetric.
 // Determinism: the number of n-splits is a function of (n, m, d) only, chosen by
-// the caller, and workers never share a block, so the slice of a q-key launch for
-// key w is bitwise equal to a launch with q = 1 on key w, and reruns are bitwise.
+// the caller, and workers never share a block, so the slice of a q-key call for
+// key w is bitwise equal to a call with q = 1 on key w, and reruns are bitwise.
+// The caller plans the splits with this file's BM, BD and BK (kernels/cuda.py
+// BLOCK_ROWS, BLOCK_COLS, STEP_ROWS); the entry refuses a split that is not a
+// whole number of BK-row steps or that leaves rows of X uncovered.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -238,18 +245,18 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Block geometry the Python wrapper plans its n-splits with.
-int repro_sketch_gram_block_rows() { return BM; }
-int repro_sketch_gram_block_cols() { return BD; }
-int repro_sketch_gram_step_rows() { return BK; }
-
 // family: 0 Gaussian, 1 Rademacher. X: (n, d) float32, row-major, on the device.
 // keys: (q, 2) uint32. partial: (q, n_splits, m, d) float32 scratch. G: (q, d, d).
 // rows_per_split must be a multiple of 32 and n_splits * rows_per_split >= n.
-// Returns the first CUDA error of the three launches (0 when all were accepted).
+// Returns cudaErrorInvalidValue for a split it cannot take, else the first CUDA
+// error of the three launches (0 when all were accepted).
 int repro_sketch_gram(int family, const float* X, long long n, int d, const uint32_t* keys,
                       int q, int m, float scale, int rounds, long long rows_per_split,
                       int n_splits, float* partial, float* G, void* stream_ptr) {
+  if (rows_per_split <= 0 || rows_per_split % BK != 0 ||
+      static_cast<long long>(n_splits) * rows_per_split < n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int m_tiles = (m + BM - 1) / BM;
   const int d_tiles = (d + BD - 1) / BD;
@@ -258,9 +265,6 @@ int repro_sketch_gram(int family, const float* X, long long n, int d, const uint
     if (rounds == 20) {
       launch_sketch<kGaussian, 20>(grid, stream, X, n, d, keys, m, scale, rounds,
                                    rows_per_split, d_tiles, partial);
-    } else if (rounds == 8) {
-      launch_sketch<kGaussian, 8>(grid, stream, X, n, d, keys, m, scale, rounds,
-                                  rows_per_split, d_tiles, partial);
     } else {
       launch_sketch<kGaussian, 0>(grid, stream, X, n, d, keys, m, scale, rounds,
                                   rows_per_split, d_tiles, partial);

@@ -12,6 +12,7 @@ There is no fallback: a missing ``nvcc``, a failed build or a refused launch rai
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import hashlib
@@ -34,13 +35,18 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 FAMILIES = {"gaussian": 0, "rademacher": 1}
+# Sketch-pass block of csrc/sketch_gram.cu (BM sketch rows, BD columns, BK data
+# rows per step). Only STEP_ROWS bears on correctness, and the C entry refuses a
+# split that is not a multiple of it; the other two steer the split count.
+BLOCK_ROWS, BLOCK_COLS, STEP_ROWS = 64, 256, 32
 # Sketch-pass blocks a single-key launch aims for (a few waves of the card's
 # SMs); fixed, so that n-splits depend on the shapes only (see plan_splits).
 TARGET_BLOCKS = 2048
 MIN_SPLIT_STEPS = 16
-# Upper bound on the n-split partials one launch keeps; larger q is chunked.
+# Upper bound on the n-split partials one call into the C entry keeps; larger q
+# is cut into chunks of workers, one call each.
 SCRATCH_BYTES = 2 << 30
-MAX_GRID_Z = 65535  # workers per launch: the grid's z extent
+MAX_GRID_Z = 65535  # workers per call: the grid's z extent
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -127,9 +133,6 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "sketch_gram":
         lib.repro_sketch_gram.argtypes = [I, P, LL, I, P, I, I, F, I, LL, I, P, P, P]
         lib.repro_sketch_gram.restype = I
-        for fn in ("block_rows", "block_cols", "step_rows"):
-            getattr(lib, f"repro_sketch_gram_{fn}").argtypes = []
-            getattr(lib, f"repro_sketch_gram_{fn}").restype = I
     elif name == "rng_probe":
         lib.repro_rng_probe.argtypes = [U, U, P, P, I, I, P, P, P, P]
         lib.repro_rng_probe.restype = I
@@ -146,22 +149,32 @@ def _u32_words(words: torch.Tensor, device: torch.device) -> torch.Tensor:
     return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).to(device).contiguous()
 
 
-def plan_splits(n: int, m: int, d: int, block_rows: int = 64, block_cols: int = 256,
-                step_rows: int = 32) -> tuple[int, int]:
+def plan_splits(n: int, m: int, d: int) -> tuple[int, int]:
     """``(n_splits, rows_per_split)`` for the sketch pass: enough blocks for a
     single key to fill the card, at least MIN_SPLIT_STEPS steps per split.
     A function of the shapes only, never of q: that keeps a worker's result
     bitwise the same whether it is launched alone or among q."""
-    tiles = -(-m // block_rows) * -(-d // block_cols)
+    tiles = -(-m // BLOCK_ROWS) * -(-d // BLOCK_COLS)
     want = max(1, -(-TARGET_BLOCKS // tiles))
-    most = max(1, -(-n // (step_rows * MIN_SPLIT_STEPS)))
+    most = max(1, -(-n // (STEP_ROWS * MIN_SPLIT_STEPS)))
     n_splits = min(want, most)
-    rows = common.round_up(-(-n // n_splits), step_rows)
+    rows = common.round_up(-(-n // n_splits), STEP_ROWS)
     return -(-n // rows), rows
 
 
-def sketch_gram(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rounds: int) -> torch.Tensor:
-    """(q, d, d) Grams ``(S_w X)ᵀ(S_w X)`` of the CUDA tensor X for q key rows."""
+def worker_chunk(n: int, m: int, d: int, q: int) -> int:
+    """Workers per call into the C entry: a q-key Gram of X (n, d) makes
+    ``ceil(q / worker_chunk(...))`` calls, each a sketch pass, a split reduction
+    and a Gram pass over its chunk of workers."""
+    n_splits, _ = plan_splits(n, m, d)
+    return max(1, min(q, MAX_GRID_Z, SCRATCH_BYTES // (4 * n_splits * m * d)))
+
+
+def sketch_gram(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rounds: int,
+                launches: collections.Counter, name: str) -> torch.Tensor:
+    """(q, d, d) Grams ``(S_w X)ᵀ(S_w X)`` of the CUDA tensor X for q key rows.
+    Adds one to ``launches[name]`` for each call into the C entry (one per chunk
+    of workers, see :func:`worker_chunk`) that the card accepted."""
     if X.device.type != "cuda":
         raise ValueError(f"sketch_gram launches a CUDA kernel; X is on {X.device}")
     if X.dtype != torch.float32 or X.ndim != 2 or not X.is_contiguous():
@@ -178,15 +191,11 @@ def sketch_gram(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rou
     if rounds <= 0 or rounds % 4:
         raise ValueError(f"threefry rounds must be a positive multiple of 4, got {rounds}")
     lib = _library("sketch_gram")
-    n_splits, rows = plan_splits(
-        n, m, d, lib.repro_sketch_gram_block_rows(), lib.repro_sketch_gram_block_cols(),
-        lib.repro_sketch_gram_step_rows(),
-    )
-    per_worker = n_splits * m * d
-    chunk = max(1, min(q, MAX_GRID_Z, SCRATCH_BYTES // (4 * per_worker)))
+    n_splits, rows = plan_splits(n, m, d)
+    chunk = worker_chunk(n, m, d, q)
     kw = _u32_words(keys, X.device)
     G = torch.empty((q, d, d), dtype=torch.float32, device=X.device)
-    partial = torch.empty((chunk, per_worker), dtype=torch.float32, device=X.device)
+    partial = torch.empty((chunk, n_splits * m * d), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         for w0 in range(0, q, chunk):
@@ -197,6 +206,7 @@ def sketch_gram(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rou
                 stream,
             )
             _check(lib, code, f"{family} sketch_gram launch")
+            launches[name] += 1
     return G
 
 

@@ -7,13 +7,18 @@ rows (q = 1 for the single-key form). The Gaussian stream uses
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.kernels import common
 
 
-def gaussian_gram_tiles(keys: torch.Tensor, X: torch.Tensor, m: int) -> torch.Tensor:
-    """(q, d, d) Grams of the CUDA tensor X (n, d) float32 for (q, 2) key words."""
+def gaussian_gram_tiles(keys: torch.Tensor, X: torch.Tensor, m: int, *,
+                        launches: collections.Counter, name: str) -> torch.Tensor:
+    """(q, d, d) Grams of the CUDA tensor X (n, d) float32 for (q, 2) key words;
+    ``launches[name]`` gains one per call into the kernel's C entry."""
     from repro_torch.kernels import cuda
 
-    return cuda.sketch_gram("gaussian", keys, X, m, rounds=common.rng_rounds())
+    return cuda.sketch_gram("gaussian", keys, X, m, rounds=common.rng_rounds(),
+                            launches=launches, name=name)

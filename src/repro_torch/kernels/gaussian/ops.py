@@ -5,7 +5,12 @@ G = (SA)ᵀ(SA) for S ~ N(0, 1/m) drawn from the counter stream. On a CPU tensor
 they call the plain version (``ref.py``); on a CUDA tensor they launch the kernel
 (``gram.py``, ``csrc/sketch_gram.cu``) or raise. The single-key wrapper launches the same
 code with q = 1, so slice w of ``gaussian_gram_multi`` is bitwise equal to
-``gaussian_gram(keys[w], ...)``. ``LAUNCHES`` counts kernel launches per wrapper.
+``gaussian_gram(keys[w], ...)``.
+
+``LAUNCHES[name]`` counts the calls into the kernel's C entry (each a sketch
+pass, a split reduction and a Gram pass) that wrapper ``name`` made: one per
+single-key call, one per chunk of workers (``cuda.worker_chunk``) for the
+multi form.
 """
 from __future__ import annotations
 
@@ -22,15 +27,12 @@ def gaussian_gram(key: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:
     """G = (SA)ᵀ(SA) ∈ R^{d×d} in one fused pass; pass ``A = [data | b]`` for (G, c)."""
     if A.device.type == "cpu":
         return ref.gaussian_gram(key, A, m)
-    G = gram.gaussian_gram_tiles(key.reshape(1, 2), A, m)[0]
-    LAUNCHES["gaussian_gram"] += 1
-    return G
+    return gram.gaussian_gram_tiles(key.reshape(1, 2), A, m, launches=LAUNCHES, name="gaussian_gram")[0]
 
 
 def gaussian_gram_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:
-    """All q workers' Grams (q, d, d) from one launch over one read of A per m-tile."""
+    """All q workers' Grams (q, d, d); workers are launched together, in chunks
+    of ``cuda.worker_chunk`` when their partials would outgrow the scratch."""
     if A.device.type == "cpu":
         return ref.gaussian_gram_multi(keys, A, m)
-    G = gram.gaussian_gram_tiles(keys, A, m)
-    LAUNCHES["gaussian_gram_multi"] += 1
-    return G
+    return gram.gaussian_gram_tiles(keys, A, m, launches=LAUNCHES, name="gaussian_gram_multi")

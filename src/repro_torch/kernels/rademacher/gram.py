@@ -6,13 +6,18 @@ kernel's skeleton with packed-sign S tiles (always 20 threefry rounds).
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.kernels import common
 
 
-def rademacher_gram_tiles(keys: torch.Tensor, X: torch.Tensor, m: int) -> torch.Tensor:
-    """(q, d, d) Grams of the CUDA tensor X (n, d) float32 for (q, 2) key words."""
+def rademacher_gram_tiles(keys: torch.Tensor, X: torch.Tensor, m: int, *,
+                          launches: collections.Counter, name: str) -> torch.Tensor:
+    """(q, d, d) Grams of the CUDA tensor X (n, d) float32 for (q, 2) key words;
+    ``launches[name]`` gains one per call into the kernel's C entry."""
     from repro_torch.kernels import cuda
 
-    return cuda.sketch_gram("rademacher", keys, X, m, rounds=common.DEFAULT_ROUNDS)
+    return cuda.sketch_gram("rademacher", keys, X, m, rounds=common.DEFAULT_ROUNDS,
+                            launches=launches, name=name)
