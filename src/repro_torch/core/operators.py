@@ -1,11 +1,14 @@
-"""`SketchOp`: the dense sketch families as frozen linear operators (PyTorch port).
+"""`SketchOp`: the sketch families as frozen linear operators (PyTorch port).
 
-Port of ``repro.core.operators`` for the kinds this slice carries, ``gaussian``
-and ``rademacher``. An operator is built once from ``(SketchSpec, key, n)``:
+Port of ``repro.core.operators`` for the kinds the port carries so far:
+``gaussian``, ``rademacher``, ``srht`` and ``sjlt``. An operator is built once
+from ``(SketchSpec, key, n)``:
 
   * ``columns(j0, block)``       — the (m, block) column tile of S, a pure function
-                                   of (key, i, j) (counter RNG, ``kernels/common``);
-  * ``apply(A)``                 — ``S @ A`` from one full-width tile;
+                                   of (key, i, j) (counter RNG, ``kernels/common``;
+                                   not for the SJLT, which streams segment sums);
+  * ``apply(A)``                 — ``S @ A`` (the plain FWHT for the SRHT, a
+                                   segment sum for the SJLT);
   * ``apply_blocked(A, ...)``    — ``S @ A`` streamed over row tiles of A;
   * ``gram_blocked(A, b, ...)``  — ``(G, c) = ((SA)ᵀ(SA), (SA)ᵀ(Sb))`` in one pass
                                    over ``[A | b]``; with ``spec.use_kernel`` the
@@ -24,16 +27,17 @@ import torch
 
 from repro_torch.core import sketches as sk
 from repro_torch.kernels import common
+from repro_torch.kernels.fwht import ref as fref
 from repro_torch.kernels.gaussian import ref as gref
 from repro_torch.kernels.rademacher import ref as rref
+from repro_torch.kernels.sjlt import ref as sref
+from repro_torch.utils import prng
 
 DEFAULT_BLOCK_ROWS = 4096
 
 # Kinds of the reference that have no operator in the port yet, with the
 # ROADMAP.md entry that ports each.
 PENDING = {
-    "srht": "ROADMAP.md Queue 2, 'SRHT Gram' (needs jax's randint/choice row sampling ported)",
-    "sjlt": "ROADMAP.md Queue 2, 'SJLT Gram' (needs a deterministic segment-sum)",
     "uniform": "ROADMAP.md Queue 1, 'sampling sketches'",
     "leverage": "ROADMAP.md Queue 1, 'sampling sketches'",
     "hybrid": "ROADMAP.md Queue 1, 'sampling sketches' (hybrid = uniform rows, then an inner sketch)",
@@ -202,6 +206,15 @@ class SketchOp:
 # ----------------------------------------------------------------------- families
 
 
+def _refuse_apply_kernel(spec: sk.SketchSpec) -> None:
+    """``apply`` with ``use_kernel`` needs an S·A kernel the port does not have yet."""
+    if spec.use_kernel:
+        raise NotImplementedError(
+            f"the {spec.kind} S·A kernel is not ported yet (ROADMAP.md Queue 2, 'apply "
+            "kernels'); the fused Gram kernel is, through gram_blocked"
+        )
+
+
 @dataclasses.dataclass(frozen=True)
 class _DenseCounterOp(SketchOp):
     """A dense family whose S tiles come from ``tiles(k0, k1, m, j0, block, device)``
@@ -219,11 +232,7 @@ class _DenseCounterOp(SketchOp):
         return self.tiles(self.k0, self.k1, self.m, j0, block, device)
 
     def apply(self, A: torch.Tensor) -> torch.Tensor:
-        if self.spec.use_kernel:
-            raise NotImplementedError(
-                f"the {self.spec.kind} S·A kernel is not ported yet (ROADMAP.md Queue 2, "
-                "'apply kernels'); the fused Gram kernel is, through gram_blocked"
-            )
+        _refuse_apply_kernel(self.spec)
         return super().apply(A)
 
     def gram_blocked(self, A, b=None, *, block_rows: int = DEFAULT_BLOCK_ROWS):
@@ -276,6 +285,139 @@ class RademacherOp(_DenseCounterOp):
         from repro_torch.kernels.rademacher import ops
 
         return ops.rademacher_gram_multi(keys, X, m)
+
+
+# -------------------------------------------------------------------------- srht
+
+
+def srht_params(keys: torch.Tensor, m: int, n_pad: int):
+    """Diagonal key words and sampled Hadamard rows for (..., 2) worker keys: the
+    reference's ``kd, kp = split(key)``, ``rows = randint(kp, (m,), 0, n_pad)``,
+    bit for bit (jax's partitionable threefry, ``utils/prng.py``)."""
+    if n_pad >= 2**31:
+        raise ValueError(f"the SRHT samples int32 row ids; n_pad = {n_pad} is too large")
+    halves = prng.split(keys)
+    return halves[..., 0, :], prng.randint(halves[..., 1, :], (m,), 0, n_pad)
+
+
+@register("srht")
+@dataclasses.dataclass(frozen=True)
+class SRHTOp(SketchOp):
+    """Randomized Hadamard (ROS): S = (1/√m) · P · H · D on the 2^⌈log n⌉ padding.
+
+    ``apply`` uses the O(n log n) plain FWHT (``sketches._fwht``); ``columns``
+    builds Hadamard tiles H[r, j] = (−1)^popcount(r & j) on the fly (the closed
+    form the SRHT sketch→Gram kernel draws), which is what makes blocked and
+    streamed application possible without the full transform.
+    """
+
+    kd0: int = 0  # diagonal key words (D)
+    kd1: int = 0
+    rows: torch.Tensor = None  # (m,) sampled Hadamard rows, with replacement
+    n_pad: int = 0
+
+    @classmethod
+    def build(cls, spec, key, n):
+        n_pad = sk.next_pow2(n)
+        kd, rows = srht_params(key, spec.m, n_pad)
+        kd0, kd1 = common.key_words(kd)
+        return cls(spec=spec, key=key, n=n, kd0=kd0, kd1=kd1, rows=rows, n_pad=n_pad)
+
+    def _signs(self, j: torch.Tensor) -> torch.Tensor:
+        """Rademacher diagonal D at the global coordinates j."""
+        return fref.diagonal(self.kd0, self.kd1, j)
+
+    def columns(self, j0: int, block: int, device=None) -> torch.Tensor:
+        return fref.columns(self.kd0, self.kd1, self.rows, j0, block, device)
+
+    def apply(self, A: torch.Tensor) -> torch.Tensor:
+        _refuse_apply_kernel(self.spec)
+        A2, batch = _to_2d(A, self.n)
+        j = torch.arange(self.n, dtype=torch.int64, device=A.device)
+        DA = A2.to(torch.float32) * self._signs(j)[:, None]
+        if self.n_pad != self.n:
+            DA = torch.cat([DA, DA.new_zeros((self.n_pad - self.n, DA.shape[1]))])
+        HDA = sk._fwht(DA)
+        out = HDA[self.rows.to(A.device)] * common.inv_sqrt(self.m)
+        return out.to(A.dtype).reshape((self.m,) + batch)
+
+    def gram_blocked(self, A, b=None, *, block_rows: int = DEFAULT_BLOCK_ROWS):
+        if self.spec.use_kernel:
+            from repro_torch.kernels.fwht import ops
+
+            kw = torch.tensor([self.kd0, self.kd1], dtype=torch.int64)
+            return _split_gram(ops.srht_gram(kw, self.rows, _join_b(A, b)), A.shape[1], b)
+        # As the reference: one FWHT apply, then the small (m, d+k) Gram; streamed
+        # closed-form tiles would trade O(n log n) for O(n·m) work per column.
+        SAb = self.apply(_join_b(A, b)).to(torch.float32)
+        with common.full_fp32_matmul():
+            return _split_gram(SAb.T @ SAb, A.shape[1], b)
+
+    @classmethod
+    def gram_batched_kernel(cls, spec, keys, A, b):
+        from repro_torch.kernels.fwht import ops
+
+        kd, rows = srht_params(keys, spec.m, sk.next_pow2(A.shape[0]))
+        return _split_gram_batched(ops.srht_gram_multi(kd, rows, _join_b(A, b)), A.shape[1], b)
+
+
+# -------------------------------------------------------------------------- sjlt
+
+
+@register("sjlt")
+@dataclasses.dataclass(frozen=True)
+class SJLTOp(SketchOp):
+    """Sparse JL: s nonzeros (±1/√s) per input coordinate, counter-derived per row.
+
+    Row parameters come from ``common.sjlt_counter_params``, the same draw the
+    SJLT sketch→Gram kernel makes in-core, so kernel and plain paths share S.
+    """
+
+    k0: int = 0
+    k1: int = 0
+
+    @classmethod
+    def build(cls, spec, key, n):
+        k0, k1 = common.key_words(key)
+        return cls(spec=spec, key=key, n=n, k0=k0, k1=k1)
+
+    def _params(self, row_idx: torch.Tensor):
+        return common.sjlt_counter_params(self.k0, self.k1, row_idx, self.spec.s, self.m)
+
+    def _segment_apply(self, A2: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
+        buckets, signs = self._params(row_idx)
+        return sref.sjlt_apply(A2, buckets, signs, self.m)
+
+    def apply(self, A: torch.Tensor) -> torch.Tensor:
+        _refuse_apply_kernel(self.spec)
+        A2, batch = _to_2d(A, self.n)
+        rows = torch.arange(self.n, dtype=torch.int64, device=A.device)
+        out = self._segment_apply(A2.to(torch.float32), rows)
+        return out.to(A.dtype).reshape((self.m,) + batch)
+
+    def _stream_pieces(self, k: int, device):
+        init = torch.zeros((self.m, k), dtype=torch.float32, device=device)
+
+        def reducer(acc, j0, tile):
+            rows = j0 + torch.arange(tile.shape[0], dtype=torch.int64, device=device)
+            return acc + self._segment_apply(tile, rows)
+
+        return init, reducer, lambda acc: acc
+
+    def gram_blocked(self, A, b=None, *, block_rows: int = DEFAULT_BLOCK_ROWS):
+        if self.spec.use_kernel:
+            from repro_torch.kernels.sjlt import ops
+
+            return _split_gram(ops.sjlt_gram(self.key, _join_b(A, b), self.m, self.spec.s), A.shape[1], b)
+        return super().gram_blocked(A, b, block_rows=block_rows)
+
+    @classmethod
+    def gram_batched_kernel(cls, spec, keys, A, b):
+        from repro_torch.kernels.sjlt import ops
+
+        # The worker key words are the SJLT's own words: no split, as build() does.
+        Gf = ops.sjlt_gram_multi(keys, _join_b(A, b), spec.m, spec.s)
+        return _split_gram_batched(Gf, A.shape[1], b)
 
 
 # --------------------------------------------------------------- functional API

@@ -2,9 +2,11 @@
 
 ``SketchSpec`` and ``KINDS`` are the reference's, field for field, so a spec
 means the same thing to both packages. The port has operators for the dense
-families ``gaussian`` and ``rademacher``; building an operator of any other kind
-raises ``NotImplementedError`` naming the ROADMAP entry that ports it
-(:func:`repro_torch.core.operators.make_operator`).
+families ``gaussian`` and ``rademacher``, the randomized Hadamard ``srht`` and the
+sparse ``sjlt``; building an operator of a sampling kind (``uniform``,
+``leverage``, ``hybrid``) raises ``NotImplementedError`` naming the ROADMAP entry
+that ports it (:func:`repro_torch.core.operators.make_operator`). The plain
+Walsh-Hadamard transform the SRHT applies lives here, as in the reference.
 """
 from __future__ import annotations
 
@@ -61,3 +63,29 @@ def sketch_data(spec: SketchSpec, key: torch.Tensor, A: torch.Tensor, b: torch.T
     SAb = operators.make_operator(spec, key, A.shape[0]).apply(torch.cat([A, bm.to(A.dtype)], dim=1))
     Sb = SAb[:, d:]
     return SAb[:, :d], (Sb if b.ndim == 2 else Sb[:, 0])
+
+
+# ----------------------------------------------------------------- hadamard utils
+
+
+def _fwht(x: torch.Tensor) -> torch.Tensor:
+    """Iterative fast Walsh-Hadamard transform along axis 0.
+
+    x: (n, ...) with n a power of two. Returns H @ x with H the *unnormalized*
+    ±1 Hadamard matrix (HᵀH = n·I), radix-2 butterflies as in the reference.
+    """
+    n = x.shape[0]
+    if n & (n - 1):
+        raise ValueError(f"FWHT needs a power-of-two length, got {n}")
+    rest = tuple(x.shape[1:])
+    h = 1
+    while h < n:
+        y = x.reshape((n // (2 * h), 2, h) + rest)
+        a, b = y[:, 0], y[:, 1]
+        x = torch.stack([a + b, a - b], dim=1).reshape((n,) + rest)
+        h *= 2
+    return x
+
+
+def next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()

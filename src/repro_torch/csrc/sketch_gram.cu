@@ -1,11 +1,17 @@
-// Fused sketch -> Gram for the dense counter-RNG families, hand-written for Hopper.
+// Fused sketch -> Gram for the dense sketch families, hand-written for Hopper.
 //
 // Replaces the Pallas TPU kernels of the JAX reference package:
 //   kernels/gaussian/gram.py    gaussian_gram_tiles, gaussian_gram_tiles_multi
 //   kernels/rademacher/gram.py  rademacher_gram_tiles, rademacher_gram_tiles_multi
+//   kernels/fwht/gram.py        srht_gram_tiles, srht_gram_tiles_multi
 // For q keys (one per worker) and X = [A | b] of shape (n, d), it computes
 // G_w = (S_w X)^T (S_w X), with S_w[i, j] drawn in-core from the counter stream
 // (rng.cuh): neither S nor S X is ever written to device memory whole.
+// The SRHT's S is dense too, by the Sylvester closed form
+//   S[r, j] = (1/sqrt(m)) * (-1)^popcount(rows[r] & j) * D[j],
+// with rows[r] the worker's sampled Hadamard row ids (drawn on the host, passed
+// as (q, m) int32) and D[j] the sign of threefry20(kd, j, 0)[0]'s low bit; j is
+// the global data row. No transform runs: each entry is a popcount.
 //
 // What bounds it on this card. The bytes are small: S never leaves the SM, and
 // each worker's blocks read X (about 0.5 GB at n = 500,000, d = 251) once per
@@ -15,8 +21,10 @@
 // in L2; how many of those reads reach device memory is not measured. The work is
 // m*n*d FFMA on the fp32 pipe plus the RNG: per Gaussian entry one threefry
 // (about 75 integer operations at 20 rounds) and logf/sqrtf/cosf, per Rademacher
-// entry 1/32 of a threefry. So the Gaussian kernel is bound by the integer RNG
-// pipe and the fp32 pipe together, the Rademacher kernel by fp32 FFMA.
+// entry 1/32 of a threefry, per SRHT entry an AND, a popcount and a select (D
+// costs one threefry per data row per block). So the Gaussian kernel is bound by
+// the integer RNG pipe and the fp32 pipe together, the Rademacher and SRHT
+// kernels by fp32 FFMA.
 //
 // Design.
 //   Sketch pass: grid (m-tile x d-tile, n-split, worker). A block owns BM = 64
@@ -25,12 +33,12 @@
 //   the matching (BK x BD) tile of X (masked at the ragged edges, so nothing is
 //   padded in device memory) and accumulates BM x BD in fp32 registers, 8 x 8
 //   per thread, with FFMA. Each S entry is reused across all BD columns. For
-//   Rademacher the 32-row step is one packed-sign word per sketch row. The block
-//   writes its (BM x BD) partial; there are no atomics.
-//   Gram pass: a second kernel sums the n-split partials in split order, then a
-//   third forms G_w = acc_w^T acc_w (contraction over m) with a tiled FFMA loop.
-//   Each G entry is one fmaf chain over m in ascending order, so G is bitwise
-//   symmetric.
+//   Rademacher the 32-row step is one packed-sign word per sketch row. For the
+//   SRHT the block keeps its BM row ids in shared memory and draws the step's BK
+//   diagonal signs once into shared memory before the S tile. The block writes
+//   its (BM x BD) partial; there are no atomics.
+//   Gram pass (gram_pass.cuh): a second kernel sums the n-split partials in split
+//   order, then a third forms G_w = acc_w^T acc_w.
 // Determinism: the number of n-splits is a function of (n, m, d) only, chosen by
 // the caller, and workers never share a block, so the slice of a q-key call for
 // key w is bitwise equal to a call with q = 1 on key w, and reruns are bitwise.
@@ -41,12 +49,14 @@
 
 #include <cstdint>
 
+#include "gram_pass.cuh"
 #include "rng.cuh"
 
 namespace {
 
 constexpr int kGaussian = 0;
 constexpr int kRademacher = 1;
+constexpr int kSRHT = 2;
 
 constexpr int BM = 64;       // sketch rows per block
 constexpr int BD = 256;      // columns of X per block
@@ -59,10 +69,13 @@ static_assert(BD == THREADS && (BM / TM) * 32 == THREADS && TD * 32 == BD, "bloc
 template <int FAMILY, int ROUNDS>
 __global__ void __launch_bounds__(THREADS, 2)
 sketch_partial_kernel(const float* __restrict__ X, long long n, int d,
-                      const uint32_t* __restrict__ keys, int m, float scale, int rounds,
-                      long long rows_per_split, int d_tiles, float* __restrict__ partial) {
+                      const uint32_t* __restrict__ keys, const int* __restrict__ srht_rows,
+                      int m, float scale, int rounds, long long rows_per_split, int d_tiles,
+                      float* __restrict__ partial) {
   __shared__ __align__(16) float s_tile[BK][BM];
   __shared__ __align__(16) float x_tile[BK][BD];
+  __shared__ uint32_t h_rows[FAMILY == kSRHT ? BM : 1];  // SRHT: this block's row ids
+  __shared__ uint32_t d_bits[FAMILY == kSRHT ? BK : 1];  // SRHT: the step's D sign bits
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -76,6 +89,12 @@ sketch_partial_kernel(const float* __restrict__ X, long long n, int d,
   const int nrounds = ROUNDS > 0 ? ROUNDS : rounds;
   const long long j_begin = static_cast<long long>(split) * rows_per_split;
   const long long j_end = min(n, j_begin + rows_per_split);
+  if constexpr (FAMILY == kSRHT) {
+    if (tid < BM) {
+      const int row = row0 + tid;
+      h_rows[tid] = row < m ? static_cast<uint32_t>(srht_rows[static_cast<long long>(w) * m + row]) : 0u;
+    }
+  }
 
   float acc[TM][TD];
 #pragma unroll
@@ -92,7 +111,27 @@ sketch_partial_kernel(const float* __restrict__ X, long long n, int d,
       x_tile[r][tid] = (j < j_end && col < d) ? __ldg(X + j * d + col) : 0.f;
     }
     // S tile, drawn once per step; rows >= m and data rows >= j_end are zero.
-    if constexpr (FAMILY == kGaussian) {
+    if constexpr (FAMILY == kSRHT) {
+      if (tid < BK) {
+        const long long j = j0 + tid;
+        d_bits[tid] = j < j_end ? repro::threefry2x32(k0, k1, static_cast<uint32_t>(j), 0u, 20).x & 1u
+                                : 0u;
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int e = tid; e < BM * BK; e += THREADS) {
+        const int i = e % BM;
+        const int k = e / BM;
+        const long long j = j0 + k;
+        float s = 0.f;
+        if (row0 + i < m && j < j_end) {
+          const uint32_t odd =
+              (static_cast<uint32_t>(__popc(h_rows[i] & static_cast<uint32_t>(j))) ^ d_bits[k]) & 1u;
+          s = odd ? -scale : scale;
+        }
+        s_tile[k][i] = s;
+      }
+    } else if constexpr (FAMILY == kGaussian) {
 #pragma unroll 1
       for (int e = tid; e < BM * BK; e += THREADS) {
         const int i = e % BM;
@@ -150,91 +189,12 @@ sketch_partial_kernel(const float* __restrict__ X, long long n, int d,
   }
 }
 
-// partial: (q, n_splits, m*d). Sums the splits of each worker in split order
-// into split 0.
-__global__ void reduce_splits_kernel(float* __restrict__ partial, int q, int n_splits,
-                                     long long md) {
-  const long long total = static_cast<long long>(q) * md;
-  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long w = idx / md;
-    float* p = partial + w * n_splits * md + (idx - w * md);
-    float s = p[0];
-    for (int t = 1; t < n_splits; ++t) s += p[t * md];
-    p[0] = s;
-  }
-}
-
-constexpr int GT = 64;  // G tile edge
-constexpr int GK = 16;  // sketch rows per step
-
-// G_w = acc_w^T acc_w; acc_w is (m, d) at partial + w * acc_stride.
-__global__ void __launch_bounds__(256)
-gram_kernel(const float* __restrict__ partial, long long acc_stride, int m, int d,
-            float* __restrict__ G) {
-  __shared__ float xi[GK][GT];
-  __shared__ float xj[GK][GT];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * 16 + tx;
-  const int i0 = blockIdx.y * GT;
-  const int j0 = blockIdx.x * GT;
-  const int w = blockIdx.z;
-  const float* acc = partial + w * acc_stride;
-
-  float sum[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) sum[a][b] = 0.f;
-
-  for (int r0 = 0; r0 < m; r0 += GK) {
-#pragma unroll
-    for (int t = 0; t < GK * GT / 256; ++t) {
-      const int e = tid + 256 * t;
-      const int rr = e / GT;
-      const int cc = e % GT;
-      const int r = r0 + rr;
-      const float* row = acc + static_cast<long long>(r) * d;
-      xi[rr][cc] = (r < m && i0 + cc < d) ? row[i0 + cc] : 0.f;
-      xj[rr][cc] = (r < m && j0 + cc < d) ? row[j0 + cc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        a[t] = xi[k][ty + 16 * t];
-        b[t] = xj[k][tx + 16 * t];
-      }
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-#pragma unroll
-        for (int t = 0; t < 4; ++t) sum[s][t] = fmaf(a[s], b[t], sum[s][t]);
-    }
-    __syncthreads();
-  }
-
-  float* out = G + static_cast<long long>(w) * d * d;
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int i = i0 + ty + 16 * s;
-    if (i >= d) continue;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int j = j0 + tx + 16 * t;
-      if (j < d) out[static_cast<long long>(i) * d + j] = sum[s][t];
-    }
-  }
-}
-
 template <int FAMILY, int ROUNDS>
 void launch_sketch(dim3 grid, cudaStream_t stream, const float* X, long long n, int d,
-                   const uint32_t* keys, int m, float scale, int rounds,
+                   const uint32_t* keys, const int* srht_rows, int m, float scale, int rounds,
                    long long rows_per_split, int d_tiles, float* partial) {
   sketch_partial_kernel<FAMILY, ROUNDS><<<grid, THREADS, 0, stream>>>(
-      X, n, d, keys, m, scale, rounds, rows_per_split, d_tiles, partial);
+      X, n, d, keys, srht_rows, m, scale, rounds, rows_per_split, d_tiles, partial);
 }
 
 }  // namespace
@@ -245,16 +205,20 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// family: 0 Gaussian, 1 Rademacher. X: (n, d) float32, row-major, on the device.
-// keys: (q, 2) uint32. partial: (q, n_splits, m, d) float32 scratch. G: (q, d, d).
+// family: 0 Gaussian, 1 Rademacher, 2 SRHT. X: (n, d) float32, row-major, on the
+// device. keys: (q, 2) uint32 (for the SRHT the diagonal's key words). srht_rows:
+// (q, m) int32 sampled Hadamard row ids in [0, 2^32) for the SRHT, else unused.
+// partial: (q, n_splits, m, d) float32 scratch. G: (q, d, d).
 // rows_per_split must be a multiple of 32 and n_splits * rows_per_split >= n.
 // Returns cudaErrorInvalidValue for a split it cannot take, else the first CUDA
 // error of the three launches (0 when all were accepted).
 int repro_sketch_gram(int family, const float* X, long long n, int d, const uint32_t* keys,
-                      int q, int m, float scale, int rounds, long long rows_per_split,
-                      int n_splits, float* partial, float* G, void* stream_ptr) {
+                      const int* srht_rows, int q, int m, float scale, int rounds,
+                      long long rows_per_split, int n_splits, float* partial, float* G,
+                      void* stream_ptr) {
   if (rows_per_split <= 0 || rows_per_split % BK != 0 ||
-      static_cast<long long>(n_splits) * rows_per_split < n) {
+      static_cast<long long>(n_splits) * rows_per_split < n ||
+      (family == kSRHT && srht_rows == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -263,33 +227,24 @@ int repro_sketch_gram(int family, const float* X, long long n, int d, const uint
   const dim3 grid(m_tiles * d_tiles, n_splits, q);
   if (family == kGaussian) {
     if (rounds == 20) {
-      launch_sketch<kGaussian, 20>(grid, stream, X, n, d, keys, m, scale, rounds,
+      launch_sketch<kGaussian, 20>(grid, stream, X, n, d, keys, srht_rows, m, scale, rounds,
                                    rows_per_split, d_tiles, partial);
     } else {
-      launch_sketch<kGaussian, 0>(grid, stream, X, n, d, keys, m, scale, rounds,
+      launch_sketch<kGaussian, 0>(grid, stream, X, n, d, keys, srht_rows, m, scale, rounds,
                                   rows_per_split, d_tiles, partial);
     }
   } else if (family == kRademacher) {
-    launch_sketch<kRademacher, 20>(grid, stream, X, n, d, keys, m, scale, rounds,
+    launch_sketch<kRademacher, 20>(grid, stream, X, n, d, keys, srht_rows, m, scale, rounds,
                                    rows_per_split, d_tiles, partial);
+  } else if (family == kSRHT) {
+    launch_sketch<kSRHT, 20>(grid, stream, X, n, d, keys, srht_rows, m, scale, rounds,
+                             rows_per_split, d_tiles, partial);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const long long md = static_cast<long long>(m) * d;
-  const long long total = static_cast<long long>(q) * md;
-  const long long want_blocks = (total + 255) / 256;
-  const int reduce_blocks = static_cast<int>(want_blocks < 65535LL * 8 ? want_blocks : 65535LL * 8);
-  reduce_splits_kernel<<<reduce_blocks, 256, 0, stream>>>(partial, q, n_splits, md);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int g_tiles = (d + GT - 1) / GT;
-  gram_kernel<<<dim3(g_tiles, g_tiles, q), dim3(16, 16), 0, stream>>>(
-      partial, static_cast<long long>(n_splits) * md, m, d, G);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(repro::reduce_and_gram(partial, q, n_splits, m, d, G, stream));
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""The counter-RNG contract in PyTorch: threefry2x32, counter normals, packed signs.
+"""The counter-RNG contract in PyTorch: threefry2x32, counter normals, packed signs,
+SJLT parameters.
 
 Port of ``repro.kernels.common``. Tile (i, j) of every random sketch is a pure
 function of (key words, i, j), so the plain PyTorch versions here, the CUDA
@@ -129,6 +130,22 @@ def counter_rademacher_block(
     signs = _sign_block(k0, k1, row0, w0, nrows, ncols // 32 + 2, device, dtype)
     off = col0 - w0 * 32
     return signs[:, off : off + ncols]
+
+
+def sjlt_counter_params(k0, k1, row_idx, s: int, m: int, dtype=torch.float32):
+    """SJLT buckets and signs for the given *global* row indices.
+
+    Row i's parameters are a pure function of (key, i): for t < s,
+    ``b0, b1 = threefry2x32(key, i, t)`` (20 rounds), bucket ``b0 mod m`` and sign
+    ``±1`` from the low bit of ``b1`` (1 -> −1), scaled by float32(1/√s). Returns
+    ``(buckets, signs)`` of shape (len(row_idx), s): int64 buckets in [0, m), signs
+    in ``dtype``.
+    """
+    r = torch.as_tensor(row_idx, dtype=torch.int64)[:, None]
+    t = torch.arange(s, dtype=torch.int64, device=r.device)[None, :]
+    b0, b1 = threefry2x32(k0, k1, r, t)
+    signs = (1 - 2 * (b1 & 1)).to(dtype)
+    return b0 % m, signs * inv_sqrt(s)
 
 
 def inv_sqrt(m: int) -> float:

@@ -1,10 +1,17 @@
 """Build the CUDA sources under ``csrc/`` and bind them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` (Hopper) into a
-shared library with a plain C interface, at first use, into
-``build/repro_torch_kernels/`` at the root of the checkout. The library's file
-name carries a hash of the sources and flags, so an edited source is rebuilt.
-All sources are compiled in parallel, one ``nvcc`` each. Nothing here is imported
+Each ``csrc/<name>.cu`` named in ``SOURCES`` is compiled by ``nvcc`` for
+``sm_90a`` (Hopper) into a shared library with a plain C interface, at first use,
+into ``build/repro_torch_kernels/`` at the root of the checkout:
+
+* ``sketch_gram`` — the dense sketch→Gram families (Gaussian, Rademacher, SRHT);
+* ``sjlt_gram``   — the sparse SJLT sketch→Gram;
+* ``rng_probe``   — the device counter RNG alone, for checking it bitwise.
+
+The ``csrc/*.cuh`` headers (the RNG, the split reduction and Gram pass) are
+included by the sources. A library's file name carries a hash of its source,
+every header and the flags, so an edited source or header is rebuilt. All
+sources are compiled in parallel, one ``nvcc`` each. Nothing here is imported
 or built when a module of the port is imported: the CPU tests import every module
 on a machine with no ``nvcc`` and no card.
 
@@ -29,12 +36,12 @@ from repro_torch.utils import env as envcfg
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("sketch_gram", "rng_probe")
+SOURCES = ("sketch_gram", "sjlt_gram", "rng_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-FAMILIES = {"gaussian": 0, "rademacher": 1}
+FAMILIES = {"gaussian": 0, "rademacher": 1, "srht": 2}
 # Sketch-pass block of csrc/sketch_gram.cu (BM sketch rows, BD columns, BK data
 # rows per step). Only STEP_ROWS bears on correctness, and the C entry refuses a
 # split that is not a multiple of it; the other two steer the split count.
@@ -47,6 +54,14 @@ MIN_SPLIT_STEPS = 16
 # is cut into chunks of workers, one call each.
 SCRATCH_BYTES = 2 << 30
 MAX_GRID_Z = 65535  # workers per call: the grid's z extent
+# SJLT sketch pass of csrc/sjlt_gram.cu: a block owns at most SJLT_MAX_BUCKETS
+# sketch rows (its shared-memory accumulator) and SJLT_BLOCK_COLS columns, and
+# walks its rows in chunks of at most SJLT_MAX_CHUNK_ROWS rows and
+# SJLT_MAX_PAIRS (row, t) pairs. SJLT_TARGET_BLOCKS (four waves of one block per
+# SM) steers the n-splits: every split adds m·d floats per worker to the split
+# reduction, so the SJLT takes far fewer splits than the dense families.
+SJLT_BLOCK_COLS, SJLT_MAX_BUCKETS, SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS = 32, 1536, 128, 2048
+SJLT_TARGET_BLOCKS = 4 * 132
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -131,8 +146,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     lib.repro_error_string.argtypes = [I]
     lib.repro_error_string.restype = ctypes.c_char_p
     if name == "sketch_gram":
-        lib.repro_sketch_gram.argtypes = [I, P, LL, I, P, I, I, F, I, LL, I, P, P, P]
+        lib.repro_sketch_gram.argtypes = [I, P, LL, I, P, P, I, I, F, I, LL, I, P, P, P]
         lib.repro_sketch_gram.restype = I
+    elif name == "sjlt_gram":
+        lib.repro_sjlt_gram.argtypes = [P, LL, I, P, I, I, I, F, LL, I, I, I, P, P, P]
+        lib.repro_sjlt_gram.restype = I
     elif name == "rng_probe":
         lib.repro_rng_probe.argtypes = [U, U, P, P, I, I, P, P, P, P]
         lib.repro_rng_probe.restype = I
@@ -162,21 +180,48 @@ def plan_splits(n: int, m: int, d: int) -> tuple[int, int]:
     return -(-n // rows), rows
 
 
-def worker_chunk(n: int, m: int, d: int, q: int) -> int:
+@dataclasses.dataclass(frozen=True)
+class SjltPlan:
+    n_splits: int
+    rows_per_split: int
+    bucket_tile: int  # sketch rows per block (one m-tile)
+    chunk_rows: int  # data rows a block takes per step
+
+
+def plan_sjlt(n: int, m: int, d: int, s: int) -> SjltPlan:
+    """The SJLT sketch pass's plan: m cut into balanced m-tiles of at most
+    SJLT_MAX_BUCKETS rows, chunks of ``min(SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS // s)``
+    rows, and n cut into splits of whole chunks, enough for SJLT_TARGET_BLOCKS
+    blocks at q = 1 but at least MIN_SPLIT_STEPS chunks each. Like
+    :func:`plan_splits`, a function of the shapes only, never of q."""
+    if not 0 < s <= SJLT_MAX_PAIRS:
+        raise ValueError(f"the SJLT kernel takes 1 <= s <= {SJLT_MAX_PAIRS}, got s={s}")
+    m_tiles = -(-m // SJLT_MAX_BUCKETS)
+    bucket_tile = -(-m // m_tiles)
+    chunk = min(SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS // s)
+    tiles = m_tiles * -(-d // SJLT_BLOCK_COLS)
+    want = max(1, -(-SJLT_TARGET_BLOCKS // tiles))
+    most = max(1, -(-n // (chunk * MIN_SPLIT_STEPS)))
+    rows = common.round_up(-(-n // min(want, most)), chunk)
+    return SjltPlan(-(-n // rows), rows, bucket_tile, chunk)
+
+
+def _splits(family: str, n: int, m: int, d: int, s: int) -> int:
+    return plan_sjlt(n, m, d, s).n_splits if family == "sjlt" else plan_splits(n, m, d)[0]
+
+
+def worker_chunk(n: int, m: int, d: int, q: int, *, family: str = "gaussian", s: int = 0) -> int:
     """Workers per call into the C entry: a q-key Gram of X (n, d) makes
     ``ceil(q / worker_chunk(...))`` calls, each a sketch pass, a split reduction
-    and a Gram pass over its chunk of workers."""
-    n_splits, _ = plan_splits(n, m, d)
+    and a Gram pass over its chunk of workers. ``family`` (and ``s`` for the
+    SJLT) picks the split plan: the dense families share one."""
+    n_splits = _splits(family, n, m, d, s)
     return max(1, min(q, MAX_GRID_Z, SCRATCH_BYTES // (4 * n_splits * m * d)))
 
 
-def sketch_gram(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rounds: int,
-                launches: collections.Counter, name: str) -> torch.Tensor:
-    """(q, d, d) Grams ``(S_w X)ᵀ(S_w X)`` of the CUDA tensor X for q key rows.
-    Adds one to ``launches[name]`` for each call into the C entry (one per chunk
-    of workers, see :func:`worker_chunk`) that the card accepted."""
+def _check_gram_args(what: str, X: torch.Tensor, keys: torch.Tensor, m: int) -> tuple[int, int, int]:
     if X.device.type != "cuda":
-        raise ValueError(f"sketch_gram launches a CUDA kernel; X is on {X.device}")
+        raise ValueError(f"{what} launches a CUDA kernel; X is on {X.device}")
     if X.dtype != torch.float32 or X.ndim != 2 or not X.is_contiguous():
         raise ValueError(
             f"X must be a contiguous 2-D float32 tensor, got {X.dtype} {tuple(X.shape)} "
@@ -188,8 +233,26 @@ def sketch_gram(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rou
     q = keys.shape[0]
     if not (0 < n < 2**32 and 0 < d and 0 < m < 2**31 and q > 0):
         raise ValueError(f"unsupported shape n={n} d={d} m={m} q={q}")
+    return n, d, q
+
+
+def sketch_gram(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rounds: int,
+                launches: collections.Counter, name: str,
+                srht_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """(q, d, d) Grams ``(S_w X)ᵀ(S_w X)`` of the CUDA tensor X for q key rows of a
+    dense family. For ``"srht"`` the keys are the diagonal's words and
+    ``srht_rows`` the (q, m) sampled Hadamard row ids. Adds one to
+    ``launches[name]`` for each call into the C entry (one per chunk of workers,
+    see :func:`worker_chunk`) that the card accepted."""
+    n, d, q = _check_gram_args("sketch_gram", X, keys, m)
     if rounds <= 0 or rounds % 4:
         raise ValueError(f"threefry rounds must be a positive multiple of 4, got {rounds}")
+    if (family == "srht") != (srht_rows is not None):
+        raise ValueError("srht_rows are given for the srht family, and only for it")
+    if srht_rows is not None:
+        if tuple(srht_rows.shape) != (q, m):
+            raise ValueError(f"srht_rows must be (q, m) = ({q}, {m}), got {tuple(srht_rows.shape)}")
+        srht_rows = _u32_words(srht_rows, X.device)
     lib = _library("sketch_gram")
     n_splits, rows = plan_splits(n, m, d)
     chunk = worker_chunk(n, m, d, q)
@@ -201,11 +264,38 @@ def sketch_gram(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rou
         for w0 in range(0, q, chunk):
             qc = min(chunk, q - w0)
             code = lib.repro_sketch_gram(
-                FAMILIES[family], X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m,
+                FAMILIES[family], X.data_ptr(), n, d, kw[w0].data_ptr(),
+                None if srht_rows is None else srht_rows[w0].data_ptr(), qc, m,
                 common.inv_sqrt(m), rounds, rows, n_splits, partial.data_ptr(), G[w0].data_ptr(),
                 stream,
             )
             _check(lib, code, f"{family} sketch_gram launch")
+            launches[name] += 1
+    return G
+
+
+def sjlt_gram(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
+              launches: collections.Counter, name: str) -> torch.Tensor:
+    """(q, d, d) SJLT Grams ``(S_w X)ᵀ(S_w X)`` of the CUDA tensor X for q key rows,
+    s nonzeros per data row. Adds one to ``launches[name]`` per call into the C
+    entry (one per chunk of workers, see :func:`worker_chunk`)."""
+    n, d, q = _check_gram_args("sjlt_gram", X, keys, m)
+    plan = plan_sjlt(n, m, d, s)
+    lib = _library("sjlt_gram")
+    chunk = worker_chunk(n, m, d, q, family="sjlt", s=s)
+    kw = _u32_words(keys, X.device)
+    G = torch.empty((q, d, d), dtype=torch.float32, device=X.device)
+    partial = torch.empty((chunk, plan.n_splits * m * d), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        for w0 in range(0, q, chunk):
+            qc = min(chunk, q - w0)
+            code = lib.repro_sjlt_gram(
+                X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m, s, common.inv_sqrt(s),
+                plan.rows_per_split, plan.n_splits, plan.bucket_tile, plan.chunk_rows,
+                partial.data_ptr(), G[w0].data_ptr(), stream,
+            )
+            _check(lib, code, "sjlt_gram launch")
             launches[name] += 1
     return G
 

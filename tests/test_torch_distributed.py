@@ -28,7 +28,12 @@ from repro_torch.data import regression as tdata
 from repro_torch.utils import prng as tprng
 
 N, D, M, Q = 777, 6, 36, 4
-FAMILIES = ["gaussian", "rademacher"]
+FAMILIES = ["gaussian", "rademacher", "srht", "sjlt"]
+SJLT_S = 20  # FIG3A's nonzeros per column (RegressionConfig.s)
+
+
+def _spec(sk, kind, **kw):
+    return sk.SketchSpec(kind, M, s=SJLT_S, **kw) if kind == "sjlt" else sk.SketchSpec(kind, M, **kw)
 MASKS = {"all": None, "stragglers": np.array([1, 0, 1, 1], np.float32)}
 
 
@@ -64,9 +69,9 @@ def _oracle_worker(spec, jkey, A, b, mask, round_id):
 def test_master_mode_matches_oracle(kind, use_kernel, mask):
     A, b = _problem(1)
     jkey, tkey = _keys(2)
-    want = _oracle_master(jsk.SketchSpec(kind, M, use_kernel=use_kernel), jkey, A, b, MASKS[mask], 3)
+    want = _oracle_master(_spec(jsk, kind, use_kernel=use_kernel), jkey, A, b, MASKS[mask], 3)
     got = tdist.distributed_sketch_solve_master(
-        tsk.SketchSpec(kind, M, use_kernel=use_kernel), tkey, torch.from_numpy(A), torch.from_numpy(b),
+        _spec(tsk, kind, use_kernel=use_kernel), tkey, torch.from_numpy(A), torch.from_numpy(b),
         q=Q, round_id=3, straggler_mask=MASKS[mask], device="cpu",
     )
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
@@ -78,9 +83,9 @@ def test_master_mode_matches_oracle(kind, use_kernel, mask):
 def test_worker_mode_matches_oracle(kind, use_kernel, mask):
     A, b = _problem(4)
     jkey, tkey = _keys(5)
-    want = _oracle_worker(jsk.SketchSpec(kind, M, use_kernel=use_kernel), jkey, A, b, MASKS[mask], 1)
+    want = _oracle_worker(_spec(jsk, kind, use_kernel=use_kernel), jkey, A, b, MASKS[mask], 1)
     got = tdist.distributed_sketch_solve(
-        tsk.SketchSpec(kind, M, use_kernel=use_kernel), tkey, torch.from_numpy(A), torch.from_numpy(b),
+        _spec(tsk, kind, use_kernel=use_kernel), tkey, torch.from_numpy(A), torch.from_numpy(b),
         q=Q, round_id=1, straggler_mask=MASKS[mask], device="cpu",
     )
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
@@ -95,6 +100,23 @@ def test_modes_agree_and_rounds_draw_fresh_sketches():
     worker = tdist.distributed_sketch_solve(spec, tkey, At, bt, q=Q, device="cpu")
     torch.testing.assert_close(master, worker, rtol=1e-4, atol=1e-5)
     other = tdist.distributed_sketch_solve_master(spec, tkey, At, bt, q=Q, round_id=1, device="cpu")
+    assert not torch.allclose(master, other)
+
+
+@pytest.mark.parametrize("kind", ["srht", "sjlt"])
+def test_fig3a_kinds_take_the_config_s_and_run_both_entry_points(kind):
+    """The SRHT and the SJLT (with FIG3A's own s) run through both entry points, with
+    the kernel wrappers' plain versions on CPU tensors; the two modes agree, and
+    another round draws other sketches."""
+    A, b = _problem(12)
+    spec = tsk.SketchSpec(kind, M, s=tcfg.FIG3A.s, use_kernel=True)
+    At, bt = torch.from_numpy(A), torch.from_numpy(b)
+    key = tprng.prng_key(13)
+    master = tdist.distributed_sketch_solve_master(spec, key, At, bt, q=Q, device="cpu")
+    worker = tdist.distributed_sketch_solve(spec, key, At, bt, q=Q, device="cpu")
+    assert master.shape == (D,) and bool(torch.isfinite(master).all())
+    torch.testing.assert_close(master, worker, rtol=1e-4, atol=1e-5)
+    other = tdist.distributed_sketch_solve_master(spec, key, At, bt, q=Q, round_id=1, device="cpu")
     assert not torch.allclose(master, other)
 
 
@@ -171,3 +193,13 @@ def test_averaged_error_tracks_theorem1_on_cpu():
     ]
     pred = ttheory.gaussian_averaged_error(60, 8, 4)
     assert pred / 2 < np.mean(errs) < 2 * pred
+
+
+def test_theory_ratio_script_measures_each_family():
+    """``tests/theory_ratio.py`` (the measurement behind chip_smoke.py's SRHT/SJLT
+    rel_err band) runs the reference on the port's planted data, at a tiny size."""
+    import theory_ratio
+
+    got = theory_ratio.ratios(3000, 5, 60, 8, [1])
+    assert set(got) == set(theory_ratio.FAMILIES)
+    assert all(len(v) == 1 and np.isfinite(v[0]) and v[0] > 0 for v in got.values())

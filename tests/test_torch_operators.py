@@ -19,14 +19,27 @@ from repro.core import operators as jops, sketches as jsk, solve as jsolve
 from repro.utils import prng as jprng
 from repro_torch.core import operators as tops, sketches as tsk, solve as tsolve
 from repro_torch.kernels import cuda as tcuda
+from repro_torch.kernels import common as tc
+from repro_torch.kernels.fwht import ops as fops, ref as fref
 from repro_torch.kernels.gaussian import ops as gops, ref as gref
 from repro_torch.kernels.rademacher import ops as rops, ref as rref
+from repro_torch.kernels.sjlt import ops as sops, ref as sref
 from repro_torch.utils import prng as tprng
 
 REL_TOL = 1e-5
 # Odd n with block_rows not dividing it: a ragged last tile on both paths.
 N, D, M, Q, BLOCK = 1001, 7, 40, 3, 300
-FAMILIES = ["gaussian", "rademacher"]
+# Sketch kinds under test; "sjltK" is the SJLT with s = K nonzeros per column.
+FAMILIES = ["gaussian", "rademacher", "srht", "sjlt1", "sjlt4", "sjlt20"]
+# Kinds whose S has column tiles (the SJLT streams segment sums instead).
+TILED = ["gaussian", "rademacher", "srht"]
+
+
+def _spec(sk, kind, m=M, **kw):
+    """``SketchSpec`` of either package for a FAMILIES entry."""
+    if kind.startswith("sjlt"):
+        return sk.SketchSpec("sjlt", m, s=int(kind[4:]), **kw)
+    return sk.SketchSpec(kind, m, **kw)
 
 
 def _data(seed=0, k=None):
@@ -49,13 +62,13 @@ def _close(got: torch.Tensor, want, tol=REL_TOL):
     assert err <= tol, f"max rel err {err} > {tol}"
 
 
-@pytest.mark.parametrize("kind", FAMILIES)
+@pytest.mark.parametrize("kind", TILED)
 @pytest.mark.parametrize("j0,block", [(0, N), (37, 64), (1000, 1)])
 def test_columns_match_reference(kind, j0, block):
     jkey, tkey = _keys()
     want = jops.make_operator(jsk.SketchSpec(kind, M), jkey, N).columns(j0, block)
     got = tops.make_operator(tsk.SketchSpec(kind, M), tkey, N).columns(j0, block)
-    if kind == "rademacher":
+    if kind in ("rademacher", "srht"):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     else:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-6 / np.sqrt(M))
@@ -69,8 +82,8 @@ def test_gram_blocked_matches_reference(kind, use_kernel, with_b):
     jkey, tkey = _keys(2)
     jb = jnp.asarray(b) if with_b else None
     tb = torch.from_numpy(b) if with_b else None
-    Gj, cj = jops.gram_blocked(jsk.SketchSpec(kind, M, use_kernel=use_kernel), jkey, jnp.asarray(A), jb, block_rows=BLOCK)
-    Gt, ct = tops.gram_blocked(tsk.SketchSpec(kind, M, use_kernel=use_kernel), tkey, torch.from_numpy(A), tb, block_rows=BLOCK)
+    Gj, cj = jops.gram_blocked(_spec(jsk, kind, use_kernel=use_kernel), jkey, jnp.asarray(A), jb, block_rows=BLOCK)
+    Gt, ct = tops.gram_blocked(_spec(tsk, kind, use_kernel=use_kernel), tkey, torch.from_numpy(A), tb, block_rows=BLOCK)
     _close(Gt, Gj)
     if with_b:
         scale = np.abs(np.asarray(Gj)).max()
@@ -84,8 +97,8 @@ def test_gram_blocked_matches_reference(kind, use_kernel, with_b):
 def test_gram_batched_matches_reference(kind, use_kernel):
     A, b = _data(3)
     jkey, tkey = _keys(4)
-    Gj, cj = jops.gram_batched(jsk.SketchSpec(kind, M, use_kernel=use_kernel), jprng.worker_keys(jkey, Q, 1), jnp.asarray(A), jnp.asarray(b))
-    Gt, ct = tops.gram_batched(tsk.SketchSpec(kind, M, use_kernel=use_kernel), tprng.worker_keys(tkey, Q, 1), torch.from_numpy(A), torch.from_numpy(b))
+    Gj, cj = jops.gram_batched(_spec(jsk, kind, use_kernel=use_kernel), jprng.worker_keys(jkey, Q, 1), jnp.asarray(A), jnp.asarray(b))
+    Gt, ct = tops.gram_batched(_spec(tsk, kind, use_kernel=use_kernel), tprng.worker_keys(tkey, Q, 1), torch.from_numpy(A), torch.from_numpy(b))
     assert Gt.shape == (Q, D, D) and ct.shape == (Q, D)
     _close(Gt, Gj)
     scale = np.abs(np.asarray(Gj)).max()
@@ -109,8 +122,8 @@ def test_gram_batched_matrix_b_and_no_b():
 def test_apply_and_apply_blocked_match_reference(kind):
     A, _ = _data(7)
     jkey, tkey = _keys(8)
-    want = np.asarray(jops.make_operator(jsk.SketchSpec(kind, M), jkey, N).apply(jnp.asarray(A)))
-    op = tops.make_operator(tsk.SketchSpec(kind, M), tkey, N)
+    want = np.asarray(jops.make_operator(_spec(jsk, kind), jkey, N).apply(jnp.asarray(A)))
+    op = tops.make_operator(_spec(tsk, kind), tkey, N)
     _close(op.apply(torch.from_numpy(A)), want)
     _close(op.apply_blocked(torch.from_numpy(A), block_rows=BLOCK), want)
     assert op.shape == (M, N)
@@ -121,8 +134,8 @@ def test_apply_and_apply_blocked_match_reference(kind):
 def test_sketch_and_solve_matches_reference(kind, method):
     A, b = _data(9)
     jkey, tkey = _keys(10)
-    xj = jsolve.sketch_and_solve(jsk.SketchSpec(kind, M), jkey, jnp.asarray(A), jnp.asarray(b), method=method)
-    xt = tsolve.sketch_and_solve(tsk.SketchSpec(kind, M), tkey, torch.from_numpy(A), torch.from_numpy(b), method=method)
+    xj = jsolve.sketch_and_solve(_spec(jsk, kind), jkey, jnp.asarray(A), jnp.asarray(b), method=method)
+    xt = tsolve.sketch_and_solve(_spec(tsk, kind), tkey, torch.from_numpy(A), torch.from_numpy(b), method=method)
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-4, atol=1e-5)
 
 
@@ -153,7 +166,7 @@ def test_lstsq_gram_batches_like_single_solves():
         tsolve.lstsq(torch.zeros(3, 2), torch.zeros(3), method="svd")
 
 
-@pytest.mark.parametrize("kind", ["srht", "sjlt", "uniform", "leverage"])
+@pytest.mark.parametrize("kind", ["uniform", "leverage"])
 def test_unported_kinds_name_their_roadmap_entry(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tops.make_operator(tsk.SketchSpec(kind, M), tprng.prng_key(0), N)
@@ -174,13 +187,54 @@ def test_spec_validation_matches_reference():
     for bad in (dict(kind="nope", m=4), dict(kind="gaussian", m=0), dict(kind="hybrid", m=8, m_prime=4)):
         with pytest.raises(ValueError):
             tsk.SketchSpec(**bad)
-    assert tops.registered_kinds() == ("gaussian", "rademacher")
+    assert tops.registered_kinds() == ("gaussian", "rademacher", "sjlt", "srht")
+    assert set(tops.PENDING) | set(tops.registered_kinds()) == set(tsk.KINDS)
+    assert not set(tops.PENDING) & set(tops.registered_kinds())
 
 
-def test_apply_with_kernel_raises_until_ported():
-    op = tops.make_operator(tsk.SketchSpec("gaussian", M, use_kernel=True), tprng.prng_key(0), N)
+@pytest.mark.parametrize("kind", ["gaussian", "rademacher", "srht", "sjlt4"])
+def test_apply_with_kernel_raises_until_ported(kind):
+    op = tops.make_operator(_spec(tsk, kind, use_kernel=True), tprng.prng_key(0), N)
     with pytest.raises(NotImplementedError, match="S·A kernel"):
         op.apply(torch.zeros(N, D))
+
+
+@pytest.mark.parametrize("seed", [0, 11, 2**31 - 1])
+@pytest.mark.parametrize("n", [1, 2, 1001, 1024, 1025])
+def test_srht_rows_and_diagonal_words_bitwise(seed, n):
+    jkey, tkey = _keys(seed)
+    jop = jops.make_operator(jsk.SketchSpec("srht", M), jkey, n)
+    top = tops.make_operator(tsk.SketchSpec("srht", M), tkey, n)
+    assert top.n_pad == jop.n_pad == tsk.next_pow2(n)
+    np.testing.assert_array_equal(top.rows.numpy(), np.asarray(jop.rows).astype(np.int64))
+    assert (top.kd0, top.kd1) == (int(jop.kd0), int(jop.kd1))
+    # The batched draw the multi-worker path uses agrees with per-key builds.
+    keys = tprng.worker_keys(tkey, Q)
+    kd, rows = tops.srht_params(keys, M, tsk.next_pow2(n))
+    for w in range(Q):
+        op = tops.make_operator(tsk.SketchSpec("srht", M), keys[w], n)
+        assert torch.equal(rows[w], op.rows) and tuple(kd[w].tolist()) == (op.kd0, op.kd1)
+
+
+@pytest.mark.parametrize("n", [1, 2, 64, 1000])
+def test_fwht_matches_reference(n):
+    x = np.random.default_rng(n).standard_normal((tsk.next_pow2(n), 3)).astype(np.float32)
+    np.testing.assert_allclose(tsk._fwht(torch.from_numpy(x)).numpy(), np.asarray(jsk._fwht(jnp.asarray(x))),
+                               rtol=0, atol=1e-5 * max(1, np.sqrt(x.shape[0])))
+    assert tsk.next_pow2(n) == jsk.next_pow2(n)
+    with pytest.raises(ValueError, match="power-of-two"):
+        tsk._fwht(torch.zeros(3, 2))
+
+
+@pytest.mark.parametrize("s", [1, 4, 20])
+def test_sjlt_params_match_reference(s):
+    from repro.kernels.sjlt import ops as jsops
+
+    jkey, tkey = _keys(s)
+    bj, sj = jsops.sjlt_params(jkey, N, s, M)
+    bt, st = sops.sjlt_params(tkey, N, s, M)
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(bj).astype(np.int64))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
 
 
 @pytest.mark.parametrize(
@@ -206,7 +260,7 @@ def test_wrappers_take_the_plain_version_on_cpu_and_raise_elsewhere(single, mult
 
 
 @pytest.mark.parametrize(
-    "ref,gram", [(gref, gref.gaussian_gram), (rref, rref.rademacher_gram)], ids=FAMILIES
+    "ref,gram", [(gref, gref.gaussian_gram), (rref, rref.rademacher_gram)], ids=FAMILIES[:2]
 )
 @pytest.mark.parametrize("block_rows", [64, 1000, 4096])
 def test_plain_gram_is_blocking_invariant_to_tolerance(ref, gram, block_rows):
@@ -217,12 +271,76 @@ def test_plain_gram_is_blocking_invariant_to_tolerance(ref, gram, block_rows):
     _close(gram(key, X, M, block_rows=block_rows), (SX.T @ SX).numpy())
 
 
+@pytest.mark.parametrize("kind", ["srht", "sjlt4", "sjlt20"])
+def test_new_wrappers_take_the_plain_version_on_cpu_and_raise_elsewhere(kind):
+    A, _ = _data(13)
+    X = torch.from_numpy(A)
+    keys = tprng.worker_keys(tprng.prng_key(3), 2)
+    if kind == "srht":
+        kd, rows = tops.srht_params(keys, M, tsk.next_pow2(N))
+        single, multi = (lambda w, Y: fops.srht_gram(kd[w], rows[w], Y)), (lambda Y: fops.srht_gram_multi(kd, rows, Y))
+        ref_single, ref_multi = fref.srht_gram(kd[0], rows[0], X), fref.srht_gram_multi(kd, rows, X)
+        launches = fops.LAUNCHES
+    else:
+        s = int(kind[4:])
+        single, multi = (lambda w, Y: sops.sjlt_gram(keys[w], Y, M, s)), (lambda Y: sops.sjlt_gram_multi(keys, Y, M, s))
+        ref_single, ref_multi = sref.sjlt_gram(keys[0], X, M, s), sref.sjlt_gram_multi(keys, X, M, s)
+        launches = sops.LAUNCHES
+    before = dict(launches)
+    torch.testing.assert_close(single(0, X), ref_single, rtol=0, atol=0)
+    Gm = multi(X)
+    torch.testing.assert_close(Gm, ref_multi, rtol=0, atol=0)
+    torch.testing.assert_close(Gm[1], single(1, X), rtol=0, atol=0)
+    assert dict(launches) == before  # the counters count kernel launches only
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        single(0, torch.empty((N, D), device="meta"))
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        multi(torch.empty((N, D), device="meta"))
+
+
+@pytest.mark.parametrize("kind", ["srht", "sjlt1", "sjlt4", "sjlt20"])
+@pytest.mark.parametrize("block_rows", [64, 1000, 4096])
+def test_new_plain_grams_are_blocking_invariant_to_tolerance(kind, block_rows):
+    A, _ = _data(14)
+    X = torch.from_numpy(A)
+    key = tprng.prng_key(9)
+    if kind == "srht":
+        kd, rows = tops.srht_params(key, M, tsk.next_pow2(N))
+        S = fref.columns(*tc.key_words(kd), rows, 0, N)
+        G = fref.srht_gram(kd, rows, X, block_rows=block_rows)
+    else:
+        s = int(kind[4:])
+        buckets, signs = sops.sjlt_params(key, N, s, M)
+        S = torch.zeros((M, N), dtype=torch.float64)
+        S.index_put_((buckets, torch.arange(N)[:, None].expand(N, s)), signs.double(), accumulate=True)
+        G = sref.sjlt_gram(key, X, M, s, block_rows=block_rows)
+    SX = S.double() @ X.double()
+    _close(G, (SX.T @ SX).numpy())
+
+
 @pytest.mark.parametrize("n,m,d", [(500_000, 2500, 251), (1001, 40, 8), (31, 7, 300), (2**20, 64, 4)])
 def test_plan_splits_covers_n_in_word_aligned_splits(n, m, d):
     n_splits, rows = tcuda.plan_splits(n, m, d)
     assert rows % 32 == 0
     assert (n_splits - 1) * rows < n <= n_splits * rows
     assert n_splits == 1 or rows >= 32 * tcuda.MIN_SPLIT_STEPS
+
+
+@pytest.mark.parametrize("n,m,d,s", [(500_000, 2500, 251, 20), (1001, 40, 8, 4), (1000, 3100, 9, 1),
+                                     (33, 1, 1, 20), (2**20, 1537, 300, 2048)])
+def test_plan_sjlt_covers_n_and_fits_the_kernel(n, m, d, s):
+    plan = tcuda.plan_sjlt(n, m, d, s)
+    assert (plan.n_splits - 1) * plan.rows_per_split < n <= plan.n_splits * plan.rows_per_split
+    assert plan.rows_per_split % plan.chunk_rows == 0
+    assert plan.chunk_rows <= tcuda.SJLT_MAX_CHUNK_ROWS and plan.chunk_rows * s <= tcuda.SJLT_MAX_PAIRS
+    m_tiles = -(-m // plan.bucket_tile)
+    assert plan.bucket_tile <= tcuda.SJLT_MAX_BUCKETS and (m_tiles - 1) * plan.bucket_tile < m
+    assert plan == tcuda.plan_sjlt(n, m, d, s)  # shapes only: never q
+    # A worker's n-split partials fit the scratch of one call.
+    chunk = tcuda.worker_chunk(n, m, d, 200, family="sjlt", s=s)
+    assert chunk == 1 or chunk * 4 * plan.n_splits * m * d <= tcuda.SCRATCH_BYTES
+    with pytest.raises(ValueError, match="s="):
+        tcuda.plan_sjlt(n, m, d, tcuda.SJLT_MAX_PAIRS + 1)
 
 
 def test_nvcc_command_targets_hopper_without_fast_math(tmp_path):

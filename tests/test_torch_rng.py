@@ -162,3 +162,64 @@ def test_env_copy_matches_reference_parsing(monkeypatch, raw, want):
     monkeypatch.setenv("REPRO_TORCH_TEST_INT", "x")
     with pytest.raises(ValueError, match="REPRO_TORCH_TEST_INT"):
         tenv.read_int("REPRO_TORCH_TEST_INT")
+
+
+# jax's threefry split / bits / randint in partitionable mode (the reference's jax
+# default), which the SRHT's row picks go through.
+SPLIT_SEEDS = [0, 7, -3, 2**31 - 1]
+
+
+@pytest.mark.parametrize("seed", SPLIT_SEEDS)
+@pytest.mark.parametrize("num", [2, 3, 5])
+def test_split_bitwise(seed, num):
+    jkey = jax.random.PRNGKey(seed)
+    want = np.asarray(jax.random.key_data(jax.random.split(jkey, num))).astype(np.int64)
+    np.testing.assert_array_equal(tprng.split(tprng.prng_key(seed), num).numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(1,), (4, 7), (3, 1, 5)])
+def test_random_bits_bitwise(shape):
+    jkey = jax.random.PRNGKey(13)
+    want = np.asarray(jax.random.bits(jkey, shape, jnp.uint32)).astype(np.int64)
+    got = tprng.random_bits(tprng.prng_key(13), shape)
+    assert tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# Spans that are and are not powers of two: for 2**19 (the SRHT's n_pad at FIG3A)
+# jax's multiplier (2**16 mod span)**2 wraps to 0 in uint32.
+RANDINT_BOUNDS = [(0, 2**19), (0, 1024), (0, 1), (0, 1000), (0, 3**19), (-5, 17), (0, 2**31 - 1),
+                  (-(2**31), 2**31 - 1), (5, 5), (7, 3)]
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+@pytest.mark.parametrize("lo,hi", RANDINT_BOUNDS)
+def test_randint_bitwise(seed, lo, hi):
+    jkey = jax.random.PRNGKey(seed)
+    want = np.asarray(jax.random.randint(jkey, (257,), lo, hi)).astype(np.int64)
+    got = tprng.randint(tprng.prng_key(seed), (257,), lo, hi)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_batched_keys_draw_as_vmapped_jax():
+    jkeys = jprng.worker_keys(jax.random.PRNGKey(3), 4, 2)
+    tkeys = tprng.from_key_data(np.asarray(jax.random.key_data(jkeys)))
+    want = np.asarray(jax.vmap(lambda k: jax.random.randint(k, (50,), 0, 1024))(jkeys)).astype(np.int64)
+    np.testing.assert_array_equal(tprng.randint(tkeys, (50,), 0, 1024).numpy(), want)
+    want = np.asarray(jax.vmap(lambda k: jax.random.key_data(jax.random.split(k)))(jkeys)).astype(np.int64)
+    np.testing.assert_array_equal(tprng.split(tkeys).numpy(), want)
+    with pytest.raises(ValueError, match="int32"):
+        tprng.randint(tkeys, (2,), 0, 2**31)
+    with pytest.raises(ValueError, match=r"\(\.\.\., 2\)"):
+        tprng.split(torch.zeros(3, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("s", [1, 4, 20])
+@pytest.mark.parametrize("m", [1, 40, 2500, 2**31 - 1])
+def test_sjlt_counter_params_bitwise(s, m):
+    rows = np.concatenate([EDGES, np.random.default_rng(s).integers(0, 2**32, 300, dtype=np.uint64).astype(np.uint32)])
+    bj, sj = jc.sjlt_counter_params(jnp.uint32(K0), jnp.uint32(K1), jnp.asarray(rows), s, m)
+    bt, st = tc.sjlt_counter_params(K0, K1, _t(rows), s, m)
+    assert bt.shape == st.shape == (rows.size, s) and st.dtype == torch.float32
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(bj).astype(np.int64))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
