@@ -45,12 +45,16 @@ def distributed_sketch_solve(
     round_id: int = 0,
     straggler_mask=None,
     reg: float = 0.0,
+    method: str = "fused",
     on_empty: str = "nan",
     device=None,
 ) -> torch.Tensor:
-    """Algorithm 1 with worker-side sketches: each of the q workers streams its
-    own ``(G_k, c_k)`` from [A | b] (the fused single-key kernel when
-    ``spec.use_kernel``), solves d×d, and the master averages the arrivals.
+    """Algorithm 1 with worker-side sketches: each of the q workers solves
+    ``solve.sketch_and_solve(..., method=method)`` on its own key and the master
+    averages the arrivals. ``method="fused"`` (default) streams ``(G_k, c_k)``
+    from [A | b] (the fused single-key kernel when ``spec.use_kernel``) and
+    solves d×d; ``"qr"``/``"chol"`` is the two-pass reference: S_k[A | b] (the
+    S·A kernel when ``spec.use_kernel``), then a factorization.
 
     ``device``: ``None`` means CUDA (raises when absent); pass ``"cpu"`` for the CPU.
     Returns x̄ (d,) or (d, k).
@@ -59,7 +63,7 @@ def distributed_sketch_solve(
     A, b = A.to(dev), b.to(dev)
     mask = _checked_mask(straggler_mask, q, dev)
     keys = prng.worker_keys(key, q, round_id)
-    xs = torch.stack([solve.sketch_and_solve(spec, keys[w], A, b, reg=reg) for w in range(q)])
+    xs = torch.stack([solve.sketch_and_solve(spec, keys[w], A, b, reg=reg, method=method) for w in range(q)])
     return averaging.masked_average(xs, mask, on_empty=on_empty)
 
 
@@ -73,21 +77,31 @@ def distributed_sketch_solve_master(
     round_id: int = 0,
     straggler_mask=None,
     reg: float = 0.0,
+    method: str = "fused",
     on_empty: str = "nan",
     device=None,
 ) -> torch.Tensor:
     """Algorithm 1 in master-sketch mode (the paper's privacy deployment: only the
-    master touches raw rows; workers see only their (G_k, c_k)).
+    master touches raw rows; workers see only sketch products).
 
-    The master streams all q fused Grams in one batched pass over [A | b] (the
-    multi-worker kernel when ``spec.use_kernel``), each worker solves its
-    d×d system, and the master averages the arrivals. Worker keys match
-    :func:`distributed_sketch_solve`, so the two modes agree to float tolerance.
+    ``method="fused"`` (default): the master streams all q fused Grams in one
+    batched pass over [A | b] (the multi-worker kernel when ``spec.use_kernel``)
+    and each worker solves its d×d system. Any other method is the two-pass
+    reference: the master forms every ``(S_k A, S_k b)``
+    (``operators.sketch_data_batched``; the multi-worker S·A kernel when
+    ``spec.use_kernel`` and the kind has one) and each worker factorizes its
+    m×d problem (``solve.lstsq(..., method=method)``). The master averages the
+    arrivals. Worker keys match :func:`distributed_sketch_solve`, so the two
+    modes agree to float tolerance.
     """
     dev = resolve_device(device)
     A, b = A.to(dev), b.to(dev)
     mask = _checked_mask(straggler_mask, q, dev)
     keys = prng.worker_keys(key, q, round_id)
-    Gs, cs = operators.gram_batched(spec, keys, A, b)
-    xs = solve.lstsq_gram(Gs, cs, reg=reg)
+    if method == "fused":
+        Gs, cs = operators.gram_batched(spec, keys, A, b)
+        xs = solve.lstsq_gram(Gs, cs, reg=reg)
+    else:
+        SA, Sb = operators.sketch_data_batched(spec, keys, A, b)
+        xs = torch.stack([solve.lstsq(SA[w], Sb[w], reg=reg, method=method) for w in range(q)])
     return averaging.masked_average(xs, mask, on_empty=on_empty)

@@ -1,26 +1,31 @@
 """`SketchOp`: the sketch families as frozen linear operators (PyTorch port).
 
-Port of ``repro.core.operators`` for the kinds the port carries so far:
-``gaussian``, ``rademacher``, ``srht`` and ``sjlt``. An operator is built once
-from ``(SketchSpec, key, n)``:
+Port of ``repro.core.operators`` for every kind of ``sketches.KINDS``. An
+operator is built once from ``(SketchSpec, key, n)`` (and the leverage scores,
+for ``leverage``):
 
   * ``columns(j0, block)``       — the (m, block) column tile of S, a pure function
                                    of (key, i, j) (counter RNG, ``kernels/common``;
-                                   not for the SJLT, which streams segment sums);
-  * ``apply(A)``                 — ``S @ A`` (the plain FWHT for the SRHT, a
-                                   segment sum for the SJLT);
+                                   not for the SJLT and the hybrid);
+  * ``apply(A)``                 — ``S @ A``; with ``spec.use_kernel`` the S·A kernel
+                                   of the kind (``kernels/*/ops.py``: the dense
+                                   S·A, the SJLT S·A, the FWHT inside the SRHT);
+                                   a gather for the sampling kinds; the hybrid
+                                   gathers m′ rows and applies its inner operator;
   * ``apply_blocked(A, ...)``    — ``S @ A`` streamed over row tiles of A;
   * ``gram_blocked(A, b, ...)``  — ``(G, c) = ((SA)ᵀ(SA), (SA)ᵀ(Sb))`` in one pass
                                    over ``[A | b]``; with ``spec.use_kernel`` the
-                                   fused sketch→Gram kernel (``kernels/*/ops.py``).
+                                   fused sketch→Gram kernel of a projection kind.
 
-:func:`gram_batched` gives all q workers' ``(G_k, c_k)``; with ``spec.use_kernel``
-that is the multi-worker kernel, launched for all q workers at once (in chunks
-of workers when q is large).
+:func:`gram_batched` gives all q workers' ``(G_k, c_k)`` and :func:`apply_batched`
+all q workers' ``S_k A``; with ``spec.use_kernel`` both launch one multi-worker
+kernel for all q workers (in chunks of workers when q is large) where the kind
+has one. Row draws of the sampling kinds run on the device of the data.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -34,14 +39,6 @@ from repro_torch.kernels.sjlt import ref as sref
 from repro_torch.utils import prng
 
 DEFAULT_BLOCK_ROWS = 4096
-
-# Kinds of the reference that have no operator in the port yet, with the
-# ROADMAP.md entry that ports each.
-PENDING = {
-    "uniform": "ROADMAP.md Queue 1, 'sampling sketches'",
-    "leverage": "ROADMAP.md Queue 1, 'sampling sketches'",
-    "hybrid": "ROADMAP.md Queue 1, 'sampling sketches' (hybrid = uniform rows, then an inner sketch)",
-}
 
 
 # ----------------------------------------------------------------------- registry
@@ -65,18 +62,22 @@ def registered_kinds() -> tuple:
 
 def _operator_class(spec: sk.SketchSpec) -> type:
     cls = _REGISTRY.get(spec.kind)
-    if cls is not None:
-        return cls
-    if spec.kind in PENDING:
-        raise NotImplementedError(
-            f"sketch kind {spec.kind!r} is not ported to PyTorch yet: {PENDING[spec.kind]}"
-        )
-    raise ValueError(f"no SketchOp registered for kind {spec.kind!r}; known: {registered_kinds()}")
+    if cls is None:
+        raise ValueError(f"no SketchOp registered for kind {spec.kind!r}; known: {registered_kinds()}")
+    return cls
 
 
-def make_operator(spec: sk.SketchSpec, key: torch.Tensor, n: int) -> "SketchOp":
-    """Build the frozen ``S ∈ R^{m×n}`` described by ``spec`` from ``key`` ((2,) words)."""
-    return _operator_class(spec).build(spec, key, n)
+def make_operator(spec: sk.SketchSpec, key: torch.Tensor, n: int, *,
+                  scores: Optional[torch.Tensor] = None, device=None) -> "SketchOp":
+    """Build the frozen ``S ∈ R^{m×n}`` described by ``spec`` from ``key`` ((2,) words).
+
+    ``scores``: the leverage scores (n,), required for ``kind="leverage"`` and
+    ignored otherwise, as in the reference: a data-dependent sketch is given its
+    statistics so that the operator is fixed. ``device``: where the row draws of
+    the sampling kinds run (the device of the data the operator will meet;
+    default the CPU). The draws are bitwise the same on every device.
+    """
+    return _operator_class(spec).build(spec, key, n, scores=scores, device=device)
 
 
 # --------------------------------------------------------------------- shape utils
@@ -142,12 +143,18 @@ class SketchOp:
         return (self.m, self.n)
 
     @classmethod
-    def build(cls, spec, key, n) -> "SketchOp":
+    def build(cls, spec, key, n, *, scores=None, device=None) -> "SketchOp":
         raise NotImplementedError
 
     @classmethod
     def gram_batched_kernel(cls, spec, keys, A, b):
         """All q workers' joint Grams ``(G_k, c_k)`` from one multi-worker kernel
+        launch, or ``NotImplemented`` when the kind has none."""
+        return NotImplemented
+
+    @classmethod
+    def apply_batched_kernel(cls, spec, keys, A):
+        """All q workers' ``S_k A`` (q, m, ...) from one multi-worker S·A kernel
         launch, or ``NotImplemented`` when the kind has none."""
         return NotImplemented
 
@@ -197,34 +204,59 @@ class SketchOp:
         """Fused single-pass sketch→Gram: ``(G, c)`` with ``G = (SA)ᵀ(SA)`` (d, d)
         and ``c = (SA)ᵀ(Sb)`` (``None`` when b is), from one streamed pass over
         ``[A | b]``."""
-        SAb = self._stream(_join_b(A, b), block_rows)
-        with common.full_fp32_matmul():
-            Gf = SAb.T @ SAb
-        return _split_gram(Gf, A.shape[1], b)
+        return _gram_of(self._stream(_join_b(A, b), block_rows), A.shape[1], b)
+
+
+def _gram_of(SAb: torch.Tensor, d: int, b: Optional[torch.Tensor]):
+    """``(G, c)`` from a sketched ``[SA | Sb]`` by one full-float32 matrix product."""
+    SAb = SAb.to(torch.float32)
+    with common.full_fp32_matmul():
+        return _split_gram(SAb.T @ SAb, d, b)
+
+
+def _gather_joint(A: torch.Tensor, b: Optional[torch.Tensor], rows: torch.Tensor) -> torch.Tensor:
+    """``[A | b][rows]`` in float32, gathered from A and b apart (the joined
+    (n, d+k) matrix is never made)."""
+    rows = rows.to(A.device)
+    return _join_b(A[rows], None if b is None else b[rows])
+
+
+def _gather_rows_reducer(rows: torch.Tensor):
+    """Streaming reducer that collects ``X[rows]`` from row tiles: tile rows j0 ..
+    j0+len hold the sampled rows that fall in them (O(len(rows)·k) per tile)."""
+
+    def reducer(acc, j0, tile):
+        local = rows.to(tile.device) - j0
+        hit = (local >= 0) & (local < tile.shape[0])
+        acc = acc.clone()
+        acc[hit] = acc[hit] + tile[local[hit]]
+        return acc
+
+    return reducer
 
 
 # ----------------------------------------------------------------------- families
 
 
-def _refuse_apply_kernel(spec: sk.SketchSpec) -> None:
-    """``apply`` with ``use_kernel`` needs an S·A kernel the port does not have yet."""
-    if spec.use_kernel:
-        raise NotImplementedError(
-            f"the {spec.kind} S·A kernel is not ported yet (ROADMAP.md Queue 2, 'apply "
-            "kernels'); the fused Gram kernel is, through gram_blocked"
-        )
+def _kernel_apply(fn, A: torch.Tensor, rows: int) -> torch.Tensor:
+    """An S·A kernel wrapper ``fn`` on the contiguous (rows, k) float32 view of A;
+    its (..., m, k) result takes A's dtype and trailing shape."""
+    A2, batch = _to_2d(A, rows)
+    out = fn(A2.to(torch.float32).contiguous())
+    return out.to(A.dtype).reshape(out.shape[:-1] + batch)
 
 
 @dataclasses.dataclass(frozen=True)
 class _DenseCounterOp(SketchOp):
-    """A dense family whose S tiles come from ``tiles(k0, k1, m, j0, block, device)``
-    and whose fused Gram is ``gram(key, X, m)`` / ``gram_multi(keys, X, m)``."""
+    """A dense family whose S tiles come from ``tiles(k0, k1, m, j0, block, device)``,
+    whose S·A kernel is ``sketch(key, X, m)`` / ``sketch_multi(keys, X, m)`` and
+    whose fused Gram is ``gram(key, X, m)`` / ``gram_multi(keys, X, m)``."""
 
     k0: int = 0
     k1: int = 0
 
     @classmethod
-    def build(cls, spec, key, n):
+    def build(cls, spec, key, n, *, scores=None, device=None):
         k0, k1 = common.key_words(key)
         return cls(spec=spec, key=key, n=n, k0=k0, k1=k1)
 
@@ -232,7 +264,8 @@ class _DenseCounterOp(SketchOp):
         return self.tiles(self.k0, self.k1, self.m, j0, block, device)
 
     def apply(self, A: torch.Tensor) -> torch.Tensor:
-        _refuse_apply_kernel(self.spec)
+        if self.spec.use_kernel:
+            return _kernel_apply(lambda X: self.sketch(self.key, X, self.m), A, self.n)
         return super().apply(A)
 
     def gram_blocked(self, A, b=None, *, block_rows: int = DEFAULT_BLOCK_ROWS):
@@ -244,14 +277,30 @@ class _DenseCounterOp(SketchOp):
     def gram_batched_kernel(cls, spec, keys, A, b):
         return _split_gram_batched(cls.gram_multi(keys, _join_b(A, b), spec.m), A.shape[1], b)
 
+    @classmethod
+    def apply_batched_kernel(cls, spec, keys, A):
+        return _kernel_apply(lambda X: cls.sketch_multi(keys, X, spec.m), A, A.shape[0])
+
 
 @register("gaussian")
 @dataclasses.dataclass(frozen=True)
 class GaussianOp(_DenseCounterOp):
     """i.i.d. N(0, 1/m) entries from the counter stream: S[i, j] = f(key, i, j),
-    the stream the Gaussian sketch→Gram kernel draws tile by tile."""
+    the stream the Gaussian S·A and sketch→Gram kernels draw tile by tile."""
 
     tiles = staticmethod(gref.columns)
+
+    @staticmethod
+    def sketch(key, X, m):
+        from repro_torch.kernels.gaussian import ops
+
+        return ops.gaussian_sketch(key, X, m)
+
+    @staticmethod
+    def sketch_multi(keys, X, m):
+        from repro_torch.kernels.gaussian import ops
+
+        return ops.gaussian_sketch_multi(keys, X, m)
 
     @staticmethod
     def gram(key, X, m):
@@ -273,6 +322,18 @@ class RademacherOp(_DenseCounterOp):
     ``j % 32`` of ``threefry(key, i, j // 32)`` — one threefry call per 32 entries."""
 
     tiles = staticmethod(rref.columns)
+
+    @staticmethod
+    def sketch(key, X, m):
+        from repro_torch.kernels.rademacher import ops
+
+        return ops.rademacher_sketch(key, X, m)
+
+    @staticmethod
+    def sketch_multi(keys, X, m):
+        from repro_torch.kernels.rademacher import ops
+
+        return ops.rademacher_sketch_multi(keys, X, m)
 
     @staticmethod
     def gram(key, X, m):
@@ -305,10 +366,12 @@ def srht_params(keys: torch.Tensor, m: int, n_pad: int):
 class SRHTOp(SketchOp):
     """Randomized Hadamard (ROS): S = (1/√m) · P · H · D on the 2^⌈log n⌉ padding.
 
-    ``apply`` uses the O(n log n) plain FWHT (``sketches._fwht``); ``columns``
-    builds Hadamard tiles H[r, j] = (−1)^popcount(r & j) on the fly (the closed
-    form the SRHT sketch→Gram kernel draws), which is what makes blocked and
-    streamed application possible without the full transform.
+    ``apply`` is D·A, zero rows up to n_pad, the O(n log n) FWHT (the CUDA FWHT
+    kernel with ``spec.use_kernel``, else the plain ``sketches._fwht``), then the
+    m sampled rows scaled by 1/√m; ``columns`` builds Hadamard tiles
+    H[r, j] = (−1)^popcount(r & j) on the fly (the closed form the SRHT
+    sketch→Gram kernel draws), which is what makes blocked and streamed
+    application possible without the full transform.
     """
 
     kd0: int = 0  # diagonal key words (D)
@@ -317,7 +380,7 @@ class SRHTOp(SketchOp):
     n_pad: int = 0
 
     @classmethod
-    def build(cls, spec, key, n):
+    def build(cls, spec, key, n, *, scores=None, device=None):
         n_pad = sk.next_pow2(n)
         kd, rows = srht_params(key, spec.m, n_pad)
         kd0, kd1 = common.key_words(kd)
@@ -331,13 +394,17 @@ class SRHTOp(SketchOp):
         return fref.columns(self.kd0, self.kd1, self.rows, j0, block, device)
 
     def apply(self, A: torch.Tensor) -> torch.Tensor:
-        _refuse_apply_kernel(self.spec)
         A2, batch = _to_2d(A, self.n)
         j = torch.arange(self.n, dtype=torch.int64, device=A.device)
         DA = A2.to(torch.float32) * self._signs(j)[:, None]
         if self.n_pad != self.n:
             DA = torch.cat([DA, DA.new_zeros((self.n_pad - self.n, DA.shape[1]))])
-        HDA = sk._fwht(DA)
+        if self.spec.use_kernel:
+            from repro_torch.kernels.fwht import ops
+
+            HDA = ops.fwht(DA.contiguous())
+        else:
+            HDA = sk._fwht(DA)
         out = HDA[self.rows.to(A.device)] * common.inv_sqrt(self.m)
         return out.to(A.dtype).reshape((self.m,) + batch)
 
@@ -349,9 +416,7 @@ class SRHTOp(SketchOp):
             return _split_gram(ops.srht_gram(kw, self.rows, _join_b(A, b)), A.shape[1], b)
         # As the reference: one FWHT apply, then the small (m, d+k) Gram; streamed
         # closed-form tiles would trade O(n log n) for O(n·m) work per column.
-        SAb = self.apply(_join_b(A, b)).to(torch.float32)
-        with common.full_fp32_matmul():
-            return _split_gram(SAb.T @ SAb, A.shape[1], b)
+        return _gram_of(self.apply(_join_b(A, b)), A.shape[1], b)
 
     @classmethod
     def gram_batched_kernel(cls, spec, keys, A, b):
@@ -359,6 +424,89 @@ class SRHTOp(SketchOp):
 
         kd, rows = srht_params(keys, spec.m, sk.next_pow2(A.shape[0]))
         return _split_gram_batched(ops.srht_gram_multi(kd, rows, _join_b(A, b)), A.shape[1], b)
+
+
+# ------------------------------------------------------------------ row sampling
+
+
+@dataclasses.dataclass(frozen=True)
+class _RowSamplingOp(SketchOp):
+    """S = diag(scales) · P with P picking ``rows``: ``apply`` is a gather and a
+    scale, ``gram_blocked`` gathers the m rows of ``[A | b]``, scales them and
+    takes one full-float32 Gram (the reference's streamed gather computes the
+    same rows)."""
+
+    rows: torch.Tensor = None  # (m,)
+
+    def _row_scales(self, device) -> torch.Tensor:
+        """float32 scale of each sampled row, (m,) or a scalar."""
+        raise NotImplementedError
+
+    def apply(self, A: torch.Tensor) -> torch.Tensor:
+        scl = self._row_scales(A.device).to(A.dtype)
+        return A[self.rows.to(A.device)] * scl.reshape(scl.shape + (1,) * (A.ndim - 1))
+
+    def columns(self, j0: int, block: int, device=None) -> torch.Tensor:
+        j = j0 + torch.arange(block, dtype=torch.int64, device=device)
+        onehot = (self.rows.to(device)[:, None] == j[None, :]).to(torch.float32)
+        scl = self._row_scales(device).to(torch.float32)
+        return onehot * (scl[:, None] if scl.ndim else scl)
+
+    def _stream_pieces(self, k: int, device):
+        init = torch.zeros((self.m, k), dtype=torch.float32, device=device)
+        scl = self._row_scales(device).to(torch.float32)
+        finish = lambda acc: acc * (scl[:, None] if scl.ndim else scl)
+        return init, _gather_rows_reducer(self.rows), finish
+
+    def gram_blocked(self, A, b=None, *, block_rows: int = DEFAULT_BLOCK_ROWS):
+        scl = self._row_scales(A.device).to(torch.float32)
+        SAb = _gather_joint(A, b, self.rows) * (scl[:, None] if scl.ndim else scl)
+        return _gram_of(SAb, A.shape[1], b)
+
+
+@register("uniform")
+@dataclasses.dataclass(frozen=True)
+class UniformOp(_RowSamplingOp):
+    """Uniform row sampling scaled by √(n/m) so E[SᵀS] = I. With replacement the
+    rows are ``randint(key, (m,), 0, n)``; without, the gumbel top-m
+    (``prng.gumbel_top_k``), both bitwise the reference's picks."""
+
+    @classmethod
+    def build(cls, spec, key, n, *, scores=None, device=None):
+        if spec.replacement:
+            rows = prng.randint(key, (spec.m,), 0, n, device=device)
+        else:
+            rows = prng.gumbel_top_k(key, n, spec.m, device=device)
+        return cls(spec=spec, key=key, n=n, rows=rows)
+
+    def _row_scales(self, device) -> torch.Tensor:
+        return torch.tensor(math.sqrt(self.n / self.m), dtype=torch.float32, device=device)
+
+
+@register("leverage")
+@dataclasses.dataclass(frozen=True)
+class LeverageOp(_RowSamplingOp):
+    """Leverage-score sampling with replacement: P[row j] = p_j ∝ ℓ_j, the kept row
+    scaled by 1/√(m·p_j). The rows are ``categorical(key, log(p + 1e-30), (m,))``,
+    drawn on the scores' device, bitwise the reference's for the same p."""
+
+    scales: torch.Tensor = None  # (m,)
+
+    @classmethod
+    def build(cls, spec, key, n, *, scores=None, device=None):
+        if scores is None:
+            raise ValueError(
+                "leverage sketches are data-dependent: pass scores= to make_operator "
+                "(e.g. sketches.leverage_scores(A)) so the operator is fixed"
+            )
+        scores = scores.to(torch.float32)
+        p = scores / torch.sum(scores)
+        rows = prng.categorical(key, prng.xla_log(p + 1e-30), spec.m)
+        scales = 1.0 / torch.sqrt(spec.m * p[rows])
+        return cls(spec=spec, key=key, n=n, rows=rows, scales=scales)
+
+    def _row_scales(self, device) -> torch.Tensor:
+        return self.scales.to(device)
 
 
 # -------------------------------------------------------------------------- sjlt
@@ -370,14 +518,15 @@ class SJLTOp(SketchOp):
     """Sparse JL: s nonzeros (±1/√s) per input coordinate, counter-derived per row.
 
     Row parameters come from ``common.sjlt_counter_params``, the same draw the
-    SJLT sketch→Gram kernel makes in-core, so kernel and plain paths share S.
+    SJLT S·A and sketch→Gram kernels make in-core, so kernel and plain paths
+    share S.
     """
 
     k0: int = 0
     k1: int = 0
 
     @classmethod
-    def build(cls, spec, key, n):
+    def build(cls, spec, key, n, *, scores=None, device=None):
         k0, k1 = common.key_words(key)
         return cls(spec=spec, key=key, n=n, k0=k0, k1=k1)
 
@@ -389,7 +538,10 @@ class SJLTOp(SketchOp):
         return sref.sjlt_apply(A2, buckets, signs, self.m)
 
     def apply(self, A: torch.Tensor) -> torch.Tensor:
-        _refuse_apply_kernel(self.spec)
+        if self.spec.use_kernel:
+            from repro_torch.kernels.sjlt import ops
+
+            return _kernel_apply(lambda X: ops.sjlt_apply(self.key, X, self.m, self.spec.s), A, self.n)
         A2, batch = _to_2d(A, self.n)
         rows = torch.arange(self.n, dtype=torch.int64, device=A.device)
         out = self._segment_apply(A2.to(torch.float32), rows)
@@ -419,8 +571,89 @@ class SJLTOp(SketchOp):
         Gf = ops.sjlt_gram_multi(keys, _join_b(A, b), spec.m, spec.s)
         return _split_gram_batched(Gf, A.shape[1], b)
 
+    @classmethod
+    def apply_batched_kernel(cls, spec, keys, A):
+        from repro_torch.kernels.sjlt import ops
+
+        return _kernel_apply(lambda X: ops.sjlt_apply_multi(keys, X, spec.m, spec.s), A, A.shape[0])
+
+
+# ------------------------------------------------------------------------ hybrid
+
+
+@register("hybrid")
+@dataclasses.dataclass(frozen=True)
+class HybridOp(SketchOp):
+    """Paper §IV-D: uniform-sample m′ rows without replacement (what a worker can
+    afford to read), scale by √(n/m′), then an inner sketch m′ → m (what it can
+    afford to compute): S = S_inner · U.
+
+    ``build`` is the reference's: ``k1, k2 = split(key)``, the gumbel top-m′ rows
+    from k1, the inner operator (kind ``spec.inner``, with ``spec.s`` and
+    ``spec.use_kernel``) from k2 over n = m′ — so an SRHT inner sketch pads to
+    next_pow2(m′). With ``spec.use_kernel`` the inner ``apply`` is that kind's
+    S·A kernel (or the FWHT kernel).
+    """
+
+    rows: torch.Tensor = None  # (m_prime,)
+    inner: SketchOp = None
+
+    @classmethod
+    def build(cls, spec, key, n, *, scores=None, device=None):
+        halves = prng.split(key)
+        rows = prng.gumbel_top_k(halves[0], n, spec.m_prime, device=device)
+        inner_spec = sk.SketchSpec(spec.inner, spec.m, s=spec.s, use_kernel=spec.use_kernel)
+        inner = make_operator(inner_spec, halves[1], spec.m_prime, device=device)
+        return cls(spec=spec, key=key, n=n, rows=rows, inner=inner)
+
+    @property
+    def _scale(self) -> float:
+        return math.sqrt(self.n / self.spec.m_prime)
+
+    def apply(self, A: torch.Tensor) -> torch.Tensor:
+        sampled = A[self.rows.to(A.device)] * torch.tensor(self._scale, dtype=A.dtype, device=A.device)
+        return self.inner.apply(sampled)
+
+    def _stream_pieces(self, k: int, device):
+        init = torch.zeros((self.spec.m_prime, k), dtype=torch.float32, device=device)
+        scale = torch.tensor(self._scale, dtype=torch.float32, device=device)
+        return init, _gather_rows_reducer(self.rows), lambda acc: self.inner.apply(acc * scale)
+
+    def gram_blocked(self, A, b=None, *, block_rows: int = DEFAULT_BLOCK_ROWS):
+        scale = torch.tensor(self._scale, dtype=torch.float32, device=A.device)
+        SAb = self.inner.apply((_gather_joint(A, b, self.rows) * scale).contiguous())
+        return _gram_of(SAb, A.shape[1], b)
+
 
 # --------------------------------------------------------------- functional API
+
+
+def _scores_for(spec: sk.SketchSpec, A: torch.Tensor, scores) -> Optional[torch.Tensor]:
+    """The leverage scores a ``leverage`` sketch of A needs (computed from A when
+    not given); ``scores`` as passed for every other kind."""
+    if spec.kind == "leverage" and scores is None:
+        return sk.leverage_scores(A.reshape(A.shape[0], -1).to(torch.float32))
+    return scores
+
+
+def apply(spec: sk.SketchSpec, key: torch.Tensor, A: torch.Tensor, *, scores=None) -> torch.Tensor:
+    """``S @ A`` — registry-dispatched."""
+    scores = _scores_for(spec, A, scores)
+    return make_operator(spec, key, A.shape[0], scores=scores, device=A.device).apply(A)
+
+
+def apply_blocked(
+    spec: sk.SketchSpec,
+    key: torch.Tensor,
+    A: torch.Tensor,
+    *,
+    block_rows: int = DEFAULT_BLOCK_ROWS,
+    scores=None,
+) -> torch.Tensor:
+    """``S @ A`` streamed over row tiles of A."""
+    scores = _scores_for(spec, A, scores)
+    op = make_operator(spec, key, A.shape[0], scores=scores, device=A.device)
+    return op.apply_blocked(A, block_rows=block_rows)
 
 
 def gram_blocked(
@@ -430,9 +663,14 @@ def gram_blocked(
     b: Optional[torch.Tensor] = None,
     *,
     block_rows: int = DEFAULT_BLOCK_ROWS,
+    scores=None,
 ):
-    """Fused single-pass ``(G, c) = ((SA)ᵀ(SA), (SA)ᵀ(Sb))`` — registry-dispatched."""
-    return make_operator(spec, key, A.shape[0]).gram_blocked(A, b, block_rows=block_rows)
+    """Fused single-pass ``(G, c) = ((SA)ᵀ(SA), (SA)ᵀ(Sb))`` — registry-dispatched.
+    A leverage sketch takes its scores from A (not from ``[A | b]``), as the
+    reference does."""
+    scores = _scores_for(spec, A, scores)
+    op = make_operator(spec, key, A.shape[0], scores=scores, device=A.device)
+    return op.gram_blocked(A, b, block_rows=block_rows)
 
 
 def gram_batched(
@@ -441,22 +679,56 @@ def gram_batched(
     A: torch.Tensor,
     b: Optional[torch.Tensor] = None,
     *,
+    scores=None,
     block_rows: int = DEFAULT_BLOCK_ROWS,
 ):
     """All q workers' fused Grams ``(Gs, cs)``, shapes (q, d, d) and (q, d[, k]);
     ``cs`` is None when b is. ``keys``: (q, 2) words (``prng.worker_keys``).
 
-    With ``spec.use_kernel`` this is the multi-worker kernel, launched for all q
-    workers at once (in chunks of ``kernels.cuda.worker_chunk`` workers on the
-    card), whose worker slices are bitwise equal to the per-key kernel path;
-    otherwise a loop of per-key streamed Grams.
+    With ``spec.use_kernel`` and a projection kind this is the multi-worker
+    kernel, launched for all q workers at once (in chunks of
+    ``kernels.cuda.worker_chunk`` workers on the card), whose worker slices are
+    bitwise equal to the per-key kernel path; otherwise a loop of per-key Grams.
+    Leverage scores are computed once, from A, and shared by the q workers.
     """
-    cls = _operator_class(spec)
+    scores = _scores_for(spec, A, scores)
     if spec.use_kernel:
-        fused = cls.gram_batched_kernel(spec, keys, A, b)
+        fused = _operator_class(spec).gram_batched_kernel(spec, keys, A, b)
         if fused is not NotImplemented:
             return fused
     n = A.shape[0]
-    outs = [make_operator(spec, k, n).gram_blocked(A, b, block_rows=block_rows) for k in keys]
+    outs = [
+        make_operator(spec, k, n, scores=scores, device=A.device).gram_blocked(A, b, block_rows=block_rows)
+        for k in keys
+    ]
     Gs = torch.stack([G for G, _ in outs])
     return Gs, (None if b is None else torch.stack([c for _, c in outs]))
+
+
+def apply_batched(spec: sk.SketchSpec, keys: torch.Tensor, A: torch.Tensor, *, scores=None) -> torch.Tensor:
+    """All q workers' sketches ``(S_k A)_k`` as a (q, m, ...) stack.
+
+    With ``spec.use_kernel`` and a dense or SJLT kind this is the multi-worker
+    S·A kernel, launched for all q workers at once (in chunks of
+    ``kernels.cuda.worker_chunk`` on the card), its slices bitwise equal to
+    per-key applies; otherwise a loop of per-key applies. Leverage scores are
+    computed once, from A, and shared.
+    """
+    scores = _scores_for(spec, A, scores)
+    if spec.use_kernel:
+        fused = _operator_class(spec).apply_batched_kernel(spec, keys, A)
+        if fused is not NotImplemented:
+            return fused
+    n = A.shape[0]
+    return torch.stack([make_operator(spec, k, n, scores=scores, device=A.device).apply(A) for k in keys])
+
+
+def sketch_data_batched(spec: sk.SketchSpec, keys: torch.Tensor, A: torch.Tensor, b: torch.Tensor):
+    """Batched Algorithm-1 master step: ``(S_k A, S_k b)`` for every worker key,
+    sketching ``[A | b]`` jointly so each worker's pair shares its S (a leverage
+    sketch takes its scores from ``[A | b]``, as the reference does)."""
+    bm = b if b.ndim == 2 else b[:, None]
+    d = A.shape[1]
+    SAb = apply_batched(spec, keys, torch.cat([A, bm.to(A.dtype)], dim=1))
+    Sb = SAb[..., d:]
+    return SAb[..., :d], (Sb if b.ndim == 2 else Sb[..., 0])

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import operators, sketches as sk
+from repro_torch.kernels import common
 
 
 def _solve_tri(T: torch.Tensor, B: torch.Tensor, *, upper: bool) -> torch.Tensor:
@@ -19,7 +20,13 @@ def _solve_tri(T: torch.Tensor, B: torch.Tensor, *, upper: bool) -> torch.Tensor
 
 
 def lstsq(A: torch.Tensor, b: torch.Tensor, *, reg: float = 0.0, method: str = "qr") -> torch.Tensor:
-    """argmin_x ‖Ax − b‖² + reg·‖x‖², A: (n, d), b: (n,) or (n, k)."""
+    """argmin_x ‖Ax − b‖² + reg·‖x‖², A: (n, d), b: (n,) or (n, k); matrix
+    products in full float32 (TF32 off)."""
+    with common.full_fp32_matmul():
+        return _lstsq(A, b, reg=reg, method=method)
+
+
+def _lstsq(A: torch.Tensor, b: torch.Tensor, *, reg: float, method: str) -> torch.Tensor:
     d = A.shape[1]
     if method == "qr":
         if reg > 0.0:
@@ -61,7 +68,8 @@ def sketch_and_solve(
 
     ``method="fused"`` streams ``(G, c)`` in one pass over ``[A | b]`` (the fused
     kernel when ``spec.use_kernel``) and solves d×d by Cholesky; ``"qr"``/``"chol"``
-    materialize ``(SA, Sb)`` and factorize — the two-pass reference.
+    materialize ``(SA, Sb)`` (the S·A kernel when ``spec.use_kernel``) and
+    factorize — the two-pass reference.
     """
     if method == "fused":
         G, c = operators.gram_blocked(spec, key, A, b, block_rows=block_rows)

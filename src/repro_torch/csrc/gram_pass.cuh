@@ -1,14 +1,17 @@
 // The two passes that finish every fused sketch->Gram kernel of the port, shared
-// by sketch_gram.cu (dense and SRHT sketch passes) and sjlt_gram.cu (SJLT pass).
+// by sketch_gram.cu (dense and SRHT sketch passes) and sjlt_gram.cu (SJLT pass);
+// the S.A entries of both files end after the first.
 //
 // A sketch pass leaves, for each of q workers, n_splits partial sketches S_w X
 // over disjoint ranges of data rows: partial is (q, n_splits, m, d) float32.
-//   reduce_splits_kernel sums each worker's splits in split order into split 0;
+//   reduce_splits_kernel sums each worker's splits in split order, into split 0
+//   for a Gram, or into an (q, m, d) output for an S.A entry: the same sums, so
+//   an S.A entry's S_w X is bitwise what the Gram pass contracts;
 //   gram_kernel forms G_w = acc_w^T acc_w (contraction over m) with a tiled FFMA
 //   loop, each G entry one fmaf chain over m in ascending order, so G is bitwise
 //   symmetric.
-// Neither pass uses atomics, so a rerun is bitwise equal, and a worker's G does
-// not depend on which other workers share the launch.
+// Neither pass uses atomics, so a rerun is bitwise equal, and a worker's result
+// does not depend on which other workers share the launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,18 +19,31 @@
 namespace repro {
 
 // partial: (q, n_splits, m*d). Sums the splits of each worker in split order
-// into split 0.
-__global__ void reduce_splits_kernel(float* __restrict__ partial, int q, int n_splits,
-                                     long long md) {
+// into out + w * out_stride (out may be partial itself, with out_stride
+// n_splits * m * d: each thread reads its element's splits before writing).
+__global__ void reduce_splits_kernel(const float* partial, int q, int n_splits, long long md,
+                                     float* out, long long out_stride) {
   const long long total = static_cast<long long>(q) * md;
   for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long w = idx / md;
-    float* p = partial + w * n_splits * md + (idx - w * md);
+    const long long e = idx - w * md;
+    const float* p = partial + w * n_splits * md + e;
     float s = p[0];
     for (int t = 1; t < n_splits; ++t) s += p[t * md];
-    p[0] = s;
+    out[w * out_stride + e] = s;
   }
+}
+
+// The split reduction of partial (q, n_splits, m, d) into out (q, m, d) with
+// stride out_stride per worker; returns the launch error.
+inline cudaError_t reduce_splits(const float* partial, int q, int n_splits, int m, int d,
+                                 float* out, long long out_stride, cudaStream_t stream) {
+  const long long md = static_cast<long long>(m) * d;
+  const long long want_blocks = (static_cast<long long>(q) * md + 255) / 256;
+  const int blocks = static_cast<int>(want_blocks < 65535LL * 8 ? want_blocks : 65535LL * 8);
+  reduce_splits_kernel<<<blocks, 256, 0, stream>>>(partial, q, n_splits, md, out, out_stride);
+  return cudaGetLastError();
 }
 
 constexpr int GT = 64;  // G tile edge
@@ -99,11 +115,7 @@ gram_kernel(const float* __restrict__ partial, long long acc_stride, int m, int 
 inline cudaError_t reduce_and_gram(float* partial, int q, int n_splits, int m, int d, float* G,
                                    cudaStream_t stream) {
   const long long md = static_cast<long long>(m) * d;
-  const long long total = static_cast<long long>(q) * md;
-  const long long want_blocks = (total + 255) / 256;
-  const int reduce_blocks = static_cast<int>(want_blocks < 65535LL * 8 ? want_blocks : 65535LL * 8);
-  reduce_splits_kernel<<<reduce_blocks, 256, 0, stream>>>(partial, q, n_splits, md);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = reduce_splits(partial, q, n_splits, m, d, partial, n_splits * md, stream);
   if (err != cudaSuccess) return err;
 
   const int g_tiles = (d + GT - 1) / GT;

@@ -1,7 +1,15 @@
-// Fused sketch -> Gram for the sparse JL (SJLT) sketch, hand-written for Hopper.
+// Fused sketch -> Gram and S.A for the sparse JL (SJLT) sketch, hand-written for Hopper.
 //
 // Replaces the Pallas TPU kernels of the JAX reference package:
-//   kernels/sjlt/gram.py  sjlt_gram_tiles, sjlt_gram_tiles_multi
+//   kernels/sjlt/gram.py    sjlt_gram_tiles, sjlt_gram_tiles_multi
+//   kernels/sjlt/kernel.py  sjlt_tiles  (entry repro_sjlt_apply)
+// The TPU's sjlt_tiles takes (n, s) bucket and sign arrays and contracts a
+// one-hot (m x n) tile on the MXU, m / s times the work of the sparse sum. Here
+// repro_sjlt_apply is this file's sketch pass and split reduction, written out,
+// without the Gram pass: the parameters are the same sjlt_counter_params drawn
+// in-core, so S is identical, and on the same plan S_w X is bitwise what the
+// Gram pass contracts. Bound: X's bytes, 0.150 ms per worker at n = 500,000,
+// d = 251, plus m * d * 4 bytes of output.
 // For q keys (one per worker) and X = [A | b] of shape (n, d), it computes
 // G_w = (S_w X)^T (S_w X) where data row i adds sign(i, t) * X[i] into sketch row
 // bucket(i, t) for t < s, with (bucket, sign) = (b0 mod m, +-1/sqrt(s) from b1's
@@ -209,6 +217,27 @@ sjlt_partial_kernel(const float* __restrict__ X, long long n, int d,
   }
 }
 
+// The SJLT sketch pass into partial (q, n_splits, m, d); returns
+// cudaErrorInvalidValue for a plan it cannot take, else the first CUDA error.
+cudaError_t sjlt_pass(const float* X, long long n, int d, const uint32_t* keys, int q, int m,
+                      int s, float inv_sqrt_s, long long rows_per_split, int n_splits,
+                      int bucket_tile, int chunk_rows, float* partial, cudaStream_t stream) {
+  if (rows_per_split <= 0 || static_cast<long long>(n_splits) * rows_per_split < n ||
+      bucket_tile <= 0 || bucket_tile > MAX_BUCKETS || chunk_rows <= 0 ||
+      chunk_rows > MAX_ROWS || s <= 0 || static_cast<long long>(chunk_rows) * s > MAX_PAIRS) {
+    return cudaErrorInvalidValue;
+  }
+  const int m_tiles = (m + bucket_tile - 1) / bucket_tile;
+  const int d_tiles = (d + BD - 1) / BD;
+  const int smem = bucket_tile * BD * static_cast<int>(sizeof(float));
+  cudaError_t err =
+      cudaFuncSetAttribute(sjlt_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  sjlt_partial_kernel<<<dim3(m_tiles * d_tiles, n_splits, q), THREADS, smem, stream>>>(
+      X, n, d, keys, m, s, inv_sqrt_s, rows_per_split, bucket_tile, m_tiles, chunk_rows, partial);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -228,23 +257,25 @@ int repro_sjlt_gram(const float* X, long long n, int d, const uint32_t* keys, in
                     int s, float inv_sqrt_s, long long rows_per_split, int n_splits,
                     int bucket_tile, int chunk_rows, float* partial, float* G,
                     void* stream_ptr) {
-  if (rows_per_split <= 0 || static_cast<long long>(n_splits) * rows_per_split < n ||
-      bucket_tile <= 0 || bucket_tile > MAX_BUCKETS || chunk_rows <= 0 ||
-      chunk_rows > MAX_ROWS || s <= 0 || static_cast<long long>(chunk_rows) * s > MAX_PAIRS) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int m_tiles = (m + bucket_tile - 1) / bucket_tile;
-  const int d_tiles = (d + BD - 1) / BD;
-  const int smem = bucket_tile * BD * static_cast<int>(sizeof(float));
-  cudaError_t err =
-      cudaFuncSetAttribute(sjlt_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sjlt_partial_kernel<<<dim3(m_tiles * d_tiles, n_splits, q), THREADS, smem, stream>>>(
-      X, n, d, keys, m, s, inv_sqrt_s, rows_per_split, bucket_tile, m_tiles, chunk_rows, partial);
-  err = cudaGetLastError();
+  const cudaError_t err = sjlt_pass(X, n, d, keys, q, m, s, inv_sqrt_s, rows_per_split, n_splits,
+                                    bucket_tile, chunk_rows, partial, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(repro::reduce_and_gram(partial, q, n_splits, m, d, G, stream));
+}
+
+// S_w X: the sketch pass of repro_sjlt_gram and its split reduction into out
+// (q, m, d) float32, no Gram. Arguments and returns as for repro_sjlt_gram.
+int repro_sjlt_apply(const float* X, long long n, int d, const uint32_t* keys, int q, int m,
+                     int s, float inv_sqrt_s, long long rows_per_split, int n_splits,
+                     int bucket_tile, int chunk_rows, float* partial, float* out,
+                     void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const cudaError_t err = sjlt_pass(X, n, d, keys, q, m, s, inv_sqrt_s, rows_per_split, n_splits,
+                                    bucket_tile, chunk_rows, partial, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(repro::reduce_splits(partial, q, n_splits, m, d, out,
+                                               static_cast<long long>(m) * d, stream));
 }
 
 }  // extern "C"

@@ -1,12 +1,19 @@
-// Fused sketch -> Gram for the dense sketch families, hand-written for Hopper.
+// Fused sketch -> Gram and S.A for the dense sketch families, hand-written for Hopper.
 //
 // Replaces the Pallas TPU kernels of the JAX reference package:
-//   kernels/gaussian/gram.py    gaussian_gram_tiles, gaussian_gram_tiles_multi
-//   kernels/rademacher/gram.py  rademacher_gram_tiles, rademacher_gram_tiles_multi
-//   kernels/fwht/gram.py        srht_gram_tiles, srht_gram_tiles_multi
-// For q keys (one per worker) and X = [A | b] of shape (n, d), it computes
-// G_w = (S_w X)^T (S_w X), with S_w[i, j] drawn in-core from the counter stream
-// (rng.cuh): neither S nor S X is ever written to device memory whole.
+//   kernels/gaussian/gram.py      gaussian_gram_tiles, gaussian_gram_tiles_multi
+//   kernels/rademacher/gram.py    rademacher_gram_tiles, rademacher_gram_tiles_multi
+//   kernels/fwht/gram.py          srht_gram_tiles, srht_gram_tiles_multi
+//   kernels/gaussian/kernel.py    gaussian_tiles    (entry repro_sketch_apply)
+//   kernels/rademacher/kernel.py  rademacher_tiles  (entry repro_sketch_apply)
+// For q keys (one per worker) and X = [A | b] of shape (n, d), repro_sketch_gram
+// computes G_w = (S_w X)^T (S_w X), with S_w[i, j] drawn in-core from the
+// counter stream (rng.cuh): neither S nor S X is ever written to device memory
+// whole. repro_sketch_apply (Gaussian, Rademacher) computes S_w X: the same
+// sketch pass and split reduction, written out, and no Gram pass. On the same
+// split plan its S_w X is bitwise the one the Gram pass contracts. What bounds
+// it is what bounds the sketch pass (below); the (m, d) output per worker adds
+// m * d * 4 bytes, 2.5 MB at m = 2,500, d = 251.
 // The SRHT's S is dense too, by the Sylvester closed form
 //   S[r, j] = (1/sqrt(m)) * (-1)^popcount(rows[r] & j) * D[j],
 // with rows[r] the worker's sampled Hadamard row ids (drawn on the host, passed
@@ -32,7 +39,13 @@
 //   at a time: it draws the (BM x BK) tile of S once into shared memory, loads
 //   the matching (BK x BD) tile of X (masked at the ragged edges, so nothing is
 //   padded in device memory) and accumulates BM x BD in fp32 registers, 8 x 8
-//   per thread, with FFMA. Each S entry is reused across all BD columns. For
+//   per thread, with FFMA. Every FLUSH_STEPS steps (256 data rows) a thread
+//   adds its 64 registers to its running sums in shared memory (64 KB a block)
+//   and restarts them: a two-level sum, chains of 256 products and then one add
+//   per 256 rows. One chain over a whole split (9,632 rows at FIG3A) left the
+//   largest S.X entry ~7e-6 of its column's rms off the exact sum; the two
+//   levels cut the rounding about 6x for one FADD per 256 FFMAs. Each S entry
+//   is reused across all BD columns. For
 //   Rademacher the 32-row step is one packed-sign word per sketch row. For the
 //   SRHT the block keeps its BM row ids in shared memory and draws the step's BK
 //   diagonal signs once into shared memory before the S tile. The block writes
@@ -64,6 +77,8 @@ constexpr int BK = 32;       // data rows per step: one packed sign word
 constexpr int TM = 8;        // sketch rows per thread
 constexpr int TD = 8;        // columns per thread, strided by 32
 constexpr int THREADS = 256; // (BM / TM) warps of 32 lanes; BD == THREADS
+constexpr int FLUSH_STEPS = 8;  // steps of BK rows per register chain (two-level sum)
+constexpr int RUN_SUM_BYTES = TM * TD * THREADS * static_cast<int>(sizeof(float));
 static_assert(BD == THREADS && (BM / TM) * 32 == THREADS && TD * 32 == BD, "block geometry");
 
 template <int FAMILY, int ROUNDS>
@@ -96,12 +111,17 @@ sketch_partial_kernel(const float* __restrict__ X, long long n, int d,
     }
   }
 
+  extern __shared__ float run_sum[];  // [TM * TD][THREADS]: each thread's running sums
   float acc[TM][TD];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int c = 0; c < TD; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < TD; ++c) {
+      acc[i][c] = 0.f;
+      run_sum[(i * TD + c) * THREADS + tid] = 0.f;
+    }
 
+  int steps = 0;
   for (long long j0 = j_begin; j0 < j_end; j0 += BK) {
     // X tile: thread tid loads column col0 + tid of BK rows (coalesced per row).
     const int col = col0 + tid;
@@ -173,6 +193,16 @@ sketch_partial_kernel(const float* __restrict__ X, long long n, int d,
         for (int c = 0; c < TD; ++c) acc[i][c] = fmaf(s[i], x[c], acc[i][c]);
     }
     __syncthreads();
+    if (++steps == FLUSH_STEPS) {
+      steps = 0;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int c = 0; c < TD; ++c) {
+          run_sum[(i * TD + c) * THREADS + tid] += acc[i][c];
+          acc[i][c] = 0.f;
+        }
+    }
   }
 
   float* out = partial + (static_cast<long long>(w) * gridDim.y + split) *
@@ -184,17 +214,53 @@ sketch_partial_kernel(const float* __restrict__ X, long long n, int d,
 #pragma unroll
     for (int c = 0; c < TD; ++c) {
       const int cc = col0 + lane + 32 * c;
-      if (cc < d) out[static_cast<long long>(row) * d + cc] = acc[i][c];
+      const float total = run_sum[(i * TD + c) * THREADS + tid] + acc[i][c];
+      if (cc < d) out[static_cast<long long>(row) * d + cc] = total;
     }
   }
 }
 
 template <int FAMILY, int ROUNDS>
-void launch_sketch(dim3 grid, cudaStream_t stream, const float* X, long long n, int d,
-                   const uint32_t* keys, const int* srht_rows, int m, float scale, int rounds,
-                   long long rows_per_split, int d_tiles, float* partial) {
-  sketch_partial_kernel<FAMILY, ROUNDS><<<grid, THREADS, 0, stream>>>(
+cudaError_t launch_sketch(dim3 grid, cudaStream_t stream, const float* X, long long n, int d,
+                          const uint32_t* keys, const int* srht_rows, int m, float scale, int rounds,
+                          long long rows_per_split, int d_tiles, float* partial) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      sketch_partial_kernel<FAMILY, ROUNDS>, cudaFuncAttributeMaxDynamicSharedMemorySize, RUN_SUM_BYTES);
+  if (err != cudaSuccess) return err;
+  sketch_partial_kernel<FAMILY, ROUNDS><<<grid, THREADS, RUN_SUM_BYTES, stream>>>(
       X, n, d, keys, srht_rows, m, scale, rounds, rows_per_split, d_tiles, partial);
+  return cudaGetLastError();
+}
+
+// The sketch pass of `family` into partial (q, n_splits, m, d); returns
+// cudaErrorInvalidValue for a split or family it cannot take, else the launch error.
+cudaError_t sketch_pass(int family, const float* X, long long n, int d, const uint32_t* keys,
+                        const int* srht_rows, int q, int m, float scale, int rounds,
+                        long long rows_per_split, int n_splits, float* partial,
+                        cudaStream_t stream) {
+  if (rows_per_split <= 0 || rows_per_split % BK != 0 ||
+      static_cast<long long>(n_splits) * rows_per_split < n ||
+      (family == kSRHT && srht_rows == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const int m_tiles = (m + BM - 1) / BM;
+  const int d_tiles = (d + BD - 1) / BD;
+  const dim3 grid(m_tiles * d_tiles, n_splits, q);
+  if (family == kGaussian) {
+    return rounds == 20 ? launch_sketch<kGaussian, 20>(grid, stream, X, n, d, keys, srht_rows, m, scale,
+                                                       rounds, rows_per_split, d_tiles, partial)
+                        : launch_sketch<kGaussian, 0>(grid, stream, X, n, d, keys, srht_rows, m, scale,
+                                                      rounds, rows_per_split, d_tiles, partial);
+  }
+  if (family == kRademacher) {
+    return launch_sketch<kRademacher, 20>(grid, stream, X, n, d, keys, srht_rows, m, scale, rounds,
+                                          rows_per_split, d_tiles, partial);
+  }
+  if (family == kSRHT) {
+    return launch_sketch<kSRHT, 20>(grid, stream, X, n, d, keys, srht_rows, m, scale, rounds,
+                                    rows_per_split, d_tiles, partial);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -216,35 +282,27 @@ int repro_sketch_gram(int family, const float* X, long long n, int d, const uint
                       const int* srht_rows, int q, int m, float scale, int rounds,
                       long long rows_per_split, int n_splits, float* partial, float* G,
                       void* stream_ptr) {
-  if (rows_per_split <= 0 || rows_per_split % BK != 0 ||
-      static_cast<long long>(n_splits) * rows_per_split < n ||
-      (family == kSRHT && srht_rows == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int m_tiles = (m + BM - 1) / BM;
-  const int d_tiles = (d + BD - 1) / BD;
-  const dim3 grid(m_tiles * d_tiles, n_splits, q);
-  if (family == kGaussian) {
-    if (rounds == 20) {
-      launch_sketch<kGaussian, 20>(grid, stream, X, n, d, keys, srht_rows, m, scale, rounds,
-                                   rows_per_split, d_tiles, partial);
-    } else {
-      launch_sketch<kGaussian, 0>(grid, stream, X, n, d, keys, srht_rows, m, scale, rounds,
-                                  rows_per_split, d_tiles, partial);
-    }
-  } else if (family == kRademacher) {
-    launch_sketch<kRademacher, 20>(grid, stream, X, n, d, keys, srht_rows, m, scale, rounds,
-                                   rows_per_split, d_tiles, partial);
-  } else if (family == kSRHT) {
-    launch_sketch<kSRHT, 20>(grid, stream, X, n, d, keys, srht_rows, m, scale, rounds,
-                             rows_per_split, d_tiles, partial);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = sketch_pass(family, X, n, d, keys, srht_rows, q, m, scale, rounds,
+                                      rows_per_split, n_splits, partial, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(repro::reduce_and_gram(partial, q, n_splits, m, d, G, stream));
+}
+
+// S_w X for family 0 (Gaussian) or 1 (Rademacher): the sketch pass of
+// repro_sketch_gram and its split reduction into out (q, m, d) float32, no Gram.
+// Arguments as for repro_sketch_gram. Returns cudaErrorInvalidValue for another
+// family or a split it cannot take, else the first CUDA error of the two launches.
+int repro_sketch_apply(int family, const float* X, long long n, int d, const uint32_t* keys,
+                       int q, int m, float scale, int rounds, long long rows_per_split,
+                       int n_splits, float* partial, float* out, void* stream_ptr) {
+  if (family != kGaussian && family != kRademacher) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const cudaError_t err = sketch_pass(family, X, n, d, keys, nullptr, q, m, scale, rounds,
+                                      rows_per_split, n_splits, partial, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(repro::reduce_splits(partial, q, n_splits, m, d, out,
+                                               static_cast<long long>(m) * d, stream));
 }
 
 }  // extern "C"

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` named in ``SOURCES`` is compiled by ``nvcc`` for
 ``sm_90a`` (Hopper) into a shared library with a plain C interface, at first use,
 into ``build/repro_torch_kernels/`` at the root of the checkout:
 
-* ``sketch_gram`` — the dense sketch→Gram families (Gaussian, Rademacher, SRHT);
-* ``sjlt_gram``   — the sparse SJLT sketch→Gram;
+* ``sketch_gram`` — the dense sketch→Gram families (Gaussian, Rademacher, SRHT)
+                    and the dense S·A (Gaussian, Rademacher);
+* ``sjlt_gram``   — the sparse SJLT sketch→Gram and S·A;
+* ``fwht``        — the fast Walsh-Hadamard transform;
 * ``rng_probe``   — the device counter RNG alone, for checking it bitwise.
 
 The ``csrc/*.cuh`` headers (the RNG, the split reduction and Gram pass) are
@@ -36,7 +38,7 @@ from repro_torch.utils import env as envcfg
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("sketch_gram", "sjlt_gram", "rng_probe")
+SOURCES = ("sketch_gram", "sjlt_gram", "fwht", "rng_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -62,6 +64,9 @@ MAX_GRID_Z = 65535  # workers per call: the grid's z extent
 # reduction, so the SJLT takes far fewer splits than the dense families.
 SJLT_BLOCK_COLS, SJLT_MAX_BUCKETS, SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS = 32, 1536, 128, 2048
 SJLT_TARGET_BLOCKS = 4 * 132
+# FWHT passes of csrc/fwht.cu: a block holds 2**FWHT_MAX_TILE_BITS rows of 32
+# columns (128 KB) in shared memory, so a pass runs at most that many stages.
+FWHT_MAX_TILE_BITS = 10
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -148,9 +153,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "sketch_gram":
         lib.repro_sketch_gram.argtypes = [I, P, LL, I, P, P, I, I, F, I, LL, I, P, P, P]
         lib.repro_sketch_gram.restype = I
+        lib.repro_sketch_apply.argtypes = [I, P, LL, I, P, I, I, F, I, LL, I, P, P, P]
+        lib.repro_sketch_apply.restype = I
     elif name == "sjlt_gram":
         lib.repro_sjlt_gram.argtypes = [P, LL, I, P, I, I, I, F, LL, I, I, I, P, P, P]
         lib.repro_sjlt_gram.restype = I
+        lib.repro_sjlt_apply.argtypes = [P, LL, I, P, I, I, I, F, LL, I, I, I, P, P, P]
+        lib.repro_sjlt_apply.restype = I
+    elif name == "fwht":
+        lib.repro_fwht.argtypes = [P, P, LL, I, ctypes.POINTER(I), I, P]
+        lib.repro_fwht.restype = I
     elif name == "rng_probe":
         lib.repro_rng_probe.argtypes = [U, U, P, P, I, I, P, P, P, P]
         lib.repro_rng_probe.restype = I
@@ -219,7 +231,7 @@ def worker_chunk(n: int, m: int, d: int, q: int, *, family: str = "gaussian", s:
     return max(1, min(q, MAX_GRID_Z, SCRATCH_BYTES // (4 * n_splits * m * d)))
 
 
-def _check_gram_args(what: str, X: torch.Tensor, keys: torch.Tensor, m: int) -> tuple[int, int, int]:
+def _check_sketch_args(what: str, X: torch.Tensor, keys: torch.Tensor, m: int) -> tuple[int, int, int]:
     if X.device.type != "cuda":
         raise ValueError(f"{what} launches a CUDA kernel; X is on {X.device}")
     if X.dtype != torch.float32 or X.ndim != 2 or not X.is_contiguous():
@@ -244,7 +256,7 @@ def sketch_gram(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rou
     ``srht_rows`` the (q, m) sampled Hadamard row ids. Adds one to
     ``launches[name]`` for each call into the C entry (one per chunk of workers,
     see :func:`worker_chunk`) that the card accepted."""
-    n, d, q = _check_gram_args("sketch_gram", X, keys, m)
+    n, d, q = _check_sketch_args("sketch_gram", X, keys, m)
     if rounds <= 0 or rounds % 4:
         raise ValueError(f"threefry rounds must be a positive multiple of 4, got {rounds}")
     if (family == "srht") != (srht_rows is not None):
@@ -279,7 +291,7 @@ def sjlt_gram(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
     """(q, d, d) SJLT Grams ``(S_w X)ᵀ(S_w X)`` of the CUDA tensor X for q key rows,
     s nonzeros per data row. Adds one to ``launches[name]`` per call into the C
     entry (one per chunk of workers, see :func:`worker_chunk`)."""
-    n, d, q = _check_gram_args("sjlt_gram", X, keys, m)
+    n, d, q = _check_sketch_args("sjlt_gram", X, keys, m)
     plan = plan_sjlt(n, m, d, s)
     lib = _library("sjlt_gram")
     chunk = worker_chunk(n, m, d, q, family="sjlt", s=s)
@@ -298,6 +310,104 @@ def sjlt_gram(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
             _check(lib, code, "sjlt_gram launch")
             launches[name] += 1
     return G
+
+
+def sketch_apply(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rounds: int,
+                 launches: collections.Counter, name: str) -> torch.Tensor:
+    """(q, m, d) sketches ``S_w X`` of the CUDA tensor X for q key rows of the
+    Gaussian or Rademacher family: the Gram kernel's sketch pass and split
+    reduction on the same plan (:func:`plan_splits`), so slice w is bitwise the
+    S_w X that ``sketch_gram`` forms G_w from, and bitwise a q = 1 call. Adds one
+    to ``launches[name]`` per call into the C entry (one per chunk of workers)."""
+    n, d, q = _check_sketch_args("sketch_apply", X, keys, m)
+    if family not in ("gaussian", "rademacher"):
+        raise ValueError(f"the dense S·A kernel takes the gaussian and rademacher families, got {family!r}")
+    if rounds <= 0 or rounds % 4:
+        raise ValueError(f"threefry rounds must be a positive multiple of 4, got {rounds}")
+    lib = _library("sketch_gram")
+    n_splits, rows = plan_splits(n, m, d)
+    chunk = worker_chunk(n, m, d, q)
+    kw = _u32_words(keys, X.device)
+    out = torch.empty((q, m, d), dtype=torch.float32, device=X.device)
+    partial = torch.empty((chunk, n_splits * m * d), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        for w0 in range(0, q, chunk):
+            qc = min(chunk, q - w0)
+            code = lib.repro_sketch_apply(
+                FAMILIES[family], X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m,
+                common.inv_sqrt(m), rounds, rows, n_splits, partial.data_ptr(), out[w0].data_ptr(),
+                stream,
+            )
+            _check(lib, code, f"{family} sketch_apply launch")
+            launches[name] += 1
+    return out
+
+
+def sjlt_apply(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
+               launches: collections.Counter, name: str) -> torch.Tensor:
+    """(q, m, d) SJLT sketches ``S_w X`` of the CUDA tensor X for q key rows, s
+    nonzeros per data row: the SJLT Gram kernel's sketch pass and split reduction
+    on its plan (:func:`plan_sjlt`). Adds one to ``launches[name]`` per call into
+    the C entry (one per chunk of workers)."""
+    n, d, q = _check_sketch_args("sjlt_apply", X, keys, m)
+    plan = plan_sjlt(n, m, d, s)
+    lib = _library("sjlt_gram")
+    chunk = worker_chunk(n, m, d, q, family="sjlt", s=s)
+    kw = _u32_words(keys, X.device)
+    out = torch.empty((q, m, d), dtype=torch.float32, device=X.device)
+    partial = torch.empty((chunk, plan.n_splits * m * d), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        for w0 in range(0, q, chunk):
+            qc = min(chunk, q - w0)
+            code = lib.repro_sjlt_apply(
+                X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m, s, common.inv_sqrt(s),
+                plan.rows_per_split, plan.n_splits, plan.bucket_tile, plan.chunk_rows,
+                partial.data_ptr(), out[w0].data_ptr(), stream,
+            )
+            _check(lib, code, "sjlt_apply launch")
+            launches[name] += 1
+    return out
+
+
+def plan_fwht(n: int) -> tuple[int, ...]:
+    """Stages per pass of the FWHT of length n (a power of two): log2(n) stages
+    cut into the fewest passes of at most FWHT_MAX_TILE_BITS, as even as they
+    go, larger first (one pass of 0 stages, a copy, for n = 1). Pass p runs the
+    stages h = 2**lo .. 2**(lo + t_p − 1), lo the stages before it, in order."""
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"FWHT needs a power-of-two length, got {n}")
+    log_n = n.bit_length() - 1
+    passes = max(1, -(-log_n // FWHT_MAX_TILE_BITS))
+    base, extra = divmod(log_n, passes)
+    return tuple(base + (p < extra) for p in range(passes))
+
+
+def fwht(x: torch.Tensor, *, launches: collections.Counter, name: str) -> torch.Tensor:
+    """H·x for the CUDA tensor x (n, k) float32, contiguous, n a power of two, in
+    the passes of :func:`plan_fwht` (the first reads x, the rest work in place
+    on the result). Adds one to ``launches[name]`` per call into the C entry."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fwht launches a CUDA kernel; x is on {x.device}")
+    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(
+            f"x must be a contiguous 2-D float32 tensor, got {x.dtype} {tuple(x.shape)} "
+            f"contiguous={x.is_contiguous()}"
+        )
+    n, k = x.shape
+    if not (0 < k < 2**31 and n * k < 2**62):
+        raise ValueError(f"unsupported shape n={n} k={k}")
+    plan = plan_fwht(n)
+    lib = _library("fwht")
+    bits = (ctypes.c_int * len(plan))(*plan)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        code = lib.repro_fwht(x.data_ptr(), y.data_ptr(), n, k, bits, len(plan),
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    _check(lib, code, "fwht launch")
+    launches[name] += 1
+    return y
 
 
 def rng_probe(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor, *, rounds: int):

@@ -1,4 +1,10 @@
-"""SRHT sketch→Gram wrappers: the CUDA kernel on the card, the plain version on the CPU.
+"""FWHT and SRHT sketch→Gram wrappers: the CUDA kernels on the card, the plain
+versions on the CPU.
+
+``fwht(x)`` is the unnormalised Walsh-Hadamard transform H·x along axis 0 of x
+(n, k), n a power of two: the plain ``sketches._fwht`` on a CPU tensor, the
+butterfly kernel (``kernel.py``, ``csrc/fwht.cu``) on a CUDA tensor, bitwise
+equal to each other.
 
 ``srht_gram(key_words, rows, A)`` and ``srht_gram_multi(key_words, rows, A)``
 return G = (SA)ᵀ(SA) for the SRHT S = (1/√m)·P·H·D with sampled Hadamard rows
@@ -8,10 +14,9 @@ call the plain version (``ref.py``); on a CUDA tensor they launch the kernel
 (``gram.py``, ``csrc/sketch_gram.cu``) or raise. Slice w of the multi form is
 bitwise equal to the single form on ``key_words[w]``, ``rows[w]``.
 
-``LAUNCHES[name]`` counts the calls into the kernel's C entry (each a sketch
-pass, a split reduction and a Gram pass) that wrapper ``name`` made: one per
-single-key call, one per chunk of workers (``cuda.worker_chunk``) for the
-multi form.
+``LAUNCHES[name]`` counts the calls into the kernels' C entries that wrapper
+``name`` made: one per ``fwht`` call (all its passes) and single-key Gram, one
+per chunk of workers (``cuda.worker_chunk``) for the multi Gram.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import collections
 
 import torch
 
-from repro_torch.kernels.fwht import gram, ref
+from repro_torch.kernels.fwht import gram, kernel, ref
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -38,3 +43,10 @@ def srht_gram_multi(key_words: torch.Tensor, rows: torch.Tensor, A: torch.Tensor
     if A.device.type == "cpu":
         return ref.srht_gram_multi(key_words, rows, A)
     return gram.srht_gram_tiles(key_words, rows, A, launches=LAUNCHES, name="srht_gram_multi")
+
+
+def fwht(x: torch.Tensor) -> torch.Tensor:
+    """H·x (n, k) float32, H the unnormalised ±1 Hadamard matrix of order n."""
+    if x.device.type == "cpu":
+        return ref.fwht(x)
+    return kernel.fwht_tiles(x, launches=LAUNCHES, name="fwht")

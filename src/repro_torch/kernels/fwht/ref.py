@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the SRHT sketch→Gram kernels.
+"""Plain PyTorch versions of the FWHT and the SRHT sketch→Gram kernels.
 
-They materialize S tiles from the Sylvester closed form
+The FWHT's is ``sketches._fwht`` (radix-2 butterflies in the order h = 1, 2,
+4, ...), re-exported here as :func:`fwht`. The SRHT Gram's materialize S tiles from the Sylvester closed form
 ``S[r, j] = (1/√m)·(−1)^popcount(rows[r] & j)·D[j]`` (``rows`` the sampled
 Hadamard row ids, D the Rademacher diagonal from ``counter_rademacher(kd, j, 0)``,
 j the global data row) in blocks of data rows, and contract them with plain
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.sketches import _fwht as fwht  # noqa: F401  (the FWHT kernel's plain version)
 from repro_torch.kernels import common
 
 PLAIN_BLOCK_ROWS = 8192

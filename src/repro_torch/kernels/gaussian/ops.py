@@ -1,16 +1,18 @@
-"""Gaussian sketch→Gram wrappers: the CUDA kernel on the card, the plain version on the CPU.
+"""Gaussian S·A and sketch→Gram wrappers: the CUDA kernels on the card, the plain
+versions on the CPU.
 
-``gaussian_gram(key, A, m)`` and ``gaussian_gram_multi(keys, A, m)`` return
-G = (SA)ᵀ(SA) for S ~ N(0, 1/m) drawn from the counter stream. On a CPU tensor
-they call the plain version (``ref.py``); on a CUDA tensor they launch the kernel
-(``gram.py``, ``csrc/sketch_gram.cu``) or raise. The single-key wrapper launches the same
-code with q = 1, so slice w of ``gaussian_gram_multi`` is bitwise equal to
-``gaussian_gram(keys[w], ...)``.
+For S ~ N(0, 1/m) drawn from the counter stream, ``gaussian_sketch(key, A, m)``
+and ``gaussian_sketch_multi(keys, A, m)`` return S·A, and ``gaussian_gram(key, A,
+m)`` and ``gaussian_gram_multi(keys, A, m)`` return G = (SA)ᵀ(SA). On a CPU
+tensor they call the plain versions (``ref.py``); on a CUDA tensor they launch
+the kernels (``kernel.py`` and ``gram.py``, ``csrc/sketch_gram.cu``) or raise.
+The single-key wrappers launch the same code with q = 1, so slice w of a multi
+form is bitwise equal to the single form on ``keys[w]``.
 
-``LAUNCHES[name]`` counts the calls into the kernel's C entry (each a sketch
-pass, a split reduction and a Gram pass) that wrapper ``name`` made: one per
-single-key call, one per chunk of workers (``cuda.worker_chunk``) for the
-multi form.
+``LAUNCHES[name]`` counts the calls into the kernels' C entries (each a sketch
+pass and a split reduction, and for a Gram a Gram pass) that wrapper ``name``
+made: one per single-key call, one per chunk of workers (``cuda.worker_chunk``)
+for a multi form.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import collections
 
 import torch
 
-from repro_torch.kernels.gaussian import gram, ref
+from repro_torch.kernels.gaussian import gram, kernel, ref
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -36,3 +38,18 @@ def gaussian_gram_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Te
     if A.device.type == "cpu":
         return ref.gaussian_gram_multi(keys, A, m)
     return gram.gaussian_gram_tiles(keys, A, m, launches=LAUNCHES, name="gaussian_gram_multi")
+
+
+def gaussian_sketch(key: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:
+    """S·A ∈ R^{m×d} in float32, S drawn in-core."""
+    if A.device.type == "cpu":
+        return ref.sketch(key, A, m)
+    return kernel.gaussian_tiles(key.reshape(1, 2), A, m, launches=LAUNCHES, name="gaussian_sketch")[0]
+
+
+def gaussian_sketch_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:
+    """All q workers' S_w·A (q, m, d), launched together in chunks of
+    ``cuda.worker_chunk`` workers."""
+    if A.device.type == "cpu":
+        return ref.sketch_multi(keys, A, m)
+    return kernel.gaussian_tiles(keys, A, m, launches=LAUNCHES, name="gaussian_sketch_multi")

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the Gaussian sketch→Gram kernels.
+"""Plain PyTorch versions of the Gaussian S·A and sketch→Gram kernels.
 
 They materialize the same counter-derived S the kernels generate tile by tile
 (threefry2x32 + Box-Muller, element (i, j) keyed by counters (i, j)), in blocks
@@ -39,3 +39,13 @@ def gaussian_gram(
 def gaussian_gram_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:
     """(q, d, d): slice w is :func:`gaussian_gram` on ``keys[w]``."""
     return torch.stack([gaussian_gram(k, A, m) for k in keys])
+
+
+def sketch(key: torch.Tensor, A: torch.Tensor, m: int, *, block_rows: int = PLAIN_BLOCK_ROWS) -> torch.Tensor:
+    """S·A ∈ R^{m×d}, float32, with S drawn in blocks of ``block_rows`` columns."""
+    return common.plain_sketch(columns, key, A, m, block_rows)
+
+
+def sketch_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:
+    """(q, m, d): slice w is :func:`sketch` on ``keys[w]``."""
+    return torch.stack([sketch(k, A, m) for k in keys])

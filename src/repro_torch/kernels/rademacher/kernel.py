@@ -1,0 +1,24 @@
+"""Launch of the Rademacher S·A CUDA kernel (``csrc/sketch_gram.cu``, entry
+``repro_sketch_apply``).
+
+Counterpart of the reference's ``kernels/rademacher/kernel.py``
+``rademacher_tiles``: the Rademacher sketch pass (packed-sign S tiles, always 20
+threefry rounds) and its split reduction, without the Gram pass.
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from repro_torch.kernels import common
+
+
+def rademacher_tiles(keys: torch.Tensor, X: torch.Tensor, m: int, *,
+                     launches: collections.Counter, name: str) -> torch.Tensor:
+    """(q, m, d) sketches S_w X of the CUDA tensor X (n, d) float32 for (q, 2) key
+    words; ``launches[name]`` gains one per call into the kernel's C entry."""
+    from repro_torch.kernels import cuda
+
+    return cuda.sketch_apply("rademacher", keys, X, m, rounds=common.DEFAULT_ROUNDS,
+                             launches=launches, name=name)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the Rademacher sketch→Gram kernels.
+"""Plain PyTorch versions of the Rademacher S·A and sketch→Gram kernels.
 
 They materialize the same packed-contract S the kernels generate (sign(i, j) is
 bit ``j % 32`` of ``threefry(key, i, j // 32)[0]``, scaled by 1/√m) in blocks of
@@ -35,3 +35,13 @@ def rademacher_gram(
 def rademacher_gram_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:
     """(q, d, d): slice w is :func:`rademacher_gram` on ``keys[w]``."""
     return torch.stack([rademacher_gram(k, A, m) for k in keys])
+
+
+def sketch(key: torch.Tensor, A: torch.Tensor, m: int, *, block_rows: int = PLAIN_BLOCK_ROWS) -> torch.Tensor:
+    """S·A ∈ R^{m×d}, float32, with S drawn in blocks of ``block_rows`` columns."""
+    return common.plain_sketch(columns, key, A, m, block_rows)
+
+
+def sketch_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:
+    """(q, m, d): slice w is :func:`sketch` on ``keys[w]``."""
+    return torch.stack([sketch(k, A, m) for k in keys])

@@ -1,16 +1,17 @@
-"""SJLT sketch→Gram wrappers: the CUDA kernel on the card, the plain version on the CPU.
+"""SJLT S·A and sketch→Gram wrappers: the CUDA kernels on the card, the plain
+versions on the CPU.
 
-``sjlt_gram(key, A, m, s)`` and ``sjlt_gram_multi(keys, A, m, s)`` return
-G = (SA)ᵀ(SA) for the sparse JL sketch with s nonzeros ±1/√s per data row, its
-parameters a pure function of (key, row) (``sjlt_params``). On a CPU tensor they
-call the plain version (``ref.py``); on a CUDA tensor they launch the kernel
-(``gram.py``, ``csrc/sjlt_gram.cu``) or raise. Slice w of the multi form is
-bitwise equal to the single form on ``keys[w]``.
+For the sparse JL sketch with s nonzeros ±1/√s per data row, its parameters a
+pure function of (key, row) (``sjlt_params``), ``sjlt_apply(key, A, m, s)`` and
+``sjlt_apply_multi(keys, A, m, s)`` return S·A, and ``sjlt_gram`` and
+``sjlt_gram_multi`` return G = (SA)ᵀ(SA). On a CPU tensor they call the plain
+versions (``ref.py``, segment sums); on a CUDA tensor they launch the kernels
+(``kernel.py`` and ``gram.py``, ``csrc/sjlt_gram.cu``) or raise. Slice w of a
+multi form is bitwise equal to the single form on ``keys[w]``.
 
-``LAUNCHES[name]`` counts the calls into the kernel's C entry (each a sketch
-pass, a split reduction and a Gram pass) that wrapper ``name`` made: one per
-single-key call, one per chunk of workers (``cuda.worker_chunk``) for the
-multi form.
+``LAUNCHES[name]`` counts the calls into the kernels' C entries that wrapper
+``name`` made: one per single-key call, one per chunk of workers
+(``cuda.worker_chunk``) for a multi form.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import collections
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.sjlt import gram, ref
+from repro_torch.kernels.sjlt import gram, kernel, ref
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -45,3 +46,18 @@ def sjlt_gram_multi(keys: torch.Tensor, A: torch.Tensor, m: int, s: int) -> torc
     if A.device.type == "cpu":
         return ref.sjlt_gram_multi(keys, A, m, s)
     return gram.sjlt_gram_tiles(keys, A, m, s, launches=LAUNCHES, name="sjlt_gram_multi")
+
+
+def sjlt_apply(key: torch.Tensor, A: torch.Tensor, m: int, s: int) -> torch.Tensor:
+    """S·A ∈ R^{m×d} in float32, the parameters drawn in-core."""
+    if A.device.type == "cpu":
+        return ref.sketch(key, A, m, s)
+    return kernel.sjlt_tiles(key.reshape(1, 2), A, m, s, launches=LAUNCHES, name="sjlt_apply")[0]
+
+
+def sjlt_apply_multi(keys: torch.Tensor, A: torch.Tensor, m: int, s: int) -> torch.Tensor:
+    """All q workers' S_w·A (q, m, d), launched together in chunks of
+    ``cuda.worker_chunk`` workers."""
+    if A.device.type == "cpu":
+        return ref.sketch_multi(keys, A, m, s)
+    return kernel.sjlt_tiles(keys, A, m, s, launches=LAUNCHES, name="sjlt_apply_multi")

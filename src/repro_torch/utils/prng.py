@@ -12,17 +12,25 @@ so ``worker_key(base, w, r) = fold_in(fold_in(base, r), w)`` reproduces the
 reference's worker keys bit for bit (workers are stateless i.i.d. copies: any
 worker can be re-run and redraws the same sketch).
 
-``split``, ``random_bits`` and ``randint`` follow jax's threefry in its
-partitionable mode (``jax_threefry_partitionable``, the default of the jax the
-reference runs on): element e of a draw of shape ``shape`` is
-``threefry2x32(key, hi(e), lo(e))``, the counter being its flat index e split
-into 32-bit halves.
-Every function takes one key (2,) or a batch of keys (..., 2), so the q workers'
-draws are one call.
+``split``, ``random_bits``, ``randint``, ``uniform``, ``gumbel``,
+``gumbel_top_k`` and ``categorical`` follow jax's threefry in its partitionable
+mode (``jax_threefry_partitionable``, the default of the jax the reference runs
+on): element e of a draw of shape ``shape`` is ``threefry2x32(key, hi(e),
+lo(e))``, the counter being its flat index e split into 32-bit halves. The
+integer draws take one key (2,) or a batch of keys (..., 2), so the q workers'
+draws are one call. A draw runs on ``device`` (default the CPU): the key words
+are copied there, and every operation is exact, so the words are the same on
+every device.
+
+The float draws (``uniform``, ``gumbel``, ``categorical``) are bitwise those of
+jax on the CPU, the platform the reference's tests run on: ``xla_log`` repeats
+XLA's CPU float32 logarithm operation for operation, since ``torch.log`` differs
+from it by an ulp on about one input in seven.
 """
 from __future__ import annotations
 
 import math
+import struct
 
 import numpy as np
 import torch
@@ -52,24 +60,23 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([x0, x1], dim=-1)
 
 
-def _flat_index(nbatch: int, shape: tuple) -> torch.Tensor:
-    """The flat index of each element of a draw of ``shape``, after ``nbatch`` key
-    batch axes: the low counter word (the high word is 0 below 2**32 elements)."""
-    size = math.prod(shape)
-    if size >= 2**32:
-        raise ValueError(f"draws of 2**32 or more values are not supported, got shape {shape}")
-    return torch.arange(size, dtype=torch.int64).reshape((1,) * nbatch + tuple(shape))
-
-
-def _draw(key: torch.Tensor, shape: tuple):
+def _draw(key: torch.Tensor, shape: tuple, *, offset: int = 0, device=None):
     """Both threefry words at each flat index of a draw of ``shape`` under each key of
-    a (..., 2) batch: two int64 tensors of shape (..., *shape)."""
+    a (..., 2) batch: two int64 tensors of shape (..., *shape) on ``device``.
+    ``offset`` shifts the flat indices, so a draw can be made in pieces: the
+    elements ``offset .. offset + prod(shape)`` of a larger draw."""
     k = torch.as_tensor(key, dtype=torch.int64)
     if k.shape[-1:] != (2,):
         raise ValueError(f"a key is a (..., 2) tensor of words, got shape {tuple(k.shape)}")
+    size = math.prod(shape)
+    if offset + size > 2**64:
+        raise ValueError(f"draws of more than 2**64 values are not supported, got shape {shape}")
     batch, tail = tuple(k.shape[:-1]), (1,) * len(shape)
-    k0, k1 = k[..., 0].reshape(batch + tail), k[..., 1].reshape(batch + tail)
-    return threefry2x32(k0, k1, 0, _flat_index(len(batch), shape), rounds=DEFAULT_ROUNDS)
+    k0 = k[..., 0].reshape(batch + tail).to(device)
+    k1 = k[..., 1].reshape(batch + tail).to(device)
+    flat = torch.arange(offset, offset + size, dtype=torch.int64, device=device)
+    flat = flat.reshape((1,) * len(batch) + tuple(shape))
+    return threefry2x32(k0, k1, flat >> 32, flat & MASK32, rounds=DEFAULT_ROUNDS)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
@@ -78,10 +85,10 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack(_draw(key, (num,)), dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape: tuple, *, offset: int = 0, device=None) -> torch.Tensor:
     """32-bit ``jax.random.bits``: (..., 2) keys -> (..., *shape) words (int64 holding
     uint32 values), the xor of the two threefry words at each flat index."""
-    x0, x1 = _draw(key, tuple(shape))
+    x0, x1 = _draw(key, tuple(shape), offset=offset, device=device)
     return x0 ^ x1
 
 
@@ -91,7 +98,7 @@ def _mul32(a: torch.Tensor, b) -> torch.Tensor:
     return ((a & 0xFFFF) * b + ((((a >> 16) * b) & 0xFFFF) << 16)) & MASK32
 
 
-def randint(key: torch.Tensor, shape: tuple, minval: int, maxval: int) -> torch.Tensor:
+def randint(key: torch.Tensor, shape: tuple, minval: int, maxval: int, *, device=None) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` for int32: (..., 2) keys ->
     (..., *shape) int64 values in [minval, maxval) (``minval`` when maxval <= minval).
 
@@ -105,14 +112,120 @@ def randint(key: torch.Tensor, shape: tuple, minval: int, maxval: int) -> torch.
     if not (lo_i32 <= minval <= hi_i32 and lo_i32 <= maxval <= hi_i32):
         raise ValueError(f"randint draws int32 values; got bounds [{minval}, {maxval})")
     halves = split(key)
-    higher = random_bits(halves[..., 0, :], shape)
-    lower = random_bits(halves[..., 1, :], shape)
+    higher = random_bits(halves[..., 0, :], shape, device=device)
+    lower = random_bits(halves[..., 1, :], shape, device=device)
     span = (maxval - minval) & MASK32 if maxval > minval else 1
     multiplier = (2**16) % span
     multiplier = ((multiplier * multiplier) & MASK32) % span
     offset = (_mul32(higher % span, multiplier) + lower % span) & MASK32
     value = (minval + offset % span) & MASK32
     return torch.where(value >= 2**31, value - 2**32, value)
+
+
+# ------------------------------------------------------------------- float draws
+
+def _f32_const(ieee64_hex: str) -> float:
+    """A float32 constant written, as LLVM IR writes it, as the hex of its double."""
+    return float(np.float32(struct.unpack(">d", bytes.fromhex(ieee64_hex))[0]))
+
+
+# XLA's CPU float32 log: the Cephes polynomial of degree 8 on the mantissa, and
+# its constants, as XLA's CPU backend emits them.
+_LOG_P = tuple(_f32_const(h) for h in (
+    "3FB2043760000000", "BFBD7A3700000000", "3FBDE4A340000000", "BFBFCBA9E0000000",
+    "3FC23D37E0000000", "BFC555CA00000000", "3FC999D580000000", "BFCFFFFF80000000",
+    "3FD5555540000000"))
+_LOG_SQRTHF = _f32_const("3FE6A09E60000000")
+_LOG_Q1 = _f32_const("BF2BD01060000000")
+_LOG_Q2 = _f32_const("3FE6300000000000")
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a·b + c`` rounded once, as the CPU's fused multiply-add: the
+    float64 product of two float32 values is exact."""
+    f64 = lambda v: v.double() if isinstance(v, torch.Tensor) else v
+    return (f64(a) * f64(b) + f64(c)).float()
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of positive finite float32 values, bitwise as XLA on the CPU
+    computes ``jnp.log``: split x into exponent e and a mantissa in
+    [sqrt(1/2), sqrt(2)), evaluate the Cephes polynomial with each multiply-add
+    fused (LLVM contracts them on the CPU), then add e·ln 2 in two parts. Only
+    the products of the polynomial and of the e·q1 term round differently
+    fused; e·q2 and z/2 are exact either way. Values at or below the smallest
+    normal float are taken as it, as XLA does; zero, negative, infinite and NaN
+    inputs are not handled."""
+    x = torch.clamp_min(x.to(torch.float32), _F32_TINY)
+    bits = x.view(torch.int32)
+    e = 1.0 + ((bits >> 23) - 127).to(torch.float32)
+    mant = ((bits & -2139095041) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    low = mant < _LOG_SQRTHF
+    xm = (mant - 1.0) + torch.where(low, mant, torch.zeros_like(mant))
+    e = e - low.to(torch.float32)
+    z = xm * xm
+    x3 = z * xm
+    p = _LOG_P
+    y0, y1, y2 = _fma(xm, p[0], p[1]), _fma(xm, p[3], p[4]), _fma(xm, p[6], p[7])
+    y0, y1, y2 = _fma(y0, xm, p[2]), _fma(y1, xm, p[5]), _fma(y2, xm, p[8])
+    y = _fma(_fma(y0, x3, y1), x3, y2)
+    y = _fma(y, x3, _LOG_Q1 * e)
+    return ((xm - 0.5 * z) + y) + _LOG_Q2 * e
+
+
+def uniform(key: torch.Tensor, shape: tuple, minval: float = 0.0, maxval: float = 1.0, *,
+            offset: int = 0, device=None) -> torch.Tensor:
+    """float32 ``jax.random.uniform(key, shape, minval=minval, maxval=maxval)`` for one
+    (2,) key: the top 23 bits of each word as the mantissa of a float in [1, 2),
+    minus 1, then ``max(minval, f·(maxval − minval) + minval)`` with the
+    multiply-add fused, as XLA's CPU backend computes it."""
+    bits = random_bits(key, tuple(shape), offset=offset, device=device)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return torch.clamp_min(_fma(f, float(hi - lo), float(lo)), float(lo))
+
+
+def gumbel(key: torch.Tensor, shape: tuple, *, offset: int = 0, device=None) -> torch.Tensor:
+    """float32 ``jax.random.gumbel(key, shape)`` in jax's default ``mode="low"``:
+    ``-log(-log(u))`` with u uniform in [tiny, 1)."""
+    u = uniform(key, shape, _F32_TINY, 1.0, offset=offset, device=device)
+    return -xla_log(-xla_log(u))
+
+
+def gumbel_top_k(key: torch.Tensor, n: int, k: int, *, device=None) -> torch.Tensor:
+    """``jax.lax.top_k(jax.random.gumbel(key, (n,)), k)[1]``: k of n indices without
+    replacement, largest gumbel first, the lower index first among equal values.
+
+    The gumbel value is a strictly increasing function of the 23 mantissa bits of
+    its uniform, so a stable descending sort of those bits gives jax's order
+    without computing a logarithm (the tests check the monotony over all 2**23
+    values). Equal bits (at n = 500,000 about 15,000 pairs) keep index order."""
+    if not 0 <= k <= n:
+        raise ValueError(f"cannot take {k} of {n} indices without replacement")
+    mant = random_bits(key, (n,), device=device) >> 9
+    return torch.sort(mant, descending=True, stable=True).indices[:k]
+
+
+# Elements of gumbel noise one piece of a categorical draw holds: (m, n) is cut
+# into pieces of whole rows, each drawn at its flat offset.
+CATEGORICAL_PIECE = 1 << 24
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, m: int) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, shape=(m,))`` for float32 logits (n,):
+    m draws with replacement, ``argmax(gumbel(key, (m, n)) + logits, axis=1)``.
+    The (m, n) noise is drawn in pieces of whole rows (at most
+    ``CATEGORICAL_PIECE`` values; counters are the flat index r·n + j, so the
+    pieces are exact) on the logits' device. Returns (m,) int64 indices."""
+    n = logits.shape[0]
+    rows = max(1, CATEGORICAL_PIECE // n)
+    out = torch.empty(m, dtype=torch.int64, device=logits.device)
+    for r0 in range(0, m, rows):
+        r = min(rows, m - r0)
+        g = gumbel(key, (r, n), offset=r0 * n, device=logits.device)
+        out[r0 : r0 + r] = torch.argmax(g + logits, dim=1)
+    return out
 
 
 def worker_key(base_key: torch.Tensor, worker_id: int, round_id: int = 0) -> torch.Tensor:

@@ -4,9 +4,11 @@ Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when no CUD
 device is present (the CPU tests cover the plain versions). On a machine with a
 card run them with ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py``.
 
-Kernel against plain version, per entry: max |ΔG_ij| / sqrt(G_ii·G_jj) ≤ 1e-5 over
-the plain G (float32 sums of ≤ 4096 terms in two orders). Slices of a multi-key
-launch are bitwise equal to single-key launches.
+Gram kernel against plain version, per entry: max |ΔG_ij| / sqrt(G_ii·G_jj) ≤ 1e-5
+over the plain G (float32 sums of ≤ 4096 terms in two orders). S·A kernel against
+plain version, per column: max_i |ΔSX_ij| / rms_i(SX_ij) ≤ 1e-5. The FWHT kernel
+is bitwise its plain version. Slices of a multi-key launch are bitwise equal to
+single-key launches.
 """
 import numpy as np
 import pytest
@@ -174,3 +176,148 @@ def test_algorithm1_on_the_card_matches_the_cpu(cuda, kind):
         want = entry(spec, key, A, b, q=4, straggler_mask=mask, device="cpu")
         assert got.device.type == "cuda"
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------------ S·A and FWHT kernels
+
+def _sx_err(SX, want) -> float:
+    """max over columns of max_i |ΔSX_ij| / rms_i(SX_ij), over a stack of sketches."""
+    SX, want = SX.double().reshape(-1, *SX.shape[-2:]), want.double().reshape(-1, *want.shape[-2:])
+    rms = want.pow(2).mean(dim=-2, keepdim=True).sqrt().clamp_min(1e-30)
+    return float(((SX - want).abs() / rms).max())
+
+
+# family -> (single apply, multi apply, plain multi, LAUNCHES, multi's counter name)
+APPLIES = {
+    "gaussian": (gops.gaussian_sketch, gops.gaussian_sketch_multi, gref.sketch_multi,
+                 gops.LAUNCHES, "gaussian_sketch_multi"),
+    "rademacher": (rops.rademacher_sketch, rops.rademacher_sketch_multi, rref.sketch_multi,
+                   rops.LAUNCHES, "rademacher_sketch_multi"),
+    "sjlt": (_sjlt(sops.sjlt_apply), _sjlt(sops.sjlt_apply_multi), _sjlt(sref.sketch_multi),
+             sops.LAUNCHES, "sjlt_apply_multi"),
+}
+
+
+@pytest.mark.parametrize("family", list(APPLIES))
+@pytest.mark.parametrize("n,d,m", [(1001, 7, 40), (3000, 251, 130), (2999, 300, 64), (33, 1, 1),
+                                   (50, 5, 200), (25_000, 251, 2500)])
+def test_apply_kernel_matches_plain_and_single_launches(cuda, family, n, d, m):
+    """Ragged n, d′ = 1, 251 and 300 (two dense column tiles), m = 1 and m > n;
+    per column max |ΔSX_ij| / rms_i(SX_ij) ≤ 1e-5; q-key slices bitwise single calls."""
+    single, multi, plain, *_ = APPLIES[family]
+    X = _x(n, d, n + 3 * d, cuda)
+    keys = prng.worker_keys(prng.prng_key(n + m), 3)
+    SX = multi(keys, X, m)
+    assert SX.shape == (3, m, d)
+    assert _sx_err(SX, plain(keys, X, m)) <= REL_TOL
+    for w in range(3):
+        assert torch.equal(SX[w], single(keys[w], X, m))
+    assert torch.equal(multi(keys, X, m), SX)
+
+
+@pytest.mark.parametrize("family", ["gaussian", "rademacher", "sjlt"])
+def test_apply_is_bitwise_the_sketch_the_gram_kernel_contracts(cuda, family):
+    """The fused Gram kernel's G is bitwise the Gram pass's fmaf chain (over m,
+    ascending, from 0) on the S·A kernel's S·X: the two share the sketch pass,
+    the plan and the split reduction. fmaf is taken as one rounding of the exact
+    float64 product-sum (a double rounding could differ in about 1 of 2**29 steps)."""
+    single_gram = FAMILIES[family][0]
+    single_apply = APPLIES[family][0]
+    X = _x(4000, 19, 7, cuda)
+    key = prng.prng_key(8)
+    SX = single_apply(key, X, 96).double()
+    G = torch.zeros((19, 19), dtype=torch.float32, device=cuda)
+    for r in range(SX.shape[0]):
+        G = (G.double() + SX[r][:, None] * SX[r][None, :]).float()
+    assert torch.equal(single_gram(key, X, 96), G)
+
+
+@pytest.mark.parametrize("family", list(APPLIES))
+def test_apply_q_chunking_is_bitwise_invisible(cuda, family, monkeypatch):
+    _, multi, _, launches, name = APPLIES[family]
+    X = _x(2000, 9, 1, cuda)
+    keys = prng.worker_keys(prng.prng_key(2), 5)
+    whole = multi(keys, X, 50)
+    s = SJLT_S if family == "sjlt" else 0
+    chunks = tcuda._splits(family, 2000, 50, 9, s)
+    monkeypatch.setattr(tcuda, "SCRATCH_BYTES", 2 * 4 * chunks * 50 * 9)
+    before = launches[name]
+    assert torch.equal(multi(keys, X, 50), whole)
+    assert launches[name] == before + 3  # one per chunk of workers: 2 + 2 + 1
+
+
+@pytest.mark.parametrize("log_n", list(range(0, 21)))
+@pytest.mark.parametrize("k", [1, 251])
+def test_fwht_kernel_is_bitwise_the_plain_version(cuda, log_n, k):
+    """n_pad = 1 to 2**20, across every pass boundary (passes of ≤ 10 stages)."""
+    if k == 251 and log_n > 19:
+        k = 33
+    x = _x(1 << log_n, k, log_n, cuda)
+    before = fops.LAUNCHES["fwht"]
+    y = fops.fwht(x)
+    assert fops.LAUNCHES["fwht"] == before + 1
+    assert torch.equal(y, fref.fwht(x))
+    assert torch.equal(fops.fwht(x), y)
+
+
+def test_apply_and_fwht_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    key = prng.prng_key(0)
+    with pytest.raises(ValueError, match="float32"):
+        gops.gaussian_sketch(key, _x(64, 4, 0, cuda).double(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        sops.sjlt_apply(key, _x(64, 4, 0, cuda).T, 8, 4)
+    with pytest.raises(ValueError, match="gaussian and rademacher"):
+        tcuda.sketch_apply("srht", key.reshape(1, 2), _x(64, 4, 0, cuda), 8, rounds=20,
+                           launches=fops.LAUNCHES, name="x")
+    with pytest.raises(ValueError, match="power-of-two"):
+        fops.fwht(_x(48, 4, 0, cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        fops.fwht(_x(4, 64, 0, cuda).T)
+
+
+def test_apply_launch_counters_count_kernel_launches(cuda):
+    X = _x(500, 4, 3, cuda)
+    keys = prng.worker_keys(prng.prng_key(4), 2)
+    for single, multi, _, launches, name in APPLIES.values():
+        single_name = name.removesuffix("_multi")
+        before = launches[single_name], launches[name]
+        single(keys[0], X, 16)
+        multi(keys, X, 16)
+        assert (launches[single_name], launches[name]) == (before[0] + 1, before[1] + 1)
+
+
+NEW_KINDS = ["uniform", "uniform_norep", "leverage", "hybrid_gaussian", "hybrid_rademacher",
+             "hybrid_sjlt", "hybrid_srht"]
+
+
+@pytest.mark.parametrize("kind", NEW_KINDS + ["qr_gaussian", "qr_rademacher", "qr_srht", "qr_sjlt"])
+def test_new_paths_on_the_card_match_the_cpu(cuda, kind):
+    """Both entry points with each sampling kind, every hybrid inner kind, and
+    ``method="qr"`` for the four projections, on the card against the CPU."""
+    rs = np.random.default_rng(9)
+    A = torch.from_numpy(rs.standard_normal((3000, 12)).astype(np.float32))
+    b = torch.from_numpy(rs.standard_normal(3000).astype(np.float32))
+    method = "qr" if kind.startswith("qr_") else "fused"
+    if kind.startswith("qr_"):
+        spec = sketches.SketchSpec(kind[3:], 80, s=SJLT_S, use_kernel=True)
+    elif kind.startswith("hybrid_"):
+        spec = sketches.SketchSpec("hybrid", 80, m_prime=800, inner=kind[7:], s=SJLT_S, use_kernel=True)
+    elif kind == "uniform_norep":
+        spec = sketches.SketchSpec("uniform", 80, replacement=False)
+    else:
+        spec = sketches.SketchSpec(kind, 80)
+    key = prng.prng_key(10)
+    for entry in (distributed.distributed_sketch_solve, distributed.distributed_sketch_solve_master):
+        got = entry(spec, key, A, b, q=4, method=method)
+        want = entry(spec, key, A, b, q=4, method=method, device="cpu")
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_row_draws_on_the_card_are_bitwise_the_cpu_draws(cuda):
+    key = prng.prng_key(11)
+    assert torch.equal(prng.gumbel_top_k(key, 500_000, 25_000, device=cuda).cpu(),
+                       prng.gumbel_top_k(key, 500_000, 25_000))
+    logits = prng.xla_log(torch.rand(5000, generator=torch.Generator().manual_seed(0)) + 1e-30)
+    assert torch.equal(prng.categorical(key, logits.to(cuda), 300).cpu(), prng.categorical(key, logits, 300))
+    assert torch.equal(prng.gumbel(key, (64, 99), device=cuda).cpu(), prng.gumbel(key, (64, 99)))

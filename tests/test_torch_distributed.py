@@ -6,7 +6,14 @@ oracle is built from its mesh-free parts on the same numpy-made inputs:
 * master mode: ``operators.gram_batched(spec, worker_keys(key, q, r), A, b)``,
   then ``solve.lstsq_gram`` per worker, then ``averaging.masked_average``;
 * worker mode: ``solve.sketch_and_solve(spec, worker_key(key, w, r), A, b)`` per
-  worker, then ``masked_average``.
+  worker, then ``masked_average``;
+* master mode with ``method="qr"``/``"chol"``: ``operators.sketch_data_batched``,
+  then ``solve.lstsq`` per worker, then ``masked_average`` (the reference's
+  ``distributed_sketch_solve_master`` without its mesh).
+
+The sampling kinds draw the same rows as the reference (bitwise, tested in
+``test_torch_operators.py``); a leverage sketch's scores come from each
+package's own float32 QR here, as in the entry points.
 
 x̄ is compared to 1e-4 relative: the d×d solves amplify the Grams' float32
 differences (≤ 1e-5 of max|G|) by the sketched problem's condition number.
@@ -29,11 +36,22 @@ from repro_torch.utils import prng as tprng
 
 N, D, M, Q = 777, 6, 36, 4
 FAMILIES = ["gaussian", "rademacher", "srht", "sjlt"]
+# The sampling kinds: "uniform_norep" without replacement, "hybrid_K" the hybrid
+# with inner kind K over M_PRIME uniformly sampled rows.
+SAMPLING = ["uniform", "uniform_norep", "leverage", "hybrid_gaussian", "hybrid_rademacher",
+            "hybrid_sjlt", "hybrid_srht"]
 SJLT_S = 20  # FIG3A's nonzeros per column (RegressionConfig.s)
+M_PRIME = 10 * M  # FIG3A's m′/m
 
 
 def _spec(sk, kind, **kw):
-    return sk.SketchSpec(kind, M, s=SJLT_S, **kw) if kind == "sjlt" else sk.SketchSpec(kind, M, **kw)
+    if kind == "sjlt":
+        return sk.SketchSpec(kind, M, s=SJLT_S, **kw)
+    if kind == "uniform_norep":
+        return sk.SketchSpec("uniform", M, replacement=False, **kw)
+    if kind.startswith("hybrid_"):
+        return sk.SketchSpec("hybrid", M, m_prime=M_PRIME, inner=kind[7:], s=SJLT_S, **kw)
+    return sk.SketchSpec(kind, M, **kw)
 MASKS = {"all": None, "stragglers": np.array([1, 0, 1, 1], np.float32)}
 
 
@@ -63,7 +81,7 @@ def _oracle_worker(spec, jkey, A, b, mask, round_id):
     return np.asarray(javg.masked_average(xs, None if mask is None else jnp.asarray(mask)))
 
 
-@pytest.mark.parametrize("kind", FAMILIES)
+@pytest.mark.parametrize("kind", FAMILIES + SAMPLING)
 @pytest.mark.parametrize("use_kernel", [False, True])
 @pytest.mark.parametrize("mask", list(MASKS), ids=list(MASKS))
 def test_master_mode_matches_oracle(kind, use_kernel, mask):
@@ -77,7 +95,7 @@ def test_master_mode_matches_oracle(kind, use_kernel, mask):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("kind", FAMILIES)
+@pytest.mark.parametrize("kind", FAMILIES + SAMPLING)
 @pytest.mark.parametrize("use_kernel", [False, True])
 @pytest.mark.parametrize("mask", list(MASKS), ids=list(MASKS))
 def test_worker_mode_matches_oracle(kind, use_kernel, mask):
@@ -89,6 +107,56 @@ def test_worker_mode_matches_oracle(kind, use_kernel, mask):
         q=Q, round_id=1, straggler_mask=MASKS[mask], device="cpu",
     )
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+def _oracle_master_two_pass(spec, jkey, A, b, mask, round_id, method):
+    SA, Sb = jops.sketch_data_batched(spec, jprng.worker_keys(jkey, Q, round_id), jnp.asarray(A), jnp.asarray(b))
+    xs = jnp.stack([jsolve.lstsq(SA[w], Sb[w], method=method) for w in range(Q)])
+    return np.asarray(javg.masked_average(xs, None if mask is None else jnp.asarray(mask)))
+
+
+@pytest.mark.parametrize("kind", FAMILIES + SAMPLING)
+@pytest.mark.parametrize("method", ["qr", "chol"])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_master_two_pass_matches_oracle(kind, method, use_kernel):
+    """Master mode with ``method="qr"``/``"chol"``: the S·A kernels (their plain
+    versions on the CPU) through ``sketch_data_batched``, a factorization per worker."""
+    A, b = _problem(14)
+    jkey, tkey = _keys(15)
+    mask = MASKS["stragglers"]
+    want = _oracle_master_two_pass(_spec(jsk, kind, use_kernel=use_kernel), jkey, A, b, mask, 2, method)
+    got = tdist.distributed_sketch_solve_master(
+        _spec(tsk, kind, use_kernel=use_kernel), tkey, torch.from_numpy(A), torch.from_numpy(b),
+        q=Q, round_id=2, straggler_mask=mask, method=method, device="cpu",
+    )
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", FAMILIES + SAMPLING)
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_worker_two_pass_matches_oracle(kind, use_kernel):
+    """Worker mode passes ``method`` on to ``sketch_and_solve``."""
+    A, b = _problem(16)
+    jkey, tkey = _keys(17)
+    spec_j = _spec(jsk, kind, use_kernel=use_kernel)
+    xs = jnp.stack([jsolve.sketch_and_solve(spec_j, jprng.worker_key(jkey, w, 0), jnp.asarray(A), jnp.asarray(b),
+                                            method="qr") for w in range(Q)])
+    want = np.asarray(javg.masked_average(xs, None))
+    got = tdist.distributed_sketch_solve(_spec(tsk, kind, use_kernel=use_kernel), tkey, torch.from_numpy(A),
+                                         torch.from_numpy(b), q=Q, method="qr", device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", FAMILIES)
+def test_two_pass_and_fused_agree(kind):
+    """Same S, other factorization: the qr x̄ lies within 1e-4 of the fused x̄."""
+    A, b = _problem(18)
+    spec = _spec(tsk, kind, use_kernel=True)
+    At, bt = torch.from_numpy(A), torch.from_numpy(b)
+    for entry in (tdist.distributed_sketch_solve, tdist.distributed_sketch_solve_master):
+        fused = entry(spec, tprng.prng_key(19), At, bt, q=Q, device="cpu")
+        qr = entry(spec, tprng.prng_key(19), At, bt, q=Q, method="qr", device="cpu")
+        assert float((qr - fused).abs().max() / fused.abs().max()) <= 1e-4
 
 
 def test_modes_agree_and_rounds_draw_fresh_sketches():

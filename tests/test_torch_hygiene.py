@@ -45,6 +45,14 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_scan_covers_every_kernel_module():
+    """The S·A and FWHT launch modules and every wrapper are among the scanned files."""
+    scanned = {str(p.relative_to(PORT)) for p in PORT_FILES if PORT in p.parents}
+    for family in ("gaussian", "rademacher", "sjlt", "fwht"):
+        assert {f"kernels/{family}/{m}.py" for m in ("kernel", "gram", "ops", "ref")} <= scanned
+    assert {"kernels/cuda.py", "utils/prng.py", "core/operators.py", "core/distributed.py"} <= scanned
+
+
 def test_scan_catches_forbidden_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("def f():\n    import jax.numpy\n    from repro.core import solve\n    import repro_torch\n")
@@ -61,14 +69,25 @@ def test_every_port_module_imports_without_building(monkeypatch, tmp_path):
     for name in names:
         importlib.import_module(name)
     assert cuda._LIBS == {}
-    assert len(names) >= 20
+    assert len(names) >= 24
 
 
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+SPECS = {
+    "gaussian": dict(kind="gaussian", m=8),
+    "uniform": dict(kind="uniform", m=8, replacement=False),
+    "leverage": dict(kind="leverage", m=8),
+    "hybrid_srht": dict(kind="hybrid", m=8, m_prime=16, inner="srht", use_kernel=True),
+    "sjlt_kernel": dict(kind="sjlt", m=8, use_kernel=True),
+}
+
+
+@pytest.mark.parametrize("spec", list(SPECS))
+@pytest.mark.parametrize("method", ["fused", "qr"])
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, spec, method):
     from repro_torch.core import distributed, sketches
     from repro_torch.data import regression
     from repro_torch.utils import prng
@@ -76,12 +95,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
     _no_cuda(monkeypatch)
     A, b = torch.zeros(64, 3), torch.zeros(64)
-    spec = sketches.SketchSpec("gaussian", 8)
+    spec = sketches.SketchSpec(**SPECS[spec])
     for entry in (distributed.distributed_sketch_solve, distributed.distributed_sketch_solve_master):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            entry(spec, prng.prng_key(0), A, b, q=2)
+            entry(spec, prng.prng_key(0), A, b, q=2, method=method)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            entry(spec, prng.prng_key(0), A, b, q=2, device="cuda")
+            entry(spec, prng.prng_key(0), A, b, q=2, method=method, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         regression.gaussian_regression(0, 16, 2)
     assert resolve_device("cpu") == torch.device("cpu")

@@ -223,3 +223,95 @@ def test_sjlt_counter_params_bitwise(s, m):
     assert bt.shape == st.shape == (rows.size, s) and st.dtype == torch.float32
     np.testing.assert_array_equal(bt.numpy(), np.asarray(bj).astype(np.int64))
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+
+
+# jax's float draws (uniform, gumbel in mode "low", categorical with replacement)
+# and the gumbel top-k pick without replacement, bitwise: the port repeats XLA's
+# CPU float32 logarithm (``prng.xla_log``) operation for operation.
+UNIFORM_BOUNDS = [(0.0, 1.0), (-3.5, 2.25), (0.1, 0.7), (float(np.finfo(np.float32).tiny), 1.0)]
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+@pytest.mark.parametrize("lo,hi", UNIFORM_BOUNDS)
+def test_uniform_bitwise(seed, lo, hi):
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), (3, 1001), minval=lo, maxval=hi))
+    got = tprng.uniform(tprng.prng_key(seed), (3, 1001), lo, hi)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+@pytest.mark.parametrize("shape", [(4097,), (37, 300)])
+def test_gumbel_bitwise(seed, shape):
+    want = np.asarray(jax.random.gumbel(jax.random.PRNGKey(seed), shape))
+    np.testing.assert_array_equal(tprng.gumbel(tprng.prng_key(seed), shape).numpy(), want)
+
+
+def test_gumbel_of_every_uniform_matches_jax_and_rises_with_its_bits():
+    """All 2**23 uniforms a gumbel can start from: the port's -log(-log(u)) equals
+    jax's bitwise, and rises strictly with the 23 bits (what lets
+    ``gumbel_top_k`` sort the bits instead of the gumbels)."""
+    bits = np.arange(2**23, dtype=np.uint32)
+    tiny = np.finfo(np.float32).tiny
+    u = np.maximum((bits | np.uint32(0x3F800000)).view(np.float32) - np.float32(1), np.float32(tiny))
+    want = np.asarray(jax.jit(lambda v: -jnp.log(-jnp.log(v)))(jnp.asarray(u)))
+    got = (-tprng.xla_log(-tprng.xla_log(torch.from_numpy(u)))).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.all(np.diff(want) > 0)
+
+
+@pytest.mark.parametrize("lo,hi", [(-126, -100), (-100, -20), (-20, 0), (0, 20), (20, 128)])
+def test_xla_log_bitwise(lo, hi):
+    rs = np.random.default_rng(lo + 200)
+    x = ((rs.random(1 << 18) + 1) * 2.0 ** rs.integers(lo, hi, 1 << 18)).astype(np.float32)
+    x = x[np.isfinite(x)]
+    np.testing.assert_array_equal(tprng.xla_log(torch.from_numpy(x)).numpy(), np.asarray(jnp.log(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+@pytest.mark.parametrize("n,k", [(500_000, 25_000), (1000, 500), (1000, 1000), (1, 1), (2, 1), (31, 16)])
+def test_gumbel_top_k_order_bitwise(seed, n, k):
+    """``top_k(gumbel(key, (n,)), k)[1]``, order included: FIG3A's n and m′ (about
+    15,000 pairs of equal gumbels among 500,000), and k = n/2 and k = n."""
+    want = np.asarray(jax.lax.top_k(jax.random.gumbel(jax.random.PRNGKey(seed), (n,)), k)[1])
+    np.testing.assert_array_equal(tprng.gumbel_top_k(tprng.prng_key(seed), n, k).numpy(), want.astype(np.int64))
+
+
+def test_gumbel_top_k_rejects_more_than_n():
+    with pytest.raises(ValueError, match="without replacement"):
+        tprng.gumbel_top_k(tprng.prng_key(0), 5, 6)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+@pytest.mark.parametrize("m,n", [(40, 1001), (1, 3), (300, 64)])
+def test_categorical_bitwise(seed, m, n, monkeypatch):
+    """``categorical(key, logits, shape=(m,))`` with logits log(p + 1e-30) as the
+    leverage sketch makes them (p with an exact float32 sum), drawn whole and in
+    pieces of a few rows."""
+    rs = np.random.default_rng(seed % 1000 + n)
+    sc = rs.integers(1, 1000, n).astype(np.float32) / 256
+    p = sc / sc.sum()
+    jl = jnp.log(jnp.asarray(p) + 1e-30)
+    tl = tprng.xla_log(torch.from_numpy(p) + 1e-30)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    want = np.asarray(jax.random.categorical(jax.random.PRNGKey(seed), jl, shape=(m,))).astype(np.int64)
+    got = tprng.categorical(tprng.prng_key(seed), tl, m)
+    np.testing.assert_array_equal(got.numpy(), want)
+    monkeypatch.setattr(tprng, "CATEGORICAL_PIECE", 3 * n)
+    np.testing.assert_array_equal(tprng.categorical(tprng.prng_key(seed), tl, m).numpy(), want)
+
+
+@pytest.mark.parametrize("shape,offset", [((6, 7), 0), ((3, 7), 21), ((2, 5), 2**32 - 3)])
+def test_draws_in_pieces_equal_the_whole(shape, offset):
+    """A draw at a flat offset is that slice of the whole draw; counters past
+    2**32 carry into the high word as jax's do."""
+    key = tprng.prng_key(9)
+    size = int(np.prod(shape))
+    whole = jax.random.bits(jax.random.PRNGKey(9), (offset + size,), jnp.uint32) if offset < 2**20 else None
+    got = tprng.random_bits(key, shape, offset=offset)
+    if whole is not None:
+        np.testing.assert_array_equal(got.reshape(-1).numpy(), np.asarray(whole)[offset:].astype(np.int64))
+    x0, x1 = tc.threefry2x32(key[0], key[1], (offset + np.arange(size)) >> 32, (offset + np.arange(size)) & 0xFFFFFFFF)
+    torch.testing.assert_close(got.reshape(-1), x0 ^ x1, rtol=0, atol=0)
+    g = tprng.gumbel(key, shape, offset=offset)
+    assert g.shape == shape and bool(torch.isfinite(g).all())
