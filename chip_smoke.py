@@ -28,6 +28,18 @@ end to end:
   the Gaussian, Rademacher, SRHT and SJLT, each held against its fused x̄;
 * leverage-score sampling in worker-side mode at q = 2, its row draw timed.
 
+Then the §V right-sketch least-norm path (``distributed_sketch_least_norm``,
+n < d): the Gaussian adjoint kernel against its plain version at the shapes its
+paths give it, and so each S·A kernel at X = Aᵀ and on the hybrid's m′ rows of
+it, and the FWHT on the SRHT's forward and adjoint (one and 33 columns); then
+the paths, each twice and bitwise equal: FIG4A (n = 50, d = 1,000, m = 200,
+m′ = 500) and the Fig. 4(b) shape (n = 2,000, d = 11,556, m = 4,000, m′ = 8,000)
+at q = 100 with the Gaussian, uniform sampling without replacement and the
+hybrid with the Gaussian inside (the paper's Fig. 4 sketches); every kind at
+FIG4A, q = 8, each kind with a kernel also with ``use_kernel=False`` against the
+kernel path's x̄. Each is gated on ‖x̄ − x*‖²/‖x*‖² over Lemma 7's
+(d − n)/(q(m − n − 1)), x* from a plain float64 solve.
+
 Each new path runs twice, bitwise equal. Each path runs with the launch counts
 at 0 and must make exactly the calls into the kernels' C entries that its
 worker chunks call for, and no other. The multi-key Grams and S·A of the main
@@ -46,7 +58,9 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable
 
 ROOT = Path(__file__).resolve().parent
 SEED = 20260
@@ -85,6 +99,27 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_INT32_OPS = 16.7e12
 PEAK_BYTES = 3.35e12
 LEVERAGE_Q = 2  # workers of the leverage path: each draws an (m, n) gumbel array
+# Least-norm paths: ‖x̄ − x*‖²/‖x*‖² over Lemma 7 / q, x* the float64 least-norm
+# solution. With the JAX reference on the CPU (tests/theory_ratio.py --least-norm,
+# A and b Gaussian; PERF.md §6, PR 14) the ratio was: Gaussian 0.89-1.09 (FIG4A,
+# q = 100, 8 seeds), 0.90-1.13 (q = 8, 16 seeds), 0.98-1.04 (n = 500, d = 2,862,
+# m = 1,000, m′ = 2,000, q = 100, 4 seeds); uniform without replacement 0.79-1.00,
+# 0.71-0.97, 0.78-0.85; the hybrid (Gaussian inside) 1.11-1.20, 1.05-1.39, 1.12-1.16;
+# at q = 8 Rademacher 0.92-1.11, SRHT 0.98-1.13, SJLT (s = 20) 0.92-1.15, uniform with
+# replacement 0.91-1.23, leverage 0.88-1.19, hybrids with the Rademacher, SJLT and SRHT
+# inside 1.07-1.42, 1.08-1.34, 1.12-1.46. The spread is that of d − n ≥ 950 degrees of
+# freedom. Lemma 7 is exact for the Gaussian only: its band is [0.8, 1.25], every
+# other kind's [1/2, 2].
+LN_BAND = {"gaussian": (0.8, 1.25)}
+LN_OTHER_BAND = (0.5, 2.0)
+LN_Q_SIDE = 8  # workers of the other kinds' least-norm paths
+LN_FIG4B = {"n": 2000, "d": 107 + 107**2, "m": 4000, "m_prime": 8000, "q": 100}
+# A use_kernel=False least-norm x̄ against the kernel path's x̄ of the same keys:
+# max |Δx| / max |x|. Both draw the same S (Gaussian normals differ by float32 ulps,
+# device and torch log/cos) and sum in other orders, and the n×n solve has
+# condition ≈ (1 + √(n/m))²/(1 − √(n/m))² ≤ 6.
+LN_PLAIN_TOL = 1e-4
+DEVICE = "cuda"  # where every phase puts its data and runs the entry points
 
 
 class SmokeFailure(RuntimeError):
@@ -140,6 +175,15 @@ def fwht_bound_ms(n: int, k: int) -> tuple[float, str]:
     the log2(n) stages of one add or subtract per element each, at the fp32 peak."""
     bytes_ms = 8 * n * k / PEAK_BYTES * 1e3
     ops_ms = n * k * (n.bit_length() - 1) / PEAK_FP32_FLOPS * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def adjoint_bound_ms(m: int, n: int, k: int, rounds: int = 20) -> tuple[float, str]:
+    """Least time for Sᵀ·Y, Y (m, k) float32, S (m, n) Gaussian drawn in-core: Y read
+    once and the (n, k) output written once, or the operations: one threefry per S
+    entry at the int32 rate and 2·m·n·k FFMA flops at the fp32 rate."""
+    bytes_ms = 4 * (m * k + n * k) / PEAK_BYTES * 1e3
+    ops_ms = max(m * n * threefry_ops(rounds) / PEAK_INT32_OPS, 2 * m * n * k / PEAK_FP32_FLOPS) * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -421,6 +465,38 @@ def sx_err(SX, want) -> float:
     return float(((SX - want).abs() / rms).max())
 
 
+def apply_check(family: str, keys, Y, m: int, label: str) -> dict:
+    """The single-key S·A entry of ``family`` on Y (the sketch of ``keys[0]``)
+    against its plain version (per column ≤ SX_TOL) and a rerun (bitwise); its
+    card, plain and library ms and its bound. Emits one ``apply_kernels`` line."""
+    import torch
+
+    from repro_torch.kernels import common
+
+    single = APPLY_ROUTES[family][0]
+    calls = ApplyCalls(family, keys, m)
+    ny, dx = Y.shape
+    SX = calls.single(0, Y)
+    rerun = torch.equal(calls.single(0, Y), SX)
+    plain, plain_s = host_s(lambda: calls.plain_single(0, Y))
+    err, abs_err = sx_err(SX, plain), float((SX - plain).abs().max())
+    del SX, plain
+    library = (sjlt_library if family == "sjlt" else dense_library)(Calls(family, keys, ny, m), Y, 1, gram=False)
+    lib_ms, _ = cuda_ms(lambda: library(1), 3)
+    del library
+    torch.cuda.empty_cache()
+    ms, _ = cuda_ms(lambda: calls.single(0, Y), 3)
+    rounds = common.rng_rounds() if family == "gaussian" else common.DEFAULT_ROUNDS
+    b_ms, b_by = bound_ms(family, ny, dx, m, 1, rounds, apply=True)
+    report = {"n": ny, "d": dx, "m": m, "ms": ms, "plain_ms": plain_s * 1e3, "library_ms": lib_ms,
+              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": abs_err, "max_col_rel_err": err,
+              "tol": SX_TOL, "rerun_bitwise": rerun}
+    emit({"phase": "apply_kernels", "name": single, "shape": label, **report})
+    check(err <= SX_TOL, f"{single} on {(ny, dx)}, m = {m} disagrees with its plain version ({err})")
+    check(rerun, f"{single} on {(ny, dx)}, m = {m} is not bitwise equal run to run")
+    return report
+
+
 def phase_apply_kernels(X, m: int, m_prime: int, rows: dict) -> None:
     """Each S·A kernel against its plain version: the single-key entry at q = 1 on
     the hybrid's m′ rows (its path) and on all n rows, the multi-key entry at
@@ -440,22 +516,7 @@ def phase_apply_kernels(X, m: int, m_prime: int, rows: dict) -> None:
         make_library = sjlt_library if family == "sjlt" else dense_library
         report = {"phase": "apply_kernels", "family": family, "m": m, "d": dx, "tol": SX_TOL}
         for label, Y in (("hybrid", Xh), ("full", X)):
-            ny = Y.shape[0]
-            SX = calls.single(0, Y)
-            rerun = torch.equal(calls.single(0, Y), SX)
-            plain, plain_s = host_s(lambda: calls.plain_single(0, Y))
-            err, abs_err = sx_err(SX, plain), float((SX - plain).abs().max())
-            library = make_library(Calls(family, keys, ny, m), Y, 1, gram=False)
-            lib_ms, _ = cuda_ms(lambda: library(1), 3)
-            del library, plain
-            torch.cuda.empty_cache()
-            ms, _ = cuda_ms(lambda: calls.single(0, Y), 3)
-            b_ms, b_by = bound_ms(family, ny, dx, m, 1, rounds, apply=True)
-            report[label] = {"n": ny, "ms": ms, "plain_ms": plain_s * 1e3, "library_ms": lib_ms,
-                             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": abs_err,
-                             "max_col_rel_err": err, "rerun_bitwise": rerun}
-            check(err <= SX_TOL, f"{single} on {ny} rows disagrees with its plain version ({err})")
-            check(rerun, f"{single} on {ny} rows is not bitwise equal run to run")
+            report[label] = apply_check(family, keys, Y, m, label)
         h = report["hybrid"]
         rows[single] = {
             "name": single, "route": "cuda", "source": f"src/repro_torch/csrc/{SOURCES[family]}",
@@ -505,39 +566,49 @@ def phase_fwht(X, m_prime: int, rows: dict) -> None:
     import torch
 
     from repro_torch.core import sketches as sk
-    from repro_torch.kernels import cuda
-    from repro_torch.kernels.fwht import ops, ref
 
     n, dx = X.shape
-    report = {"phase": "fwht", "d": dx}
     for rows_in in (n, m_prime):
         n_pad = sk.next_pow2(rows_in)
         x = torch.zeros((n_pad, dx), dtype=torch.float32, device=X.device)
         x[:rows_in] = X[:rows_in]
-        y = ops.fwht(x)
-        plain, plain_s = host_s(lambda: ref.fwht(x))
-        bitwise = torch.equal(y, plain)
-        abs_err = float((y - plain).abs().max())
-        del plain
-        rerun = torch.equal(ops.fwht(x), y)
-        ms, _ = cuda_ms(lambda: ops.fwht(x), 5)
-        b_ms, b_by = fwht_bound_ms(n_pad, dx)
-        report[str(n_pad)] = {"passes": list(cuda.plan_fwht(n_pad)), "ms": ms, "plain_ms": plain_s * 1e3,
-                              "bound_ms": b_ms, "bound_by": b_by, "bitwise_equal_plain": bitwise,
-                              "max_abs_err": abs_err, "rerun_bitwise": rerun}
-        check(bitwise, f"fwht on {n_pad} rows is not bitwise equal to its plain version")
-        check(rerun, f"fwht on {n_pad} rows is not bitwise equal run to run")
+        r = fwht_check(x)
         if "fwht" not in rows:
             rows["fwht"] = {
                 "name": "fwht", "route": "cuda", "source": "src/repro_torch/csrc/fwht.cu",
-                "replaces": FWHT_REPLACES, "launches": 0, "max_abs_err": abs_err, "ms": ms,
-                "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "shape": {"n_pad": n_pad, "d": dx},
+                "replaces": FWHT_REPLACES, "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None, "shape": {"n_pad": n_pad, "d": dx},
             }
         else:
-            rows["fwht"]["hybrid_shape"] = {"n_pad": n_pad, "ms": ms, "plain_ms": plain_s * 1e3,
-                                            "bound_ms": b_ms}
-    emit(report)
+            rows["fwht"]["hybrid_shape"] = {"n_pad": n_pad, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                                            "bound_ms": r["bound_ms"]}
+
+
+def fwht_check(x) -> dict:
+    """The FWHT kernel on x (2^p, k) against its plain version and a rerun, both
+    bitwise; its card and plain ms and its bound. Emits one ``fwht`` line."""
+    import torch
+
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.fwht import ops, ref
+
+    n_pad, k = x.shape
+    y = ops.fwht(x)
+    plain, plain_s = host_s(lambda: ref.fwht(x))
+    bitwise = torch.equal(y, plain)
+    abs_err = float((y - plain).abs().max())
+    del plain
+    rerun = torch.equal(ops.fwht(x), y)
+    ms, _ = cuda_ms(lambda: ops.fwht(x), 5)
+    b_ms, b_by = fwht_bound_ms(n_pad, k)
+    report = {"n_pad": n_pad, "k": k, "passes": list(cuda.plan_fwht(n_pad)), "ms": ms,
+              "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by, "bitwise_equal_plain": bitwise,
+              "max_abs_err": abs_err, "rerun_bitwise": rerun}
+    emit({"phase": "fwht", **report})
+    check(bitwise, f"fwht on ({n_pad}, {k}) is not bitwise equal to its plain version")
+    check(rerun, f"fwht on ({n_pad}, {k}) is not bitwise equal run to run")
+    return report
 
 
 def reset_counts() -> None:
@@ -552,31 +623,76 @@ def read_counts() -> dict:
     return out
 
 
-def run_path(label: str, solve, expect: dict, A64, b64, fstar, m: int, q: int, band=None):
-    """Drive one path with the counts at 0; check that it made exactly the kernel
-    calls of ``expect`` and no others, and its error: rel_err / Theorem 1 within
-    ``band`` (default [1/THEORY_FACTOR, THEORY_FACTOR])."""
-    import torch
-
-    from repro_torch.core import solve as solve_mod, theory
-
-    reset_counts()
-    xbar, seconds = host_s(solve)
-    counts = read_counts()
-    d = A64.shape[1]
-    rel = float(solve_mod.relative_error(A64, b64, xbar.double(), fstar))
-    pred = theory.gaussian_averaged_error(m, d, q)
-    lo, hi = band or (1 / THEORY_FACTOR, THEORY_FACTOR)
-    emit({"phase": label, "q": q, "seconds": seconds, "rel_err": rel, "theory": pred,
-          "ratio": rel / pred, "ratio_band": [lo, hi], "launches": counts})
-    check(tuple(xbar.shape) == (d,) and bool(torch.isfinite(xbar).all()), f"{label}: bad x̄")
+def check_counts(label: str, counts: dict, expect: dict) -> None:
+    """Exactly the kernel calls of ``expect``, and no others."""
     for name, want in expect.items():
         check(counts.get(name, 0) == want, f"{label}: {name} launched {counts.get(name, 0)}×, want {want}")
     stray = {name: c for name, c in counts.items() if c and name not in expect}
     check(not stray, f"{label}: launched kernels it should not: {stray}")
-    check(lo * pred <= rel <= hi * pred,
-          f"{label}: rel_err {rel} outside [{lo}, {hi}]× Theorem 1's {pred}")
-    return xbar, counts
+
+
+@dataclass(frozen=True)
+class Gate:
+    """What a path's x̄ (d,) is held to: ``error(x̄)`` over ``pred``, the prediction
+    of ``law`` for q averaged workers, within a band."""
+    d: int
+    q: int
+    pred: float
+    error: Callable
+    law: str
+
+
+def theorem1(A64, b64, fstar, m: int, q: int) -> Gate:
+    """Algorithm 1's gate: rel_err = f(x̄)/f* − 1 over Theorem 1."""
+    from repro_torch.core import solve, theory
+
+    d = A64.shape[1]
+    return Gate(d, q, theory.gaussian_averaged_error(m, d, q),
+                lambda x: float(solve.relative_error(A64, b64, x.double(), fstar)), "Theorem 1")
+
+
+def lemma7(xstar, n: int, m: int, q: int) -> Gate:
+    """The least-norm gate: ‖x̄ − x*‖²/‖x*‖² over Lemma 7 / q."""
+    from repro_torch.core import theory
+
+    def error(x):
+        e = x.double() - xstar
+        return float(e @ e / (xstar @ xstar))
+
+    d = xstar.shape[0]
+    return Gate(d, q, theory.gaussian_least_norm_error(m, n, d) / q, error, "Lemma 7/q")
+
+
+def run_path(label: str, solve, expect: dict, gate: Gate, band=None, *, twice: bool = False,
+             rows: dict | None = None, **fields):
+    """Drive one path with the counts at 0; check that it made exactly the kernel
+    calls of ``expect`` and no others, that x̄ is finite of shape (d,), and that its
+    error over the gate's prediction lies within ``band`` (default
+    [1/THEORY_FACTOR, THEORY_FACTOR]). With ``twice`` it runs again and must be
+    bitwise equal. With ``rows``, each kernel it called records its calls there
+    under ``label``. Returns (x̄, counts, seconds of the last run)."""
+    import torch
+
+    reset_counts()
+    xbar, seconds = host_s(solve)
+    counts = read_counts()
+    rel = gate.error(xbar)
+    lo, hi = band or (1 / THEORY_FACTOR, THEORY_FACTOR)
+    report = {"phase": label, "q": gate.q, **fields, "seconds": seconds, "rel_err": rel, "theory": gate.pred,
+              "ratio": rel / gate.pred, "ratio_band": [lo, hi], "launches": counts}
+    if twice:
+        x2, seconds = host_s(solve)
+        report.update(seconds_rerun=seconds, rerun_bitwise=torch.equal(xbar, x2))
+    emit(report)
+    check(tuple(xbar.shape) == (gate.d,) and bool(torch.isfinite(xbar).all()), f"{label}: bad x̄")
+    check_counts(label, counts, expect)
+    check(not twice or report["rerun_bitwise"], f"{label}: x̄ is not bitwise equal run to run")
+    check(lo * gate.pred <= rel <= hi * gate.pred,
+          f"{label}: error {rel} outside [{lo}, {hi}]× {gate.law}'s {gate.pred}")
+    for name, c in counts.items():
+        if rows is not None and c:
+            rows[name].setdefault("launches_by_path", {})[label] = c
+    return xbar, counts, seconds
 
 
 def check_main_path_slices(family: str, keys, X, m: int, G) -> None:
@@ -626,7 +742,7 @@ def phase_main_path(cfg, rows: dict):
     from repro_torch.kernels import cuda
     from repro_torch.utils import prng
 
-    A, b, _ = regression.gaussian_regression(SEED, cfg.n, cfg.d, device="cuda")
+    A, b, _ = regression.gaussian_regression(SEED, cfg.n, cfg.d, device=DEVICE)
     A64, b64 = A.double(), b.double()
     (xstar, fstar), xs_s = host_s(lambda: _exact(solve, A64, b64))
     emit({"phase": "exact_solve", "seconds": xs_s, "fstar": float(fstar)})
@@ -637,27 +753,25 @@ def phase_main_path(cfg, rows: dict):
     def calls(family: str, q: int) -> int:
         return -(-q // cuda.worker_chunk(cfg.n, cfg.m, dx, q, family=family, s=SJLT_S))
 
+    def gate(q):
+        return theorem1(A64, b64, fstar, cfg.m, q)
+
     def master(spec, q):
-        return lambda: distributed.distributed_sketch_solve_master(spec, key, A, b, q=q)
+        return lambda: distributed.distributed_sketch_solve_master(spec, key, A, b, q=q, device=DEVICE)
 
     def worker(spec, q):
-        return lambda: distributed.distributed_sketch_solve(spec, key, A, b, q=q)
+        return lambda: distributed.distributed_sketch_solve(spec, key, A, b, q=q, device=DEVICE)
 
     def master_twice(label, family, spec, band=None):
         multi = FAMILY_ROUTES[family][1]
-        x1, counts = run_path(label, master(spec, cfg.q), {multi: calls(family, cfg.q)},
-                              A64, b64, fstar, cfg.m, cfg.q, band)
+        _, counts, seconds2 = run_path(label, master(spec, cfg.q), {multi: calls(family, cfg.q)}, gate(cfg.q),
+                                       band, twice=True)
         rows[multi]["launches"] = counts.get(multi, 0)
-        x2, seconds2 = host_s(master(spec, cfg.q))
-        same = torch.equal(x1, x2)
-        emit({"phase": f"{label}_rerun", "seconds": seconds2, "bitwise_equal": same})
-        check(same, f"{label}: master-mode x̄ is not bitwise equal run to run")
         return seconds2
 
     def worker_side(label, family, spec, band=None):
         single = FAMILY_ROUTES[family][0]
-        _, counts = run_path(label, worker(spec, SIDE_Q), {single: SIDE_Q},
-                             A64, b64, fstar, cfg.m, SIDE_Q, band)
+        _, counts, _ = run_path(label, worker(spec, SIDE_Q), {single: SIDE_Q}, gate(SIDE_Q), band)
         rows[single]["launches"] = counts.get(single, 0)
 
     gauss = sk.SketchSpec("gaussian", cfg.m, use_kernel=True)
@@ -668,9 +782,8 @@ def phase_main_path(cfg, rows: dict):
 
     rad = sk.SketchSpec("rademacher", cfg.m, use_kernel=True)
     worker_side("worker_gaussian", "gaussian", gauss)
-    _, counts = run_path("master_rademacher", master(rad, SIDE_Q),
-                         {"rademacher_gram_multi": calls("rademacher", SIDE_Q)},
-                         A64, b64, fstar, cfg.m, SIDE_Q)
+    _, counts, _ = run_path("master_rademacher", master(rad, SIDE_Q),
+                            {"rademacher_gram_multi": calls("rademacher", SIDE_Q)}, gate(SIDE_Q))
     rows["rademacher_gram_multi"]["launches"] = counts.get("rademacher_gram_multi", 0)
     worker_side("worker_rademacher", "rademacher", rad)
     main_path_kernel("rademacher", prng.worker_keys(key, SIDE_Q), X, cfg.m, rows)
@@ -693,14 +806,12 @@ def phase_main_path(cfg, rows: dict):
     worker_side("worker_sjlt", "sjlt", sjlt, THEORY_BAND["sjlt"])
     del X
     torch.cuda.empty_cache()
-    phase_new_paths(cfg, rows, key, A, b, A64, b64, fstar)
+    phase_new_paths(cfg, rows, key, A, b, gate)
 
 
-def phase_new_paths(cfg, rows: dict, key, A, b, A64, b64, fstar) -> None:
+def phase_new_paths(cfg, rows: dict, key, A, b, gate) -> None:
     """The hybrid, uniform sampling, the two-pass reference and leverage sampling,
     each run twice (bitwise equal), with the S·A and FWHT kernel calls each makes."""
-    import torch
-
     from repro_torch.core import distributed, operators, sketches as sk
     from repro_torch.kernels import cuda
     from repro_torch.utils import prng
@@ -709,15 +820,11 @@ def phase_new_paths(cfg, rows: dict, key, A, b, A64, b64, fstar) -> None:
     master, worker = distributed.distributed_sketch_solve_master, distributed.distributed_sketch_solve
 
     def path(entry, spec, q, method="fused"):
-        return lambda: entry(spec, key, A, b, q=q, method=method)
+        return lambda: entry(spec, key, A, b, q=q, method=method, device=DEVICE)
 
     def twice(label, solve, expect, q, band):
-        x1, counts = run_path(label, solve, expect, A64, b64, fstar, cfg.m, q, band)
-        x2, seconds2 = host_s(solve)
-        same = torch.equal(x1, x2)
-        emit({"phase": f"{label}_rerun", "seconds": seconds2, "bitwise_equal": same})
-        check(same, f"{label}: x̄ is not bitwise equal run to run")
-        return x1, counts
+        x, counts, _ = run_path(label, solve, expect, gate(q), band, twice=True)
+        return x, counts
 
     def hybrid(inner):
         return sk.SketchSpec("hybrid", cfg.m, m_prime=cfg.m_prime, inner=inner, s=SJLT_S, use_kernel=True)
@@ -768,6 +875,202 @@ def phase_new_paths(cfg, rows: dict, key, A, b, A64, b64, fstar) -> None:
           "scores_seconds": scores_s, "draw_seconds": draw_s})
     del scores
     twice("worker_leverage", path(worker, lev, LEVERAGE_Q), {}, LEVERAGE_Q, THEORY_BAND["leverage"])
+
+ADJOINT_REPLACES = "src/repro/kernels/gaussian/gram.py:152"
+# (m, n, k) of the Gaussian adjoint on the least-norm paths: the Fig. 4(b) Gaussian
+# and hybrid-inner sketches, FIG4A's two, and one ragged k > 1 shape.
+ADJOINT_SHAPES = ((4000, 11_556, 1), (4000, 8000, 1), (200, 1000, 1), (200, 500, 1), (129, 1001, 3))
+
+
+def gaussian_library(key, m: int, n: int, device):
+    """The adjoint's yardstick: S (m, n) pre-drawn in float32 with the plain tiles,
+    then ``run(Y)`` is one ``torch.matmul(S.T, Y)``; the port never calls it."""
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.gaussian import ref
+
+    S = ref.sketch_matrix(key, m, n, device=device)
+
+    def run(Y):
+        with common.full_fp32_matmul():
+            return torch.matmul(S.T, Y)
+
+    return run
+
+
+def phase_adjoint_kernel(rows: dict) -> None:
+    """The Gaussian adjoint kernel against its plain version (float64 product of the
+    same float32 S) at each of ADJOINT_SHAPES: per column max_i |Δ|/rms_i ≤ SX_TOL,
+    ⟨S·x, y⟩ = ⟨x, Sᵀ·y⟩ with S·x from the S·A kernel, a bitwise rerun, one launch
+    a call; card, plain, library ms and the bound."""
+    import torch
+
+    from repro_torch.kernels.gaussian import ops, ref
+    from repro_torch.utils import prng
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    for m, n, k in ADJOINT_SHAPES:
+        key = prng.worker_key(prng.prng_key(SEED + 6), m + n + k)
+        Y = torch.randn((m, k), generator=g, device=DEVICE)
+        x = torch.randn((n, 1), generator=g, device=DEVICE)
+        before = ops.LAUNCHES["gaussian_adjoint"]
+        out = ops.gaussian_adjoint(key, Y, n)
+        launches = ops.LAUNCHES["gaussian_adjoint"] - before
+        rerun = torch.equal(ops.gaussian_adjoint(key, Y, n), out)
+        plain, plain_s = host_s(lambda: ref.adjoint(key, Y, n))
+        err, abs_err = sx_err(out, plain), float((out - plain).abs().max())
+        del plain
+        Sx, Sty = ops.gaussian_sketch(key, x, m), ops.gaussian_adjoint(key, Y[:, :1].contiguous(), n)
+        lhs, rhs = float(Sx.double().T @ Y[:, :1].double()), float(x.double().T @ Sty.double())
+        ident = abs(lhs - rhs) / float(Sx.norm() * Y[:, 0].norm() + x.norm() * Sty.norm())
+        library = gaussian_library(key, m, n, Y.device)
+        lib_ms, _ = cuda_ms(lambda: library(Y), 10)
+        del library
+        torch.cuda.empty_cache()
+        ms, _ = cuda_ms(lambda: ops.gaussian_adjoint(key, Y, n), 10)
+        b_ms, b_by = adjoint_bound_ms(m, n, k)
+        report = {"m": m, "n": n, "k": k, "ms": ms, "plain_ms": plain_s * 1e3, "library_ms": lib_ms,
+                  "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": abs_err, "max_col_rel_err": err,
+                  "tol": SX_TOL, "adjoint_identity_rel_err": ident, "rerun_bitwise": rerun,
+                  "launches_per_call": launches}
+        emit({"phase": "adjoint_kernel", **report})
+        check(err <= SX_TOL, f"gaussian_adjoint at {(m, n, k)} disagrees with its plain version ({err})")
+        check(ident <= SX_TOL, f"gaussian_adjoint at {(m, n, k)}: <Sx, y> - <x, S^T y> off by {ident}")
+        check(rerun, f"gaussian_adjoint at {(m, n, k)} is not bitwise equal run to run")
+        check(launches == 1, f"gaussian_adjoint at {(m, n, k)} counted {launches} launches for one call")
+        if "gaussian_adjoint" not in rows:
+            rows["gaussian_adjoint"] = {
+                "name": "gaussian_adjoint", "route": "cuda", "source": "src/repro_torch/csrc/adjoint.cu",
+                "replaces": ADJOINT_REPLACES, "launches": 0, **report, "other_shapes": [],
+            }
+        else:
+            rows["gaussian_adjoint"]["other_shapes"].append(report)
+
+
+def phase_ln_apply(rows: dict) -> None:
+    """The forward kernels at the shapes the least-norm paths give them, on
+    Gaussian data: each S·A kernel (rows 6, 7, 12) on X = Aᵀ (d × n) and on the
+    hybrid's m′ sampled rows of it, at FIG4A and, for the Gaussian, the Fig. 4(b)
+    shape (eight column tiles); the FWHT (row 13) on the SRHT's forward (Aᵀ
+    zero-padded to next_pow2(d) and next_pow2(m′) rows) and on the one and 33
+    columns its adjoint transforms (m sampled rows scattered into those)."""
+    import torch
+
+    from repro_torch.configs.paper_lsq import FIG4A
+    from repro_torch.core import sketches as sk
+    from repro_torch.utils import prng
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    keys = prng.worker_keys(prng.prng_key(SEED + 7), 1)
+    c = LN_FIG4B
+    shapes = ((("gaussian",), c["d"], c["n"], c["m"], c["m_prime"], "fig4b"),
+              (tuple(APPLY_ROUTES), FIG4A.d, FIG4A.n, FIG4A.m, FIG4A.m_prime, "fig4a"))
+    for families, d, n, m, m_prime, tag in shapes:
+        X = torch.randn((d, n), generator=g, device=DEVICE)
+        for family in families:
+            for label, rows_in in ((tag, d), (f"{tag}_hybrid", m_prime)):
+                report = apply_check(family, keys, X[:rows_in].contiguous(), m, f"least_norm_{label}")
+                rows[APPLY_ROUTES[family][0]][f"least_norm_{label}"] = report
+    del X
+    torch.cuda.empty_cache()
+    X = torch.randn((FIG4A.d, FIG4A.n), generator=g, device=DEVICE)
+    for rows_in in (FIG4A.d, FIG4A.m_prime):
+        n_pad = sk.next_pow2(rows_in)
+        fwd = torch.zeros((n_pad, FIG4A.n), device=DEVICE)
+        fwd[:rows_in] = X[:rows_in]
+        shapes = [fwht_check(fwd)]
+        for k in (1, 33):
+            x = torch.zeros((n_pad, k), device=DEVICE)
+            hit = torch.randint(0, n_pad, (FIG4A.m,), generator=g, device=DEVICE)
+            x[hit] = torch.randn((FIG4A.m, k), generator=g, device=DEVICE)
+            shapes.append(fwht_check(x))
+        rows["fwht"].setdefault("least_norm_shapes", []).extend(shapes)
+
+
+def ln_problem(tag: str, n: int, d: int, seed: int):
+    """A, b ~ N(0, 1) with n < d on the card, and x* = Aᵀ(AAᵀ)⁻¹b by a plain float64
+    solve that the port does not use."""
+    import torch
+
+    from repro_torch.data import regression
+
+    A, b, _ = regression.gaussian_regression(seed, n, d, planted=False, device=DEVICE)
+    A64, b64 = A.double(), b.double()
+    xstar, seconds = host_s(lambda: A64.T @ torch.linalg.solve(A64 @ A64.T, b64))
+    emit({"phase": f"least_norm_exact_{tag}", "n": n, "d": d, "seconds": seconds})
+    return A, b, xstar
+
+
+def ln_spec(kind: str, m: int, m_prime: int, use_kernel: bool = True):
+    """The spec of a least-norm path: SJLT s = 20, hybrid over m′ rows;
+    "uniform_norep" samples without replacement."""
+    from repro_torch.core import sketches as sk
+
+    if kind.startswith("hybrid_"):
+        return sk.SketchSpec("hybrid", m, m_prime=m_prime, inner=kind[7:], s=SJLT_S, use_kernel=use_kernel)
+    if kind == "uniform_norep":
+        return sk.SketchSpec("uniform", m, replacement=False)
+    return sk.SketchSpec(kind, m, s=SJLT_S, use_kernel=use_kernel)
+
+
+# Kernel calls per worker of a least-norm path with kernels on: one forward S·Aᵀ
+# and, for the Gaussian, one adjoint; the SRHT transforms forward and back. A
+# hybrid makes its inner kind's calls; sampling makes none.
+LN_KERNEL_CALLS = {"gaussian": {"gaussian_sketch": 1, "gaussian_adjoint": 1},
+                   "rademacher": {"rademacher_sketch": 1}, "srht": {"fwht": 2}, "sjlt": {"sjlt_apply": 1}}
+LN_FIG4_KINDS = ("gaussian", "uniform_norep", "hybrid_gaussian")  # the paper's Fig. 4 sketches
+LN_SIDE_KINDS = ("gaussian", "rademacher", "srht", "sjlt", "leverage", "uniform", "hybrid_gaussian",
+                 "hybrid_rademacher", "hybrid_sjlt", "hybrid_srht")
+
+
+def phase_least_norm(rows: dict) -> None:
+    """The §V right-sketch least-norm paths, each twice (bitwise equal), gated on
+    Lemma 7: the paper's Fig. 4 sketches at the Fig. 4(b) shape and FIG4A
+    (q = 100), every kind at FIG4A (q = 8), and each kind that has a kernel also
+    with ``use_kernel=False`` against its kernel path's x̄ of the same keys."""
+    import torch
+
+    from repro_torch.configs.paper_lsq import FIG4A
+    from repro_torch.core import distributed
+    from repro_torch.utils import prng
+
+    key = prng.prng_key(SEED + 8)
+
+    def path(label, kind, A, b, xstar, q, m, m_prime, use_kernel=True):
+        calls = LN_KERNEL_CALLS.get(kind.removeprefix("hybrid_"), {}) if use_kernel else {}
+        spec = ln_spec(kind, m, m_prime, use_kernel)
+        solve = lambda: distributed.distributed_sketch_least_norm(spec, key, A, b, q=q, device=DEVICE)
+        n, d = A.shape
+        x, counts, _ = run_path(label, solve, {name: c * q for name, c in calls.items()}, lemma7(xstar, n, m, q),
+                                LN_BAND.get(kind, LN_OTHER_BAND), twice=True, rows=rows, n=n, d=d, m=m)
+        return x, counts, solve
+
+    c = LN_FIG4B
+    A, b, xstar = ln_problem("fig4b", c["n"], c["d"], SEED + 9)
+    for kind in LN_FIG4_KINDS:
+        _, counts, solve = path(f"least_norm_fig4b_{kind}", kind, A, b, xstar, c["q"], c["m"], c["m_prime"])
+        if kind == "gaussian":
+            rows["gaussian_adjoint"]["launches"] = counts.get("gaussian_adjoint", 0)
+            phase_trace("least_norm_fig4b_gaussian_traced", solve)
+    del A, b, xstar
+    torch.cuda.empty_cache()
+
+    A, b, xstar = ln_problem("fig4a", FIG4A.n, FIG4A.d, SEED + 10)
+    shape = (A, b, xstar)
+    for kind in LN_FIG4_KINDS:
+        path(f"least_norm_fig4a_{kind}", kind, *shape, FIG4A.q, FIG4A.m, FIG4A.m_prime)
+    q = LN_Q_SIDE
+    for kind in LN_SIDE_KINDS:
+        x_kernel, *_ = path(f"least_norm_fig4a_{kind}_q{q}", kind, *shape, q, FIG4A.m, FIG4A.m_prime)
+        if kind.removeprefix("hybrid_") not in LN_KERNEL_CALLS:
+            continue
+        x_plain, *_ = path(f"least_norm_fig4a_{kind}_plain", kind, *shape, q, FIG4A.m, FIG4A.m_prime,
+                           use_kernel=False)
+        rel = float((x_plain - x_kernel).abs().max() / x_kernel.abs().max())
+        emit({"phase": "least_norm_plain_vs_kernel", "kind": kind, "q": q, "max_rel_diff": rel,
+              "tol": LN_PLAIN_TOL})
+        check(rel <= LN_PLAIN_TOL, f"least-norm {kind}: x̄ without kernels {rel} off the kernel path's x̄")
 
 
 def phase_trace(label: str, solve) -> None:
@@ -822,7 +1125,7 @@ def main() -> int:
     try:
         phase_build()
         phase_rng_probe()
-        A, b, _ = regression.gaussian_regression(SEED + 2, FIG3A.n, FIG3A.d, device="cuda")
+        A, b, _ = regression.gaussian_regression(SEED + 2, FIG3A.n, FIG3A.d, device=DEVICE)
         rows: dict = {}
         X = torch.cat([A, b[:, None]], dim=1)
         del A, b
@@ -832,6 +1135,9 @@ def main() -> int:
         del X
         torch.cuda.empty_cache()
         phase_main_path(FIG3A, rows)
+        phase_adjoint_kernel(rows)
+        phase_ln_apply(rows)
+        phase_least_norm(rows)
         for name, row in rows.items():
             check(row["launches"] > 0, f"{name} was not launched on its path")
     except SmokeFailure as exc:

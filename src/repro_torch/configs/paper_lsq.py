@@ -24,3 +24,6 @@ class RegressionConfig:
 FIG3A = RegressionConfig(
     "fig3a_synth", n=500_000, d=250, m=2500, m_prime=25_000, q=200, heavy_tail_df=1.5, planted=True
 )
+
+# Paper Fig. 4a: least-norm, n=50, d=1000, m=200, m'=500.
+FIG4A = RegressionConfig("fig4a_leastnorm", n=50, d=1000, m=200, m_prime=500, q=100, sketch="gaussian")

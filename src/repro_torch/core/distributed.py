@@ -1,6 +1,7 @@
-"""Algorithm 1 on one GPU: q sketch-and-solve workers and the master's average.
+"""Algorithm 1 on one GPU: q sketch-and-solve workers and the master's average,
+and the §V right-sketch least-norm average.
 
-Port of the two entry points of ``repro.core.distributed``. The q workers are a
+Port of three entry points of ``repro.core.distributed``. The q workers are a
 batch over worker keys on one device (the reference shards them over a mesh;
 multi-GPU ``torch.distributed`` is a later slice). Worker w of round r uses
 ``prng.worker_key(key, w, r)``, the reference's key, so both packages draw the
@@ -104,4 +105,34 @@ def distributed_sketch_solve_master(
     else:
         SA, Sb = operators.sketch_data_batched(spec, keys, A, b)
         xs = torch.stack([solve.lstsq(SA[w], Sb[w], reg=reg, method=method) for w in range(q)])
+    return averaging.masked_average(xs, mask, on_empty=on_empty)
+
+
+def distributed_sketch_least_norm(
+    spec: sk.SketchSpec,
+    key: torch.Tensor,
+    A: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    q: int,
+    round_id: int = 0,
+    straggler_mask=None,
+    on_empty: str = "nan",
+    device=None,
+) -> torch.Tensor:
+    """§V right-sketch averaging (n < d): each of the q workers solves
+    ``solve.sketch_least_norm`` on its own key (the S·A kernel forward and, for the
+    Gaussian, the adjoint kernel when ``spec.use_kernel``) and the master
+    averages the arrivals. Aᵀ is made contiguous once per call and shared by the
+    workers' forward sketches; what each worker computes does not change.
+
+    ``device``: ``None`` means CUDA (raises when absent); pass ``"cpu"`` for the CPU.
+    Returns x̄ (d,) or (d, k).
+    """
+    dev = resolve_device(device)
+    A, b = A.to(dev), b.to(dev)
+    mask = _checked_mask(straggler_mask, q, dev)
+    keys = prng.worker_keys(key, q, round_id)
+    A = A.T.contiguous().T  # a view whose transpose is contiguous: no copy per worker
+    xs = torch.stack([solve.sketch_least_norm(spec, keys[w], A, b) for w in range(q)])
     return averaging.masked_average(xs, mask, on_empty=on_empty)

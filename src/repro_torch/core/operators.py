@@ -15,7 +15,13 @@ for ``leverage``):
   * ``apply_blocked(A, ...)``    — ``S @ A`` streamed over row tiles of A;
   * ``gram_blocked(A, b, ...)``  — ``(G, c) = ((SA)ᵀ(SA), (SA)ᵀ(Sb))`` in one pass
                                    over ``[A | b]``; with ``spec.use_kernel`` the
-                                   fused sketch→Gram kernel of a projection kind.
+                                   fused sketch→Gram kernel of a projection kind;
+  * ``adjoint(Y)``               — ``Sᵀ @ Y``: streamed column tiles of S; with
+                                   ``spec.use_kernel`` the Gaussian adjoint kernel;
+                                   a fixed-order scatter for the sampling kinds
+                                   (:func:`_scatter_rows`), the scatter and the
+                                   FWHT for the SRHT, a gather for the SJLT;
+  * ``materialize()``            — the explicit S (small problems only).
 
 :func:`gram_batched` gives all q workers' ``(G_k, c_k)`` and :func:`apply_batched`
 all q workers' ``S_k A``; with ``spec.use_kernel`` both launch one multi-worker
@@ -206,6 +212,20 @@ class SketchOp:
         ``[A | b]``."""
         return _gram_of(self._stream(_join_b(A, b), block_rows), A.shape[1], b)
 
+    def adjoint(self, Y: torch.Tensor, *, block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+        """``Sᵀ @ Y`` for Y of shape (m, ...), streamed over column tiles of S."""
+        Y2, batch = _to_2d(Y, self.m)
+        Yf = Y2.to(torch.float32)
+        bs = max(1, min(block_rows, self.n))
+        with common.full_fp32_matmul():
+            out = torch.cat([self.columns(j0, min(bs, self.n - j0), Y.device).T @ Yf
+                             for j0 in range(0, self.n, bs)])
+        return out.to(Y.dtype).reshape((self.n,) + batch)
+
+    def materialize(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        """Explicit S ∈ R^{m×n} (tests / small problems only): ``S @ I``."""
+        return self.apply(torch.eye(self.n, dtype=dtype, device=device))
+
 
 def _gram_of(SAb: torch.Tensor, d: int, b: Optional[torch.Tensor]):
     """``(G, c)`` from a sketched ``[SA | Sb]`` by one full-float32 matrix product."""
@@ -219,6 +239,31 @@ def _gather_joint(A: torch.Tensor, b: Optional[torch.Tensor], rows: torch.Tensor
     (n, d+k) matrix is never made)."""
     rows = rows.to(A.device)
     return _join_b(A[rows], None if b is None else b[rows])
+
+
+def _scatter_rows(rows: torch.Tensor, Y: torch.Tensor, n: int) -> torch.Tensor:
+    """``out = zeros(n, ...); out[rows[t]] += Y[t]`` (the transpose of the gather
+    ``X[rows]``), each row's samples added in sample order t, with no atomics.
+
+    On the card ``index_add_`` and its kin add repeated rows with float atomics,
+    in an order that changes run to run. Here the samples are sorted stably by
+    row; a sample is the r-th of its row (r from 0, in sample order), and pass r
+    adds the r-th samples of all rows at once, to distinct rows. There are as
+    many passes as the most repeated row has samples: one where the rows are
+    distinct. The same code runs on every device, so the sums are the same."""
+    rows = rows.to(Y.device)
+    order = torch.sort(rows, stable=True).indices
+    by_row = rows[order]
+    pos = torch.arange(rows.numel(), dtype=torch.int64, device=Y.device)
+    first = torch.ones_like(by_row, dtype=torch.bool)
+    first[1:] = by_row[1:] != by_row[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), dim=0).values
+    out = Y.new_zeros((n,) + tuple(Y.shape[1:]))
+    for r in range(int(rank.max()) + 1):
+        pick = rank == r
+        idx = by_row[pick]
+        out[idx] = out[idx] + Y[order[pick]]
+    return out
 
 
 def _gather_rows_reducer(rows: torch.Tensor):
@@ -289,6 +334,15 @@ class GaussianOp(_DenseCounterOp):
     the stream the Gaussian S·A and sketch→Gram kernels draw tile by tile."""
 
     tiles = staticmethod(gref.columns)
+
+    def adjoint(self, Y: torch.Tensor, *, block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+        if self.spec.use_kernel:
+            from repro_torch.kernels.gaussian import ops
+
+            Y2, batch = _to_2d(Y, self.m)
+            out = ops.gaussian_adjoint(self.key, Y2.to(torch.float32).contiguous(), self.n)
+            return out.to(Y.dtype).reshape((self.n,) + batch)
+        return super().adjoint(Y, block_rows=block_rows)
 
     @staticmethod
     def sketch(key, X, m):
@@ -368,7 +422,9 @@ class SRHTOp(SketchOp):
 
     ``apply`` is D·A, zero rows up to n_pad, the O(n log n) FWHT (the CUDA FWHT
     kernel with ``spec.use_kernel``, else the plain ``sketches._fwht``), then the
-    m sampled rows scaled by 1/√m; ``columns`` builds Hadamard tiles
+    m sampled rows scaled by 1/√m; ``adjoint`` is its transpose: a scatter of the
+    m rows into n_pad (:func:`_scatter_rows`), the same FWHT, the first n rows
+    times D and 1/√m. ``columns`` builds Hadamard tiles
     H[r, j] = (−1)^popcount(r & j) on the fly (the closed form the SRHT
     sketch→Gram kernel draws), which is what makes blocked and streamed
     application possible without the full transform.
@@ -393,20 +449,31 @@ class SRHTOp(SketchOp):
     def columns(self, j0: int, block: int, device=None) -> torch.Tensor:
         return fref.columns(self.kd0, self.kd1, self.rows, j0, block, device)
 
+    def _fwht(self, X: torch.Tensor) -> torch.Tensor:
+        """H·X over the n_pad rows: the FWHT kernel with ``spec.use_kernel`` (the
+        plain version on a CPU tensor), else the plain ``sketches._fwht``."""
+        if self.spec.use_kernel:
+            from repro_torch.kernels.fwht import ops
+
+            return ops.fwht(X.contiguous())
+        return sk._fwht(X)
+
     def apply(self, A: torch.Tensor) -> torch.Tensor:
         A2, batch = _to_2d(A, self.n)
         j = torch.arange(self.n, dtype=torch.int64, device=A.device)
         DA = A2.to(torch.float32) * self._signs(j)[:, None]
         if self.n_pad != self.n:
             DA = torch.cat([DA, DA.new_zeros((self.n_pad - self.n, DA.shape[1]))])
-        if self.spec.use_kernel:
-            from repro_torch.kernels.fwht import ops
-
-            HDA = ops.fwht(DA.contiguous())
-        else:
-            HDA = sk._fwht(DA)
-        out = HDA[self.rows.to(A.device)] * common.inv_sqrt(self.m)
+        out = self._fwht(DA)[self.rows.to(A.device)] * common.inv_sqrt(self.m)
         return out.to(A.dtype).reshape((self.m,) + batch)
+
+    def adjoint(self, Y: torch.Tensor, *, block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+        # Sᵀ = (1/√m)·D·Hᵀ·Pᵀ with H symmetric; Pᵀ scatters (the sampled rows repeat).
+        Y2, batch = _to_2d(Y, self.m)
+        HZ = self._fwht(_scatter_rows(self.rows, Y2.to(torch.float32), self.n_pad))[: self.n]
+        j = torch.arange(self.n, dtype=torch.int64, device=Y.device)
+        out = HZ * self._signs(j)[:, None] * common.inv_sqrt(self.m)
+        return out.to(Y.dtype).reshape((self.n,) + batch)
 
     def gram_blocked(self, A, b=None, *, block_rows: int = DEFAULT_BLOCK_ROWS):
         if self.spec.use_kernel:
@@ -434,7 +501,7 @@ class _RowSamplingOp(SketchOp):
     """S = diag(scales) · P with P picking ``rows``: ``apply`` is a gather and a
     scale, ``gram_blocked`` gathers the m rows of ``[A | b]``, scales them and
     takes one full-float32 Gram (the reference's streamed gather computes the
-    same rows)."""
+    same rows), ``adjoint`` scales and scatters (:func:`_scatter_rows`)."""
 
     rows: torch.Tensor = None  # (m,)
 
@@ -462,6 +529,12 @@ class _RowSamplingOp(SketchOp):
         scl = self._row_scales(A.device).to(torch.float32)
         SAb = _gather_joint(A, b, self.rows) * (scl[:, None] if scl.ndim else scl)
         return _gram_of(SAb, A.shape[1], b)
+
+    def adjoint(self, Y: torch.Tensor, *, block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+        Y2, batch = _to_2d(Y, self.m)
+        scl = self._row_scales(Y.device).to(Y2.dtype)
+        out = _scatter_rows(self.rows, Y2 * (scl[:, None] if scl.ndim else scl), self.n)
+        return out.reshape((self.n,) + batch)
 
 
 @register("uniform")
@@ -563,6 +636,13 @@ class SJLTOp(SketchOp):
             return _split_gram(ops.sjlt_gram(self.key, _join_b(A, b), self.m, self.spec.s), A.shape[1], b)
         return super().gram_blocked(A, b, block_rows=block_rows)
 
+    def adjoint(self, Y: torch.Tensor, *, block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+        # Column j of S holds ±1/√s at its s buckets: a gather of Y, signed, summed over s.
+        Y2, batch = _to_2d(Y, self.m)
+        buckets, signs = self._params(torch.arange(self.n, dtype=torch.int64, device=Y.device))
+        out = torch.sum(Y2.to(torch.float32)[buckets] * signs[..., None], dim=1)
+        return out.to(Y.dtype).reshape((self.n,) + batch)
+
     @classmethod
     def gram_batched_kernel(cls, spec, keys, A, b):
         from repro_torch.kernels.sjlt import ops
@@ -592,7 +672,8 @@ class HybridOp(SketchOp):
     from k1, the inner operator (kind ``spec.inner``, with ``spec.s`` and
     ``spec.use_kernel``) from k2 over n = m′ — so an SRHT inner sketch pads to
     next_pow2(m′). With ``spec.use_kernel`` the inner ``apply`` is that kind's
-    S·A kernel (or the FWHT kernel).
+    S·A kernel (or the FWHT kernel), and a Gaussian inner ``adjoint`` the
+    Gaussian adjoint kernel.
     """
 
     rows: torch.Tensor = None  # (m_prime,)
@@ -623,6 +704,13 @@ class HybridOp(SketchOp):
         scale = torch.tensor(self._scale, dtype=torch.float32, device=A.device)
         SAb = self.inner.apply((_gather_joint(A, b, self.rows) * scale).contiguous())
         return _gram_of(SAb, A.shape[1], b)
+
+    def adjoint(self, Y: torch.Tensor, *, block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+        # Sᵀ = Uᵀ·S_innerᵀ: the inner adjoint into m′ rows, scattered to the distinct rows.
+        Y2, batch = _to_2d(Y, self.m)
+        z = self.inner.adjoint(Y2)
+        out = _scatter_rows(self.rows, z, self.n) * torch.tensor(self._scale, dtype=z.dtype, device=z.device)
+        return out.to(Y.dtype).reshape((self.n,) + batch)
 
 
 # --------------------------------------------------------------- functional API

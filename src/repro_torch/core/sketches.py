@@ -73,6 +73,12 @@ def sketch_data(spec: SketchSpec, key: torch.Tensor, A: torch.Tensor, b: torch.T
     return SAb[:, :d], (Sb if b.ndim == 2 else Sb[:, 0])
 
 
+def materialize(spec: SketchSpec, key: torch.Tensor, n: int, dtype=torch.float32, *,
+                device=None) -> torch.Tensor:
+    """Materialize S ∈ R^{m×n} explicitly (tests / small problems only): S = S @ I."""
+    return apply_sketch(spec, key, torch.eye(n, dtype=dtype, device=device))
+
+
 def apply_sketch(spec: SketchSpec, key: torch.Tensor, A: torch.Tensor, *,
                  scores: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``S @ A`` along axis 0 of A for the sketch ``spec`` describes (registry

@@ -1,7 +1,8 @@
 """Least squares and sketch-and-solve: one worker of Algorithm 1 (PyTorch port).
 
 Port of ``repro.core.solve`` (``lstsq`` qr/chol, ``lstsq_gram``,
-``sketch_and_solve`` fused/qr, ``residual_cost``, ``relative_error``). The d×d
+``sketch_and_solve`` fused/qr, ``least_norm`` and the right-sketch
+``sketch_least_norm`` of §V, ``residual_cost``, ``relative_error``). The small
 factorizations stay with ``torch.linalg``, as the reference leaves them to XLA.
 """
 from __future__ import annotations
@@ -54,6 +55,15 @@ def lstsq_gram(G: torch.Tensor, c: torch.Tensor, *, reg: float = 0.0) -> torch.T
     return _solve_tri(L.mT, y, upper=True)
 
 
+def least_norm(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """min ‖x‖² s.t. Ax = b (n < d, full row rank): x = Aᵀ(AAᵀ)⁻¹b by Cholesky and
+    two triangular solves; matrix products in full float32 (TF32 off)."""
+    with common.full_fp32_matmul():
+        L = torch.linalg.cholesky(A @ A.T)
+        z = _solve_tri(L.T, _solve_tri(L, b, upper=False), upper=True)
+        return A.T @ z
+
+
 def sketch_and_solve(
     spec: sk.SketchSpec,
     key: torch.Tensor,
@@ -76,6 +86,24 @@ def sketch_and_solve(
         return lstsq_gram(G, c, reg=reg)
     SA, Sb = sk.sketch_data(spec, key, A, b)
     return lstsq(SA, Sb, reg=reg, method=method)
+
+
+def sketch_least_norm(spec: sk.SketchSpec, key: torch.Tensor, A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One worker of the right-sketch least-norm problem (§V, n < d):
+    ẑ = argmin ‖z‖² s.t. (ASᵀ)z = b;  x̂ = Sᵀẑ.
+
+    S never exists in memory: ``ASᵀ = (S Aᵀ)ᵀ`` is one forward application of the
+    operator to Aᵀ (the S·A or FWHT kernel with ``spec.use_kernel``), and ``Sᵀẑ``
+    is its adjoint (the Gaussian adjoint kernel with ``spec.use_kernel``; a
+    scatter, the FWHT or a gather for the other kinds). A leverage right sketch
+    gets unit scores: over the rows of I_d it is uniform sampling with
+    replacement, as in the reference.
+    """
+    d = A.shape[1]
+    scores = torch.ones((d,), dtype=A.dtype, device=A.device) if spec.kind == "leverage" else None
+    op = operators.make_operator(spec, key, d, scores=scores, device=A.device)
+    SAt = op.apply(A.T)  # (m, n) = S @ Aᵀ
+    return op.adjoint(least_norm(SAt.T, b))
 
 
 def residual_cost(A: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

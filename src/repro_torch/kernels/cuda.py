@@ -8,6 +8,7 @@ into ``build/repro_torch_kernels/`` at the root of the checkout:
                     and the dense S·A (Gaussian, Rademacher);
 * ``sjlt_gram``   — the sparse SJLT sketch→Gram and S·A;
 * ``fwht``        — the fast Walsh-Hadamard transform;
+* ``adjoint``     — the Gaussian adjoint Sᵀ·Y;
 * ``rng_probe``   — the device counter RNG alone, for checking it bitwise.
 
 The ``csrc/*.cuh`` headers (the RNG, the split reduction and Gram pass) are
@@ -38,7 +39,7 @@ from repro_torch.utils import env as envcfg
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("sketch_gram", "sjlt_gram", "fwht", "rng_probe")
+SOURCES = ("sketch_gram", "sjlt_gram", "fwht", "adjoint", "rng_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -67,6 +68,11 @@ SJLT_TARGET_BLOCKS = 4 * 132
 # FWHT passes of csrc/fwht.cu: a block holds 2**FWHT_MAX_TILE_BITS rows of 32
 # columns (128 KB) in shared memory, so a pass runs at most that many stages.
 FWHT_MAX_TILE_BITS = 10
+# Gaussian adjoint of csrc/adjoint.cu: a block owns ADJOINT_ROWS output rows (one
+# a thread), ADJOINT_COLS columns when k > 1 (all of k = 1 otherwise), and one
+# split of the m sketch rows. The splits (plan_adjoint) aim for TARGET_BLOCKS
+# blocks with at least ADJOINT_MIN_SPLIT_ROWS sketch rows each.
+ADJOINT_ROWS, ADJOINT_COLS, ADJOINT_MIN_SPLIT_ROWS = 128, 8, 64
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -163,6 +169,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "fwht":
         lib.repro_fwht.argtypes = [P, P, LL, I, ctypes.POINTER(I), I, P]
         lib.repro_fwht.restype = I
+    elif name == "adjoint":
+        lib.repro_gaussian_adjoint.argtypes = [P, I, I, LL, U, U, F, I, I, I, P, P, P]
+        lib.repro_gaussian_adjoint.restype = I
     elif name == "rng_probe":
         lib.repro_rng_probe.argtypes = [U, U, P, P, I, I, P, P, P, P]
         lib.repro_rng_probe.restype = I
@@ -408,6 +417,52 @@ def fwht(x: torch.Tensor, *, launches: collections.Counter, name: str) -> torch.
     _check(lib, code, "fwht launch")
     launches[name] += 1
     return y
+
+
+def plan_adjoint(m: int, n: int, k: int) -> tuple[int, int]:
+    """``(n_splits, rows_per_split)`` of the m sketch rows for the Gaussian adjoint
+    of Y (m, k) into (n, k): enough blocks of ADJOINT_ROWS output rows to fill the
+    card, at least ADJOINT_MIN_SPLIT_ROWS rows a split (unless m is smaller), no
+    split empty. A function of the shapes only, so reruns add the same partials
+    in the same order."""
+    tiles = -(-n // ADJOINT_ROWS) * -(-k // ADJOINT_COLS)
+    want = max(1, -(-TARGET_BLOCKS // tiles))
+    most = max(1, m // ADJOINT_MIN_SPLIT_ROWS)
+    rows = -(-m // min(want, most))
+    return -(-m // rows), rows
+
+
+def gaussian_adjoint(key: torch.Tensor, Y: torch.Tensor, n: int, *, rounds: int,
+                     launches: collections.Counter, name: str) -> torch.Tensor:
+    """Sᵀ·Y (n, k) for the CUDA tensor Y (m, k) float32, contiguous, and S ∈ R^{m×n}
+    with S[i, j] = counter_normal(key, i, j)/√m (the forward S·A's S). Adds one to
+    ``launches[name]`` per call into the C entry (its partial pass and split
+    reduction, :func:`plan_adjoint`)."""
+    if Y.device.type != "cuda":
+        raise ValueError(f"gaussian_adjoint launches a CUDA kernel; Y is on {Y.device}")
+    if Y.dtype != torch.float32 or Y.ndim != 2 or not Y.is_contiguous():
+        raise ValueError(
+            f"Y must be a contiguous 2-D float32 tensor, got {Y.dtype} {tuple(Y.shape)} "
+            f"contiguous={Y.is_contiguous()}"
+        )
+    m, k = Y.shape
+    if not (0 < m < 2**31 and 0 < k <= MAX_GRID_Z * ADJOINT_COLS and 0 < n < 2**31):
+        raise ValueError(f"unsupported shape m={m} k={k} n={n}")
+    if rounds <= 0 or rounds % 4:
+        raise ValueError(f"threefry rounds must be a positive multiple of 4, got {rounds}")
+    k0, k1 = common.key_words(key)
+    n_splits, rows = plan_adjoint(m, n, k)
+    lib = _library("adjoint")
+    out = torch.empty((n, k), dtype=torch.float32, device=Y.device)
+    partial = torch.empty((n_splits, n, k), dtype=torch.float32, device=Y.device)
+    with torch.cuda.device(Y.device):
+        code = lib.repro_gaussian_adjoint(
+            Y.data_ptr(), m, k, n, k0, k1, common.inv_sqrt(m), rounds, rows, n_splits,
+            partial.data_ptr(), out.data_ptr(), torch.cuda.current_stream(Y.device).cuda_stream,
+        )
+    _check(lib, code, "gaussian_adjoint launch")
+    launches[name] += 1
+    return out
 
 
 def rng_probe(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor, *, rounds: int):

@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the Gaussian S·A and sketch→Gram kernels.
+"""Plain PyTorch versions of the Gaussian S·A, sketch→Gram and adjoint kernels.
 
 They materialize the same counter-derived S the kernels generate tile by tile
 (threefry2x32 + Box-Muller, element (i, j) keyed by counters (i, j)), in blocks
-of data rows, and contract it with plain matrix products in full float32. The
-CPU path of every wrapper in ``ops.py`` is this module; on the card it is the
-version the kernels are compared with.
+of data rows, and contract it with plain matrix products. The CPU path of every
+wrapper in ``ops.py`` is this module; on the card it is the version the kernels
+are compared with.
 """
 from __future__ import annotations
 
@@ -49,3 +49,18 @@ def sketch(key: torch.Tensor, A: torch.Tensor, m: int, *, block_rows: int = PLAI
 def sketch_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:
     """(q, m, d): slice w is :func:`sketch` on ``keys[w]``."""
     return torch.stack([sketch(k, A, m) for k in keys])
+
+
+def adjoint(key: torch.Tensor, Y: torch.Tensor, n: int, *, block_rows: int = PLAIN_BLOCK_ROWS) -> torch.Tensor:
+    """Sᵀ·Y ∈ R^{n×k} in float32 for Y (m, k), S ∈ R^{m×n} drawn by :func:`columns` in
+    blocks of ``block_rows`` of its n columns. The float32 S and Y are multiplied
+    and summed in float64 and rounded once (the exact Sᵀ·Y of the same S, as
+    ``common.plain_sketch`` does for S·A)."""
+    k0, k1 = common.key_words(key)
+    m = Y.shape[0]
+    Yd = Y.to(torch.float64)
+    out = torch.empty((n, Y.shape[1]), dtype=torch.float32, device=Y.device)
+    for j0 in range(0, n, block_rows):
+        blk = min(block_rows, n - j0)
+        out[j0 : j0 + blk] = (columns(k0, k1, m, j0, blk, Y.device).double().T @ Yd).float()
+    return out

@@ -1,11 +1,13 @@
 """Plain PyTorch versions of the SJLT S·A and sketch→Gram kernels.
 
-The reference's segment-sum (``repro.kernels.sjlt.ref``) with ``index_add_``:
+The reference's segment-sum (``repro.kernels.sjlt.ref``):
 data row i adds ``signs[i, t]·A[i]`` into sketch row ``buckets[i, t]``, t < s,
 with the parameters from ``common.sjlt_counter_params``, over blocks of data
-rows, in float64; then the Gram in full float32. On the card ``index_add_``
-sums with atomics, in no fixed order: there this version is the one the kernel
-is held against to tolerance, never a bitwise reference.
+rows, in float64; then the Gram in full float32. Each sketch row adds its pairs
+(data row i, t) one after another in that order, as ``index_add_`` does on the
+CPU, by a segmented sum over the pairs sorted stably by bucket: on the card
+``index_add_`` would add them with float atomics, in an order that changes run
+to run. So the sums are the same on every device and run.
 """
 from __future__ import annotations
 
@@ -19,19 +21,25 @@ PLAIN_BLOCK_ROWS = 4096
 def sjlt_apply(A: torch.Tensor, buckets: torch.Tensor, signs: torch.Tensor, m: int,
                out: torch.Tensor | None = None) -> torch.Tensor:
     """(SA) for the SJLT given by (buckets, signs), each (n, s); A (n, d) float32.
-    Adds into ``out`` (m, d) when given, else into zeros."""
+    Adds into ``out`` (m, d) when given (in place, each row first in its sum),
+    else into zeros."""
     n, s = buckets.shape
+    flat = buckets.reshape(-1)
     vals = (signs[..., None] * A[:, None, :]).reshape(n * s, A.shape[1])
-    if out is None:
-        out = torch.zeros((m, A.shape[1]), dtype=A.dtype, device=A.device)
-    return out.index_add_(0, buckets.reshape(-1), vals)
+    if out is not None:
+        flat = torch.cat([torch.arange(m, dtype=flat.dtype, device=flat.device), flat])
+        vals = torch.cat([out, vals])
+    order = torch.sort(flat, stable=True).indices
+    lengths = torch.bincount(flat, minlength=m)
+    sums = torch.segment_reduce(vals[order], "sum", lengths=lengths, axis=0)
+    return sums if out is None else out.copy_(sums)
 
 
 def sketch(key: torch.Tensor, A: torch.Tensor, m: int, s: int, *,
            block_rows: int = PLAIN_BLOCK_ROWS) -> torch.Tensor:
     """S·A ∈ R^{m×d}, float32, with parameters drawn ``block_rows`` rows at a time;
-    the signed rows are summed in float64 and rounded once (as the dense plain
-    versions do), so the atomics' order on the card does not show."""
+    the signed rows are summed in float64 and rounded once, as the dense plain
+    versions do."""
     k0, k1 = common.key_words(key)
     n, d = A.shape
     acc = torch.zeros((m, d), dtype=torch.float64, device=A.device)

@@ -321,3 +321,105 @@ def test_row_draws_on_the_card_are_bitwise_the_cpu_draws(cuda):
     logits = prng.xla_log(torch.rand(5000, generator=torch.Generator().manual_seed(0)) + 1e-30)
     assert torch.equal(prng.categorical(key, logits.to(cuda), 300).cpu(), prng.categorical(key, logits, 300))
     assert torch.equal(prng.gumbel(key, (64, 99), device=cuda).cpu(), prng.gumbel(key, (64, 99)))
+
+
+# ------------------------------------------------ Gaussian adjoint and least norm
+
+
+@pytest.mark.parametrize("m,n,k", [(200, 1000, 1), (200, 500, 1), (1, 1, 1), (63, 129, 1), (64, 300, 1),
+                                   (65, 1001, 3), (129, 257, 8), (300, 1001, 33), (4000, 8000, 1)])
+def test_adjoint_kernel_matches_plain(cuda, m, n, k):
+    """m across split and chunk edges, ragged n, k = 1, 3, 8 and 33 (column tiles
+    of 8): per column max_i |Δ(SᵀY)_ij| / rms_i ≤ 1e-5 against the float64 plain
+    version; a rerun is bitwise equal; one launch per call."""
+    Y = _x(m, k, m + n + k, cuda)
+    key = prng.prng_key(m * n + k)
+    before = gops.LAUNCHES["gaussian_adjoint"]
+    out = gops.gaussian_adjoint(key, Y, n)
+    assert gops.LAUNCHES["gaussian_adjoint"] == before + 1
+    assert out.shape == (n, k)
+    assert _sx_err(out, gref.adjoint(key, Y, n)) <= REL_TOL
+    assert torch.equal(gops.gaussian_adjoint(key, Y, n), out)
+
+
+@pytest.mark.parametrize("m,n", [(200, 1000), (4000, 11_556)])
+def test_adjoint_kernel_is_the_transpose_of_the_apply_kernel(cuda, m, n):
+    """⟨S·x, y⟩ = ⟨x, Sᵀ·y⟩ with S·x from the Gaussian S·A kernel."""
+    x, y = _x(n, 1, 1, cuda), _x(m, 1, 2, cuda)
+    key = prng.prng_key(n)
+    Sx, Sty = gops.gaussian_sketch(key, x, m), gops.gaussian_adjoint(key, y, n)
+    lhs, rhs = float(Sx.double().T @ y.double()), float(x.double().T @ Sty.double())
+    assert abs(lhs - rhs) <= REL_TOL * float(Sx.norm() * y.norm() + x.norm() * Sty.norm())
+
+
+def test_adjoint_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    key = prng.prng_key(0)
+    with pytest.raises(ValueError, match="float32"):
+        gops.gaussian_adjoint(key, _x(64, 2, 0, cuda).double(), 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        gops.gaussian_adjoint(key, _x(2, 64, 0, cuda).T, 10)
+
+
+@pytest.mark.parametrize("log_n", [10, 13, 14])
+@pytest.mark.parametrize("k", [1, 33])
+def test_fwht_kernel_on_the_srht_adjoint_shapes(cuda, log_n, k):
+    """The SRHT adjoint's FWHT of a scattered vector: n_pad = 2^10 (FIG4A's d) and
+    2^13, 2^14 (the Fig. 4(b) hybrid's m′ and its d), k = 1 and 33, bitwise."""
+    x = torch.zeros((1 << log_n, k), device=cuda)
+    rows = torch.randint(0, 1 << log_n, (500,), generator=torch.Generator().manual_seed(log_n))
+    x[rows.to(cuda)] = _x(500, k, k, cuda)
+    assert torch.equal(fops.fwht(x), fref.fwht(x))
+
+
+@pytest.mark.parametrize("k", [None, 3])
+def test_scatter_of_repeated_rows_is_bitwise_the_cpu_scatter(cuda, k):
+    rs = np.random.default_rng(12)
+    rows = torch.from_numpy(rs.integers(0, 300, 4000))
+    Y = torch.from_numpy(rs.standard_normal((4000,) if k is None else (4000, k)).astype(np.float32))
+    got = operators._scatter_rows(rows.to(cuda), Y.to(cuda), 300)
+    assert torch.equal(operators._scatter_rows(rows.to(cuda), Y.to(cuda), 300), got)
+    assert torch.equal(got.cpu(), operators._scatter_rows(rows, Y, 300))
+
+
+@pytest.mark.parametrize("out", [False, True])
+def test_sjlt_plain_segment_sum_is_bitwise_the_cpu_sum(cuda, out):
+    """The SJLT's plain S·A (the operator's path without the kernel) adds each
+    sketch row's pairs in a fixed order on the card: bitwise run to run and the CPU."""
+    rs = np.random.default_rng(15)
+    A = torch.from_numpy(rs.standard_normal((3000, 7)).astype(np.float32))
+    buckets, signs = common.sjlt_counter_params(11, 12, torch.arange(3000), SJLT_S, 90)
+    acc = torch.from_numpy(rs.standard_normal((90, 7)).astype(np.float32)) if out else None
+
+    def run(dev):
+        return sref.sjlt_apply(A.to(dev), buckets.to(dev), signs.to(dev), 90,
+                               out=None if acc is None else acc.to(dev))
+
+    got = run(cuda)
+    assert torch.equal(run(cuda), got)
+    assert torch.equal(got.cpu(), run("cpu"))
+
+
+LEAST_NORM_KINDS = ["gaussian", "rademacher", "srht", "sjlt", "uniform", "uniform_norep", "leverage",
+                    "hybrid_gaussian", "hybrid_rademacher", "hybrid_sjlt", "hybrid_srht"]
+
+
+@pytest.mark.parametrize("kind", LEAST_NORM_KINDS)
+def test_least_norm_on_the_card_matches_the_cpu(cuda, kind):
+    """``distributed_sketch_least_norm`` with every kind (the S·A, FWHT and adjoint
+    kernels with ``use_kernel``) on the card against the CPU, and bitwise reruns."""
+    rs = np.random.default_rng(13)
+    A = torch.from_numpy(rs.standard_normal((30, 1500)).astype(np.float32))
+    b = torch.from_numpy(rs.standard_normal(30).astype(np.float32))
+    if kind.startswith("hybrid_"):
+        spec = sketches.SketchSpec("hybrid", 120, m_prime=400, inner=kind[7:], s=SJLT_S, use_kernel=True)
+    elif kind == "uniform_norep":
+        spec = sketches.SketchSpec("uniform", 120, replacement=False)
+    else:
+        spec = sketches.SketchSpec(kind, 120, s=SJLT_S, use_kernel=True)
+    key = prng.prng_key(14)
+    mask = np.array([1, 1, 0, 1], np.float32)
+    got = distributed.distributed_sketch_least_norm(spec, key, A, b, q=4, straggler_mask=mask)
+    want = distributed.distributed_sketch_least_norm(spec, key, A, b, q=4, straggler_mask=mask, device="cpu")
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(distributed.distributed_sketch_least_norm(spec, key, A, b, q=4, straggler_mask=mask), got)
