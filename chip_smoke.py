@@ -6,9 +6,11 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
-in parallel), checks the device counter RNG against the plain PyTorch contract,
-holds each sketch→Gram kernel (Gaussian, Rademacher, SRHT, SJLT with FIG3A's
-s = 20) against its plain version at the FIG3A shape (n = 500,000, d = 250,
+in parallel), checks the device counter RNG against the plain PyTorch contract
+and the dense S·A kernel's tensor-core product (one warp's 3xTF32 m16n8k8, the
+clusters the card holds, a launch path that does not wait for the card, one
+traced call at FIG4A's shape), holds each sketch→Gram kernel (Gaussian,
+Rademacher, SRHT, SJLT with FIG3A's s = 20) against its plain version at the FIG3A shape (n = 500,000, d = 250,
 m = 2,500), q = 1 and 2, and each S·A kernel (Gaussian, Rademacher, SJLT) and
 the FWHT kernel at the shapes of their paths (the hybrid's m′ = 25,000 rows, the
 two-pass path's full n; the FWHT on 2^19 and 2^15 rows), then runs Algorithm 1
@@ -96,6 +98,11 @@ SJLT_S = 20  # FIG3A's nonzeros per data row (RegressionConfig.s)
 # tensor cores, 3.35 TB/s HBM. INT32: 64 lanes per SM (half the 128 FP32 lanes,
 # Hopper white paper) at the same clock, so 67/4 = 16.7 T integer ops/s.
 PEAK_FP32_FLOPS = 67e12
+# Dense TF32 on the tensor cores (same data sheet). The dense S·A kernel's product
+# is fp32-accurate in 3xTF32 form: 3 TF32 products per Gaussian flop pair, 2 for
+# the ±1 signs (exact in TF32, scaled after the sum).
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = {"gaussian": 3, "rademacher": 2}
 PEAK_INT32_OPS = 16.7e12
 PEAK_BYTES = 3.35e12
 LEVERAGE_Q = 2  # workers of the leverage path: each draws an (m, n) gumbel array
@@ -170,6 +177,36 @@ def bound_ms(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20,
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def apply_bound(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20) -> dict:
+    """The bound of q sketches S·X (n, dx): for the dense families on the tensor
+    cores (``bound_ms``: the bytes, the TF32 passes of 2·m·n·dx·q flops at the TF32
+    peak, and the RNG at the int32 rate) with the FFMA bound of the same work
+    beside it (``ffma_bound_ms``, as earlier rows were bound); the SJLT's as
+    :func:`bound_ms`."""
+    ffma_ms, ffma_by = bound_ms(family, n, dx, m, q, rounds, apply=True)
+    if family not in TF32_PASSES:
+        return {"bound_ms": ffma_ms, "bound_by": ffma_by, "ffma_bound_ms": ffma_ms}
+    bytes_ms = 4 * (n * dx + q * m * dx) / PEAK_BYTES * 1e3
+    tensor_ms = TF32_PASSES[family] * 2 * m * n * dx * q / PEAK_TF32_FLOPS * 1e3
+    per_entry = threefry_ops(rounds) if family == "gaussian" else threefry_ops(20) / 32
+    int_ms = m * n * q * per_entry / PEAK_INT32_OPS * 1e3
+    ops_ms = max(tensor_ms, int_ms)
+    by = "bytes" if bytes_ms > ops_ms else "operations"
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": by, "ffma_bound_ms": ffma_ms,
+            "tensor_ms": tensor_ms, "rng_ms": int_ms}
+
+
+def apply_plan(family: str, n: int, dx: int, m: int) -> dict:
+    """The launch plan of a dense S·A kernel at this shape (none for the SJLT here)."""
+    from repro_torch.kernels import cuda
+
+    if family not in TF32_PASSES:
+        return {}
+    p = cuda.plan_apply(n, m, dx)
+    return {"plan": {"splits": p.n_splits, "block_cols": p.block_cols, "cluster": p.cluster,
+                     "groups": p.groups, "blocks": p.blocks, "direct": p.direct}}
+
+
 def fwht_bound_ms(n: int, k: int) -> tuple[float, str]:
     """Least time for H·x, x (n, k) float32: x read once and H·x written once, or
     the log2(n) stages of one add or subtract per element each, at the fp32 peak."""
@@ -238,12 +275,73 @@ def phase_build():
     t0 = time.perf_counter()
     built = cuda.build()
     seconds = time.perf_counter() - t0
-    ptxas = [
-        line.strip() for b in built for line in b.log.splitlines()
-        if "registers" in line or "spill" in line
-    ]
     emit({"phase": "build", "seconds": seconds,
-          "libraries": {b.name: b.seconds for b in built}, "ptxas": ptxas})
+          "libraries": {b.name: b.seconds for b in built},
+          "ptxas": {b.name: cuda.ptxas_usage(b.log) for b in built if b.log}})
+
+
+def phase_tensor_cores() -> None:
+    """The dense S·A kernel's building blocks before its paths: one warp's m16n8k8
+    TF32 product (fragment layouts; the 3xTF32 form within 1e-6 of a float64
+    product, relative to its largest entry), the clusters the card holds at each
+    column width, the rate of ``mma.sync`` TF32 alone (a register-only loop: the
+    ceiling of the S·A's consumers), the wrappers that copy key words to the card
+    (the dense S·A with one key and three, a multi-key Gram, the SJLT S·A) at
+    FIG4A's shape under ``torch.cuda.set_sync_debug_mode("error")`` (none may
+    wait for the card), and one traced single-key Gaussian S·A there (host
+    enqueue against device time)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_lsq import FIG4A
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.gaussian import ops
+    from repro_torch.kernels.rademacher import ops as rops
+    from repro_torch.kernels.sjlt import ops as sops
+    from repro_torch.utils import prng
+
+    rs = np.random.default_rng(SEED + 11)
+    A = torch.from_numpy(rs.standard_normal((16, 8)).astype(np.float32))
+    B = torch.from_numpy(rs.standard_normal((8, 8)).astype(np.float32))
+    d1, d3 = cuda.mma_probe(A.to(DEVICE), B.to(DEVICE))
+    want = A.double() @ B.double()
+    scale = float(want.abs().max())
+    err3 = float((d3.cpu().double() - want).abs().max()) / scale
+    err1 = float((d1.cpu().double() - want).abs().max()) / scale
+    clusters = {bn: cuda.apply_clusters(bn, cuda.APPLY_MAX_CLUSTER) for bn in cuda.APPLY_BLOCK_COLS}
+    X = torch.from_numpy(rs.standard_normal((FIG4A.d, FIG4A.n)).astype(np.float32)).to(DEVICE)
+    key = prng.worker_key(prng.prng_key(SEED + 11), 0)
+    keys = prng.worker_keys(prng.prng_key(SEED + 12), 3)
+    m = FIG4A.m
+    wrappers = {  # each copies its key words to the card
+        "gaussian_sketch": lambda: ops.gaussian_sketch(key, X, m),
+        "gaussian_sketch_multi": lambda: ops.gaussian_sketch_multi(keys, X, m),
+        "rademacher_sketch_multi": lambda: rops.rademacher_sketch_multi(keys, X, m),
+        "gaussian_gram_multi": lambda: ops.gaussian_gram_multi(keys, X, m),
+        "sjlt_apply_multi": lambda: sops.sjlt_apply_multi(keys, X, m, SJLT_S),
+    }
+    no_sync = {}
+    for label, fn in wrappers.items():
+        want = fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn()
+        except RuntimeError:
+            got = None
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        no_sync[label] = got is not None and bool(torch.equal(got, want))  # bitwise its first call, too
+    run, flops = cuda.mma_rate(4 * 132, 2000)
+    rate_ms, _ = cuda_ms(run, 3)
+    emit({"phase": "tensor_cores", "mma_3xtf32_rel_err": err3, "mma_tf32_rel_err": err1,
+          "clusters_of_8_resident": clusters, "no_sync_call": no_sync,
+          "mma_sync_tf32_tflops": flops / rate_ms / 1e9, "peak_tf32_tflops": PEAK_TF32_FLOPS / 1e12})
+    check(err3 <= 1e-6, f"3xTF32 mma probe off a float64 product by {err3}")
+    check(err1 > 1e-5, f"one TF32 mma equals the 3xTF32 form ({err1}): the split is not applied")
+    check(all(c > 0 for c in clusters.values()), f"a cluster of 8 does not fit the card: {clusters}")
+    check(all(no_sync.values()), f"a wrapper waited for the card or changed its result: {no_sync}")
+    phase_trace("fig4a_gaussian_sketch_traced", lambda: ops.gaussian_sketch(key, X, FIG4A.m))
 
 
 def phase_rng_probe():
@@ -287,6 +385,7 @@ FAMILY_ROUTES = {
 }
 SOURCES = {"gaussian": "sketch_gram.cu", "rademacher": "sketch_gram.cu", "srht": "sketch_gram.cu",
            "sjlt": "sjlt_gram.cu"}
+APPLY_SOURCES = {"gaussian": "sketch_apply.cu", "rademacher": "sketch_apply.cu", "sjlt": "sjlt_gram.cu"}
 
 
 def family_modules(family: str):
@@ -468,7 +567,9 @@ def sx_err(SX, want) -> float:
 def apply_check(family: str, keys, Y, m: int, label: str) -> dict:
     """The single-key S·A entry of ``family`` on Y (the sketch of ``keys[0]``)
     against its plain version (per column ≤ SX_TOL) and a rerun (bitwise); its
-    card, plain and library ms and its bound. Emits one ``apply_kernels`` line."""
+    card, plain and library ms (means of 3 calls, or of 50 where a call is
+    shorter than its host set-up, as at FIG4A) and its bound. Emits one
+    ``apply_kernels`` line."""
     import torch
 
     from repro_torch.kernels import common
@@ -482,15 +583,15 @@ def apply_check(family: str, keys, Y, m: int, label: str) -> dict:
     err, abs_err = sx_err(SX, plain), float((SX - plain).abs().max())
     del SX, plain
     library = (sjlt_library if family == "sjlt" else dense_library)(Calls(family, keys, ny, m), Y, 1, gram=False)
-    lib_ms, _ = cuda_ms(lambda: library(1), 3)
+    reps = 3 if ny * dx >= 10**6 else 50
+    lib_ms, _ = cuda_ms(lambda: library(1), reps)
     del library
     torch.cuda.empty_cache()
-    ms, _ = cuda_ms(lambda: calls.single(0, Y), 3)
+    ms, _ = cuda_ms(lambda: calls.single(0, Y), reps)
     rounds = common.rng_rounds() if family == "gaussian" else common.DEFAULT_ROUNDS
-    b_ms, b_by = bound_ms(family, ny, dx, m, 1, rounds, apply=True)
     report = {"n": ny, "d": dx, "m": m, "ms": ms, "plain_ms": plain_s * 1e3, "library_ms": lib_ms,
-              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": abs_err, "max_col_rel_err": err,
-              "tol": SX_TOL, "rerun_bitwise": rerun}
+              **apply_bound(family, ny, dx, m, 1, rounds), "max_abs_err": abs_err, "max_col_rel_err": err,
+              "tol": SX_TOL, "rerun_bitwise": rerun, **apply_plan(family, ny, dx, m)}
     emit({"phase": "apply_kernels", "name": single, "shape": label, **report})
     check(err <= SX_TOL, f"{single} on {(ny, dx)}, m = {m} disagrees with its plain version ({err})")
     check(rerun, f"{single} on {(ny, dx)}, m = {m} is not bitwise equal run to run")
@@ -519,11 +620,12 @@ def phase_apply_kernels(X, m: int, m_prime: int, rows: dict) -> None:
             report[label] = apply_check(family, keys, Y, m, label)
         h = report["hybrid"]
         rows[single] = {
-            "name": single, "route": "cuda", "source": f"src/repro_torch/csrc/{SOURCES[family]}",
+            "name": single, "route": "cuda", "source": f"src/repro_torch/csrc/{APPLY_SOURCES[family]}",
             "replaces": src, "launches": 0, "max_abs_err": h["max_abs_err"],
             "max_col_rel_err": h["max_col_rel_err"], "ms": h["ms"], "plain_ms": h["plain_ms"],
-            "bound_ms": h["bound_ms"], "bound_by": h["bound_by"], "library_ms": h["library_ms"],
-            "shape": {"n": m_prime, "d": dx, "m": m, "q": 1}, "full_n": report["full"],
+            "bound_ms": h["bound_ms"], "bound_by": h["bound_by"], "ffma_bound_ms": h["ffma_bound_ms"],
+            "library_ms": h["library_ms"], "shape": {"n": m_prime, "d": dx, "m": m, "q": 1},
+            "full_n": report["full"], **apply_plan(family, m_prime, dx, m),
         }
         SXm = calls.multi(X)
         bitwise = all(torch.equal(SXm[w], calls.single(w, X)) for w in range(CHECK_Q))
@@ -535,15 +637,17 @@ def phase_apply_kernels(X, m: int, m_prime: int, rows: dict) -> None:
         del library
         torch.cuda.empty_cache()
         ms_m, _ = cuda_ms(lambda: calls.multi(X), 3)
-        b_ms, b_by = bound_ms(family, n, dx, m, CHECK_Q, rounds, apply=True)
+        bound = apply_bound(family, n, dx, m, CHECK_Q, rounds)
+        b_ms = bound["bound_ms"]
         rows[multi] = {
-            "name": multi, "route": "cuda", "source": f"src/repro_torch/csrc/{SOURCES[family]}",
+            "name": multi, "route": "cuda", "source": f"src/repro_torch/csrc/{APPLY_SOURCES[family]}",
             "replaces": src, "launches": 0, "max_abs_err": abs_m, "max_col_rel_err": err_m,
-            "ms": ms_m, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "shape": {"n": n, "d": dx, "m": m, "q": CHECK_Q},
+            "ms": ms_m, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": bound["bound_by"],
+            "ffma_bound_ms": bound["ffma_bound_ms"], "library_ms": lib_ms,
+            "shape": {"n": n, "d": dx, "m": m, "q": CHECK_Q}, **apply_plan(family, n, dx, m),
         }
         # The first worker-chunk edge of the multi-key entry at this shape.
-        chunk = cuda.worker_chunk(n, m, dx, 1 << 20, family=family, s=SJLT_S)
+        chunk = cuda.worker_chunk(n, m, dx, 1 << 20, family=family, s=SJLT_S, apply=True)
         edge_keys = prng.worker_keys(prng.prng_key(SEED + 5), chunk + 1)
         edge = ApplyCalls(family, edge_keys, m)
         SXe = edge.multi(X)
@@ -855,7 +959,8 @@ def phase_new_paths(cfg, rows: dict, key, A, b, gate) -> None:
             name, want = "fwht", SIDE_Q
         else:
             name = APPLY_ROUTES[family][1]
-            want = -(-SIDE_Q // cuda.worker_chunk(cfg.n, cfg.m, dx, SIDE_Q, family=family, s=SJLT_S))
+            want = -(-SIDE_Q // cuda.worker_chunk(cfg.n, cfg.m, dx, SIDE_Q, family=family, s=SJLT_S,
+                                                  apply=True))
         x_qr, counts = twice(f"master_qr_{family}", path(master, spec, SIDE_Q, "qr"), {name: want},
                              SIDE_Q, THEORY_BAND.get(family))
         rows[name].setdefault("launches_by_path", {})[f"master_qr_{family}"] = counts.get(name, 0)
@@ -1085,6 +1190,7 @@ def phase_trace(label: str, solve) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         solve()
+        enqueued = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_kernel: dict = {}
@@ -1094,7 +1200,7 @@ def phase_trace(label: str, solve) -> None:
             by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_kernel.values())
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
-    emit({"phase": label, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+    emit({"phase": label, "wall_ms": wall * 1e3, "host_enqueue_ms": enqueued * 1e3, "device_busy_ms": busy_ms,
           "device_busy_share": busy_ms / (wall * 1e3), "device_kernels": len(by_kernel),
           "top_kernels_ms": top})
 
@@ -1125,6 +1231,7 @@ def main() -> int:
     try:
         phase_build()
         phase_rng_probe()
+        phase_tensor_cores()
         A, b, _ = regression.gaussian_regression(SEED + 2, FIG3A.n, FIG3A.d, device=DEVICE)
         rows: dict = {}
         X = torch.cat([A, b[:, None]], dim=1)

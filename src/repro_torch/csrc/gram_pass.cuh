@@ -1,12 +1,14 @@
 // The two passes that finish every fused sketch->Gram kernel of the port, shared
 // by sketch_gram.cu (dense and SRHT sketch passes) and sjlt_gram.cu (SJLT pass);
-// the S.A entries of both files end after the first.
+// the S.A entries (sjlt_gram.cu, and sketch_apply.cu when it has more than one
+// split) and the adjoint (adjoint.cu) use the first alone.
 //
 // A sketch pass leaves, for each of q workers, n_splits partial sketches S_w X
 // over disjoint ranges of data rows: partial is (q, n_splits, m, d) float32.
 //   reduce_splits_kernel sums each worker's splits in split order, into split 0
-//   for a Gram, or into an (q, m, d) output for an S.A entry: the same sums, so
-//   an S.A entry's S_w X is bitwise what the Gram pass contracts;
+//   for a Gram, or into an (q, m, d) output for an S.A entry: on the same
+//   sketch pass the same sums, so the SJLT S.A entry's S_w X is bitwise what
+//   its Gram pass contracts;
 //   gram_kernel forms G_w = acc_w^T acc_w (contraction over m) with a tiled FFMA
 //   loop, each G entry one fmaf chain over m in ascending order, so G is bitwise
 //   symmetric.

@@ -55,13 +55,17 @@ __device__ __forceinline__ float bits_to_open_unit(uint32_t bits) {
   return (__uint2float_rn(bits) + 0.5f) * 2.3283064365386963e-10f;  // 2^-32
 }
 
-__device__ __forceinline__ float counter_normal(uint32_t k0, uint32_t k1, uint32_t c0,
-                                                uint32_t c1, int rounds) {
-  const uint2 b = threefry2x32(k0, k1, c0, c1, rounds);
+// Box-Muller (cos branch) on the two words of one threefry.
+__device__ __forceinline__ float normal_from_bits(uint2 b) {
   const float u1 = bits_to_open_unit(b.x);
   const float u2 = bits_to_open_unit(b.y);
   const float r = sqrtf(-2.0f * logf(u1));
   return r * cosf(6.2831854820251465f * u2);  // float32(2*pi), as the reference
+}
+
+__device__ __forceinline__ float counter_normal(uint32_t k0, uint32_t k1, uint32_t c0,
+                                                uint32_t c1, int rounds) {
+  return normal_from_bits(threefry2x32(k0, k1, c0, c1, rounds));
 }
 
 // The word of 32 packed signs for sketch row `row` and data rows 32*wcol .. 32*wcol+31.

@@ -1,19 +1,15 @@
-// Fused sketch -> Gram and S.A for the dense sketch families, hand-written for Hopper.
+// Fused sketch -> Gram for the dense sketch families, hand-written for Hopper.
 //
 // Replaces the Pallas TPU kernels of the JAX reference package:
 //   kernels/gaussian/gram.py      gaussian_gram_tiles, gaussian_gram_tiles_multi
 //   kernels/rademacher/gram.py    rademacher_gram_tiles, rademacher_gram_tiles_multi
 //   kernels/fwht/gram.py          srht_gram_tiles, srht_gram_tiles_multi
-//   kernels/gaussian/kernel.py    gaussian_tiles    (entry repro_sketch_apply)
-//   kernels/rademacher/kernel.py  rademacher_tiles  (entry repro_sketch_apply)
 // For q keys (one per worker) and X = [A | b] of shape (n, d), repro_sketch_gram
 // computes G_w = (S_w X)^T (S_w X), with S_w[i, j] drawn in-core from the
 // counter stream (rng.cuh): neither S nor S X is ever written to device memory
-// whole. repro_sketch_apply (Gaussian, Rademacher) computes S_w X: the same
-// sketch pass and split reduction, written out, and no Gram pass. On the same
-// split plan its S_w X is bitwise the one the Gram pass contracts. What bounds
-// it is what bounds the sketch pass (below); the (m, d) output per worker adds
-// m * d * 4 bytes, 2.5 MB at m = 2,500, d = 251.
+// whole. The dense S.A (Gaussian, Rademacher) has its own kernel and plan in
+// sketch_apply.cu, so its S_w X agrees with the one this file contracts to
+// rounding, not bitwise.
 // The SRHT's S is dense too, by the Sylvester closed form
 //   S[r, j] = (1/sqrt(m)) * (-1)^popcount(rows[r] & j) * D[j],
 // with rows[r] the worker's sampled Hadamard row ids (drawn on the host, passed
@@ -287,22 +283,6 @@ int repro_sketch_gram(int family, const float* X, long long n, int d, const uint
                                       rows_per_split, n_splits, partial, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(repro::reduce_and_gram(partial, q, n_splits, m, d, G, stream));
-}
-
-// S_w X for family 0 (Gaussian) or 1 (Rademacher): the sketch pass of
-// repro_sketch_gram and its split reduction into out (q, m, d) float32, no Gram.
-// Arguments as for repro_sketch_gram. Returns cudaErrorInvalidValue for another
-// family or a split it cannot take, else the first CUDA error of the two launches.
-int repro_sketch_apply(int family, const float* X, long long n, int d, const uint32_t* keys,
-                       int q, int m, float scale, int rounds, long long rows_per_split,
-                       int n_splits, float* partial, float* out, void* stream_ptr) {
-  if (family != kGaussian && family != kRademacher) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const cudaError_t err = sketch_pass(family, X, n, d, keys, nullptr, q, m, scale, rounds,
-                                      rows_per_split, n_splits, partial, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(repro::reduce_splits(partial, q, n_splits, m, d, out,
-                                               static_cast<long long>(m) * d, stream));
 }
 
 }  // extern "C"

@@ -4,15 +4,17 @@ Each ``csrc/<name>.cu`` named in ``SOURCES`` is compiled by ``nvcc`` for
 ``sm_90a`` (Hopper) into a shared library with a plain C interface, at first use,
 into ``build/repro_torch_kernels/`` at the root of the checkout:
 
-* ``sketch_gram`` — the dense sketch→Gram families (Gaussian, Rademacher, SRHT)
-                    and the dense S·A (Gaussian, Rademacher);
+* ``sketch_gram`` — the dense sketch→Gram families (Gaussian, Rademacher, SRHT);
+* ``sketch_apply`` — the dense S·A (Gaussian, Rademacher) on the tensor cores;
 * ``sjlt_gram``   — the sparse SJLT sketch→Gram and S·A;
 * ``fwht``        — the fast Walsh-Hadamard transform;
 * ``adjoint``     — the Gaussian adjoint Sᵀ·Y;
-* ``rng_probe``   — the device counter RNG alone, for checking it bitwise.
+* ``rng_probe``   — the device counter RNG alone, for checking it bitwise;
+* ``mma_probe``   — the dense S·A's TF32 tensor-core product alone: one warp's
+  fragments against float64, and ``mma.sync``'s own rate.
 
-The ``csrc/*.cuh`` headers (the RNG, the split reduction and Gram pass) are
-included by the sources. A library's file name carries a hash of its source,
+The ``csrc/*.cuh`` headers (the RNG, the TF32 product, the split reduction and
+Gram pass) are included by the sources. A library's file name carries a hash of its source,
 every header and the flags, so an edited source or header is rebuilt. All
 sources are compiled in parallel, one ``nvcc`` each. Nothing here is imported
 or built when a module of the port is imported: the CPU tests import every module
@@ -25,11 +27,14 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
+from collections.abc import Callable
 from pathlib import Path
 
 import torch
@@ -39,7 +44,7 @@ from repro_torch.utils import env as envcfg
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("sketch_gram", "sjlt_gram", "fwht", "adjoint", "rng_probe")
+SOURCES = ("sketch_gram", "sketch_apply", "sjlt_gram", "fwht", "adjoint", "rng_probe", "mma_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,6 +62,15 @@ MIN_SPLIT_STEPS = 16
 # is cut into chunks of workers, one call each.
 SCRATCH_BYTES = 2 << 30
 MAX_GRID_Z = 65535  # workers per call: the grid's z extent
+MAX_GRID_Y = 65535  # n-splits of one launch: the grid's y extent
+# Dense S·A of csrc/sketch_apply.cu: a block owns APPLY_BLOCK_ROWS sketch rows and
+# one of APPLY_BLOCK_COLS column widths; its split is a whole number of STEP_ROWS
+# (packed sign words; the C entry refuses another split). The column tiles of one
+# m-tile form clusters of at most APPLY_MAX_CLUSTER blocks that draw each S entry
+# once. APPLY_TARGET_BLOCKS (four waves of one block per SM) steers the n-splits
+# (plan_apply).
+APPLY_BLOCK_ROWS, APPLY_BLOCK_COLS, APPLY_MAX_CLUSTER = 64, (64, 128, 256), 8
+APPLY_TARGET_BLOCKS = 4 * 132
 # SJLT sketch pass of csrc/sjlt_gram.cu: a block owns at most SJLT_MAX_BUCKETS
 # sketch rows (its shared-memory accumulator) and SJLT_BLOCK_COLS columns, and
 # walks its rows in chunks of at most SJLT_MAX_CHUNK_ROWS rows and
@@ -82,6 +96,25 @@ class Built:
     name: str
     seconds: float  # 0.0 when the library was already built
     log: str  # nvcc's -Xptxas -v report: registers, shared memory, spills
+
+
+def ptxas_usage(log: str) -> list[dict]:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: its name (demangled where
+    ``c++filt`` is found), registers, stack frame and spill bytes."""
+    rows: list[dict] = []
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            rows.append({"kernel": m.group(1)})
+        elif rows and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line)):
+            rows[-1].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        elif rows and (m := re.search(r"Used (\d+) registers", line)):
+            rows[-1]["registers"] = int(m.group(1))
+    if rows and (filt := shutil.which("c++filt")):
+        out = subprocess.run([filt], input="\n".join(r["kernel"] for r in rows), capture_output=True, text=True)
+        for r, name in zip(rows, out.stdout.splitlines()):
+            r["kernel"] = re.sub(r"^void |\(anonymous namespace\)::|repro::|\(.*", "", name)
+    return rows
 
 
 def nvcc_path() -> str:
@@ -159,8 +192,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "sketch_gram":
         lib.repro_sketch_gram.argtypes = [I, P, LL, I, P, P, I, I, F, I, LL, I, P, P, P]
         lib.repro_sketch_gram.restype = I
-        lib.repro_sketch_apply.argtypes = [I, P, LL, I, P, I, I, F, I, LL, I, P, P, P]
+    elif name == "sketch_apply":
+        lib.repro_sketch_apply.argtypes = [I, P, LL, I, P, I, I, F, I, LL, I, I, I, I, P, P, P]
         lib.repro_sketch_apply.restype = I
+        lib.repro_sketch_apply_clusters.argtypes = [I, I, ctypes.POINTER(I)]
+        lib.repro_sketch_apply_clusters.restype = I
     elif name == "sjlt_gram":
         lib.repro_sjlt_gram.argtypes = [P, LL, I, P, I, I, I, F, LL, I, I, I, P, P, P]
         lib.repro_sjlt_gram.restype = I
@@ -175,6 +211,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "rng_probe":
         lib.repro_rng_probe.argtypes = [U, U, P, P, I, I, P, P, P, P]
         lib.repro_rng_probe.restype = I
+    elif name == "mma_probe":
+        lib.repro_mma_probe.argtypes = [P, P, P, P, P]
+        lib.repro_mma_probe.restype = I
+        lib.repro_mma_rate.argtypes = [I, I, P, P]
+        lib.repro_mma_rate.restype = I
 
 
 def _check(lib: ctypes.CDLL, code: int, what: str) -> None:
@@ -183,9 +224,14 @@ def _check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 def _u32_words(words: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """int64 tensor of uint32 values -> int32 tensor with the same 32 bits."""
+    """int64 tensor of uint32 values -> int32 tensor on ``device`` with the same
+    32 bits. Words on the host are converted there and reach the card through
+    pinned memory with a copy that does not wait for the card."""
     w = words.to(torch.int64) & common.MASK32
-    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).to(device).contiguous()
+    w = torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).contiguous()
+    if w.device.type == "cpu" and device.type == "cuda":
+        w = w.pin_memory()
+    return w.to(device, non_blocking=True)
 
 
 def plan_splits(n: int, m: int, d: int) -> tuple[int, int]:
@@ -227,16 +273,80 @@ def plan_sjlt(n: int, m: int, d: int, s: int) -> SjltPlan:
     return SjltPlan(-(-n // rows), rows, bucket_tile, chunk)
 
 
-def _splits(family: str, n: int, m: int, d: int, s: int) -> int:
-    return plan_sjlt(n, m, d, s).n_splits if family == "sjlt" else plan_splits(n, m, d)[0]
+@dataclasses.dataclass(frozen=True)
+class ApplyPlan:
+    n_splits: int
+    rows_per_split: int
+    block_rows: int  # BM, sketch rows per block
+    block_cols: int  # BN, columns per block
+    cluster: int  # blocks per cluster: column tiles that share each drawn S tile
+    groups: int  # clusters per m-tile: ceil(column tiles / cluster)
+    m_tiles: int
+
+    @property
+    def grid_x(self) -> int:
+        return self.m_tiles * self.groups * self.cluster
+
+    @property
+    def blocks(self) -> int:
+        """Blocks a single-key launch runs."""
+        return self.grid_x * self.n_splits
+
+    @property
+    def direct(self) -> bool:
+        """One split: the kernel writes S·X itself, no partials, no reduction."""
+        return self.n_splits == 1
 
 
-def worker_chunk(n: int, m: int, d: int, q: int, *, family: str = "gaussian", s: int = 0) -> int:
+def plan_apply(n: int, m: int, d: int) -> ApplyPlan:
+    """The dense S·A plan of X (n, d) at m sketch rows. The column width is the
+    one of APPLY_BLOCK_COLS that pads d least among those that need at most
+    APPLY_MAX_CLUSTER column tiles (ties to the wider; 256 past 8 tiles). The
+    tiles of one m-tile form ``groups`` clusters of ``cluster`` blocks, as even
+    as they go, so each S entry is drawn ``groups`` times per split. The n-splits
+    (whole STEP_ROWS steps, as few as one step each) aim for APPLY_TARGET_BLOCKS
+    blocks and keep one worker's partials within SCRATCH_BYTES. A function of the
+    shapes only, never of q, so a worker's S·X is bitwise the same launched alone
+    or among q."""
+    return _plan_apply(n, m, d, SCRATCH_BYTES)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_apply(n: int, m: int, d: int, scratch_bytes: int) -> ApplyPlan:
+    fits = [bn for bn in APPLY_BLOCK_COLS if -(-d // bn) <= APPLY_MAX_CLUSTER]
+    bn = min(fits, key=lambda bn: (-(-d // bn) * bn, -bn)) if fits else APPLY_BLOCK_COLS[-1]
+    tiles = -(-d // bn)
+    groups = -(-tiles // APPLY_MAX_CLUSTER)
+    cluster = -(-tiles // groups)
+    m_tiles = -(-m // APPLY_BLOCK_ROWS)
+    per_split = m_tiles * groups * cluster
+    steps = -(-n // STEP_ROWS)
+    want = -(-APPLY_TARGET_BLOCKS // per_split)
+    room = max(1, scratch_bytes // (4 * m * d))
+    n_splits = max(1, min(want, steps, room, MAX_GRID_Y))
+    rows = common.round_up(-(-n // n_splits), STEP_ROWS)
+    return ApplyPlan(-(-n // rows), rows, APPLY_BLOCK_ROWS, bn, cluster, groups, m_tiles)
+
+
+def _splits(family: str, n: int, m: int, d: int, s: int, apply: bool = False) -> int:
+    if family == "sjlt":
+        return plan_sjlt(n, m, d, s).n_splits
+    if apply:
+        plan = plan_apply(n, m, d)
+        return 0 if plan.direct else plan.n_splits
+    return plan_splits(n, m, d)[0]
+
+
+def worker_chunk(n: int, m: int, d: int, q: int, *, family: str = "gaussian", s: int = 0,
+                 apply: bool = False) -> int:
     """Workers per call into the C entry: a q-key Gram of X (n, d) makes
     ``ceil(q / worker_chunk(...))`` calls, each a sketch pass, a split reduction
     and a Gram pass over its chunk of workers. ``family`` (and ``s`` for the
-    SJLT) picks the split plan: the dense families share one."""
-    n_splits = _splits(family, n, m, d, s)
+    SJLT) picks the split plan: the dense Grams share one, and with ``apply`` the
+    dense S·A has its own (:func:`plan_apply`; one split keeps no partials)."""
+    n_splits = _splits(family, n, m, d, s, apply and family != "sjlt")
+    if n_splits == 0:
+        return max(1, min(q, MAX_GRID_Z))
     return max(1, min(q, MAX_GRID_Z, SCRATCH_BYTES // (4 * n_splits * m * d)))
 
 
@@ -324,33 +434,47 @@ def sjlt_gram(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
 def sketch_apply(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rounds: int,
                  launches: collections.Counter, name: str) -> torch.Tensor:
     """(q, m, d) sketches ``S_w X`` of the CUDA tensor X for q key rows of the
-    Gaussian or Rademacher family: the Gram kernel's sketch pass and split
-    reduction on the same plan (:func:`plan_splits`), so slice w is bitwise the
-    S_w X that ``sketch_gram`` forms G_w from, and bitwise a q = 1 call. Adds one
-    to ``launches[name]`` per call into the C entry (one per chunk of workers)."""
+    Gaussian or Rademacher family, on the tensor cores (``csrc/sketch_apply.cu``)
+    with the plan of :func:`plan_apply`, so slice w is bitwise a q = 1 call. Makes
+    no call that waits for the card. Adds one to ``launches[name]`` per call into
+    the C entry (one per chunk of workers)."""
     n, d, q = _check_sketch_args("sketch_apply", X, keys, m)
     if family not in ("gaussian", "rademacher"):
         raise ValueError(f"the dense S·A kernel takes the gaussian and rademacher families, got {family!r}")
     if rounds <= 0 or rounds % 4:
         raise ValueError(f"threefry rounds must be a positive multiple of 4, got {rounds}")
-    lib = _library("sketch_gram")
-    n_splits, rows = plan_splits(n, m, d)
-    chunk = worker_chunk(n, m, d, q)
+    lib = _library("sketch_apply")
+    plan = plan_apply(n, m, d)
+    chunk = worker_chunk(n, m, d, q, apply=True)
     kw = _u32_words(keys, X.device)
+    if X.data_ptr() % 16:  # the kernel copies X in 16-byte chunks (a view may start anywhere)
+        X = X.clone()
     out = torch.empty((q, m, d), dtype=torch.float32, device=X.device)
-    partial = torch.empty((chunk, n_splits * m * d), dtype=torch.float32, device=X.device)
+    partial = None
+    if not plan.direct:
+        partial = torch.empty((chunk, plan.n_splits * m * d), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         for w0 in range(0, q, chunk):
             qc = min(chunk, q - w0)
             code = lib.repro_sketch_apply(
-                FAMILIES[family], X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m,
-                common.inv_sqrt(m), rounds, rows, n_splits, partial.data_ptr(), out[w0].data_ptr(),
-                stream,
+                FAMILIES[family], X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m, common.inv_sqrt(m), rounds,
+                plan.rows_per_split, plan.n_splits, plan.block_cols, plan.cluster, plan.groups,
+                None if partial is None else partial.data_ptr(), out[w0].data_ptr(), stream,
             )
             _check(lib, code, f"{family} sketch_apply launch")
             launches[name] += 1
     return out
+
+
+def apply_clusters(block_cols: int, cluster: int) -> int:
+    """Clusters of ``cluster`` dense S·A blocks of width ``block_cols`` the card
+    can hold at once (``cudaOccupancyMaxActiveClusters``; 0: it cannot launch one)."""
+    lib = _library("sketch_apply")
+    count = ctypes.c_int(0)
+    _check(lib, lib.repro_sketch_apply_clusters(block_cols, cluster, ctypes.byref(count)),
+           "sketch_apply cluster occupancy")
+    return count.value
 
 
 def sjlt_apply(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
@@ -481,3 +605,33 @@ def rng_probe(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor, *, rounds: i
     )
     _check(lib, code, "rng_probe launch")
     return words.to(torch.int64) & common.MASK32, normals, signs
+
+
+def mma_rate(blocks: int, iters: int) -> tuple[Callable[[], None], float]:
+    """``(run, flops)``: ``run()`` launches ``csrc/mma_probe.cu``'s register-only
+    ``mma.sync`` TF32 loop on ``blocks`` blocks of 8 warps, ``iters`` rounds of 8
+    products a warp, ``flops`` operations in all; the caller times it."""
+    lib = _library("mma_probe")
+    out = torch.empty(blocks * 256, device="cuda")
+
+    def run() -> None:
+        _check(lib, lib.repro_mma_rate(blocks, iters, out.data_ptr(), torch.cuda.current_stream().cuda_stream),
+               "mma_rate launch")
+
+    return run, float(blocks * 8 * 8 * iters * 2048)
+
+
+def mma_probe(A: torch.Tensor, B: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One warp's ``A @ B`` on the tensor cores, A (16, 8) and B (8, 8) float32 on
+    the card: (one TF32 product, the 3xTF32 form the dense S·A uses), for checking
+    the fragment layouts of ``csrc/tf32.cuh`` against a float64 product."""
+    if A.shape != (16, 8) or B.shape != (8, 8) or A.device.type != "cuda":
+        raise ValueError(f"mma_probe takes A (16, 8) and B (8, 8) on the card, got {A.shape}, {B.shape}")
+    lib = _library("mma_probe")
+    A, B = A.float().contiguous(), B.to(A.device).float().contiguous()
+    d1, d3 = torch.empty((16, 8), device=A.device), torch.empty((16, 8), device=A.device)
+    with torch.cuda.device(A.device):
+        code = lib.repro_mma_probe(A.data_ptr(), B.data_ptr(), d1.data_ptr(), d3.data_ptr(),
+                                   torch.cuda.current_stream(A.device).cuda_stream)
+    _check(lib, code, "mma_probe launch")
+    return d1, d3

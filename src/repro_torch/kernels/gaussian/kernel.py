@@ -1,10 +1,11 @@
-"""Launch of the Gaussian S·A CUDA kernel (``csrc/sketch_gram.cu``, entry
+"""Launch of the Gaussian S·A CUDA kernel (``csrc/sketch_apply.cu``, entry
 ``repro_sketch_apply``) and of the Gaussian adjoint kernel (``csrc/adjoint.cu``).
 
 ``gaussian_tiles`` is the counterpart of the reference's ``kernels/gaussian/kernel.py``
-``gaussian_tiles``: the sketch pass of the fused sketch→Gram kernel and its split
-reduction, without the Gram pass, so S·X is bitwise what the Gram kernel forms
-its G from. ``gaussian_adjoint_tiles`` is the counterpart of the reference's
+``gaussian_tiles``: S·X on the tensor cores in fp32-accurate 3xTF32 form, S drawn
+in-core once per cluster of column tiles (its own plan, ``cuda.plan_apply``, so
+its S·X agrees with the one the Gram kernel contracts to rounding, not bitwise).
+``gaussian_adjoint_tiles`` is the counterpart of the reference's
 ``kernels/gaussian/gram.py`` ``gaussian_adjoint_tiles``: Sᵀ·Y with S drawn in-core
 from the same (key, i, j) counter stream. The Gaussian stream uses
 ``REPRO_RNG_ROUNDS`` threefry rounds.

@@ -6,13 +6,14 @@ and ``gaussian_sketch_multi(keys, A, m)`` return S·A, ``gaussian_gram(key, A,
 m)`` and ``gaussian_gram_multi(keys, A, m)`` return G = (SA)ᵀ(SA), and
 ``gaussian_adjoint(key, Y, n)`` returns Sᵀ·Y for S ∈ R^{m×n}, m = len(Y). On a
 CPU tensor they call the plain versions (``ref.py``); on a CUDA tensor they
-launch the kernels (``kernel.py`` and ``gram.py``: ``csrc/sketch_gram.cu``,
-``csrc/adjoint.cu``) or raise.
+launch the kernels (``kernel.py`` and ``gram.py``: ``csrc/sketch_apply.cu``,
+``csrc/sketch_gram.cu``, ``csrc/adjoint.cu``) or raise.
 The single-key wrappers launch the same code with q = 1, so slice w of a multi
 form is bitwise equal to the single form on ``keys[w]``.
 
 ``LAUNCHES[name]`` counts the calls into the kernels' C entries (each a sketch
-pass and a split reduction, and for a Gram a Gram pass) that wrapper ``name``
+pass, a split reduction where the plan has more than one split, and for a Gram a
+Gram pass) that wrapper ``name``
 made: one per single-key call and per adjoint, one per chunk of workers
 (``cuda.worker_chunk``) for a multi form.
 """

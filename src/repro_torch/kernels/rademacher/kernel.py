@@ -1,9 +1,10 @@
-"""Launch of the Rademacher S·A CUDA kernel (``csrc/sketch_gram.cu``, entry
+"""Launch of the Rademacher S·A CUDA kernel (``csrc/sketch_apply.cu``, entry
 ``repro_sketch_apply``).
 
 Counterpart of the reference's ``kernels/rademacher/kernel.py``
-``rademacher_tiles``: the Rademacher sketch pass (packed-sign S tiles, always 20
-threefry rounds) and its split reduction, without the Gram pass.
+``rademacher_tiles``: S·X on the tensor cores with packed-sign S tiles (always 20
+threefry rounds), ±1 exact in TF32, so two TF32 products (X's hi and lo parts)
+and the 1/√m scale after the sum.
 """
 from __future__ import annotations
 

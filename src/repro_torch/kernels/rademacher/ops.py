@@ -6,7 +6,8 @@ always 20 rounds), ``rademacher_sketch(key, A, m)`` and
 ``rademacher_sketch_multi(keys, A, m)`` return S·A, and ``rademacher_gram`` and
 ``rademacher_gram_multi`` return G = (SA)ᵀ(SA). On a CPU tensor they call the
 plain versions (``ref.py``); on a CUDA tensor they launch the kernels
-(``kernel.py`` and ``gram.py``, ``csrc/sketch_gram.cu``) or raise. Slice w of a
+(``kernel.py`` and ``gram.py``: ``csrc/sketch_apply.cu``, ``csrc/sketch_gram.cu``)
+or raise. Slice w of a
 multi form is bitwise equal to the single form on ``keys[w]``.
 
 ``LAUNCHES[name]`` counts the calls into the kernels' C entries that wrapper

@@ -200,10 +200,14 @@ APPLIES = {
 
 @pytest.mark.parametrize("family", list(APPLIES))
 @pytest.mark.parametrize("n,d,m", [(1001, 7, 40), (3000, 251, 130), (2999, 300, 64), (33, 1, 1),
-                                   (50, 5, 200), (25_000, 251, 2500)])
+                                   (50, 5, 200), (25_000, 251, 2500), (3000, 2000, 300), (2000, 2049, 130),
+                                   (1000, 50, 200), (500, 50, 200), (1000, 2048, 4224)])
 def test_apply_kernel_matches_plain_and_single_launches(cuda, family, n, d, m):
-    """Ragged n, d′ = 1, 251 and 300 (two dense column tiles), m = 1 and m > n;
-    per column max |ΔSX_ij| / rms_i(SX_ij) ≤ 1e-5; q-key slices bitwise single calls."""
+    """Ragged n, d′ = 1, 251 and 300 (five 64-column tiles in one cluster), m = 1
+    and m > n; the dense plan's cases: d′ = 2,000 (a cluster of 8), 2,049 (two
+    clusters of 5, one tile dead), FIG4A's two shapes (many one-step splits) and
+    one split (no partials); per column max |ΔSX_ij| / rms_i(SX_ij) ≤ 1e-5;
+    q-key slices bitwise single calls."""
     single, multi, plain, *_ = APPLIES[family]
     X = _x(n, d, n + 3 * d, cuda)
     keys = prng.worker_keys(prng.prng_key(n + m), 3)
@@ -215,17 +219,34 @@ def test_apply_kernel_matches_plain_and_single_launches(cuda, family, n, d, m):
     assert torch.equal(multi(keys, X, m), SX)
 
 
+@pytest.mark.parametrize("family", ["gaussian", "rademacher"])
+@pytest.mark.parametrize("d", [5, 251, 256])
+def test_dense_apply_takes_a_view_at_any_offset(cuda, family, d):
+    """The kernel copies X in 16-byte chunks from a 16-byte aligned base: a view
+    that starts one row in (4·d bytes) gives the same S·X as its aligned copy."""
+    single, *_ = APPLIES[family]
+    X = _x(3001, d, d, cuda)[1:]
+    key = prng.prng_key(d)
+    assert torch.equal(single(key, X, 70), single(key, X.clone(), 70))
+
+
 @pytest.mark.parametrize("family", ["gaussian", "rademacher", "sjlt"])
 def test_apply_is_bitwise_the_sketch_the_gram_kernel_contracts(cuda, family):
-    """The fused Gram kernel's G is bitwise the Gram pass's fmaf chain (over m,
-    ascending, from 0) on the S·A kernel's S·X: the two share the sketch pass,
-    the plan and the split reduction. fmaf is taken as one rounding of the exact
-    float64 product-sum (a double rounding could differ in about 1 of 2**29 steps)."""
+    """The fused Gram kernel's G against the Gram of the S·A kernel's S·X. The
+    SJLT's two share the sketch pass, the plan and the split reduction, so its G
+    is bitwise the Gram pass's fmaf chain (over m, ascending, from 0) on S·X; fmaf
+    is taken as one rounding of the exact float64 product-sum (a double rounding
+    could differ in about 1 of 2**29 steps). The dense S·A runs on the tensor
+    cores with its own plan, so there G agrees with (S·X)ᵀ(S·X) within the Gram
+    tolerance, 1e-5 per entry."""
     single_gram = FAMILIES[family][0]
     single_apply = APPLIES[family][0]
     X = _x(4000, 19, 7, cuda)
     key = prng.prng_key(8)
     SX = single_apply(key, X, 96).double()
+    if family != "sjlt":
+        assert _gram_err(single_gram(key, X, 96), SX.T @ SX) <= REL_TOL
+        return
     G = torch.zeros((19, 19), dtype=torch.float32, device=cuda)
     for r in range(SX.shape[0]):
         G = (G.double() + SX[r][:, None] * SX[r][None, :]).float()
@@ -239,11 +260,83 @@ def test_apply_q_chunking_is_bitwise_invisible(cuda, family, monkeypatch):
     keys = prng.worker_keys(prng.prng_key(2), 5)
     whole = multi(keys, X, 50)
     s = SJLT_S if family == "sjlt" else 0
-    chunks = tcuda._splits(family, 2000, 50, 9, s)
+    chunks = tcuda._splits(family, 2000, 50, 9, s, apply=True)
     monkeypatch.setattr(tcuda, "SCRATCH_BYTES", 2 * 4 * chunks * 50 * 9)
+    assert tcuda.worker_chunk(2000, 50, 9, 5, family=family, s=s, apply=True) == 2
     before = launches[name]
     assert torch.equal(multi(keys, X, 50), whole)
     assert launches[name] == before + 3  # one per chunk of workers: 2 + 2 + 1
+
+
+def _runs_without_sync(call):
+    """call() once to build and load its library, then again under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for the card
+    raises. Returns both results."""
+    want = call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return got, want
+
+
+@pytest.mark.parametrize("family", ["gaussian", "rademacher"])
+@pytest.mark.parametrize("q", [1, 3])
+def test_dense_apply_makes_no_synchronising_call(cuda, family, q):
+    """A dense S·A (keys on the host, as the paths pass them; one key or several)
+    copies its key words through pinned memory and launches without waiting for
+    the card."""
+    single, multi, *_ = APPLIES[family]
+    X = _x(1000, 50, 17, cuda)
+    if q == 1:
+        got, want = _runs_without_sync(lambda: single(prng.prng_key(17), X, 200))
+    else:
+        got, want = _runs_without_sync(lambda: multi(prng.worker_keys(prng.prng_key(17), q), X, 200))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_gram_makes_no_synchronising_call(cuda, family):
+    """The Gram wrappers share the S·A's key copy (``cuda._u32_words``; the SRHT's
+    row ids too): a single-key and a multi-key Gram wait for nothing."""
+    single, multi, *_ = FAMILIES[family]
+    X = _x(1000, 20, 18, cuda)
+    keys = prng.worker_keys(prng.prng_key(18), 3)
+    got, want = _runs_without_sync(lambda: (single(keys[0], X, 64), multi(keys, X, 64)))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_sjlt_apply_and_adjoint_make_no_synchronising_call(cuda):
+    X = _x(1000, 20, 19, cuda)
+    Y = _x(64, 3, 20, cuda)
+    keys = prng.worker_keys(prng.prng_key(19), 3)
+    got, want = _runs_without_sync(lambda: (
+        sops.sjlt_apply(keys[0], X, 64, SJLT_S), sops.sjlt_apply_multi(keys, X, 64, SJLT_S),
+        gops.gaussian_adjoint(keys[0], Y, 1000)))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_mma_probe_fragment_layouts_and_3xtf32(cuda):
+    """One warp's m16n8k8 TF32 product through the fragment layouts the dense S·A
+    uses: the 3xTF32 form within 1e-6 of the float64 product (relative to its
+    largest entry), one TF32 product off by far more."""
+    rs = np.random.default_rng(16)
+    A = torch.from_numpy(rs.standard_normal((16, 8)).astype(np.float32))
+    B = torch.from_numpy(rs.standard_normal((8, 8)).astype(np.float32))
+    d1, d3 = tcuda.mma_probe(A.to(cuda), B.to(cuda))
+    want = A.double() @ B.double()
+    scale = float(want.abs().max())
+    assert float((d3.cpu().double() - want).abs().max()) <= 1e-6 * scale
+    err1 = float((d1.cpu().double() - want).abs().max())
+    assert 1e-5 * scale < err1 <= 4e-3 * scale
+
+
+@pytest.mark.parametrize("block_cols", tcuda.APPLY_BLOCK_COLS)
+def test_dense_apply_clusters_fit_the_card(cuda, block_cols):
+    """A cluster of the largest size the plan takes can be resident at every width."""
+    assert tcuda.apply_clusters(block_cols, tcuda.APPLY_MAX_CLUSTER) > 0
 
 
 @pytest.mark.parametrize("log_n", list(range(0, 21)))

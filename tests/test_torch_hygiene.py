@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch port: what it imports, where it runs, how it fails.
 
-* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX or the
-  JAX package ``repro`` (an AST scan, so a lazy import inside a function counts).
+* No module of ``src/repro_torch``, not ``chip_smoke.py`` and no script of
+  ``tools/`` imports JAX or the JAX package ``repro`` (an AST scan, so a lazy
+  import inside a function counts).
 * Every module imports on CPU-only PyTorch without building anything.
 * The entry points run on CUDA by default and raise when it is absent.
 * ``chip_smoke.py`` exits non-zero, printing no result, without CUDA and outside
@@ -22,7 +23,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [SMOKE]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [SMOKE] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
