@@ -8,8 +8,9 @@ Run from the root of a checkout, with no arguments:
 It builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
 in parallel), checks the device counter RNG against the plain PyTorch contract
 and the dense S·A kernel's tensor-core product (one warp's 3xTF32 m16n8k8, the
-clusters the card holds, a launch path that does not wait for the card, one
-traced call at FIG4A's shape), holds each sketch→Gram kernel (Gaussian,
+clusters the card holds for it and for the Gaussian Gram, a launch path that
+does not wait for the card, one traced call at FIG4A's shape), holds each
+sketch→Gram kernel (Gaussian on the tensor cores,
 Rademacher, SRHT, SJLT with FIG3A's s = 20) against its plain version at the FIG3A shape (n = 500,000, d = 250,
 m = 2,500), q = 1 and 2, and each S·A kernel (Gaussian, Rademacher, SJLT) and
 the FWHT kernel at the shapes of their paths (the hybrid's m′ = 25,000 rows, the
@@ -196,6 +197,38 @@ def apply_bound(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20) 
             "tensor_ms": tensor_ms, "rng_ms": int_ms}
 
 
+def gram_bound(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20) -> dict:
+    """The bound of q fused Grams of X (n, dx): for the Gaussian, whose sketch pass
+    runs on the tensor cores, the larger of the bytes, the TF32 passes of
+    2·m·n·dx·q flops at the TF32 peak (plus the Gram pass's 2·m·dx²·q FFMA flops
+    at the fp32 peak, a kernel of its own) and the RNG at the int32 rate, with
+    the FFMA bound of the same work beside it (``ffma_bound_ms``); the other
+    families' as :func:`bound_ms` (FFMA)."""
+    ffma_ms, ffma_by = bound_ms(family, n, dx, m, q, rounds)
+    if family != "gaussian":
+        return {"bound_ms": ffma_ms, "bound_by": ffma_by, "ffma_bound_ms": ffma_ms}
+    bytes_ms = 4 * (n * dx + q * dx * dx) / PEAK_BYTES * 1e3
+    tensor_ms = (TF32_PASSES[family] * 2 * m * n * dx * q / PEAK_TF32_FLOPS
+                 + 2 * m * dx * dx * q / PEAK_FP32_FLOPS) * 1e3
+    int_ms = m * n * q * threefry_ops(rounds) / PEAK_INT32_OPS * 1e3
+    ops_ms = max(tensor_ms, int_ms)
+    by = "bytes" if bytes_ms > ops_ms else "operations"
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": by, "ffma_bound_ms": ffma_ms,
+            "tensor_ms": tensor_ms, "rng_ms": int_ms}
+
+
+def gram_plan(family: str, n: int, dx: int, m: int) -> dict:
+    """The launch plan of a Gram kernel at this shape (the Gaussian's; none here for
+    the others)."""
+    from repro_torch.kernels import cuda
+
+    if family != "gaussian":
+        return {}
+    p = cuda.plan_gaussian_gram(n, m, dx)
+    return {"plan": {"splits": p.n_splits, "block_cols": p.block_cols, "cluster": p.cluster,
+                     "clusters": p.clusters, "blocks": p.blocks, "workers_per_call": cuda.worker_chunk(n, m, dx, 1 << 20)}}
+
+
 def apply_plan(family: str, n: int, dx: int, m: int) -> dict:
     """The launch plan of a dense S·A kernel at this shape (none for the SJLT here)."""
     from repro_torch.kernels import cuda
@@ -281,10 +314,10 @@ def phase_build():
 
 
 def phase_tensor_cores() -> None:
-    """The dense S·A kernel's building blocks before its paths: one warp's m16n8k8
+    """The tensor-core kernels' building blocks before their paths: one warp's m16n8k8
     TF32 product (fragment layouts; the 3xTF32 form within 1e-6 of a float64
     product, relative to its largest entry), the clusters the card holds at each
-    column width, the rate of ``mma.sync`` TF32 alone (a register-only loop: the
+    column width (dense S·A, Gaussian Gram), the rate of ``mma.sync`` TF32 alone (a register-only loop: the
     ceiling of the S·A's consumers), the wrappers that copy key words to the card
     (the dense S·A with one key and three, a multi-key Gram, the SJLT S·A) at
     FIG4A's shape under ``torch.cuda.set_sync_debug_mode("error")`` (none may
@@ -309,6 +342,7 @@ def phase_tensor_cores() -> None:
     err3 = float((d3.cpu().double() - want).abs().max()) / scale
     err1 = float((d1.cpu().double() - want).abs().max()) / scale
     clusters = {bn: cuda.apply_clusters(bn, cuda.APPLY_MAX_CLUSTER) for bn in cuda.APPLY_BLOCK_COLS}
+    gram_clusters = {bn: cuda.gram_clusters(bn, cuda.GRAM_MAX_CLUSTER) for bn in cuda.GRAM_BLOCK_COLS}
     X = torch.from_numpy(rs.standard_normal((FIG4A.d, FIG4A.n)).astype(np.float32)).to(DEVICE)
     key = prng.worker_key(prng.prng_key(SEED + 11), 0)
     keys = prng.worker_keys(prng.prng_key(SEED + 12), 3)
@@ -335,11 +369,13 @@ def phase_tensor_cores() -> None:
     run, flops = cuda.mma_rate(4 * 132, 2000)
     rate_ms, _ = cuda_ms(run, 3)
     emit({"phase": "tensor_cores", "mma_3xtf32_rel_err": err3, "mma_tf32_rel_err": err1,
-          "clusters_of_8_resident": clusters, "no_sync_call": no_sync,
+          "clusters_of_8_resident": clusters, "gram_clusters_resident": gram_clusters,
+          "gram_cluster": cuda.GRAM_MAX_CLUSTER, "no_sync_call": no_sync,
           "mma_sync_tf32_tflops": flops / rate_ms / 1e9, "peak_tf32_tflops": PEAK_TF32_FLOPS / 1e12})
     check(err3 <= 1e-6, f"3xTF32 mma probe off a float64 product by {err3}")
     check(err1 > 1e-5, f"one TF32 mma equals the 3xTF32 form ({err1}): the split is not applied")
     check(all(c > 0 for c in clusters.values()), f"a cluster of 8 does not fit the card: {clusters}")
+    check(all(c > 0 for c in gram_clusters.values()), f"a Gram cluster does not fit the card: {gram_clusters}")
     check(all(no_sync.values()), f"a wrapper waited for the card or changed its result: {no_sync}")
     phase_trace("fig4a_gaussian_sketch_traced", lambda: ops.gaussian_sketch(key, X, FIG4A.m))
 
@@ -514,12 +550,11 @@ def phase_kernels(X, m: int, rows: dict) -> None:
             (single, src_single, 1, ms_single, plain_single_s * 1e3, lib_single, abs_single, err_single),
             (multi, src_multi, CHECK_Q, ms_multi, plain_s * 1e3, lib_multi, abs_multi, err_multi),
         ):
-            b_ms, b_by = bound_ms(family, n, dx, m, q, rounds)
             rows[name] = {
                 "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{SOURCES[family]}",
                 "replaces": src, "launches": 0, "max_abs_err": abs_err, "max_entry_rel_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_ms, "shape": {"n": n, "d": dx, "m": m, "q": q},
+                "ms": ms, "plain_ms": plain_ms, **gram_bound(family, n, dx, m, q, rounds),
+                "library_ms": lib_ms, "shape": {"n": n, "d": dx, "m": m, "q": q}, **gram_plan(family, n, dx, m),
             }
         emit({"phase": "kernels", "family": family, "n": n, "d": dx, "m": m, "q": CHECK_Q,
               "max_abs_err_multi": abs_multi, "max_abs_err_single": abs_single,
@@ -831,10 +866,10 @@ def main_path_kernel(family: str, keys, X, m: int, rows: dict, **extra) -> None:
     calls = Calls(family, keys, n, m)
     ms, G = cuda_ms(lambda: calls.multi(X), 1, warmup=False)
     rounds = common.rng_rounds() if family == "gaussian" else common.DEFAULT_ROUNDS
-    b_ms, b_by = bound_ms(family, n, dx, m, q, rounds)
-    rows[multi].update(main_path_q=q, main_path_ms=ms, main_path_bound_ms=b_ms)
-    emit({"phase": "main_path_kernel", "name": multi, "q": q, "ms": ms,
-          "bound_ms": b_ms, "bound_by": b_by, **extra})
+    bound = gram_bound(family, n, dx, m, q, rounds)
+    rows[multi].update(main_path_q=q, main_path_ms=ms, main_path_bound_ms=bound["bound_ms"],
+                       main_path_ffma_bound_ms=bound["ffma_bound_ms"])
+    emit({"phase": "main_path_kernel", "name": multi, "q": q, "ms": ms, **bound, **extra})
     check_main_path_slices(family, keys, X, m, G)
 
 

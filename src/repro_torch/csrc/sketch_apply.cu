@@ -78,6 +78,7 @@
 #include <type_traits>
 
 #include "gram_pass.cuh"
+#include "pipeline.cuh"
 #include "rng.cuh"
 #include "tf32.cuh"
 
@@ -128,71 +129,23 @@ constexpr int kSkipGather = 2;  // producers copy no rows into the gathered tile
 constexpr int kSkipX = 4;       // consumers stage no X (their B fragments are constants)
 constexpr int kSkipMma = 8;     // consumers multiply nothing (X is still staged)
 
+using repro::cluster_arrive;
+using repro::cluster_wait;
+using repro::cp_async_16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::mbar_arrive;
+using repro::mbar_arrive_remote;
+using repro::mbar_init;
+using repro::mbar_wait;
 using repro::mma_tf32;
+using repro::set_max_regs_dec;
+using repro::set_max_regs_inc;
 using repro::split_tf32;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-// Wait until the phase of `bar` with this parity has completed (acquire, so
-// what the arriving threads of the cluster wrote before they arrived is seen).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Arrive (release, cluster scope) on the barrier at the same offset in block `rank`'s shared memory.
-__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(bar)), "r"(rank));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
-}
-// 16-byte asynchronous copy global -> shared of src_bytes (0 to 16) bytes, the
-// rest zero-filled; both addresses 16-byte aligned.
-__device__ __forceinline__ void cp_async_16(float* dst, const float* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Barrier 1 over the producer warps alone, barrier 2 over the consumer warps alone.
-__device__ __forceinline__ void producer_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
-__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 2, 256;\n" ::: "memory"); }
-
-// Hand registers from the producer warps to the consumer warps (setmaxnreg acts
-// on a whole warpgroup of 4 warps: each role is two).
-template <int REGS>
-__device__ __forceinline__ void set_max_regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
-}
-template <int REGS>
-__device__ __forceinline__ void set_max_regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
-}
-
-// Split arrive and wait of the cluster-wide barrier (every thread of every block
-// of the cluster arrives once per phase): release and acquire order the shared
-// memory writes and reads of the cluster around it.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
+// Named barrier 1 over the producer warps alone, 2 over the consumer warps alone.
+__device__ __forceinline__ void producer_sync() { repro::named_sync<1, PRODUCERS>(); }
+__device__ __forceinline__ void consumer_sync() { repro::named_sync<2, CONSUMERS>(); }
 
 // Index of S[i, k]'s hi part in a tile (its lo part follows it).
 __device__ __forceinline__ int s_index(int i, int k) {

@@ -109,11 +109,59 @@ def test_q_chunking_is_bitwise_invisible(cuda, family, monkeypatch):
     whole = multi(keys, X, 50)
     s = SJLT_S if family == "sjlt" else 0
     chunks = tcuda._splits(family, 2000, 50, 9, s)
-    monkeypatch.setattr(tcuda, "SCRATCH_BYTES", 2 * 4 * chunks * 50 * 9)
+    shared = tcuda.shared_scratch_bytes(family, 2000, 50, 9)  # the Gaussian's split X
+    monkeypatch.setattr(tcuda, "SCRATCH_BYTES", shared + 2 * 4 * chunks * 50 * 9)
     assert tcuda.worker_chunk(2000, 50, 9, 5, family=family, s=s) == 2
     before = launches[name]
     assert torch.equal(multi(keys, X, 50), whole)
     assert launches[name] == before + 3  # one per chunk of workers: 2 + 2 + 1
+
+
+# (n, d', m) at the edges of the Gaussian Gram's plan (cuda.plan_gaussian_gram,
+# clusters of GRAM_MAX_CLUSTER = 2 m-tiles of 64 rows): m below one cluster, at
+# one (128) and one row either side, an odd number of m-tiles (a padding block in
+# the last cluster), the ragged last cluster of FIG3A's m = 2,500 (4 live rows);
+# d' = 1, 251, 256 (one column tile) and 257 (two); n not a whole number of
+# 32-row steps.
+GAUSSIAN_GRAM_EDGES = [(3001, 251, 40), (3001, 251, 127), (3001, 256, 128), (3001, 257, 129),
+                       (4097, 256, 513), (2999, 1, 2500), (1001, 251, 2500), (777, 257, 64)]
+
+
+@pytest.mark.parametrize("n,d,m", GAUSSIAN_GRAM_EDGES)
+def test_gaussian_gram_at_the_plan_edges(cuda, n, d, m):
+    """The tensor-core Gaussian Gram against its float64 plain version (1e-5 per
+    entry), its q-key slices bitwise single-key calls, a rerun bitwise, and no
+    call that waits for the card."""
+    X = _x(n, d, n + m, cuda)
+    keys = prng.worker_keys(prng.prng_key(n + d + m), 3)
+    G, again = _runs_without_sync(lambda: gops.gaussian_gram_multi(keys, X, m))
+    assert G.shape == (3, d, d)
+    assert _gram_err(G, gref.gaussian_gram_multi(keys, X, m)) <= REL_TOL
+    assert torch.equal(G, again)
+    for w in range(3):
+        assert torch.equal(G[w], gops.gaussian_gram(keys[w], X, m))
+
+
+def test_gaussian_gram_chunk_edges_are_single_key_calls(cuda, monkeypatch):
+    """q past worker_chunk: the slices on either side of each chunk edge are
+    bitwise single-key calls, and each chunk is one call into the C entry."""
+    n, d, m = 3001, 251, 513
+    plan = tcuda.plan_gaussian_gram(n, m, d)
+    shared = tcuda.shared_scratch_bytes("gaussian", n, m, d)
+    monkeypatch.setattr(tcuda, "SCRATCH_BYTES", shared + 3 * 4 * plan.n_splits * m * d)
+    assert tcuda.worker_chunk(n, m, d, 7) == 3
+    X = _x(n, d, 5, cuda)
+    keys = prng.worker_keys(prng.prng_key(6), 7)
+    before = gops.LAUNCHES["gaussian_gram_multi"]
+    G = gops.gaussian_gram_multi(keys, X, m)
+    assert gops.LAUNCHES["gaussian_gram_multi"] == before + 3  # 3 + 3 + 1
+    for w in (0, 2, 3, 5, 6):
+        assert torch.equal(G[w], gops.gaussian_gram(keys[w], X, m))
+
+
+@pytest.mark.parametrize("block_cols", tcuda.GRAM_BLOCK_COLS)
+def test_gaussian_gram_clusters_fit_the_card(cuda, block_cols):
+    assert tcuda.gram_clusters(block_cols, tcuda.GRAM_MAX_CLUSTER) > 0
 
 
 def test_launch_counters_count_kernel_launches(cuda):
