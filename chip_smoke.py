@@ -8,10 +8,10 @@ Run from the root of a checkout, with no arguments:
 It builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
 in parallel), checks the device counter RNG against the plain PyTorch contract
 and the dense S·A kernel's tensor-core product (one warp's 3xTF32 m16n8k8, the
-clusters the card holds for it and for the Gaussian Gram, a launch path that
+clusters the card holds for it and for each dense Gram, a launch path that
 does not wait for the card, one traced call at FIG4A's shape), holds each
-sketch→Gram kernel (Gaussian on the tensor cores,
-Rademacher, SRHT, SJLT with FIG3A's s = 20) against its plain version at the FIG3A shape (n = 500,000, d = 250,
+sketch→Gram kernel (Gaussian, Rademacher and SRHT on one tensor-core pass,
+SJLT with FIG3A's s = 20) against its plain version at the FIG3A shape (n = 500,000, d = 250,
 m = 2,500), q = 1 and 2, and each S·A kernel (Gaussian, Rademacher, SJLT) and
 the FWHT kernel at the shapes of their paths (the hybrid's m′ = 25,000 rows, the
 two-pass path's full n; the FWHT on 2^19 and 2^15 rows), then runs Algorithm 1
@@ -99,11 +99,12 @@ SJLT_S = 20  # FIG3A's nonzeros per data row (RegressionConfig.s)
 # tensor cores, 3.35 TB/s HBM. INT32: 64 lanes per SM (half the 128 FP32 lanes,
 # Hopper white paper) at the same clock, so 67/4 = 16.7 T integer ops/s.
 PEAK_FP32_FLOPS = 67e12
-# Dense TF32 on the tensor cores (same data sheet). The dense S·A kernel's product
-# is fp32-accurate in 3xTF32 form: 3 TF32 products per Gaussian flop pair, 2 for
-# the ±1 signs (exact in TF32, scaled after the sum).
+# Dense TF32 on the tensor cores (same data sheet). The dense S·A and Gram kernels'
+# products are fp32-accurate in 3xTF32 form: 3 TF32 products per Gaussian flop
+# pair, 2 for the ±1 signs of the Rademacher and the SRHT (exact in TF32, scaled
+# after the sum).
 PEAK_TF32_FLOPS = 495e12
-TF32_PASSES = {"gaussian": 3, "rademacher": 2}
+TF32_PASSES = {"gaussian": 3, "rademacher": 2, "srht": 2}
 PEAK_INT32_OPS = 16.7e12
 PEAK_BYTES = 3.35e12
 LEVERAGE_Q = 2  # workers of the leverage path: each draws an (m, n) gumbel array
@@ -198,19 +199,24 @@ def apply_bound(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20) 
 
 
 def gram_bound(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20) -> dict:
-    """The bound of q fused Grams of X (n, dx): for the Gaussian, whose sketch pass
-    runs on the tensor cores, the larger of the bytes, the TF32 passes of
-    2·m·n·dx·q flops at the TF32 peak (plus the Gram pass's 2·m·dx²·q FFMA flops
-    at the fp32 peak, a kernel of its own) and the RNG at the int32 rate, with
-    the FFMA bound of the same work beside it (``ffma_bound_ms``); the other
-    families' as :func:`bound_ms` (FFMA)."""
+    """The bound of q fused Grams of X (n, dx): for the dense families, whose
+    sketch pass runs on the tensor cores, the larger of the bytes, the TF32 passes
+    of 2·m·n·dx·q flops at the TF32 peak (plus the Gram pass's 2·m·dx²·q FFMA flops
+    at the fp32 peak, a kernel of its own) and the RNG at the int32 rate, with the
+    FFMA bound of the same work beside it (``ffma_bound_ms``); the SJLT's as
+    :func:`bound_ms`. Integer work: a threefry per Gaussian entry; one per 32
+    Rademacher entries (a packed sign word); for the SRHT an AND, a popcount and an
+    XOR per 32 entries (a sign word: the closed form's parity splits into the
+    step's and the row's low bits) and a threefry per data row for the diagonal."""
     ffma_ms, ffma_by = bound_ms(family, n, dx, m, q, rounds)
-    if family != "gaussian":
+    if family not in TF32_PASSES:
         return {"bound_ms": ffma_ms, "bound_by": ffma_by, "ffma_bound_ms": ffma_ms}
     bytes_ms = 4 * (n * dx + q * dx * dx) / PEAK_BYTES * 1e3
     tensor_ms = (TF32_PASSES[family] * 2 * m * n * dx * q / PEAK_TF32_FLOPS
                  + 2 * m * dx * dx * q / PEAK_FP32_FLOPS) * 1e3
-    int_ms = m * n * q * threefry_ops(rounds) / PEAK_INT32_OPS * 1e3
+    per_entry = {"gaussian": threefry_ops(rounds), "rademacher": threefry_ops(20) / 32, "srht": 3 / 32}[family]
+    int_ops = m * n * q * per_entry + (n * q * threefry_ops(20) if family == "srht" else 0)
+    int_ms = int_ops / PEAK_INT32_OPS * 1e3
     ops_ms = max(tensor_ms, int_ms)
     by = "bytes" if bytes_ms > ops_ms else "operations"
     return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": by, "ffma_bound_ms": ffma_ms,
@@ -218,15 +224,16 @@ def gram_bound(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20) -
 
 
 def gram_plan(family: str, n: int, dx: int, m: int) -> dict:
-    """The launch plan of a Gram kernel at this shape (the Gaussian's; none here for
-    the others)."""
+    """The launch plan of a dense Gram kernel at this shape (the one plan of the
+    Gaussian, Rademacher and SRHT; none here for the SJLT)."""
     from repro_torch.kernels import cuda
 
-    if family != "gaussian":
+    if family not in cuda.DENSE_GRAMS:
         return {}
-    p = cuda.plan_gaussian_gram(n, m, dx)
+    p = cuda.plan_dense_gram(n, m, dx)
     return {"plan": {"splits": p.n_splits, "block_cols": p.block_cols, "cluster": p.cluster,
-                     "clusters": p.clusters, "blocks": p.blocks, "workers_per_call": cuda.worker_chunk(n, m, dx, 1 << 20)}}
+                     "clusters": p.clusters, "blocks": p.blocks,
+                     "workers_per_call": cuda.worker_chunk(n, m, dx, 1 << 20, family=family)}}
 
 
 def apply_plan(family: str, n: int, dx: int, m: int) -> dict:
@@ -317,9 +324,9 @@ def phase_tensor_cores() -> None:
     """The tensor-core kernels' building blocks before their paths: one warp's m16n8k8
     TF32 product (fragment layouts; the 3xTF32 form within 1e-6 of a float64
     product, relative to its largest entry), the clusters the card holds at each
-    column width (dense S·A, Gaussian Gram), the rate of ``mma.sync`` TF32 alone (a register-only loop: the
-    ceiling of the S·A's consumers), the wrappers that copy key words to the card
-    (the dense S·A with one key and three, a multi-key Gram, the SJLT S·A) at
+    column width (dense S·A; each dense Gram family), the rate of ``mma.sync`` TF32 alone (a register-only
+    loop: the ceiling of the S·A's consumers), the wrappers that copy key words to the card
+    (the dense S·A with one key and three, the multi-key dense Grams, the SJLT S·A) at
     FIG4A's shape under ``torch.cuda.set_sync_debug_mode("error")`` (none may
     wait for the card), and one traced single-key Gaussian S·A there (host
     enqueue against device time)."""
@@ -327,7 +334,9 @@ def phase_tensor_cores() -> None:
     import torch
 
     from repro_torch.configs.paper_lsq import FIG4A
+    from repro_torch.core import operators, sketches as sk
     from repro_torch.kernels import cuda
+    from repro_torch.kernels.fwht import ops as fops
     from repro_torch.kernels.gaussian import ops
     from repro_torch.kernels.rademacher import ops as rops
     from repro_torch.kernels.sjlt import ops as sops
@@ -342,16 +351,20 @@ def phase_tensor_cores() -> None:
     err3 = float((d3.cpu().double() - want).abs().max()) / scale
     err1 = float((d1.cpu().double() - want).abs().max()) / scale
     clusters = {bn: cuda.apply_clusters(bn, cuda.APPLY_MAX_CLUSTER) for bn in cuda.APPLY_BLOCK_COLS}
-    gram_clusters = {bn: cuda.gram_clusters(bn, cuda.GRAM_MAX_CLUSTER) for bn in cuda.GRAM_BLOCK_COLS}
+    gram_clusters = {f"{family}_{bn}": cuda.gram_clusters(bn, cuda.GRAM_MAX_CLUSTER, family)
+                     for family in cuda.DENSE_GRAMS for bn in cuda.GRAM_BLOCK_COLS}
     X = torch.from_numpy(rs.standard_normal((FIG4A.d, FIG4A.n)).astype(np.float32)).to(DEVICE)
     key = prng.worker_key(prng.prng_key(SEED + 11), 0)
     keys = prng.worker_keys(prng.prng_key(SEED + 12), 3)
     m = FIG4A.m
-    wrappers = {  # each copies its key words to the card
+    kd, srht_rows = operators.srht_params(keys, m, sk.next_pow2(X.shape[0]))
+    wrappers = {  # each copies its key words (and the SRHT its row ids) to the card
         "gaussian_sketch": lambda: ops.gaussian_sketch(key, X, m),
         "gaussian_sketch_multi": lambda: ops.gaussian_sketch_multi(keys, X, m),
         "rademacher_sketch_multi": lambda: rops.rademacher_sketch_multi(keys, X, m),
         "gaussian_gram_multi": lambda: ops.gaussian_gram_multi(keys, X, m),
+        "rademacher_gram_multi": lambda: rops.rademacher_gram_multi(keys, X, m),
+        "srht_gram_multi": lambda: fops.srht_gram_multi(kd, srht_rows, X),
         "sjlt_apply_multi": lambda: sops.sjlt_apply_multi(keys, X, m, SJLT_S),
     }
     no_sync = {}

@@ -1,5 +1,5 @@
 // TF32 tensor-core pieces of the dense S.A kernel (sketch_apply.cu) and the
-// Gaussian sketch->Gram pass (sketch_gram.cu), shared with their probe
+// dense sketch->Gram pass (sketch_gram.cu), shared with their probe
 // (mma_probe.cu) so that the probe checks the very fragment code the kernels run.
 //
 // 3xTF32: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both rounded to

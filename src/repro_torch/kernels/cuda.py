@@ -4,9 +4,8 @@ Each ``csrc/<name>.cu`` named in ``SOURCES`` is compiled by ``nvcc`` for
 ``sm_90a`` (Hopper) into a shared library with a plain C interface, at first use,
 into ``build/repro_torch_kernels/`` at the root of the checkout:
 
-* ``sketch_gram`` — the dense sketch→Gram families: the Gaussian on the tensor
-  cores (``repro_gaussian_gram``), the Rademacher and SRHT on the fp32 pipe
-  (``repro_sketch_gram``);
+* ``sketch_gram`` — the dense sketch→Gram families (Gaussian, Rademacher, SRHT),
+  one sketch pass on the tensor cores (``repro_dense_gram``);
 * ``sketch_apply`` — the dense S·A (Gaussian, Rademacher) on the tensor cores;
 * ``sjlt_gram``   — the sparse SJLT sketch→Gram and S·A;
 * ``fwht``        — the fast Walsh-Hadamard transform;
@@ -53,20 +52,20 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 FAMILIES = {"gaussian": 0, "rademacher": 1, "srht": 2}
-# FFMA sketch pass of csrc/sketch_gram.cu (BM sketch rows, BD columns, BK data
-# rows per step). Only STEP_ROWS bears on correctness, and the C entry refuses a
-# split that is not a multiple of it; the other two steer the split count.
-BLOCK_ROWS, BLOCK_COLS, STEP_ROWS = 64, 256, 32
+DENSE_GRAMS = tuple(FAMILIES)  # the families of csrc/sketch_gram.cu's one sketch pass
+# Data rows a step of the dense sketch passes (one packed sign word); the C
+# entries refuse a split that is not a whole number of steps.
+STEP_ROWS = 32
 # Sketch-pass blocks a single-key launch aims for (a few waves of the card's
-# SMs); fixed, so that n-splits depend on the shapes only (see plan_splits).
+# SMs); fixed, so that n-splits depend on the shapes only (see plan_dense_gram).
 TARGET_BLOCKS = 2048
-# Gaussian tensor-core pass of csrc/sketch_gram.cu: a block owns GRAM_BLOCK_ROWS
+# Dense sketch→Gram pass of csrc/sketch_gram.cu: a block owns GRAM_BLOCK_ROWS
 # sketch rows (an m-tile) and one of GRAM_BLOCK_COLS column widths and walks its
 # split GRAM_STEP_ROWS data rows a step; the m-tiles of one column tile form
-# clusters of at most GRAM_MAX_CLUSTER blocks that read each X tile once. Its
-# splits are whole STEP_ROWS, as the other dense families' are. Clusters of 2:
-# at FIG3A on an H100 (tools/gram_ablation.py --max-cluster) clusters of 1 and 2
-# took the same time and 4 and 8 took 12-13% more (8 leave 12 of 132 SMs idle).
+# clusters of at most GRAM_MAX_CLUSTER blocks that read each X tile once.
+# Clusters of 2: at FIG3A on an H100 (tools/gram_ablation.py --max-cluster) the
+# Gaussian's clusters of 1 and 2 took the same time and 4 and 8 took 12-13% more
+# (8 leave 12 of 132 SMs idle).
 GRAM_BLOCK_ROWS, GRAM_BLOCK_COLS, GRAM_STEP_ROWS, GRAM_MAX_CLUSTER = 64, (64, 128, 256), 32, 2
 MIN_SPLIT_STEPS = 16
 # Upper bound on the n-split partials one call into the C entry keeps; larger q
@@ -201,12 +200,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     lib.repro_error_string.argtypes = [I]
     lib.repro_error_string.restype = ctypes.c_char_p
     if name == "sketch_gram":
-        lib.repro_sketch_gram.argtypes = [I, P, LL, I, P, P, I, I, F, LL, I, P, P, P]
-        lib.repro_sketch_gram.restype = I
-        lib.repro_gaussian_gram.argtypes = [P, LL, I, P, I, I, F, I, LL, I, I, I, I, P, LL, I, P, P, P]
-        lib.repro_gaussian_gram.restype = I
-        lib.repro_gaussian_gram_clusters.argtypes = [I, I, ctypes.POINTER(I)]
-        lib.repro_gaussian_gram_clusters.restype = I
+        lib.repro_dense_gram.argtypes = [I, P, LL, I, P, P, I, I, F, I, LL, I, I, I, I, P, LL, I, P, P, P]
+        lib.repro_dense_gram.restype = I
+        lib.repro_dense_gram_clusters.argtypes = [I, I, I, ctypes.POINTER(I)]
+        lib.repro_dense_gram_clusters.restype = I
     elif name == "sketch_apply":
         lib.repro_sketch_apply.argtypes = [I, P, LL, I, P, I, I, F, I, LL, I, I, I, I, P, P, P]
         lib.repro_sketch_apply.restype = I
@@ -260,17 +257,9 @@ def _split_rows(n: int, blocks_per_split: int) -> tuple[int, int]:
     return -(-n // rows), rows
 
 
-def plan_splits(n: int, m: int, d: int) -> tuple[int, int]:
-    """``(n_splits, rows_per_split)`` for the FFMA sketch pass: enough blocks for a
-    single key to fill the card, at least MIN_SPLIT_STEPS steps per split.
-    A function of the shapes only, never of q: that keeps a worker's result
-    bitwise the same whether it is launched alone or among q."""
-    return _split_rows(n, -(-m // BLOCK_ROWS) * -(-d // BLOCK_COLS))
-
-
 @dataclasses.dataclass(frozen=True)
 class GramPlan:
-    """The Gaussian tensor-core sketch pass's plan (:func:`plan_gaussian_gram`)."""
+    """The dense sketch→Gram pass's plan (:func:`plan_dense_gram`)."""
     n_splits: int
     rows_per_split: int
     block_cols: int  # BN, columns per block
@@ -296,8 +285,9 @@ class GramPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def plan_gaussian_gram(n: int, m: int, d: int) -> GramPlan:
-    """The Gaussian sketch→Gram plan of X (n, d) at m sketch rows. The column
+def plan_dense_gram(n: int, m: int, d: int) -> GramPlan:
+    """The dense sketch→Gram plan of X (n, d) at m sketch rows, the same for the
+    Gaussian, Rademacher and SRHT. The column
     width is the narrowest of GRAM_BLOCK_COLS that holds d (the widest past it),
     so that for d <= 256 one column tile draws each S entry once per split. The
     m-tiles of a column tile form ``clusters`` clusters of ``cluster`` <=
@@ -328,7 +318,7 @@ def plan_sjlt(n: int, m: int, d: int, s: int) -> SjltPlan:
     SJLT_MAX_BUCKETS rows, chunks of ``min(SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS // s)``
     rows, and n cut into splits of whole chunks, enough for SJLT_TARGET_BLOCKS
     blocks at q = 1 but at least MIN_SPLIT_STEPS chunks each. Like
-    :func:`plan_splits`, a function of the shapes only, never of q."""
+    :func:`plan_dense_gram`, a function of the shapes only, never of q."""
     if not 0 < s <= SJLT_MAX_PAIRS:
         raise ValueError(f"the SJLT kernel takes 1 <= s <= {SJLT_MAX_PAIRS}, got s={s}")
     m_tiles = -(-m // SJLT_MAX_BUCKETS)
@@ -402,15 +392,13 @@ def _splits(family: str, n: int, m: int, d: int, s: int, apply: bool = False) ->
     if apply:
         plan = plan_apply(n, m, d)
         return 0 if plan.direct else plan.n_splits
-    if family == "gaussian":
-        return plan_gaussian_gram(n, m, d).n_splits
-    return plan_splits(n, m, d)[0]
+    return plan_dense_gram(n, m, d).n_splits
 
 
 def shared_scratch_bytes(family: str, n: int, m: int, d: int, apply: bool = False) -> int:
     """Scratch bytes a call shares among all its workers: the split form of X of
-    the Gaussian Gram (:attr:`GramPlan.xs_floats`), else none."""
-    return 4 * plan_gaussian_gram(n, m, d).xs_floats if family == "gaussian" and not apply else 0
+    a dense Gram (:attr:`GramPlan.xs_floats`), else none."""
+    return 4 * plan_dense_gram(n, m, d).xs_floats if family in DENSE_GRAMS and not apply else 0
 
 
 def worker_chunk(n: int, m: int, d: int, q: int, *, family: str = "gaussian", s: int = 0,
@@ -418,13 +406,13 @@ def worker_chunk(n: int, m: int, d: int, q: int, *, family: str = "gaussian", s:
     """Workers per call into the C entry: a q-key Gram of X (n, d) makes
     ``ceil(q / worker_chunk(...))`` calls, each a sketch pass, a split reduction
     and a Gram pass over its chunk of workers. ``family`` (and ``s`` for the
-    SJLT) picks the split plan: the Gaussian Gram has its own
-    (:func:`plan_gaussian_gram`), the other dense Grams share one, and with
+    SJLT) picks the split plan: the dense Grams share one
+    (:func:`plan_dense_gram`), the SJLT has its own, and with
     ``apply`` the dense S·A has its own (:func:`plan_apply`; one split keeps no
     partials). The chunk's partials and the call's shared scratch
     (:func:`shared_scratch_bytes`) fit SCRATCH_BYTES, or the chunk is one worker.
-    Raises ValueError when the shared scratch alone outgrows SCRATCH_BYTES (the
-    split X is up to 128 times X, at d′ = 1; at FIG3A it is 1.02 GB)."""
+    Raises ValueError when the shared scratch alone outgrows SCRATCH_BYTES (a
+    dense Gram's split X is up to 128 times X, at d′ = 1; at FIG3A it is 1.02 GB)."""
     shared = shared_scratch_bytes(family, n, m, d, apply)
     if shared > SCRATCH_BYTES:
         raise ValueError(f"the {family} Gram's split X of ({n}, {d}) takes {shared} bytes, "
@@ -471,45 +459,35 @@ def sketch_gram(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rou
             raise ValueError(f"srht_rows must be (q, m) = ({q}, {m}), got {tuple(srht_rows.shape)}")
         srht_rows = _u32_words(srht_rows, X.device)
     lib = _library("sketch_gram")
+    plan = plan_dense_gram(n, m, d)
     chunk = worker_chunk(n, m, d, q, family=family)
     kw = _u32_words(keys, X.device)
     G = torch.empty((q, d, d), dtype=torch.float32, device=X.device)
-    if family == "gaussian":
-        plan = plan_gaussian_gram(n, m, d)
-        n_splits = plan.n_splits
-        xs = torch.empty(plan.xs_floats, dtype=torch.float32, device=X.device)
-    else:
-        n_splits, rows = plan_splits(n, m, d)
-    partial = torch.empty((chunk, n_splits * m * d), dtype=torch.float32, device=X.device)
+    xs = torch.empty(plan.xs_floats, dtype=torch.float32, device=X.device)
+    partial = torch.empty((chunk, plan.n_splits * m * d), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         for w0 in range(0, q, chunk):
             qc = min(chunk, q - w0)
-            if family == "gaussian":  # the first call also writes the split form of X
-                code = lib.repro_gaussian_gram(
-                    X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m, common.inv_sqrt(m), rounds,
-                    plan.rows_per_split, n_splits, plan.block_cols, plan.cluster, plan.clusters,
-                    xs.data_ptr(), plan.x_rows, int(w0 == 0), partial.data_ptr(), G[w0].data_ptr(), stream,
-                )
-            else:
-                code = lib.repro_sketch_gram(
-                    FAMILIES[family], X.data_ptr(), n, d, kw[w0].data_ptr(),
-                    None if srht_rows is None else srht_rows[w0].data_ptr(), qc, m,
-                    common.inv_sqrt(m), rows, n_splits, partial.data_ptr(), G[w0].data_ptr(), stream,
-                )
+            code = lib.repro_dense_gram(  # the first call also writes the split form of X
+                FAMILIES[family], X.data_ptr(), n, d, kw[w0].data_ptr(),
+                None if srht_rows is None else srht_rows[w0].data_ptr(), qc, m, common.inv_sqrt(m), rounds,
+                plan.rows_per_split, plan.n_splits, plan.block_cols, plan.cluster, plan.clusters,
+                xs.data_ptr(), plan.x_rows, int(w0 == 0), partial.data_ptr(), G[w0].data_ptr(), stream,
+            )
             _check(lib, code, f"{family} sketch_gram launch")
             launches[name] += 1
     return G
 
 
-def gram_clusters(block_cols: int, cluster: int) -> int:
-    """Clusters of ``cluster`` Gaussian Gram blocks of width ``block_cols`` the
-    card can hold at once (``cudaOccupancyMaxActiveClusters``; 0: it cannot
-    launch one)."""
+def gram_clusters(block_cols: int, cluster: int, family: str = "gaussian") -> int:
+    """Clusters of ``cluster`` dense Gram blocks of ``family`` and width
+    ``block_cols`` the card can hold at once (``cudaOccupancyMaxActiveClusters``;
+    0: it cannot launch one)."""
     lib = _library("sketch_gram")
     count = ctypes.c_int(0)
-    _check(lib, lib.repro_gaussian_gram_clusters(block_cols, cluster, ctypes.byref(count)),
-           "gaussian_gram cluster occupancy")
+    _check(lib, lib.repro_dense_gram_clusters(FAMILIES[family], block_cols, cluster, ctypes.byref(count)),
+           f"{family} dense_gram cluster occupancy")
     return count.value
 
 

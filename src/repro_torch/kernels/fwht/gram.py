@@ -1,8 +1,9 @@
 """Launch of the fused SRHT sketch→Gram CUDA kernel (``csrc/sketch_gram.cu``).
 
 Counterpart of the reference's ``kernels/fwht/gram.py`` ``srht_gram_tiles`` and
-``srht_gram_tiles_multi``: the dense families' skeleton with Sylvester
-closed-form S tiles (a popcount per entry, the diagonal at 20 threefry rounds).
+``srht_gram_tiles_multi``: the dense families' tensor-core sketch pass with the
+Sylvester closed form drawn as one sign word per sketch row and 32 data rows (a
+popcount per word, the diagonal at 20 threefry rounds), two TF32 products.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Launch of the fused Rademacher sketch→Gram CUDA kernel (``csrc/sketch_gram.cu``).
 
 Counterpart of the reference's ``kernels/rademacher/gram.py``
-``rademacher_gram_tiles`` and ``rademacher_gram_tiles_multi``: the Gaussian
-kernel's skeleton with packed-sign S tiles (always 20 threefry rounds).
+``rademacher_gram_tiles`` and ``rademacher_gram_tiles_multi``: the dense
+families' tensor-core sketch pass, S from one packed sign word per sketch row and
+32 data rows (always 20 threefry rounds), two TF32 products.
 """
 from __future__ import annotations
 

@@ -117,51 +117,56 @@ def test_q_chunking_is_bitwise_invisible(cuda, family, monkeypatch):
     assert launches[name] == before + 3  # one per chunk of workers: 2 + 2 + 1
 
 
-# (n, d', m) at the edges of the Gaussian Gram's plan (cuda.plan_gaussian_gram,
+# (n, d', m) at the edges of the dense Grams' plan (cuda.plan_dense_gram,
 # clusters of GRAM_MAX_CLUSTER = 2 m-tiles of 64 rows): m below one cluster, at
 # one (128) and one row either side, an odd number of m-tiles (a padding block in
 # the last cluster), the ragged last cluster of FIG3A's m = 2,500 (4 live rows);
 # d' = 1, 251, 256 (one column tile) and 257 (two); n not a whole number of
 # 32-row steps.
-GAUSSIAN_GRAM_EDGES = [(3001, 251, 40), (3001, 251, 127), (3001, 256, 128), (3001, 257, 129),
-                       (4097, 256, 513), (2999, 1, 2500), (1001, 251, 2500), (777, 257, 64)]
+GRAM_EDGES = [(3001, 251, 40), (3001, 251, 127), (3001, 256, 128), (3001, 257, 129),
+              (4097, 256, 513), (2999, 1, 2500), (1001, 251, 2500), (777, 257, 64)]
 
 
-@pytest.mark.parametrize("n,d,m", GAUSSIAN_GRAM_EDGES)
-def test_gaussian_gram_at_the_plan_edges(cuda, n, d, m):
-    """The tensor-core Gaussian Gram against its float64 plain version (1e-5 per
-    entry), its q-key slices bitwise single-key calls, a rerun bitwise, and no
-    call that waits for the card."""
+@pytest.mark.parametrize("n,d,m", GRAM_EDGES)
+@pytest.mark.parametrize("family", tcuda.DENSE_GRAMS)
+def test_dense_gram_at_the_plan_edges(cuda, family, n, d, m):
+    """The tensor-core Gram of each dense family (Gaussian, Rademacher, SRHT)
+    against its float64 plain version (1e-5 per entry), its q-key slices bitwise
+    single-key calls, a rerun bitwise, and no call that waits for the card."""
+    single, multi, plain, *_ = FAMILIES[family]
     X = _x(n, d, n + m, cuda)
     keys = prng.worker_keys(prng.prng_key(n + d + m), 3)
-    G, again = _runs_without_sync(lambda: gops.gaussian_gram_multi(keys, X, m))
+    G, again = _runs_without_sync(lambda: multi(keys, X, m))
     assert G.shape == (3, d, d)
-    assert _gram_err(G, gref.gaussian_gram_multi(keys, X, m)) <= REL_TOL
+    assert _gram_err(G, plain(keys, X, m)) <= REL_TOL
     assert torch.equal(G, again)
     for w in range(3):
-        assert torch.equal(G[w], gops.gaussian_gram(keys[w], X, m))
+        assert torch.equal(G[w], single(keys[w], X, m))
 
 
-def test_gaussian_gram_chunk_edges_are_single_key_calls(cuda, monkeypatch):
+@pytest.mark.parametrize("family", tcuda.DENSE_GRAMS)
+def test_dense_gram_chunk_edges_are_single_key_calls(cuda, family, monkeypatch):
     """q past worker_chunk: the slices on either side of each chunk edge are
     bitwise single-key calls, and each chunk is one call into the C entry."""
+    single, multi, _, launches, name = FAMILIES[family]
     n, d, m = 3001, 251, 513
-    plan = tcuda.plan_gaussian_gram(n, m, d)
-    shared = tcuda.shared_scratch_bytes("gaussian", n, m, d)
+    plan = tcuda.plan_dense_gram(n, m, d)
+    shared = tcuda.shared_scratch_bytes(family, n, m, d)
     monkeypatch.setattr(tcuda, "SCRATCH_BYTES", shared + 3 * 4 * plan.n_splits * m * d)
-    assert tcuda.worker_chunk(n, m, d, 7) == 3
+    assert tcuda.worker_chunk(n, m, d, 7, family=family) == 3
     X = _x(n, d, 5, cuda)
     keys = prng.worker_keys(prng.prng_key(6), 7)
-    before = gops.LAUNCHES["gaussian_gram_multi"]
-    G = gops.gaussian_gram_multi(keys, X, m)
-    assert gops.LAUNCHES["gaussian_gram_multi"] == before + 3  # 3 + 3 + 1
+    before = launches[name]
+    G = multi(keys, X, m)
+    assert launches[name] == before + 3  # 3 + 3 + 1
     for w in (0, 2, 3, 5, 6):
-        assert torch.equal(G[w], gops.gaussian_gram(keys[w], X, m))
+        assert torch.equal(G[w], single(keys[w], X, m))
 
 
 @pytest.mark.parametrize("block_cols", tcuda.GRAM_BLOCK_COLS)
-def test_gaussian_gram_clusters_fit_the_card(cuda, block_cols):
-    assert tcuda.gram_clusters(block_cols, tcuda.GRAM_MAX_CLUSTER) > 0
+@pytest.mark.parametrize("family", tcuda.DENSE_GRAMS)
+def test_dense_gram_clusters_fit_the_card(cuda, family, block_cols):
+    assert tcuda.gram_clusters(block_cols, tcuda.GRAM_MAX_CLUSTER, family) > 0
 
 
 def test_launch_counters_count_kernel_launches(cuda):

@@ -338,7 +338,8 @@ def test_new_plain_grams_are_blocking_invariant_to_tolerance(kind, block_rows):
 @pytest.mark.parametrize("n,m,d", [(500_000, 2500, 251), (1001, 40, 8), (31, 7, 300), (2**20, 64, 4),
                                    (25_000, 2500, 251), (1, 1, 1), (5, 40, 3), (33, 2500, 251)])
 def test_plan_splits_covers_n_in_word_aligned_splits(n, m, d):
-    n_splits, rows = tcuda.plan_splits(n, m, d)
+    plan = tcuda.plan_dense_gram(n, m, d)  # the dense Grams' n-splits
+    n_splits, rows = plan.n_splits, plan.rows_per_split
     assert rows % 32 == 0
     assert (n_splits - 1) * rows < n <= n_splits * rows
     assert n_splits == 1 or rows >= 32 * tcuda.MIN_SPLIT_STEPS

@@ -11,13 +11,19 @@ plain version's float32 S and X (two, s·x_lo + s·x_hi with the scale after, fo
 the ±1 signs) land within 1e-6 per column (of the column's rms) of the float64
 product, and one TF32 product does not come near: the split is what makes the
 tensor cores fp32-accurate. The sums are taken in float64 here; the kernel's own
-fp32 accumulation is held to 1e-5 on the card.
+fp32 accumulation is held to 1e-5 on the card. The ±1 Gram kernel's premise
+is taken in float32 as that kernel sums: chains of one 32-row step of
+S·X_lo + S·X_hi, running sums over a FIG3A split, the scale 1/√m after, within
+1e-5 per entry of the column's rms, with the SRHT's signs drawn as the kernel
+draws them (one word per sketch row and step).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import operators
 from repro_torch.kernels import common, cuda as tcuda
+from repro_torch.kernels.fwht import ref as fref
 from repro_torch.kernels.gaussian import ref as gref
 from repro_torch.kernels.rademacher import ref as rref
 from repro_torch.utils import prng
@@ -147,3 +153,71 @@ def test_3xtf32_of_the_plain_s_is_fp32_accurate(n, m, d):
     two = (signs.double() @ xl.double() + signs.double() @ xh.double()) * scale
     assert col_err(two, exact) <= 1e-6
     assert col_err((signs.double() @ xh.double()) * scale, exact) > 1e-4
+
+
+def _kernel_chain_sum(signs: torch.Tensor, X: torch.Tensor, scale: float, chain_rows: int = 32) -> torch.Tensor:
+    """The ±1 Gram kernel's S·X over one split, emulated in float32: per 8-row
+    k-slice the products with X_lo, then with X_hi, summed in order into a chain
+    of ``chain_rows`` data rows (the tensor cores' accumulator; each ±1·tf32
+    product is exact), each chain added to a running sum, the scale applied once
+    at the end."""
+    m, n = signs.shape
+    xh, xl = split(X)
+    steps = n // chain_rows
+    s = signs.reshape(m, steps, chain_rows // 8, 8).permute(1, 2, 3, 0)  # (chain, slice, row, m)
+    parts = [xl.reshape(steps, chain_rows // 8, 8, -1), xh.reshape(steps, chain_rows // 8, 8, -1)]
+    acc = torch.zeros((steps, m, X.shape[1]), dtype=torch.float32)
+    for ks in range(chain_rows // 8):
+        for part in parts:
+            for r in range(8):
+                acc = acc + s[:, ks, r, :, None] * part[:, ks, r, None, :]
+    run = torch.zeros((m, X.shape[1]), dtype=torch.float32)
+    for c in range(steps):
+        run = run + acc[c]
+    return run * torch.tensor(scale, dtype=torch.float32)
+
+
+def _srht_kernel_signs(kd: torch.Tensor, ids: torch.Tensor, j_begin: int, n: int) -> torch.Tensor:
+    """(m, n) ±1 signs of the SRHT's data rows j_begin .. j_begin + n − 1 drawn as
+    the kernel draws them: per step of 32 rows starting at j0, the word of sketch
+    row r is H_r ^ D ^ −parity(id_r & j0), with H_r's bit k the parity of id_r & k
+    (k < 32) and D's bit k the diagonal's sign bit at j0 + k."""
+    ids = ids.to(torch.int64)
+    k = torch.arange(32, dtype=torch.int64)
+    h = fref.parity(ids[:, None] & k[None, :])  # (m, 32)
+    j0 = j_begin + 32 * torch.arange(n // 32, dtype=torch.int64)  # (steps,)
+    d_bits = (fref.diagonal(*common.key_words(kd), j0[:, None] + k[None, :]) < 0).to(torch.int64)  # (steps, 32)
+    step_parity = fref.parity(ids[:, None] & j0[None, :])  # (m, steps)
+    bits = h[:, None, :] ^ d_bits[None, :, :] ^ step_parity[:, :, None]  # (m, steps, 32)
+    return (1 - 2 * bits).reshape(ids.shape[0], n).to(torch.float32)
+
+
+@pytest.mark.parametrize("family", ["rademacher", "srht"])
+def test_pm1_two_tf32_products_in_kernel_chains_are_fp32_accurate(family):
+    """The ±1 Gram kernel's premise at FIG3A's split length (the plan's
+    rows_per_split, 9,632 rows, the tenth split) for one 64-row m-tile with
+    FIG3A's scale 1/√2,500: signs drawn as the kernel draws them (the SRHT's from
+    one word per row and step, equal bitwise to the closed form), X split into
+    TF32 hi and lo, S·X_lo + S·X_hi in float32 chains of one 32-row step, then
+    running sums, then the scale: within 1e-5 per entry of the column's rms of
+    the float64 S·X (the Gram checks hold G to 1e-5 per entry), and one TF32
+    product (X_hi alone) is not."""
+    plan = tcuda.plan_dense_gram(500_000, 2500, 251)
+    n, m, d = plan.rows_per_split, 64, 16
+    j_begin = 10 * plan.rows_per_split
+    scale = common.inv_sqrt(2500)
+    rs = np.random.default_rng(17)
+    X = torch.from_numpy(rs.standard_normal((n, d)).astype(np.float32))
+    key = prng.prng_key(17)
+    if family == "rademacher":
+        signs = torch.sign(rref.columns(*common.key_words(key), m, j_begin, n))
+    else:
+        kd, ids = operators.srht_params(key, m, 2**19)
+        signs = _srht_kernel_signs(kd, ids, j_begin, n)
+        closed = fref.columns(*common.key_words(kd), ids, j_begin, n)
+        assert torch.equal(signs, torch.sign(closed))  # the word draw is the closed form, bitwise
+    assert torch.equal(tf32(signs), signs)
+    exact = (signs.double() * scale) @ X.double()
+    assert col_err(_kernel_chain_sum(signs, X, scale), exact) <= 1e-5
+    one = (signs.double() @ split(X)[0].double()) * scale
+    assert col_err(one, exact) > 1e-4

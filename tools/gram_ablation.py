@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the dense sketch→Gram kernels (``src/repro_torch/csrc/sketch_gram.cu``)
-with parts of their work left out, to see what holds them back at one shape.
+"""Time the dense sketch→Gram kernel (``src/repro_torch/csrc/sketch_gram.cu``)
+with parts of its work left out, to see what holds it back at one shape.
 
 Run from the root of a checkout, on a machine with one CUDA card and ``nvcc``:
 
@@ -8,32 +8,34 @@ Run from the root of a checkout, on a machine with one CUDA card and ``nvcc``:
                                    [--variants full,no_x,...] [--extra NAME=FILE.cu ...]
                                    [--parent FILE.cu] [--max-cluster N] [--out PATH]
 
-``--family gaussian`` (the default) times the tensor-core pass
-(``repro_gaussian_gram``): a split pass writes X once as TF32 hi and lo parts;
-producer warps draw S, consumer warps copy the X tiles (bulk copies multicast
-over a cluster of m-tiles) and multiply on the tensor cores; mbarrier rings hand
-the steps over. ``rademacher`` and ``srht`` time the FFMA pass
-(``repro_sketch_gram``), where every thread draws, loads X and multiplies in
-turn, between block-wide barriers. The shape defaults to FIG3A's full n.
+``--family`` (``gaussian``, the default, ``rademacher`` or ``srht``) picks the
+family of the one tensor-core pass (``repro_dense_gram``): a split pass writes X
+once as TF32 hi and lo parts; producer warps draw S (the Gaussian's S tile, or
+the ±1 families' sign words), consumer warps copy the X tiles (bulk copies
+multicast over a cluster of m-tiles) and multiply on the tensor cores (three
+products a k-slice, or two); mbarrier rings hand the steps over. The shape
+defaults to FIG3A's full n.
 
 The source's ``SKETCH_GRAM_ABLATE`` bits leave out the draw (1), the X copy (2),
-the split pass (4, tensor-core pass only) or the products (8), and every build
-below sets some of them (``VARIANTS``); ``long_chains`` instead builds one chain
-a split (no second level of the two-level sum; for the Gaussian its error is
-printed). Every variant keeps the hand-offs, so ``handoffs_only`` is the cost of
-the pipeline itself. ``--extra`` adds a patched copy of the source, built whole,
-as one more variant (held bitwise against the port's build). Beside the Gaussian
-variants two more calls are timed on the same keys and X: ``sketch_apply``, the
-dense S·A kernel (``csrc/sketch_apply.cu``: S·X alone, no Gram), and with
-``--parent`` a ``sketch_gram.cu`` from before the tensor-core pass, whose
-Gaussian Gram is family 0 of ``repro_sketch_gram`` on ``cuda.plan_splits`` (to
-time the kernel the tensor-core pass replaced: ``git archive 27a266b`` holds
-it). Each call is timed with CUDA events, the variants interleaved (their order
+the split pass (4) or the products (8), and every build below sets some of them
+(``VARIANTS``); ``chains_2``, ``chains_4``, ``chains_16`` and ``long_chains``
+instead build chains of 2, 4 or 16 steps, or one chain a split, before the running sums (the
+second level of the two-level sum), and their error is printed. Every variant
+keeps the hand-offs, so ``handoffs_only`` is the cost of the pipeline itself.
+``--extra`` adds a patched copy of the source, built whole, as one more variant
+(held bitwise against the port's build). Beside the variants more calls are
+timed on the same keys and X: for the Gaussian and the Rademacher
+``sketch_apply``, the dense S·A kernel (``csrc/sketch_apply.cu``: S·X alone, no
+Gram), and with ``--parent`` the ``sketch_gram.cu`` of the commit before the ±1
+families moved onto the tensor cores (``git archive 9ca1d14``), timed whole: its
+Gaussian tensor-core pass (``repro_gaussian_gram``, on the same plan) or its
+FFMA pass for the ±1 families (``repro_sketch_gram``, on the split plan it had).
+Each call is timed with CUDA events, the variants interleaved (their order
 rotated each repetition), one call a repetition (``--reps`` of them, the median
-kept, every run printed). ``mma_floor_ms`` is the tensor-core pass's TF32
-products at ``mma.sync``'s own rate, measured in the same run
-(``csrc/mma_probe.cu``); ``rng_bound_ms`` the draw at 16.7 T integer operations a
-second.
+kept, every run printed). ``entry_err`` is max |ΔG_ij|/√(G_ii·G_jj) against the
+plain version. ``mma_floor_ms`` is the pass's TF32 products at ``mma.sync``'s own
+rate, measured in the same run (``csrc/mma_probe.cu``); ``rng_bound_ms`` the draw
+at 16.7 T integer operations a second.
 
 Prints one JSON line (also appended to ``--out``) and, first, the card's name
 and power limit. Ablated variants compute wrong results by design; nothing here is
@@ -66,10 +68,15 @@ VARIANTS = {
     "x_only": "-DSKETCH_GRAM_ABLATE=9",  # split pass, X copy, hand-offs
     "mma_only": "-DSKETCH_GRAM_ABLATE=7",  # products, hand-offs
     "handoffs_only": "-DSKETCH_GRAM_ABLATE=15",
-    "long_chains": "-DSKETCH_GRAM_CHAIN_STEPS=1048576 -DSKETCH_GRAM_FLUSH_STEPS=1048576",
+    "chains_2": "-DSKETCH_GRAM_CHAIN_STEPS=2",
+    "chains_4": "-DSKETCH_GRAM_CHAIN_STEPS=4",
+    "chains_16": "-DSKETCH_GRAM_CHAIN_STEPS=16",
+    "long_chains": "-DSKETCH_GRAM_CHAIN_STEPS=1048576",
 }
+CHAINS = ("chains_2", "chains_4", "chains_16", "long_chains")
+PASSES = {"gaussian": 3, "rademacher": 2, "srht": 2}  # TF32 products a k-slice
 FIG3A = (500_000, 251, 2_500)  # n, d' = d + 1, m
-INT_OPS_PER_ENTRY = 77  # one threefry2x32 at 20 rounds
+THREEFRY_OPS = 77  # one threefry2x32 at 20 rounds
 PEAK_INT32_OPS = 16.7e12
 
 
@@ -96,10 +103,12 @@ def build(variants: list[str], extra: dict[str, Path], parent: Path | None) -> t
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         lib = ctypes.CDLL(str(so))
-        if name == "parent":  # the entry as it was before the tensor-core pass
+        if name == "parent":  # the entries as they were before the ±1 families moved
             P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-            lib.repro_sketch_gram.argtypes = [I, P, LL, I, P, P, I, I, F, I, LL, I, P, P, P]
+            lib.repro_sketch_gram.argtypes = [I, P, LL, I, P, P, I, I, F, LL, I, P, P, P]
             lib.repro_sketch_gram.restype = I
+            lib.repro_gaussian_gram.argtypes = [P, LL, I, P, I, I, F, I, LL, I, I, I, I, P, LL, I, P, P, P]
+            lib.repro_gaussian_gram.restype = I
             lib.repro_error_string.argtypes = [I]
             lib.repro_error_string.restype = ctypes.c_char_p
         else:
@@ -111,24 +120,50 @@ def build(variants: list[str], extra: dict[str, Path], parent: Path | None) -> t
     return libs, usage
 
 
-def parent_gram(lib, keys, X, m: int):
-    """The parent's Gaussian Grams (q, d, d): family 0 of its ``repro_sketch_gram``
-    (the FFMA pass) on ``cuda.plan_splits``, all q workers in one call."""
+def parent_gram(lib, family: str, keys, X, m: int, srht_rows):
+    """The parent's Grams (q, d, d), all q workers in one call: its Gaussian
+    tensor-core pass (``repro_gaussian_gram``, on ``cuda.plan_dense_gram``, the
+    plan it had), or its FFMA pass for the ±1 families (``repro_sketch_gram``, on
+    its FFMA split plan: blocks of 64 sketch rows by 256 columns)."""
     import torch
 
     from repro_torch.kernels import common, cuda
 
     n, d = X.shape
     q = keys.shape[0]
-    n_splits, rows = cuda.plan_splits(n, m, d)
     kw = cuda._u32_words(keys, X.device)
     G = torch.empty((q, d, d), dtype=torch.float32, device=X.device)
-    partial = torch.empty((q, n_splits * m * d), dtype=torch.float32, device=X.device)
-    code = lib.repro_sketch_gram(0, X.data_ptr(), n, d, kw.data_ptr(), None, q, m, common.inv_sqrt(m),
-                                 common.rng_rounds(), rows, n_splits, partial.data_ptr(), G.data_ptr(),
-                                 torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if family == "gaussian":
+        plan = cuda.plan_dense_gram(n, m, d)
+        xs = torch.empty(plan.xs_floats, dtype=torch.float32, device=X.device)
+        partial = torch.empty((q, plan.n_splits * m * d), dtype=torch.float32, device=X.device)
+        code = lib.repro_gaussian_gram(X.data_ptr(), n, d, kw.data_ptr(), q, m, common.inv_sqrt(m),
+                                       common.rng_rounds(), plan.rows_per_split, plan.n_splits, plan.block_cols,
+                                       plan.cluster, plan.clusters, xs.data_ptr(), plan.x_rows, 1,
+                                       partial.data_ptr(), G.data_ptr(), stream)
+    else:
+        n_splits, rows = cuda._split_rows(n, -(-m // 64) * -(-d // 256))
+        partial = torch.empty((q, n_splits * m * d), dtype=torch.float32, device=X.device)
+        rw = None if srht_rows is None else cuda._u32_words(srht_rows, X.device)
+        code = lib.repro_sketch_gram(cuda.FAMILIES[family], X.data_ptr(), n, d, kw.data_ptr(),
+                                     None if rw is None else rw.data_ptr(), q, m, common.inv_sqrt(m), rows,
+                                     n_splits, partial.data_ptr(), G.data_ptr(), stream)
     cuda._check(lib, code, "parent sketch_gram launch")
     return G
+
+
+def plain_grams(family: str, keys, X, m: int, srht_rows) -> list:
+    """Each worker's Gram by the family's plain version (float64 S tiles)."""
+    from repro_torch.kernels.fwht import ref as fref
+    from repro_torch.kernels.gaussian import ref as gref
+    from repro_torch.kernels.rademacher import ref as rref
+
+    if family == "gaussian":
+        return [gref.gaussian_gram(keys[w], X, m) for w in range(keys.shape[0])]
+    if family == "rademacher":
+        return [rref.rademacher_gram(keys[w], X, m) for w in range(keys.shape[0])]
+    return [fref.srht_gram(keys[w], srht_rows[w], X) for w in range(keys.shape[0])]
 
 
 def time_calls(calls: dict, reps: int) -> dict[str, list[float]]:
@@ -177,14 +212,12 @@ def main() -> int:
     parser.add_argument("--extra", action="append", default=[], metavar="NAME=FILE.cu",
                         help="a patched copy of sketch_gram.cu, built whole, as one more variant")
     parser.add_argument("--parent", type=Path, default=None, metavar="FILE.cu",
-                        help="a sketch_gram.cu from before the tensor-core pass, timed whole (Gaussian only)")
+                        help="the sketch_gram.cu of 9ca1d14 (before the ±1 families moved), timed whole")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gram_ablation: CUDA is not available", file=sys.stderr)
         return 2
     gaussian = args.family == "gaussian"
-    if args.parent is not None and not gaussian:
-        parser.error("--parent times the Gaussian Gram only")
     torch.backends.cuda.matmul.allow_tf32 = False
     extra = {}
     for item in args.extra:
@@ -194,17 +227,14 @@ def main() -> int:
     unknown = set(variants) - set(VARIANTS)
     if unknown:
         parser.error(f"unknown variants {sorted(unknown)}")
-    if not gaussian:
-        variants = [v for v in variants if v != "no_split"]  # the FFMA pass has no split pass
     from apply_ablation import mma_tflops
 
     from repro_torch.kernels import common, cuda
-    from repro_torch.kernels.gaussian import ref
     from repro_torch.utils import prng
 
     if args.max_cluster:
         cuda.GRAM_MAX_CLUSTER = args.max_cluster
-        cuda.plan_gaussian_gram.cache_clear()
+        cuda.plan_dense_gram.cache_clear()
     t0 = time.perf_counter()
     cuda.build(["sketch_gram", "sketch_apply", "mma_probe"])
     libs, usage = build(variants, extra, args.parent.resolve() if args.parent else None)
@@ -233,39 +263,38 @@ def main() -> int:
 
     calls = {name: port_call(lib) for name, lib in libs.items() if name != "parent"}
     if "parent" in libs:
-        calls["parent"] = lambda: parent_gram(libs["parent"], keys, X, m)
-    if gaussian:
-        calls["sketch_apply"] = lambda: cuda.sketch_apply("gaussian", keys, X, m, rounds=rounds, launches=counter,
+        calls["parent"] = lambda: parent_gram(libs["parent"], args.family, keys, X, m, rows)
+    if args.family in ("gaussian", "rademacher"):
+        calls["sketch_apply"] = lambda: cuda.sketch_apply(args.family, keys, X, m, rounds=rounds, launches=counter,
                                                           name="ablation")
     try:
         want = port_call(cuda._library("sketch_gram"))()
         same = {name: bool(torch.equal(calls[name](), want)) for name in libs if name == "full" or name in extra}
         runs = time_calls(calls, args.reps)
+        plain = plain_grams(args.family, keys, X, m, rows)
         errors = {}
-        if gaussian:
-            G64 = [ref.gaussian_gram(keys[w], X, m) for w in range(args.q)]
-            for name in ("full", "long_chains", "parent"):
-                if name in calls:
-                    G = calls[name]()
-                    errors[name] = max(entry_err(G[w], G64[w]) for w in range(args.q))
+        for name in ("full", *CHAINS, "parent", *extra):
+            if name in calls:
+                G = calls[name]()
+                errors[name] = max(entry_err(G[w], plain[w]) for w in range(args.q))
     finally:
         if own is None:
             cuda._LIBS.pop("sketch_gram", None)
         else:
             cuda._LIBS["sketch_gram"] = own
 
-    if gaussian:
-        p = cuda.plan_gaussian_gram(n, m, d)
-        plan = {"splits": p.n_splits, "block_cols": p.block_cols, "cluster": p.cluster, "clusters": p.clusters,
-                "blocks": p.blocks}
-    else:
-        plan = {"splits": cuda.plan_splits(n, m, d)[0]}
+    p = cuda.plan_dense_gram(n, m, d)
+    plan = {"splits": p.n_splits, "block_cols": p.block_cols, "cluster": p.cluster, "clusters": p.clusters,
+            "blocks": p.blocks}
     line = {"family": args.family, "n": n, "d": d, "m": m, "q": args.q, "plan": plan,
             "bitwise_the_port": same, "entry_err": errors,
             "median_ms": {k: statistics.median(v) for k, v in runs.items()}, "runs_ms": runs}
-    if gaussian:
-        line["mma_floor_ms"] = 3 * 2 * m * n * d * args.q / (rate * 1e9)
-        line["rng_bound_ms"] = m * n * args.q * INT_OPS_PER_ENTRY / PEAK_INT32_OPS * 1e3
+    line["mma_floor_ms"] = PASSES[args.family] * 2 * m * n * d * args.q / (rate * 1e9)
+    # Integer work: a threefry an entry (Gaussian); a sign word (a threefry, or the
+    # SRHT's AND, popcount and XOR) per 32 entries, and the SRHT's diagonal.
+    per_entry = {"gaussian": THREEFRY_OPS, "rademacher": THREEFRY_OPS / 32, "srht": 3 / 32}[args.family]
+    int_ops = m * n * args.q * per_entry + (n * args.q * THREEFRY_OPS if args.family == "srht" else 0)
+    line["rng_bound_ms"] = int_ops / PEAK_INT32_OPS * 1e3
     print(json.dumps(line), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     with args.out.open("a") as f:
