@@ -43,6 +43,11 @@ FIG4A, q = 8, each kind with a kernel also with ``use_kernel=False`` against the
 kernel path's x̄. Each is gated on ‖x̄ − x*‖²/‖x*‖² over Lemma 7's
 (d − n)/(q(m − n − 1)), x* from a plain float64 solve.
 
+The SJLT rows carry their plan (splits, m-tiles, column tiles, blocks,
+workers a call) and the scatter's shared-memory floor beside the bound; the SJLT
+S·A at each shape also its device time under ``torch.profiler``, which splits
+the event time into kernel time and launch path.
+
 Each new path runs twice, bitwise equal. Each path runs with the launch counts
 at 0 and must make exactly the calls into the kernels' C entries that its
 worker chunks call for, and no other. The multi-key Grams and S·A of the main
@@ -107,6 +112,11 @@ PEAK_TF32_FLOPS = 495e12
 TF32_PASSES = {"gaussian": 3, "rademacher": 2, "srht": 2}
 PEAK_INT32_OPS = 16.7e12
 PEAK_BYTES = 3.35e12
+# Shared memory: one 128-byte wavefront a cycle on each of 132 SMs at the
+# 1,980 MHz boost clock (nvidia-smi's clocks.max.sm on an H100 SXM). The SJLT
+# scatter's floor: each (pair, 32 columns) reads and writes an accumulator row
+# and reads the X row, 3 wavefronts.
+SMEM_WAVEFRONTS_PER_S = 132 * 1.98e9
 LEVERAGE_Q = 2  # workers of the leverage path: each draws an (m, n) gumbel array
 # Least-norm paths: ‖x̄ − x*‖²/‖x*‖² over Lemma 7 / q, x* the float64 least-norm
 # solution. With the JAX reference on the CPU (tests/theory_ratio.py --least-norm,
@@ -184,10 +194,11 @@ def apply_bound(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20) 
     cores (``bound_ms``: the bytes, the TF32 passes of 2·m·n·dx·q flops at the TF32
     peak, and the RNG at the int32 rate) with the FFMA bound of the same work
     beside it (``ffma_bound_ms``, as earlier rows were bound); the SJLT's as
-    :func:`bound_ms`."""
+    :func:`bound_ms`, with its scatter's shared-memory floor beside it."""
     ffma_ms, ffma_by = bound_ms(family, n, dx, m, q, rounds, apply=True)
     if family not in TF32_PASSES:
-        return {"bound_ms": ffma_ms, "bound_by": ffma_by, "ffma_bound_ms": ffma_ms}
+        return {"bound_ms": ffma_ms, "bound_by": ffma_by, "ffma_bound_ms": ffma_ms,
+                "smem_floor_ms": sjlt_smem_floor_ms(n, dx, q)}
     bytes_ms = 4 * (n * dx + q * m * dx) / PEAK_BYTES * 1e3
     tensor_ms = TF32_PASSES[family] * 2 * m * n * dx * q / PEAK_TF32_FLOPS * 1e3
     per_entry = threefry_ops(rounds) if family == "gaussian" else threefry_ops(20) / 32
@@ -204,13 +215,14 @@ def gram_bound(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20) -
     of 2·m·n·dx·q flops at the TF32 peak (plus the Gram pass's 2·m·dx²·q FFMA flops
     at the fp32 peak, a kernel of its own) and the RNG at the int32 rate, with the
     FFMA bound of the same work beside it (``ffma_bound_ms``); the SJLT's as
-    :func:`bound_ms`. Integer work: a threefry per Gaussian entry; one per 32
+    :func:`bound_ms`, with its scatter's shared-memory floor beside it. Integer work: a threefry per Gaussian entry; one per 32
     Rademacher entries (a packed sign word); for the SRHT an AND, a popcount and an
     XOR per 32 entries (a sign word: the closed form's parity splits into the
     step's and the row's low bits) and a threefry per data row for the diagonal."""
     ffma_ms, ffma_by = bound_ms(family, n, dx, m, q, rounds)
     if family not in TF32_PASSES:
-        return {"bound_ms": ffma_ms, "bound_by": ffma_by, "ffma_bound_ms": ffma_ms}
+        return {"bound_ms": ffma_ms, "bound_by": ffma_by, "ffma_bound_ms": ffma_ms,
+                "smem_floor_ms": sjlt_smem_floor_ms(n, dx, q)}
     bytes_ms = 4 * (n * dx + q * dx * dx) / PEAK_BYTES * 1e3
     tensor_ms = (TF32_PASSES[family] * 2 * m * n * dx * q / PEAK_TF32_FLOPS
                  + 2 * m * dx * dx * q / PEAK_FP32_FLOPS) * 1e3
@@ -223,13 +235,30 @@ def gram_bound(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20) -
             "tensor_ms": tensor_ms, "rng_ms": int_ms}
 
 
-def gram_plan(family: str, n: int, dx: int, m: int) -> dict:
-    """The launch plan of a dense Gram kernel at this shape (the one plan of the
-    Gaussian, Rademacher and SRHT; none here for the SJLT)."""
+def sjlt_smem_floor_ms(n: int, dx: int, q: int, s: int = SJLT_S) -> float:
+    """The SJLT scatter's shared-memory floor for q sketches of X (n, dx): 3
+    wavefronts per pair and 32 columns (module note at SMEM_WAVEFRONTS_PER_S)."""
+    return 3 * n * s * dx * q / 32 / SMEM_WAVEFRONTS_PER_S * 1e3
+
+
+def sjlt_plan(n: int, dx: int, m: int) -> dict:
+    """The SJLT passes' plan at this shape: splits, m-tiles, column tiles,
+    scatter blocks and workers a call."""
     from repro_torch.kernels import cuda
 
-    if family not in cuda.DENSE_GRAMS:
-        return {}
+    p = cuda.plan_sjlt(n, m, dx, SJLT_S)
+    return {"plan": {"splits": p.n_splits, "m_tiles": p.m_tiles, "column_tiles": p.d_tiles,
+                     "chunk_rows": p.chunk_rows, "blocks": p.blocks,
+                     "workers_per_call": cuda.worker_chunk(n, m, dx, 1 << 20, family="sjlt", s=SJLT_S)}}
+
+
+def gram_plan(family: str, n: int, dx: int, m: int) -> dict:
+    """The launch plan of a Gram kernel at this shape: the one plan of the dense
+    Gaussian, Rademacher and SRHT, or the SJLT's (:func:`sjlt_plan`)."""
+    from repro_torch.kernels import cuda
+
+    if family == "sjlt":
+        return sjlt_plan(n, dx, m)
     p = cuda.plan_dense_gram(n, m, dx)
     return {"plan": {"splits": p.n_splits, "block_cols": p.block_cols, "cluster": p.cluster,
                      "clusters": p.clusters, "blocks": p.blocks,
@@ -237,11 +266,11 @@ def gram_plan(family: str, n: int, dx: int, m: int) -> dict:
 
 
 def apply_plan(family: str, n: int, dx: int, m: int) -> dict:
-    """The launch plan of a dense S·A kernel at this shape (none for the SJLT here)."""
+    """The launch plan of an S·A kernel at this shape (the SJLT's: :func:`sjlt_plan`)."""
     from repro_torch.kernels import cuda
 
-    if family not in TF32_PASSES:
-        return {}
+    if family == "sjlt":
+        return sjlt_plan(n, dx, m)
     p = cuda.plan_apply(n, m, dx)
     return {"plan": {"splits": p.n_splits, "block_cols": p.block_cols, "cluster": p.cluster,
                      "groups": p.groups, "blocks": p.blocks, "direct": p.direct}}
@@ -279,6 +308,23 @@ def cuda_ms(fn, reps: int, *, warmup: bool = True):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps, out
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` runs under ``torch.profiler``:
+    the time the card spends in its kernels and copies, without the launch path
+    or the gaps between them (after one warm-up run)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def gram_err(G, want) -> float:
@@ -616,8 +662,9 @@ def apply_check(family: str, keys, Y, m: int, label: str) -> dict:
     """The single-key S·A entry of ``family`` on Y (the sketch of ``keys[0]``)
     against its plain version (per column ≤ SX_TOL) and a rerun (bitwise); its
     card, plain and library ms (means of 3 calls, or of 50 where a call is
-    shorter than its host set-up, as at FIG4A) and its bound. Emits one
-    ``apply_kernels`` line."""
+    shorter than its host set-up, as at FIG4A) and its bound; for the SJLT also
+    its device time under ``torch.profiler`` and the rest of the event time,
+    the launch path. Emits one ``apply_kernels`` line."""
     import torch
 
     from repro_torch.kernels import common
@@ -640,6 +687,9 @@ def apply_check(family: str, keys, Y, m: int, label: str) -> dict:
     report = {"n": ny, "d": dx, "m": m, "ms": ms, "plain_ms": plain_s * 1e3, "library_ms": lib_ms,
               **apply_bound(family, ny, dx, m, 1, rounds), "max_abs_err": abs_err, "max_col_rel_err": err,
               "tol": SX_TOL, "rerun_bitwise": rerun, **apply_plan(family, ny, dx, m)}
+    if family == "sjlt":  # the event time split into the card's own time and the launch path
+        dev = device_ms(lambda: calls.single(0, Y), reps)
+        report.update(device_ms=dev, launch_path_ms=ms - dev)
     emit({"phase": "apply_kernels", "name": single, "shape": label, **report})
     check(err <= SX_TOL, f"{single} on {(ny, dx)}, m = {m} disagrees with its plain version ({err})")
     check(rerun, f"{single} on {(ny, dx)}, m = {m} is not bitwise equal run to run")
@@ -672,6 +722,7 @@ def phase_apply_kernels(X, m: int, m_prime: int, rows: dict) -> None:
             "replaces": src, "launches": 0, "max_abs_err": h["max_abs_err"],
             "max_col_rel_err": h["max_col_rel_err"], "ms": h["ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"], "ffma_bound_ms": h["ffma_bound_ms"],
+            **{k: h[k] for k in ("smem_floor_ms", "device_ms", "launch_path_ms") if k in h},
             "library_ms": h["library_ms"], "shape": {"n": m_prime, "d": dx, "m": m, "q": 1},
             "full_n": report["full"], **apply_plan(family, m_prime, dx, m),
         }
@@ -692,6 +743,7 @@ def phase_apply_kernels(X, m: int, m_prime: int, rows: dict) -> None:
             "replaces": src, "launches": 0, "max_abs_err": abs_m, "max_col_rel_err": err_m,
             "ms": ms_m, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": bound["bound_by"],
             "ffma_bound_ms": bound["ffma_bound_ms"], "library_ms": lib_ms,
+            **({"smem_floor_ms": bound["smem_floor_ms"]} if "smem_floor_ms" in bound else {}),
             "shape": {"n": n, "d": dx, "m": m, "q": CHECK_Q}, **apply_plan(family, n, dx, m),
         }
         # The first worker-chunk edge of the multi-key entry at this shape.
@@ -882,6 +934,8 @@ def main_path_kernel(family: str, keys, X, m: int, rows: dict, **extra) -> None:
     bound = gram_bound(family, n, dx, m, q, rounds)
     rows[multi].update(main_path_q=q, main_path_ms=ms, main_path_bound_ms=bound["bound_ms"],
                        main_path_ffma_bound_ms=bound["ffma_bound_ms"])
+    if "smem_floor_ms" in bound:
+        rows[multi]["main_path_smem_floor_ms"] = bound["smem_floor_ms"]
     emit({"phase": "main_path_kernel", "name": multi, "q": q, "ms": ms, **bound, **extra})
     check_main_path_slices(family, keys, X, m, G)
 

@@ -7,7 +7,7 @@ into ``build/repro_torch_kernels/`` at the root of the checkout:
 * ``sketch_gram`` — the dense sketch→Gram families (Gaussian, Rademacher, SRHT),
   one sketch pass on the tensor cores (``repro_dense_gram``);
 * ``sketch_apply`` — the dense S·A (Gaussian, Rademacher) on the tensor cores;
-* ``sjlt_gram``   — the sparse SJLT sketch→Gram and S·A;
+* ``sjlt_gram``   — the sparse SJLT sketch→Gram and S·A (a bin pass and a scatter pass);
 * ``fwht``        — the fast Walsh-Hadamard transform;
 * ``adjoint``     — the Gaussian adjoint Sᵀ·Y;
 * ``rng_probe``   — the device counter RNG alone, for checking it bitwise;
@@ -81,13 +81,19 @@ MAX_GRID_Y = 65535  # n-splits of one launch: the grid's y extent
 # (plan_apply).
 APPLY_BLOCK_ROWS, APPLY_BLOCK_COLS, APPLY_MAX_CLUSTER = 64, (64, 128, 256), 8
 APPLY_TARGET_BLOCKS = 4 * 132
-# SJLT sketch pass of csrc/sjlt_gram.cu: a block owns at most SJLT_MAX_BUCKETS
-# sketch rows (its shared-memory accumulator) and SJLT_BLOCK_COLS columns, and
-# walks its rows in chunks of at most SJLT_MAX_CHUNK_ROWS rows and
-# SJLT_MAX_PAIRS (row, t) pairs. SJLT_TARGET_BLOCKS (four waves of one block per
-# SM) steers the n-splits: every split adds m·d floats per worker to the split
-# reduction, so the SJLT takes far fewer splits than the dense families.
-SJLT_BLOCK_COLS, SJLT_MAX_BUCKETS, SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS = 32, 1536, 128, 2048
+# SJLT passes of csrc/sjlt_gram.cu. The bin pass draws each chunk of at most
+# SJLT_MAX_CHUNK_ROWS data rows and SJLT_MAX_PAIRS (row, t) pairs once and writes
+# its pairs binned by (m-tile, owner class); the scatter pass's block owns
+# SJLT_BLOCK_COLS columns and an m-tile of sketch rows, its accumulator in shared
+# memory (SJLT_SMEM bytes a block, beside a ring of SJLT_STAGES chunks of list
+# and X rows), and SJLT_CLASSES owner classes (a half-warp of a consumer warp
+# each); at most SJLT_MAX_BINS (m-tile, class) bins, and an entry addresses at
+# most SJLT_MAX_ACC accumulator floats. SJLT_TARGET_BLOCKS (four waves of one
+# block per SM) steers the n-splits: every split adds m·d floats per worker to
+# the split reduction.
+SJLT_BLOCK_COLS, SJLT_CLASSES, SJLT_STAGES = 32, 32, 4
+SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS, SJLT_MAX_BINS, SJLT_MAX_ACC = 64, 2048, 1024, 1 << 16
+SJLT_SMEM = 232_448
 SJLT_TARGET_BLOCKS = 4 * 132
 # FWHT passes of csrc/fwht.cu: a block holds 2**FWHT_MAX_TILE_BITS rows of 32
 # columns (128 KB) in shared memory, so a pass runs at most that many stages.
@@ -210,10 +216,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_sketch_apply_clusters.argtypes = [I, I, ctypes.POINTER(I)]
         lib.repro_sketch_apply_clusters.restype = I
     elif name == "sjlt_gram":
-        lib.repro_sjlt_gram.argtypes = [P, LL, I, P, I, I, I, F, LL, I, I, I, P, P, P]
+        lib.repro_sjlt_gram.argtypes = [P, LL, I, P, I, I, I, F, LL, I, I, I, P, P, P, P]
         lib.repro_sjlt_gram.restype = I
-        lib.repro_sjlt_apply.argtypes = [P, LL, I, P, I, I, I, F, LL, I, I, I, P, P, P]
+        lib.repro_sjlt_apply.argtypes = [P, LL, I, P, I, I, I, F, LL, I, I, I, P, P, P, P]
         lib.repro_sjlt_apply.restype = I
+        lib.repro_sjlt_bins.argtypes = [LL, I, P, I, I, I, LL, I, I, I, P, P]
+        lib.repro_sjlt_bins.restype = I
     elif name == "fwht":
         lib.repro_fwht.argtypes = [P, P, LL, I, ctypes.POINTER(I), I, P]
         lib.repro_fwht.restype = I
@@ -307,28 +315,102 @@ def plan_dense_gram(n: int, m: int, d: int) -> GramPlan:
 
 @dataclasses.dataclass(frozen=True)
 class SjltPlan:
+    """The SJLT passes' plan (:func:`plan_sjlt`)."""
     n_splits: int
-    rows_per_split: int
-    bucket_tile: int  # sketch rows per block (one m-tile)
-    chunk_rows: int  # data rows a block takes per step
+    rows_per_split: int  # whole chunks
+    chunk_rows: int  # data rows a chunk: one bin-pass warp, one ring entry
+    pairs: int  # (row, t) pairs a full chunk: chunk_rows * s
+    bucket_tile: int  # sketch rows a scatter block (one m-tile)
+    m_tiles: int
+    d_tiles: int  # ceil(d / SJLT_BLOCK_COLS)
+    chunks: int  # ceil(n / chunk_rows)
+
+    @property
+    def bins(self) -> int:
+        return self.m_tiles * SJLT_CLASSES
+
+    @property
+    def spare_row(self) -> int:
+        """The first of the accumulator's SJLT_CLASSES spare rows, which the pads
+        of the bins (to whole 4-entry groups) add into: bucket_tile up to a whole
+        number of classes, so spare row spare_row + c is in class c."""
+        return common.round_up(self.bucket_tile, SJLT_CLASSES)
+
+    @property
+    def hdr_ints(self) -> int:
+        """Words of a chunk's bin offsets (bins + 1, to a whole 16 bytes)."""
+        return common.round_up(self.bins + 1, 4)
+
+    @property
+    def region_ints(self) -> int:
+        """Words of a chunk's list region: its bin offsets, then its entries
+        (each bin padded to a multiple of 4)."""
+        return _sjlt_region_ints(self.bins, self.pairs)
+
+    @property
+    def list_ints(self) -> int:
+        """Words of one worker's binned pair list."""
+        return self.chunks * self.region_ints
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory of a scatter block: the ring, its barriers, the accumulator."""
+        return _sjlt_smem(self.region_ints, self.chunk_rows, self.bucket_tile)
+
+    @property
+    def blocks(self) -> int:
+        """Scatter blocks a single-key launch runs."""
+        return self.d_tiles * self.m_tiles * self.n_splits
 
 
+def _sjlt_region_ints(bins: int, pairs: int) -> int:
+    return common.round_up(bins + 1, 4) + common.round_up(pairs + 3 * bins, 4)
+
+
+def _sjlt_acc_floats(bucket_tile: int) -> int:
+    """Accumulator floats of a scatter block: the m-tile's rows up to a whole
+    number of classes, then the SJLT_CLASSES spare rows."""
+    return (common.round_up(bucket_tile, SJLT_CLASSES) + SJLT_CLASSES) * SJLT_BLOCK_COLS
+
+
+def _sjlt_smem(region_ints: int, chunk_rows: int, bucket_tile: int) -> int:
+    """Shared-memory bytes of a scatter block: the ring of list regions and
+    staged X rows, its barriers, and the accumulator."""
+    return (SJLT_STAGES * (4 * region_ints + 4 * SJLT_BLOCK_COLS * chunk_rows) + 16 * SJLT_STAGES
+            + 4 * _sjlt_acc_floats(bucket_tile))
+
+
+def _sjlt_fits(m_tiles: int, bucket_tile: int, chunk_rows: int, pairs: int) -> bool:
+    """Whether a scatter block of bucket_tile rows fits its shared memory and
+    its entries can address every accumulator row."""
+    region = _sjlt_region_ints(m_tiles * SJLT_CLASSES, pairs)
+    return (_sjlt_acc_floats(bucket_tile) <= SJLT_MAX_ACC
+            and _sjlt_smem(region, chunk_rows, bucket_tile) <= SJLT_SMEM)
+
+
+@functools.lru_cache(maxsize=256)
 def plan_sjlt(n: int, m: int, d: int, s: int) -> SjltPlan:
-    """The SJLT sketch pass's plan: m cut into balanced m-tiles of at most
-    SJLT_MAX_BUCKETS rows, chunks of ``min(SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS // s)``
-    rows, and n cut into splits of whole chunks, enough for SJLT_TARGET_BLOCKS
-    blocks at q = 1 but at least MIN_SPLIT_STEPS chunks each. Like
-    :func:`plan_dense_gram`, a function of the shapes only, never of q."""
+    """The SJLT passes' plan: chunks of ``min(SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS // s)``
+    rows; m cut into the fewest balanced m-tiles whose scatter block fits (two
+    at FIG3A's m = 2,500, adjacent in the grid, so the second reads X from L2);
+    n cut into splits of whole chunks, as few as one, enough for
+    SJLT_TARGET_BLOCKS scatter blocks at q = 1. Like :func:`plan_dense_gram`, a
+    function of the shapes only, never of q. Raises ValueError for an s or m the
+    kernels cannot take."""
     if not 0 < s <= SJLT_MAX_PAIRS:
         raise ValueError(f"the SJLT kernel takes 1 <= s <= {SJLT_MAX_PAIRS}, got s={s}")
-    m_tiles = -(-m // SJLT_MAX_BUCKETS)
-    bucket_tile = -(-m // m_tiles)
-    chunk = min(SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS // s)
-    tiles = m_tiles * -(-d // SJLT_BLOCK_COLS)
-    want = max(1, -(-SJLT_TARGET_BLOCKS // tiles))
-    most = max(1, -(-n // (chunk * MIN_SPLIT_STEPS)))
-    rows = common.round_up(-(-n // min(want, most)), chunk)
-    return SjltPlan(-(-n // rows), rows, bucket_tile, chunk)
+    chunk_rows = min(SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS // s)
+    pairs = chunk_rows * s
+    m_tiles = next((t for t in range(1, SJLT_MAX_BINS // SJLT_CLASSES + 1)
+                    if _sjlt_fits(t, -(-m // t), chunk_rows, pairs)), None)
+    if m_tiles is None:
+        raise ValueError(f"the SJLT kernel's {SJLT_MAX_BINS} bins cannot hold m={m} sketch rows")
+    chunks = -(-n // chunk_rows)
+    d_tiles = -(-d // SJLT_BLOCK_COLS)
+    want = -(-SJLT_TARGET_BLOCKS // (d_tiles * m_tiles))
+    per_split = -(-chunks // max(1, min(want, chunks, MAX_GRID_Y)))
+    return SjltPlan(-(-chunks // per_split), per_split * chunk_rows, chunk_rows, pairs, -(-m // m_tiles), m_tiles,
+                    d_tiles, chunks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -401,6 +483,16 @@ def shared_scratch_bytes(family: str, n: int, m: int, d: int, apply: bool = Fals
     return 4 * plan_dense_gram(n, m, d).xs_floats if family in DENSE_GRAMS and not apply else 0
 
 
+def worker_scratch_bytes(family: str, n: int, m: int, d: int, s: int = 0, apply: bool = False) -> int:
+    """Scratch bytes of each worker of a call: its n-split partials (none for a
+    dense S·A of one split), and for the SJLT its binned pair list
+    (:attr:`SjltPlan.list_ints`)."""
+    if family == "sjlt":
+        plan = plan_sjlt(n, m, d, s)
+        return 4 * (plan.n_splits * m * d + plan.list_ints)
+    return 4 * _splits(family, n, m, d, s, apply) * m * d
+
+
 def worker_chunk(n: int, m: int, d: int, q: int, *, family: str = "gaussian", s: int = 0,
                  apply: bool = False) -> int:
     """Workers per call into the C entry: a q-key Gram of X (n, d) makes
@@ -409,19 +501,19 @@ def worker_chunk(n: int, m: int, d: int, q: int, *, family: str = "gaussian", s:
     SJLT) picks the split plan: the dense Grams share one
     (:func:`plan_dense_gram`), the SJLT has its own, and with
     ``apply`` the dense S·A has its own (:func:`plan_apply`; one split keeps no
-    partials). The chunk's partials and the call's shared scratch
-    (:func:`shared_scratch_bytes`) fit SCRATCH_BYTES, or the chunk is one worker.
-    Raises ValueError when the shared scratch alone outgrows SCRATCH_BYTES (a
-    dense Gram's split X is up to 128 times X, at d′ = 1; at FIG3A it is 1.02 GB)."""
+    partials). The chunk's scratch (:func:`worker_scratch_bytes`) and the
+    call's shared scratch (:func:`shared_scratch_bytes`) fit SCRATCH_BYTES, or
+    the chunk is one worker. Raises ValueError when the shared scratch alone
+    outgrows SCRATCH_BYTES (a dense Gram's split X is up to 128 times X, at
+    d′ = 1; at FIG3A it is 1.02 GB)."""
     shared = shared_scratch_bytes(family, n, m, d, apply)
     if shared > SCRATCH_BYTES:
         raise ValueError(f"the {family} Gram's split X of ({n}, {d}) takes {shared} bytes, "
                          f"past the {SCRATCH_BYTES}-byte scratch")
-    n_splits = _splits(family, n, m, d, s, apply and family != "sjlt")
-    if n_splits == 0:
+    per_worker = worker_scratch_bytes(family, n, m, d, s, apply and family != "sjlt")
+    if per_worker == 0:
         return max(1, min(q, MAX_GRID_Z))
-    room = SCRATCH_BYTES - shared
-    return max(1, min(q, MAX_GRID_Z, room // (4 * n_splits * m * d)))
+    return max(1, min(q, MAX_GRID_Z, (SCRATCH_BYTES - shared) // per_worker))
 
 
 def _check_sketch_args(what: str, X: torch.Tensor, keys: torch.Tensor, m: int) -> tuple[int, int, int]:
@@ -491,30 +583,42 @@ def gram_clusters(block_cols: int, cluster: int, family: str = "gaussian") -> in
     return count.value
 
 
-def sjlt_gram(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
-              launches: collections.Counter, name: str) -> torch.Tensor:
-    """(q, d, d) SJLT Grams ``(S_w X)ᵀ(S_w X)`` of the CUDA tensor X for q key rows,
-    s nonzeros per data row. Adds one to ``launches[name]`` per call into the C
-    entry (one per chunk of workers, see :func:`worker_chunk`)."""
-    n, d, q = _check_sketch_args("sjlt_gram", X, keys, m)
+def _sjlt_call(entry: str, keys: torch.Tensor, X: torch.Tensor, m: int, s: int, out: torch.Tensor, *,
+               launches: collections.Counter, name: str) -> torch.Tensor:
+    """Run ``repro_sjlt_gram`` or ``repro_sjlt_apply`` over the workers of keys
+    in chunks of :func:`worker_chunk`, into ``out`` (its first dim is q)."""
+    n, d = X.shape
+    q = keys.shape[0]
     plan = plan_sjlt(n, m, d, s)
     lib = _library("sjlt_gram")
+    fn = getattr(lib, entry)
     chunk = worker_chunk(n, m, d, q, family="sjlt", s=s)
     kw = _u32_words(keys, X.device)
-    G = torch.empty((q, d, d), dtype=torch.float32, device=X.device)
-    partial = torch.empty((chunk, plan.n_splits * m * d), dtype=torch.float32, device=X.device)
+    # One allocation: the chunk's pair lists (uint32 words), then its partials.
+    scratch = torch.empty(chunk * (plan.list_ints + plan.n_splits * m * d), dtype=torch.float32, device=X.device)
+    pairs = scratch.data_ptr()
+    partial = pairs + 4 * chunk * plan.list_ints
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         for w0 in range(0, q, chunk):
             qc = min(chunk, q - w0)
-            code = lib.repro_sjlt_gram(
-                X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m, s, common.inv_sqrt(s),
-                plan.rows_per_split, plan.n_splits, plan.bucket_tile, plan.chunk_rows,
-                partial.data_ptr(), G[w0].data_ptr(), stream,
-            )
-            _check(lib, code, "sjlt_gram launch")
+            code = fn(X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m, s, common.inv_sqrt(s), plan.rows_per_split,
+                      plan.n_splits, plan.chunk_rows, plan.bucket_tile, pairs, partial, out[w0].data_ptr(), stream)
+            _check(lib, code, f"{entry} launch")
             launches[name] += 1
-    return G
+    return out
+
+
+def sjlt_gram(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
+              launches: collections.Counter, name: str) -> torch.Tensor:
+    """(q, d, d) SJLT Grams ``(S_w X)ᵀ(S_w X)`` of the CUDA tensor X for q key rows,
+    s nonzeros per data row: the bin pass, the scatter pass, the split reduction
+    and the Gram pass (:func:`plan_sjlt`). Adds one to ``launches[name]`` per call
+    into the C entry (one per chunk of workers, see :func:`worker_chunk`)."""
+    n, d, q = _check_sketch_args("sjlt_gram", X, keys, m)
+    plan_sjlt(n, m, d, s)  # refuses an s or m the kernels cannot take before anything is allocated
+    G = torch.empty((q, d, d), dtype=torch.float32, device=X.device)
+    return _sjlt_call("repro_sjlt_gram", keys, X, m, s, G, launches=launches, name=name)
 
 
 def sketch_apply(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rounds: int,
@@ -566,27 +670,28 @@ def apply_clusters(block_cols: int, cluster: int) -> int:
 def sjlt_apply(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
                launches: collections.Counter, name: str) -> torch.Tensor:
     """(q, m, d) SJLT sketches ``S_w X`` of the CUDA tensor X for q key rows, s
-    nonzeros per data row: the SJLT Gram kernel's sketch pass and split reduction
-    on its plan (:func:`plan_sjlt`). Adds one to ``launches[name]`` per call into
-    the C entry (one per chunk of workers)."""
+    nonzeros per data row: the SJLT Gram's bin and scatter passes and split
+    reduction on its plan (:func:`plan_sjlt`). Adds one to ``launches[name]`` per
+    call into the C entry (one per chunk of workers)."""
     n, d, q = _check_sketch_args("sjlt_apply", X, keys, m)
+    plan_sjlt(n, m, d, s)
+    out = torch.empty((q, m, d), dtype=torch.float32, device=X.device)
+    return _sjlt_call("repro_sjlt_apply", keys, X, m, s, out, launches=launches, name=name)
+
+
+def sjlt_bins(keys: torch.Tensor, n: int, m: int, d: int, s: int) -> torch.Tensor:
+    """The SJLT bin pass alone: each worker's binned pair list, (q, chunks,
+    region_ints) int32 on the card, as the scatter pass of X (n, d) reads it
+    (:attr:`SjltPlan.region_ints`; words past a chunk's bin offsets and entries
+    are not written). For checking it against ``sjlt.ref.bin_pairs``."""
     plan = plan_sjlt(n, m, d, s)
     lib = _library("sjlt_gram")
-    chunk = worker_chunk(n, m, d, q, family="sjlt", s=s)
-    kw = _u32_words(keys, X.device)
-    out = torch.empty((q, m, d), dtype=torch.float32, device=X.device)
-    partial = torch.empty((chunk, plan.n_splits * m * d), dtype=torch.float32, device=X.device)
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        for w0 in range(0, q, chunk):
-            qc = min(chunk, q - w0)
-            code = lib.repro_sjlt_apply(
-                X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m, s, common.inv_sqrt(s),
-                plan.rows_per_split, plan.n_splits, plan.bucket_tile, plan.chunk_rows,
-                partial.data_ptr(), out[w0].data_ptr(), stream,
-            )
-            _check(lib, code, "sjlt_apply launch")
-            launches[name] += 1
+    dev = torch.device("cuda")
+    kw = _u32_words(keys, dev)
+    out = torch.zeros((keys.shape[0], plan.chunks, plan.region_ints), dtype=torch.int32, device=dev)
+    code = lib.repro_sjlt_bins(n, d, kw.data_ptr(), keys.shape[0], m, s, plan.rows_per_split, plan.n_splits,
+                               plan.chunk_rows, plan.bucket_tile, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _check(lib, code, "repro_sjlt_bins launch")
     return out
 
 

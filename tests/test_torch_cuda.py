@@ -69,6 +69,12 @@ def _gram_err(G, want) -> float:
     return float(((G - want).abs() / (diag[:, :, None] * diag[:, None, :]).sqrt()).max())
 
 
+def _sx_err(SX, want) -> float:
+    SX, want = SX.double(), want.double()
+    rms = want.pow(2).mean(dim=-2, keepdim=True).sqrt().clamp_min(1e-30)
+    return float(((SX - want).abs() / rms).max())
+
+
 def _x(n, d, seed, device):
     rs = np.random.default_rng(seed)
     return torch.from_numpy(rs.standard_normal((n, d)).astype(np.float32)).to(device)
@@ -101,6 +107,96 @@ def test_sjlt_beyond_one_shared_tile_and_any_s(cuda, s, n, d, m):
     assert torch.equal(G[1], sops.sjlt_gram(keys[1], X, m, s))
 
 
+# (n, d', m) at the edges of the SJLT plan (cuda.plan_sjlt): FIG4A's Aᵀ and
+# hybrid rows (one-chunk splits), m past one m-tile (2,500, 3,100 and 12,000
+# sketch rows), d′ not a multiple of the 32-column tile, n not a multiple of a
+# chunk, n below one chunk.
+SJLT_EDGES = [(1000, 50, 200), (500, 50, 200), (3001, 251, 2500), (2000, 40, 3100), (300, 9, 12_000),
+              (1001, 7, 40), (777, 5, 1536), (33, 1, 1)]
+
+
+@pytest.mark.parametrize("s", [1, 4, 20, tcuda.SJLT_MAX_PAIRS])
+@pytest.mark.parametrize("n,d,m", SJLT_EDGES)
+def test_sjlt_at_the_plan_edges(cuda, n, d, m, s):
+    """The SJLT Gram and S·A against their plain versions (1e-5 per entry, per
+    column), q-key slices bitwise single-key calls, reruns bitwise, and no call
+    that waits for the card."""
+    X = _x(n, d, n + m + s, cuda)
+    keys = prng.worker_keys(prng.prng_key(n + d + m + s), 3)
+    G, again = _runs_without_sync(lambda: sops.sjlt_gram_multi(keys, X, m, s))
+    assert torch.equal(G, again)
+    assert _gram_err(G, sref.sjlt_gram_multi(keys, X, m, s)) <= REL_TOL
+    SX = sops.sjlt_apply_multi(keys, X, m, s)
+    assert _sx_err(SX, sref.sketch_multi(keys, X, m, s)) <= REL_TOL
+    assert torch.equal(sops.sjlt_apply_multi(keys, X, m, s), SX)
+    for w in range(3):
+        assert torch.equal(G[w], sops.sjlt_gram(keys[w], X, m, s))
+        assert torch.equal(SX[w], sops.sjlt_apply(keys[w], X, m, s))
+
+
+@pytest.mark.parametrize("s", [1, 20])
+@pytest.mark.parametrize("n,d,m", [(1000, 50, 200), (3001, 251, 2500), (300, 9, 12_000), (1001, 7, 40)])
+def test_sjlt_bin_pass_is_bitwise_its_plain_version(cuda, n, d, m, s):
+    """The binned pair list the card writes (bin offsets, entries, zeros) is the
+    plain twin's (``sjlt.ref.bin_pairs``) word for word, for each worker."""
+    keys = prng.worker_keys(prng.prng_key(n + m), 2)
+    plan = tcuda.plan_sjlt(n, m, d, s)
+    got = tcuda.sjlt_bins(keys, n, m, d, s).cpu().to(torch.int64) & common.MASK32
+    for w in range(2):
+        assert torch.equal(got[w], sref.bin_pairs(keys[w], n, m, s, plan))
+
+
+@pytest.mark.parametrize("entry", ["repro_sjlt_gram", "repro_sjlt_apply"])
+def test_sjlt_chunk_edges_are_single_key_calls(cuda, entry, monkeypatch):
+    """q past worker_chunk: the slices on either side of each chunk edge are
+    bitwise single-key calls, each chunk is one call into the C entry, and a
+    rerun is bitwise."""
+    n, d, m = 3001, 251, 2500
+    monkeypatch.setattr(tcuda, "SCRATCH_BYTES", 3 * tcuda.worker_scratch_bytes("sjlt", n, m, d, SJLT_S))
+    assert tcuda.worker_chunk(n, m, d, 7, family="sjlt", s=SJLT_S) == 3
+    single, multi, name = ((sops.sjlt_gram, sops.sjlt_gram_multi, "sjlt_gram_multi") if entry == "repro_sjlt_gram"
+                           else (sops.sjlt_apply, sops.sjlt_apply_multi, "sjlt_apply_multi"))
+    X = _x(n, d, 9, cuda)
+    keys = prng.worker_keys(prng.prng_key(10), 7)
+    before = sops.LAUNCHES[name]
+    out = multi(keys, X, m, SJLT_S)
+    assert sops.LAUNCHES[name] == before + 3  # 3 + 3 + 1
+    assert torch.equal(multi(keys, X, m, SJLT_S), out)
+    for w in (0, 2, 3, 5, 6):
+        assert torch.equal(out[w], single(keys[w], X, m, SJLT_S))
+
+
+def test_sjlt_entries_refuse_plans_they_cannot_take(cuda):
+    """The C entries check the plan and return cudaErrorInvalidValue (1) before
+    launching anything: a chunk past 64 rows or 2,048 pairs, splits that are not
+    whole chunks, that leave rows out or leave a split empty, an m-tile of no
+    rows, one whose accumulator an entry cannot address or shared memory cannot
+    hold, more bins than the list's header takes."""
+    lib = tcuda._library("sjlt_gram")
+    n, d, m, s = 1000, 50, 200, 20
+    plan = tcuda.plan_sjlt(n, m, d, s)
+    X = _x(n, d, 0, cuda)
+    kw = tcuda._u32_words(prng.worker_keys(prng.prng_key(0), 1), cuda)
+    pairs = torch.empty(plan.list_ints, dtype=torch.int32, device=cuda)
+    partial = torch.empty(64 * m * d, dtype=torch.float32, device=cuda)
+    G = torch.empty((d, d), dtype=torch.float32, device=cuda)
+    good = dict(rows=plan.rows_per_split, splits=plan.n_splits, chunk=plan.chunk_rows, tile=plan.bucket_tile, m=m, s=s)
+
+    def call(entry, **kw_):
+        a = {**good, **kw_}
+        return getattr(lib, entry)(X.data_ptr(), n, d, kw.data_ptr(), 1, a["m"], a["s"], 0.25, a["rows"],
+                                   a["splits"], a["chunk"], a["tile"], pairs.data_ptr(), partial.data_ptr(),
+                                   G.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+    for entry in ("repro_sjlt_gram", "repro_sjlt_apply"):
+        assert call(entry) == 0
+        for bad in (dict(chunk=65, rows=65), dict(s=33, chunk=64), dict(rows=100), dict(splits=plan.n_splits - 1),
+                    dict(splits=plan.n_splits + 1), dict(tile=0), dict(m=3000, tile=3000),
+                    dict(m=2800, tile=1400), dict(m=200_000, tile=200)):
+            assert call(entry, **bad) == 1, bad
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_q_chunking_is_bitwise_invisible(cuda, family, monkeypatch):
     _, multi, _, launches, name = FAMILIES[family]
@@ -108,9 +204,8 @@ def test_q_chunking_is_bitwise_invisible(cuda, family, monkeypatch):
     keys = prng.worker_keys(prng.prng_key(2), 5)
     whole = multi(keys, X, 50)
     s = SJLT_S if family == "sjlt" else 0
-    chunks = tcuda._splits(family, 2000, 50, 9, s)
-    shared = tcuda.shared_scratch_bytes(family, 2000, 50, 9)  # the Gaussian's split X
-    monkeypatch.setattr(tcuda, "SCRATCH_BYTES", shared + 2 * 4 * chunks * 50 * 9)
+    shared = tcuda.shared_scratch_bytes(family, 2000, 50, 9)  # a dense Gram's split X
+    monkeypatch.setattr(tcuda, "SCRATCH_BYTES", shared + 2 * tcuda.worker_scratch_bytes(family, 2000, 50, 9, s))
     assert tcuda.worker_chunk(2000, 50, 9, 5, family=family, s=s) == 2
     before = launches[name]
     assert torch.equal(multi(keys, X, 50), whole)
@@ -313,8 +408,7 @@ def test_apply_q_chunking_is_bitwise_invisible(cuda, family, monkeypatch):
     keys = prng.worker_keys(prng.prng_key(2), 5)
     whole = multi(keys, X, 50)
     s = SJLT_S if family == "sjlt" else 0
-    chunks = tcuda._splits(family, 2000, 50, 9, s, apply=True)
-    monkeypatch.setattr(tcuda, "SCRATCH_BYTES", 2 * 4 * chunks * 50 * 9)
+    monkeypatch.setattr(tcuda, "SCRATCH_BYTES", 2 * tcuda.worker_scratch_bytes(family, 2000, 50, 9, s, apply=True))
     assert tcuda.worker_chunk(2000, 50, 9, 5, family=family, s=s, apply=True) == 2
     before = launches[name]
     assert torch.equal(multi(keys, X, 50), whole)

@@ -354,11 +354,11 @@ def test_plan_sjlt_covers_n_and_fits_the_kernel(n, m, d, s):
     assert plan.rows_per_split % plan.chunk_rows == 0
     assert plan.chunk_rows <= tcuda.SJLT_MAX_CHUNK_ROWS and plan.chunk_rows * s <= tcuda.SJLT_MAX_PAIRS
     m_tiles = -(-m // plan.bucket_tile)
-    assert plan.bucket_tile <= tcuda.SJLT_MAX_BUCKETS and (m_tiles - 1) * plan.bucket_tile < m
+    assert plan.bucket_tile * tcuda.SJLT_BLOCK_COLS <= tcuda.SJLT_MAX_ACC and (m_tiles - 1) * plan.bucket_tile < m
     assert plan == tcuda.plan_sjlt(n, m, d, s)  # shapes only: never q
-    # A worker's n-split partials fit the scratch of one call.
+    # A worker's n-split partials and binned pair list fit the scratch of one call.
     chunk = tcuda.worker_chunk(n, m, d, 200, family="sjlt", s=s)
-    assert chunk == 1 or chunk * 4 * plan.n_splits * m * d <= tcuda.SCRATCH_BYTES
+    assert chunk == 1 or chunk * 4 * (plan.n_splits * m * d + plan.list_ints) <= tcuda.SCRATCH_BYTES
     with pytest.raises(ValueError, match="s="):
         tcuda.plan_sjlt(n, m, d, tcuda.SJLT_MAX_PAIRS + 1)
 
