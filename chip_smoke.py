@@ -32,16 +32,21 @@ end to end:
 * leverage-score sampling in worker-side mode at q = 2, its row draw timed.
 
 Then the §V right-sketch least-norm path (``distributed_sketch_least_norm``,
-n < d): the Gaussian adjoint kernel against its plain version at the shapes its
-paths give it, and so each S·A kernel at X = Aᵀ and on the hybrid's m′ rows of
-it, and the FWHT on the SRHT's forward and adjoint (one and 33 columns); then
-the paths, each twice and bitwise equal: FIG4A (n = 50, d = 1,000, m = 200,
-m′ = 500) and the Fig. 4(b) shape (n = 2,000, d = 11,556, m = 4,000, m′ = 8,000)
-at q = 100 with the Gaussian, uniform sampling without replacement and the
-hybrid with the Gaussian inside (the paper's Fig. 4 sketches); every kind at
-FIG4A, q = 8, each kind with a kernel also with ``use_kernel=False`` against the
-kernel path's x̄. Each is gated on ‖x̄ − x*‖²/‖x*‖² over Lemma 7's
-(d − n)/(q(m − n − 1)), x* from a plain float64 solve.
+n < d), whose Gaussian workers keep the S their forward S·Aᵀ draws and read it
+back in the adjoint: both Gaussian adjoint kernels (over the kept S, and with S
+drawn again) against their plain version and each other at the shapes the
+paths give them, with the library's product on the same S; each S·A kernel at
+X = Aᵀ and on the hybrid's m′ rows of it (the Gaussian's also with and without
+the store of S); the FWHT on the SRHT's forward and adjoint (one and 33
+columns); then the paths, each twice and bitwise equal: FIG4A (n = 50,
+d = 1,000, m = 200, m′ = 500) and the Fig. 4(b) shape (n = 2,000, d = 11,556,
+m = 4,000, m′ = 8,000) at q = 100 with the Gaussian, uniform sampling without
+replacement and the hybrid with the Gaussian inside (the paper's Fig. 4
+sketches); every kind at FIG4A, q = 8, each kind with a kernel also with
+``use_kernel=False`` against the kernel path's x̄, and the Gaussian once more
+with a scratch too small to keep S (the redraw kernel). Each is gated on
+‖x̄ − x*‖²/‖x*‖² over Lemma 7's (d − n)/(q(m − n − 1)), x* from a plain
+float64 solve.
 
 The SJLT rows carry their plan (splits, m-tiles, column tiles, blocks,
 workers a call) and the scatter's shared-memory floor beside the bound; the SJLT
@@ -372,7 +377,8 @@ def phase_tensor_cores() -> None:
     product, relative to its largest entry), the clusters the card holds at each
     column width (dense S·A; each dense Gram family), the rate of ``mma.sync`` TF32 alone (a register-only
     loop: the ceiling of the S·A's consumers), the wrappers that copy key words to the card
-    (the dense S·A with one key and three, the multi-key dense Grams, the SJLT S·A) at
+    (the dense S·A with one key and three, keeping its S or not, the multi-key dense
+    Grams, the SJLT S·A) and the kept-S adjoint at
     FIG4A's shape under ``torch.cuda.set_sync_debug_mode("error")`` (none may
     wait for the card), and one traced single-key Gaussian S·A there (host
     enqueue against device time)."""
@@ -404,8 +410,12 @@ def phase_tensor_cores() -> None:
     keys = prng.worker_keys(prng.prng_key(SEED + 12), 3)
     m = FIG4A.m
     kd, srht_rows = operators.srht_params(keys, m, sk.next_pow2(X.shape[0]))
-    wrappers = {  # each copies its key words (and the SRHT its row ids) to the card
+    S_kept = ops.gaussian_sketch_keep(key, X, m)[1]
+    Yk = torch.from_numpy(rs.standard_normal((m, 1)).astype(np.float32)).to(DEVICE)
+    wrappers = {  # each copies its key words (and the SRHT its row ids) to the card, but the kept adjoint
         "gaussian_sketch": lambda: ops.gaussian_sketch(key, X, m),
+        "gaussian_sketch_keep": lambda: ops.gaussian_sketch_keep(key, X, m)[1][:, :X.shape[0]],
+        "gaussian_adjoint_kept": lambda: ops.gaussian_adjoint_kept(S_kept, Yk, X.shape[0]),
         "gaussian_sketch_multi": lambda: ops.gaussian_sketch_multi(keys, X, m),
         "rademacher_sketch_multi": lambda: rops.rademacher_sketch_multi(keys, X, m),
         "gaussian_gram_multi": lambda: ops.gaussian_gram_multi(keys, X, m),
@@ -1089,28 +1099,39 @@ ADJOINT_REPLACES = "src/repro/kernels/gaussian/gram.py:152"
 ADJOINT_SHAPES = ((4000, 11_556, 1), (4000, 8000, 1), (200, 1000, 1), (200, 500, 1), (129, 1001, 3))
 
 
-def gaussian_library(key, m: int, n: int, device):
-    """The adjoint's yardstick: S (m, n) pre-drawn in float32 with the plain tiles,
-    then ``run(Y)`` is one ``torch.matmul(S.T, Y)``; the port never calls it."""
+def kept_bound_ms(m: int, n: int, k: int) -> tuple[float, str]:
+    """Least time for Sᵀ·Y over a kept S (m, n) float32: S and Y read once and the
+    (n, k) output written once, or 2·m·n·k FFMA flops at the fp32 rate."""
+    bytes_ms = 4 * (m * n + m * k + n * k) / PEAK_BYTES * 1e3
+    ops_ms = 2 * m * n * k / PEAK_FP32_FLOPS * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def wrapper_host_us(fn, calls: int = 300) -> float:
+    """Host microseconds a call of ``fn`` over ``calls`` calls in a row (after 20)."""
     import torch
 
-    from repro_torch.kernels import common
-    from repro_torch.kernels.gaussian import ref
-
-    S = ref.sketch_matrix(key, m, n, device=device)
-
-    def run(Y):
-        with common.full_fp32_matmul():
-            return torch.matmul(S.T, Y)
-
-    return run
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def phase_adjoint_kernel(rows: dict) -> None:
-    """The Gaussian adjoint kernel against its plain version (float64 product of the
-    same float32 S) at each of ADJOINT_SHAPES: per column max_i |Δ|/rms_i ≤ SX_TOL,
-    ⟨S·x, y⟩ = ⟨x, Sᵀ·y⟩ with S·x from the S·A kernel, a bitwise rerun, one launch
-    a call; card, plain, library ms and the bound."""
+    """Both Gaussian adjoint kernels at each of ADJOINT_SHAPES, on the S a forward
+    S·A kept (``gaussian_sketch_keep`` on a vector x) and Y: the kept-S kernel and
+    the redraw kernel each against the plain version (float64 product of the same
+    float32 S: per column max_i |Δ|/rms_i ≤ SX_TOL), ⟨S·x, y⟩ = ⟨x, Sᵀ·y⟩ with S·x
+    from that forward, a bitwise rerun, one launch a call; the two bitwise equal
+    (the same splits, chains and order); card ms of both, plain ms, the
+    library's ``torch.matmul(S.T, Y)`` on the same S (the means of four runs
+    each, interleaved: kept, library, redraw, redraw, library, kept, twice), their bounds (bytes for the kept one, the draw for
+    the redraw one) and the host µs a call of the kept wrapper and the library."""
     import torch
 
     from repro_torch.kernels.gaussian import ops, ref
@@ -1121,38 +1142,101 @@ def phase_adjoint_kernel(rows: dict) -> None:
         key = prng.worker_key(prng.prng_key(SEED + 6), m + n + k)
         Y = torch.randn((m, k), generator=g, device=DEVICE)
         x = torch.randn((n, 1), generator=g, device=DEVICE)
-        before = ops.LAUNCHES["gaussian_adjoint"]
-        out = ops.gaussian_adjoint(key, Y, n)
-        launches = ops.LAUNCHES["gaussian_adjoint"] - before
-        rerun = torch.equal(ops.gaussian_adjoint(key, Y, n), out)
+        Sx, S = ops.gaussian_sketch_keep(key, x, m)
+        launches = {}
+        outs = {}
+        for name, call in (("gaussian_adjoint_kept", lambda: ops.gaussian_adjoint_kept(S, Y, n)),
+                           ("gaussian_adjoint", lambda: ops.gaussian_adjoint(key, Y, n))):
+            before = ops.LAUNCHES[name]
+            outs[name] = call()
+            launches[name] = ops.LAUNCHES[name] - before
+        kept, redraw = outs["gaussian_adjoint_kept"], outs["gaussian_adjoint"]
+        reruns = {"gaussian_adjoint_kept": torch.equal(ops.gaussian_adjoint_kept(S, Y, n), kept),
+                  "gaussian_adjoint": torch.equal(ops.gaussian_adjoint(key, Y, n), redraw)}
         plain, plain_s = host_s(lambda: ref.adjoint(key, Y, n))
-        err, abs_err = sx_err(out, plain), float((out - plain).abs().max())
+        errs = {name: (sx_err(out, plain), float((out - plain).abs().max())) for name, out in outs.items()}
         del plain
-        Sx, Sty = ops.gaussian_sketch(key, x, m), ops.gaussian_adjoint(key, Y[:, :1].contiguous(), n)
+        Sty = ops.gaussian_adjoint_kept(S, Y[:, :1].contiguous(), n)
         lhs, rhs = float(Sx.double().T @ Y[:, :1].double()), float(x.double().T @ Sty.double())
         ident = abs(lhs - rhs) / float(Sx.norm() * Y[:, 0].norm() + x.norm() * Sty.norm())
-        library = gaussian_library(key, m, n, Y.device)
-        lib_ms, _ = cuda_ms(lambda: library(Y), 10)
-        del library
+        bitwise = torch.equal(kept, redraw)
+        kept_vs_redraw = sx_err(kept, redraw)
+        Sv = S[:, :n]
+        reps = 10 if m * n >= 10**6 else 50
+        calls = {"kept": lambda: ops.gaussian_adjoint_kept(S, Y, n), "library": lambda: torch.matmul(Sv.T, Y),
+                 "redraw": lambda: ops.gaussian_adjoint(key, Y, n)}  # TF32 is off (main)
+        runs = {name: [] for name in calls}
+        for name in ("kept", "library", "redraw", "redraw", "library", "kept") * 2:
+            runs[name].append(cuda_ms(calls[name], reps)[0])
+        kept_ms, lib_ms, redraw_ms = (sum(runs[name]) / len(runs[name]) for name in ("kept", "library", "redraw"))
+        host_us = wrapper_host_us(calls["kept"])
+        lib_host_us = wrapper_host_us(calls["library"])
+        kb_ms, kb_by = kept_bound_ms(m, n, k)
+        rb_ms, rb_by = adjoint_bound_ms(m, n, k)
+        shape = {"m": m, "n": n, "k": k}
+        reports = {
+            "gaussian_adjoint_kept": {
+                **shape, "ms": kept_ms, "ms_runs": runs["kept"], "plain_ms": plain_s * 1e3, "library_ms": lib_ms,
+                "library_ms_runs": runs["library"], "library_host_us_per_call": lib_host_us,
+                "bound_ms": kb_ms, "bound_by": kb_by, "bytes_floor_share": kb_ms / kept_ms,
+                "max_abs_err": errs["gaussian_adjoint_kept"][1], "max_col_rel_err": errs["gaussian_adjoint_kept"][0],
+                "tol": SX_TOL, "adjoint_identity_rel_err": ident, "rerun_bitwise": reruns["gaussian_adjoint_kept"],
+                "bitwise_equal_redraw": bitwise, "max_col_rel_diff_redraw": kept_vs_redraw,
+                "launches_per_call": launches["gaussian_adjoint_kept"], "host_us_per_call": host_us,
+                "kept_s_bytes": 4 * S.numel()},
+            "gaussian_adjoint": {
+                **shape, "ms": redraw_ms, "ms_runs": runs["redraw"], "plain_ms": plain_s * 1e3, "library_ms": lib_ms,
+                "bound_ms": rb_ms, "bound_by": rb_by, "max_abs_err": errs["gaussian_adjoint"][1],
+                "max_col_rel_err": errs["gaussian_adjoint"][0], "tol": SX_TOL,
+                "rerun_bitwise": reruns["gaussian_adjoint"], "launches_per_call": launches["gaussian_adjoint"]},
+        }
+        emit({"phase": "adjoint_kernel", **shape, "kept": reports["gaussian_adjoint_kept"],
+              "redraw": reports["gaussian_adjoint"]})
+        for name, rep in reports.items():
+            check(rep["max_col_rel_err"] <= SX_TOL, f"{name} at {(m, n, k)} disagrees with its plain version")
+            check(rep["rerun_bitwise"], f"{name} at {(m, n, k)} is not bitwise equal run to run")
+            check(rep["launches_per_call"] == 1, f"{name} at {(m, n, k)} counted {rep['launches_per_call']} launches")
+        check(ident <= SX_TOL, f"gaussian_adjoint_kept at {(m, n, k)}: <Sx, y> - <x, S^T y> off by {ident}")
+        check(bitwise, f"gaussian_adjoint_kept at {(m, n, k)} is not bitwise the redraw kernel ({kept_vs_redraw})")
+        sources = {"gaussian_adjoint_kept": "src/repro_torch/csrc/adjoint.cu",
+                   "gaussian_adjoint": "src/repro_torch/csrc/adjoint.cu"}
+        for name, rep in reports.items():
+            if name not in rows:
+                rows[name] = {"name": name, "route": "cuda", "source": sources[name], "replaces": ADJOINT_REPLACES,
+                              "launches": 0, **rep, "other_shapes": []}
+            else:
+                rows[name]["other_shapes"].append(rep)
+        del S, Sx
         torch.cuda.empty_cache()
-        ms, _ = cuda_ms(lambda: ops.gaussian_adjoint(key, Y, n), 10)
-        b_ms, b_by = adjoint_bound_ms(m, n, k)
-        report = {"m": m, "n": n, "k": k, "ms": ms, "plain_ms": plain_s * 1e3, "library_ms": lib_ms,
-                  "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": abs_err, "max_col_rel_err": err,
-                  "tol": SX_TOL, "adjoint_identity_rel_err": ident, "rerun_bitwise": rerun,
-                  "launches_per_call": launches}
-        emit({"phase": "adjoint_kernel", **report})
-        check(err <= SX_TOL, f"gaussian_adjoint at {(m, n, k)} disagrees with its plain version ({err})")
-        check(ident <= SX_TOL, f"gaussian_adjoint at {(m, n, k)}: <Sx, y> - <x, S^T y> off by {ident}")
-        check(rerun, f"gaussian_adjoint at {(m, n, k)} is not bitwise equal run to run")
-        check(launches == 1, f"gaussian_adjoint at {(m, n, k)} counted {launches} launches for one call")
-        if "gaussian_adjoint" not in rows:
-            rows["gaussian_adjoint"] = {
-                "name": "gaussian_adjoint", "route": "cuda", "source": "src/repro_torch/csrc/adjoint.cu",
-                "replaces": ADJOINT_REPLACES, "launches": 0, **report, "other_shapes": [],
-            }
-        else:
-            rows["gaussian_adjoint"]["other_shapes"].append(report)
+
+
+def store_cost(key, X, m: int, label: str) -> dict:
+    """Row 6 with and without the store of S, on X at m sketch rows: bitwise the
+    same S·X, event ms interleaved (without, with, with, without, twice), the
+    means. Two kept S are live at once before the timing, so the allocator holds
+    the blocks a run of calls needs (a call's S is allocated while the last
+    call's result is still held) and no timed call waits for a fresh one."""
+    import torch
+
+    from repro_torch.kernels.gaussian import ops
+
+    plain = ops.gaussian_sketch(key, X, m)
+    first, second = ops.gaussian_sketch_keep(key, X, m), ops.gaussian_sketch_keep(key, X, m)
+    check(torch.equal(first[0], plain) and torch.equal(second[0], plain),
+          f"gaussian_sketch at {label}: S·X with the store differs from S·X without it")
+    del first, second
+    reps = 3 if X.numel() >= 10**6 else 50
+    runs = {"without": [], "with": []}
+    for which in ("without", "with", "with", "without") * 2:
+        fn = (lambda: ops.gaussian_sketch(key, X, m)) if which == "without" else \
+            (lambda: ops.gaussian_sketch_keep(key, X, m))
+        runs[which].append(cuda_ms(fn, reps)[0])
+    without, with_store = (sum(runs[w]) / len(runs[w]) for w in ("without", "with"))
+    report = {"shape": label, "n": X.shape[0], "d": X.shape[1], "m": m, "ms_without_store": without,
+              "ms_with_store": with_store, "ratio": with_store / without, "runs": runs, "bitwise": True,
+              "store_bytes": 4 * m * X.shape[0]}
+    emit({"phase": "apply_store_cost", **report})
+    return report
 
 
 def phase_ln_apply(rows: dict) -> None:
@@ -1178,6 +1262,8 @@ def phase_ln_apply(rows: dict) -> None:
         for family in families:
             for label, rows_in in ((tag, d), (f"{tag}_hybrid", m_prime)):
                 report = apply_check(family, keys, X[:rows_in].contiguous(), m, f"least_norm_{label}")
+                if family == "gaussian" and rows_in == d:  # the least-norm forward keeps its S
+                    report["with_store"] = store_cost(keys[0], X, m, f"least_norm_{label}")
                 rows[APPLY_ROUTES[family][0]][f"least_norm_{label}"] = report
     del X
     torch.cuda.empty_cache()
@@ -1222,9 +1308,10 @@ def ln_spec(kind: str, m: int, m_prime: int, use_kernel: bool = True):
 
 
 # Kernel calls per worker of a least-norm path with kernels on: one forward S·Aᵀ
-# and, for the Gaussian, one adjoint; the SRHT transforms forward and back. A
-# hybrid makes its inner kind's calls; sampling makes none.
-LN_KERNEL_CALLS = {"gaussian": {"gaussian_sketch": 1, "gaussian_adjoint": 1},
+# and, for the Gaussian, one adjoint over the S that forward kept (the redraw
+# kernel only where S would not fit the scratch); the SRHT transforms forward and
+# back. A hybrid makes its inner kind's calls; sampling makes none.
+LN_KERNEL_CALLS = {"gaussian": {"gaussian_sketch": 1, "gaussian_adjoint_kept": 1},
                    "rademacher": {"rademacher_sketch": 1}, "srht": {"fwht": 2}, "sjlt": {"sjlt_apply": 1}}
 LN_FIG4_KINDS = ("gaussian", "uniform_norep", "hybrid_gaussian")  # the paper's Fig. 4 sketches
 LN_SIDE_KINDS = ("gaussian", "rademacher", "srht", "sjlt", "leverage", "uniform", "hybrid_gaussian",
@@ -1258,7 +1345,7 @@ def phase_least_norm(rows: dict) -> None:
     for kind in LN_FIG4_KINDS:
         _, counts, solve = path(f"least_norm_fig4b_{kind}", kind, A, b, xstar, c["q"], c["m"], c["m_prime"])
         if kind == "gaussian":
-            rows["gaussian_adjoint"]["launches"] = counts.get("gaussian_adjoint", 0)
+            rows["gaussian_adjoint_kept"]["launches"] = counts.get("gaussian_adjoint_kept", 0)
             phase_trace("least_norm_fig4b_gaussian_traced", solve)
     del A, b, xstar
     torch.cuda.empty_cache()
@@ -1278,6 +1365,36 @@ def phase_least_norm(rows: dict) -> None:
         emit({"phase": "least_norm_plain_vs_kernel", "kind": kind, "q": q, "max_rel_diff": rel,
               "tol": LN_PLAIN_TOL})
         check(rel <= LN_PLAIN_TOL, f"least-norm {kind}: x̄ without kernels {rel} off the kernel path's x̄")
+        if kind == "gaussian":
+            x_redraw = ln_redraw_path(key, *shape, q, rows)
+            rel = float((x_redraw - x_kernel).abs().max() / x_kernel.abs().max())
+            emit({"phase": "least_norm_redraw_vs_kept", "q": q, "max_rel_diff": rel, "tol": LN_PLAIN_TOL})
+            check(rel <= LN_PLAIN_TOL, f"least-norm gaussian: x̄ with S redrawn {rel} off the kept path's x̄")
+
+
+def ln_redraw_path(key, A, b, xstar, q: int, rows: dict):
+    """FIG4A's Gaussian least norm with a scratch one byte short of a worker's S
+    (``cuda.keeps_sketch`` false, by the shapes): each worker's adjoint draws S
+    again (the redraw kernel, row 5's standalone form). The smaller scratch may
+    also cut the forward into fewer splits, so x̄ is held to the kept path's
+    within LN_PLAIN_TOL, not bitwise."""
+    from repro_torch.configs.paper_lsq import FIG4A
+    from repro_torch.core import distributed
+    from repro_torch.kernels import cuda
+
+    spec = ln_spec("gaussian", FIG4A.m, FIG4A.m_prime)
+    keep = cuda.SCRATCH_BYTES
+    cuda.SCRATCH_BYTES = 4 * FIG4A.m * cuda.kept_sketch_ld(FIG4A.d) - 1
+    try:
+        check(not cuda.keeps_sketch(FIG4A.m, FIG4A.d), "the redraw path still keeps S")
+        x, counts, _ = run_path(f"least_norm_fig4a_gaussian_redraw_q{q}",
+                                lambda: distributed.distributed_sketch_least_norm(spec, key, A, b, q=q, device=DEVICE),
+                                {"gaussian_sketch": q, "gaussian_adjoint": q}, lemma7(xstar, FIG4A.n, FIG4A.m, q),
+                                LN_BAND["gaussian"], twice=True, rows=rows, n=FIG4A.n, d=FIG4A.d, m=FIG4A.m)
+    finally:
+        cuda.SCRATCH_BYTES = keep
+    rows["gaussian_adjoint"]["launches"] = counts.get("gaussian_adjoint", 0)
+    return x
 
 
 def phase_trace(label: str, solve) -> None:

@@ -122,9 +122,11 @@ def distributed_sketch_least_norm(
 ) -> torch.Tensor:
     """§V right-sketch averaging (n < d): each of the q workers solves
     ``solve.sketch_least_norm`` on its own key (the S·A kernel forward and, for the
-    Gaussian, the adjoint kernel when ``spec.use_kernel``) and the master
-    averages the arrivals. Aᵀ is made contiguous once per call and shared by the
-    workers' forward sketches; what each worker computes does not change.
+    Gaussian, the adjoint kernel over the S that forward kept, when
+    ``spec.use_kernel``) and the master averages the arrivals. A Gaussian worker
+    holds its S (m × d floats) from its forward to its adjoint. Aᵀ is made
+    contiguous once per call and shared by the workers' forward sketches; what
+    each worker computes does not change.
 
     ``device``: ``None`` means CUDA (raises when absent); pass ``"cpu"`` for the CPU.
     Returns x̄ (d,) or (d, k).

@@ -21,6 +21,12 @@ for ``leverage``):
                                    a fixed-order scatter for the sampling kinds
                                    (:func:`_scatter_rows`), the scatter and the
                                    FWHT for the SRHT, a gather for the SJLT;
+  * ``apply_with_adjoint(A)``    — ``(S @ A, adjoint)`` for a caller that applies
+                                   Sᵀ right after S (the least-norm worker): a
+                                   Gaussian with ``spec.use_kernel`` keeps the S
+                                   its S·A kernel draws (where it fits) and its
+                                   adjoint reads it; every other kind returns
+                                   ``(apply(A), adjoint)``;
   * ``materialize()``            — the explicit S (small problems only).
 
 :func:`gram_batched` gives all q workers' ``(G_k, c_k)`` and :func:`apply_batched`
@@ -222,6 +228,11 @@ class SketchOp:
                              for j0 in range(0, self.n, bs)])
         return out.to(Y.dtype).reshape((self.n,) + batch)
 
+    def apply_with_adjoint(self, A: torch.Tensor):
+        """``(S @ A, adjoint)``, ``adjoint(Y)`` being ``Sᵀ @ Y`` of this operator:
+        for a caller that applies both. Default: :meth:`apply` and :meth:`adjoint`."""
+        return self.apply(A), self.adjoint
+
     def materialize(self, dtype=torch.float32, device=None) -> torch.Tensor:
         """Explicit S ∈ R^{m×n} (tests / small problems only): ``S @ I``."""
         return self.apply(torch.eye(self.n, dtype=dtype, device=device))
@@ -343,6 +354,34 @@ class GaussianOp(_DenseCounterOp):
             out = ops.gaussian_adjoint(self.key, Y2.to(torch.float32).contiguous(), self.n)
             return out.to(Y.dtype).reshape((self.n,) + batch)
         return super().adjoint(Y, block_rows=block_rows)
+
+    def apply_with_adjoint(self, A: torch.Tensor):
+        """With ``spec.use_kernel`` and an S that fits the scratch
+        (``cuda.keeps_sketch``, by the shapes alone): the S·A kernel also writes
+        the S it draws, and the adjoint returned reads it back
+        (``ops.gaussian_adjoint_kept``) instead of drawing it again. S lives as
+        long as that adjoint."""
+        from repro_torch.kernels import cuda
+        from repro_torch.kernels.gaussian import ops
+
+        if not (self.spec.use_kernel and cuda.keeps_sketch(self.m, self.n)):
+            return super().apply_with_adjoint(A)
+        kept = []
+
+        def sketch(X):
+            SX, S = ops.gaussian_sketch_keep(self.key, X, self.m)
+            kept.append(S)
+            return SX
+
+        SA = _kernel_apply(sketch, A, self.n)
+        S = kept[0]
+
+        def adjoint(Y: torch.Tensor, *, block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+            Y2, batch = _to_2d(Y, self.m)
+            out = ops.gaussian_adjoint_kept(S, Y2.to(torch.float32).contiguous(), self.n)
+            return out.to(Y.dtype).reshape((self.n,) + batch)
+
+        return SA, adjoint
 
     @staticmethod
     def sketch(key, X, m):
@@ -673,7 +712,8 @@ class HybridOp(SketchOp):
     ``spec.use_kernel``) from k2 over n = m′ — so an SRHT inner sketch pads to
     next_pow2(m′). With ``spec.use_kernel`` the inner ``apply`` is that kind's
     S·A kernel (or the FWHT kernel), and a Gaussian inner ``adjoint`` the
-    Gaussian adjoint kernel.
+    Gaussian adjoint kernel; ``apply_with_adjoint`` passes the inner operator's
+    (a Gaussian keeps its S) through the gather and the scatter.
     """
 
     rows: torch.Tensor = None  # (m_prime,)
@@ -691,9 +731,15 @@ class HybridOp(SketchOp):
     def _scale(self) -> float:
         return math.sqrt(self.n / self.spec.m_prime)
 
+    def _sample(self, A: torch.Tensor) -> torch.Tensor:
+        return A[self.rows.to(A.device)] * torch.tensor(self._scale, dtype=A.dtype, device=A.device)
+
     def apply(self, A: torch.Tensor) -> torch.Tensor:
-        sampled = A[self.rows.to(A.device)] * torch.tensor(self._scale, dtype=A.dtype, device=A.device)
-        return self.inner.apply(sampled)
+        return self.inner.apply(self._sample(A))
+
+    def apply_with_adjoint(self, A: torch.Tensor):
+        SA, inner_adjoint = self.inner.apply_with_adjoint(self._sample(A))
+        return SA, lambda Y, *, block_rows=DEFAULT_BLOCK_ROWS: self._adjoint_via(inner_adjoint, Y)
 
     def _stream_pieces(self, k: int, device):
         init = torch.zeros((self.spec.m_prime, k), dtype=torch.float32, device=device)
@@ -706,9 +752,12 @@ class HybridOp(SketchOp):
         return _gram_of(SAb, A.shape[1], b)
 
     def adjoint(self, Y: torch.Tensor, *, block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+        return self._adjoint_via(self.inner.adjoint, Y)
+
+    def _adjoint_via(self, inner_adjoint, Y: torch.Tensor) -> torch.Tensor:
         # Sᵀ = Uᵀ·S_innerᵀ: the inner adjoint into m′ rows, scattered to the distinct rows.
         Y2, batch = _to_2d(Y, self.m)
-        z = self.inner.adjoint(Y2)
+        z = inner_adjoint(Y2)
         out = _scatter_rows(self.rows, z, self.n) * torch.tensor(self._scale, dtype=z.dtype, device=z.device)
         return out.to(Y.dtype).reshape((self.n,) + batch)
 

@@ -92,18 +92,20 @@ def sketch_least_norm(spec: sk.SketchSpec, key: torch.Tensor, A: torch.Tensor, b
     """One worker of the right-sketch least-norm problem (§V, n < d):
     ẑ = argmin ‖z‖² s.t. (ASᵀ)z = b;  x̂ = Sᵀẑ.
 
-    S never exists in memory: ``ASᵀ = (S Aᵀ)ᵀ`` is one forward application of the
-    operator to Aᵀ (the S·A or FWHT kernel with ``spec.use_kernel``), and ``Sᵀẑ``
-    is its adjoint (the Gaussian adjoint kernel with ``spec.use_kernel``; a
-    scatter, the FWHT or a gather for the other kinds). A leverage right sketch
-    gets unit scores: over the rows of I_d it is uniform sampling with
-    replacement, as in the reference.
+    ``ASᵀ = (S Aᵀ)ᵀ`` is one forward application of the operator to Aᵀ (the S·A
+    or FWHT kernel with ``spec.use_kernel``), and ``Sᵀẑ`` is its adjoint, taken
+    from ``op.apply_with_adjoint``: with ``spec.use_kernel`` a Gaussian S (alone
+    or inside the hybrid) is written by its S·A kernel and read back by the
+    kept-S adjoint kernel where it fits the scratch, else drawn again by the
+    Gaussian adjoint kernel; a scatter, the FWHT or a gather for the other kinds.
+    A leverage right sketch gets unit scores: over the rows of I_d it is uniform
+    sampling with replacement, as in the reference.
     """
     d = A.shape[1]
     scores = torch.ones((d,), dtype=A.dtype, device=A.device) if spec.kind == "leverage" else None
     op = operators.make_operator(spec, key, d, scores=scores, device=A.device)
-    SAt = op.apply(A.T)  # (m, n) = S @ Aᵀ
-    return op.adjoint(least_norm(SAt.T, b))
+    SAt, adjoint = op.apply_with_adjoint(A.T)  # (m, n) = S @ Aᵀ
+    return adjoint(least_norm(SAt.T, b))
 
 
 def residual_cost(A: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

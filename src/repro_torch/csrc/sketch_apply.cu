@@ -6,7 +6,8 @@
 // For q keys (one per worker) and X of shape (n, d), repro_sketch_apply computes
 // S_w X (m, d), with S_w[i, j] drawn in-core from the counter stream (rng.cuh):
 // counter_normal(key, i, j) / sqrt(m) for the Gaussian, the packed sign of
-// (i, j / 32) for the Rademacher. S is never written to device memory.
+// (i, j / 32) for the Rademacher. S is written to device memory only when the
+// caller asks for it (s_out, below).
 //
 // What bounds it on this card. Per worker the product is 2*m*n*d flops; in
 // fp32-accurate tensor-core form (below) that is 3 TF32 products for the
@@ -71,6 +72,15 @@
 // Determinism: the plan (kernels/cuda.py plan_apply) is a function of (n, m, d)
 // only, nothing is added with atomics and the MMA order is fixed, so slice w
 // of a q-key call is bitwise a q = 1 call on key w, and reruns are bitwise.
+// Keeping S: for one Gaussian key the caller may pass s_out, an (m, ld_s)
+// buffer, and the producers of each m-tile's first cluster group (every S entry
+// is drawn there exactly once per split; the splits own disjoint columns) store
+// each live entry as drawn, before its TF32 split, at s_out[i * ld_s + j]. The
+// right-sketch least-norm path reads it back in its adjoint (adjoint.cu,
+// repro_adjoint_kept) instead of drawing S again. The store changes nothing
+// in S.X: the kernel with the store (KEEP) is bitwise the kernel without it.
+// It adds m * n * 4 bytes of stores (185 MB at the Fig. 4(b) S.A^T: 0.055 ms of
+// the card's bandwidth, in a call bound by the tensor cores).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -173,11 +183,13 @@ struct Geometry {
   static_assert(SMEM_BYTES <= 232448, "shared memory");
 };
 
-template <int FAMILY, int ROUNDS, int BN>
+template <int FAMILY, int ROUNDS, int BN, bool KEEP>
 __global__ void __launch_bounds__(THREADS, 1)
 sketch_apply_kernel(const float* __restrict__ X, long long n, int d, const uint32_t* __restrict__ keys,
                     int m, float scale, int rounds,
-                    long long rows_per_split, int groups, float* __restrict__ dst, int direct) {
+                    long long rows_per_split, int groups, float* __restrict__ dst, int direct,
+                    float* __restrict__ s_out, int ld_s) {
+  static_assert(!KEEP || FAMILY == kGaussian, "only the Gaussian S is kept");
   using G = Geometry<BN>;
   constexpr bool kTwoParts = FAMILY == kGaussian;  // the Rademacher S has no lo part
   extern __shared__ __align__(16) float smem[];
@@ -198,6 +210,7 @@ sketch_apply_kernel(const float* __restrict__ X, long long n, int d, const uint3
   const int row0 = (cluster_id / groups) * BM;
   const int col0 = ((cluster_id % groups) * c + rank) * BN;  // this block's column tile
   const bool live = col0 < d;  // dead tiles past d only draw their slice
+  const bool keeper = KEEP && cluster_id % groups == 0;  // this cluster group stores S
   const int split = blockIdx.y;
   const int w = blockIdx.z;
   const uint32_t k0 = keys[2 * w];
@@ -258,7 +271,11 @@ sketch_apply_kernel(const float* __restrict__ X, long long n, int d, const uint3
               if (e >= count) break;
               const int i = s_lo + e / BK;
               const int k = e % BK;
-              const float s = (row0 + i < m && j0 + k < j_end) ? repro::normal_from_bits(bits[u]) * scale : 0.f;
+              const bool in = row0 + i < m && j0 + k < j_end;
+              const float s = in ? repro::normal_from_bits(bits[u]) * scale : 0.f;
+              if (keeper && in) {  // m * ld_s < 2^31 (the C entry checks it)
+                s_out[(row0 + i) * ld_s + static_cast<int>(j0) + k] = s;
+              }
               uint32_t hi, lo;
               split_tf32(s, hi, lo);
               *reinterpret_cast<float2*>(buf + s_index(i, k)) =
@@ -462,11 +479,13 @@ struct Args {
   int groups;
   float* dst;
   int direct;
+  float* s_out;  // the kept S, or null
+  int ld_s;
 };
 
 // A cluster launch of sketch_apply_kernel<FAMILY, ROUNDS, BN>: sets the kernel's
 // shared memory attribute and fills cfg (whose attrs point at attr).
-template <int FAMILY, int ROUNDS, int BN>
+template <int FAMILY, int ROUNDS, int BN, bool KEEP>
 cudaError_t configure(dim3 grid, int cluster, cudaStream_t stream, cudaLaunchConfig_t& cfg,
                       cudaLaunchAttribute& attr) {
   const int smem = Geometry<BN>::SMEM_BYTES;
@@ -481,18 +500,18 @@ cudaError_t configure(dim3 grid, int cluster, cudaStream_t stream, cudaLaunchCon
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaFuncSetAttribute(sketch_apply_kernel<FAMILY, ROUNDS, BN>,
+  return cudaFuncSetAttribute(sketch_apply_kernel<FAMILY, ROUNDS, BN, KEEP>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int FAMILY, int ROUNDS, int BN>
+template <int FAMILY, int ROUNDS, int BN, bool KEEP>
 cudaError_t launch(dim3 grid, int cluster, cudaStream_t stream, const Args& a) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<FAMILY, ROUNDS, BN>(grid, cluster, stream, cfg, attr);
+  cudaError_t err = configure<FAMILY, ROUNDS, BN, KEEP>(grid, cluster, stream, cfg, attr);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, sketch_apply_kernel<FAMILY, ROUNDS, BN>, a.X, a.n, a.d, a.keys, a.m,
-                           a.scale, a.rounds, a.rows_per_split, a.groups, a.dst, a.direct);
+  err = cudaLaunchKernelEx(&cfg, sketch_apply_kernel<FAMILY, ROUNDS, BN, KEEP>, a.X, a.n, a.d, a.keys, a.m,
+                           a.scale, a.rounds, a.rows_per_split, a.groups, a.dst, a.direct, a.s_out, a.ld_s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -502,9 +521,9 @@ template <int BN>
 cudaError_t max_clusters(int cluster, int* count) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<kGaussian, 20, BN>(dim3(cluster * 64), cluster, nullptr, cfg, attr);
+  cudaError_t err = configure<kGaussian, 20, BN, false>(dim3(cluster * 64), cluster, nullptr, cfg, attr);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(count, sketch_apply_kernel<kGaussian, 20, BN>, &cfg);
+  return cudaOccupancyMaxActiveClusters(count, sketch_apply_kernel<kGaussian, 20, BN, false>, &cfg);
 }
 
 // f(std::integral_constant<int, BN>{}) for the column width block_cols.
@@ -516,10 +535,10 @@ cudaError_t by_width(int block_cols, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-template <int FAMILY, int ROUNDS>
+template <int FAMILY, int ROUNDS, bool KEEP = false>
 cudaError_t launch_width(int block_cols, dim3 grid, int cluster, cudaStream_t stream, const Args& a) {
   return by_width(block_cols, [&](auto bn) {
-    return launch<FAMILY, ROUNDS, decltype(bn)::value>(grid, cluster, stream, a);
+    return launch<FAMILY, ROUNDS, decltype(bn)::value, KEEP>(grid, cluster, stream, a);
   });
 }
 
@@ -538,12 +557,21 @@ const char* repro_error_string(int code) {
 // rows_per_split rows (a multiple of 32, n_splits * rows_per_split >= n). With
 // n_splits == 1 the kernel writes out (q, m, d) directly and partial is unused;
 // otherwise partial is (q, n_splits, m, d) float32 scratch and a second kernel
-// sums it into out. Returns cudaErrorInvalidValue for a plan it cannot take,
-// else the first CUDA error of the launches (0 when all were accepted).
+// sums it into out. s_out: null, or for the Gaussian family and q = 1 an
+// (m, ld_s) float32 buffer, 16-byte aligned, ld_s >= n a multiple of 4 and
+// m * ld_s < 2^31, into which the kernel writes S (columns past n untouched).
+// Returns cudaErrorInvalidValue for a plan or s_out it cannot take, else the
+// first CUDA error of the launches (0 when all were accepted).
 int repro_sketch_apply(int family, const float* X, long long n, int d, const uint32_t* keys,
                        int q, int m, float scale, int rounds,
                        long long rows_per_split, int n_splits, int block_cols, int cluster, int groups,
-                       float* partial, float* out, void* stream_ptr) {
+                       float* partial, float* out, float* s_out, long long ld_s, void* stream_ptr) {
+  if (s_out != nullptr &&
+      (family != kGaussian || q != 1 || ld_s < n || ld_s % 4 != 0 || ld_s >= (1LL << 31) ||
+       static_cast<long long>(m) * ld_s >= (1LL << 31) ||
+       reinterpret_cast<uintptr_t>(s_out) % 16 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if ((family != kGaussian && family != kRademacher) || rows_per_split <= 0 ||
       rows_per_split % SPLIT_ROWS != 0 || static_cast<long long>(n_splits) * rows_per_split < n ||
       cluster < 1 || cluster > MAX_CLUSTER || groups < 1 ||
@@ -556,9 +584,12 @@ int repro_sketch_apply(int family, const float* X, long long n, int d, const uin
   const dim3 grid(m_tiles * groups * cluster, n_splits, q);
   const int direct = n_splits == 1;
   const Args a{X, n, d, keys, m, scale, rounds, rows_per_split, groups,
-               direct ? out : partial, direct};
+               direct ? out : partial, direct, s_out, static_cast<int>(ld_s)};
   cudaError_t err;
-  if (family == kGaussian) {
+  if (family == kGaussian && s_out != nullptr) {
+    err = rounds == 20 ? launch_width<kGaussian, 20, true>(block_cols, grid, cluster, stream, a)
+                       : launch_width<kGaussian, 0, true>(block_cols, grid, cluster, stream, a);
+  } else if (family == kGaussian) {
     err = rounds == 20 ? launch_width<kGaussian, 20>(block_cols, grid, cluster, stream, a)
                        : launch_width<kGaussian, 0>(block_cols, grid, cluster, stream, a);
   } else {

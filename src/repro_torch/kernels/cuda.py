@@ -9,7 +9,8 @@ into ``build/repro_torch_kernels/`` at the root of the checkout:
 * ``sketch_apply`` — the dense S·A (Gaussian, Rademacher) on the tensor cores;
 * ``sjlt_gram``   — the sparse SJLT sketch→Gram and S·A (a bin pass and a scatter pass);
 * ``fwht``        — the fast Walsh-Hadamard transform;
-* ``adjoint``     — the Gaussian adjoint Sᵀ·Y;
+* ``adjoint``     — the Gaussian adjoint Sᵀ·Y: over an S the forward S·A kept
+  (``repro_adjoint_kept``), or with S drawn again (``repro_gaussian_adjoint``);
 * ``rng_probe``   — the device counter RNG alone, for checking it bitwise;
 * ``mma_probe``   — the dense S·A's TF32 tensor-core product alone: one warp's
   fragments against float64, and ``mma.sync``'s own rate.
@@ -98,11 +99,18 @@ SJLT_TARGET_BLOCKS = 4 * 132
 # FWHT passes of csrc/fwht.cu: a block holds 2**FWHT_MAX_TILE_BITS rows of 32
 # columns (128 KB) in shared memory, so a pass runs at most that many stages.
 FWHT_MAX_TILE_BITS = 10
-# Gaussian adjoint of csrc/adjoint.cu: a block owns ADJOINT_ROWS output rows (one
-# a thread), ADJOINT_COLS columns when k > 1 (all of k = 1 otherwise), and one
-# split of the m sketch rows. The splits (plan_adjoint) aim for TARGET_BLOCKS
-# blocks with at least ADJOINT_MIN_SPLIT_ROWS sketch rows each.
+# Gaussian adjoints of csrc/adjoint.cu. The redraw kernel's block owns
+# ADJOINT_ROWS output rows (one a thread), ADJOINT_COLS columns when k > 1 (all
+# of k = 1 otherwise) and one split of the m sketch rows; the kept-S kernel's
+# cluster owns a strip of ADJOINT_ROWS output rows (four a lane), ADJOINT_KEPT_COLS
+# columns when k > 1, and every split, one a warp, ADJOINT_SPLITS_PER_BLOCK a
+# block. Both take the splits of plan_adjoint: about ADJOINT_TARGET_WARPS strips
+# times splits, whole blocks of splits, at most ADJOINT_MAX_SPLITS (one cluster
+# of 8 blocks), at least ADJOINT_MIN_SPLIT_ROWS rows each. The kept S has rows
+# of whole KEPT_ROW_ALIGN floats (16 bytes).
 ADJOINT_ROWS, ADJOINT_COLS, ADJOINT_MIN_SPLIT_ROWS = 128, 8, 64
+ADJOINT_KEPT_COLS, ADJOINT_SPLITS_PER_BLOCK, ADJOINT_MAX_SPLITS, ADJOINT_TARGET_WARPS = 4, 8, 64, 2048
+KEPT_ROW_ALIGN = 4
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -211,7 +219,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_dense_gram_clusters.argtypes = [I, I, I, ctypes.POINTER(I)]
         lib.repro_dense_gram_clusters.restype = I
     elif name == "sketch_apply":
-        lib.repro_sketch_apply.argtypes = [I, P, LL, I, P, I, I, F, I, LL, I, I, I, I, P, P, P]
+        lib.repro_sketch_apply.argtypes = [I, P, LL, I, P, I, I, F, I, LL, I, I, I, I, P, P, P, LL, P]
         lib.repro_sketch_apply.restype = I
         lib.repro_sketch_apply_clusters.argtypes = [I, I, ctypes.POINTER(I)]
         lib.repro_sketch_apply_clusters.restype = I
@@ -228,6 +236,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "adjoint":
         lib.repro_gaussian_adjoint.argtypes = [P, I, I, LL, U, U, F, I, I, I, P, P, P]
         lib.repro_gaussian_adjoint.restype = I
+        lib.repro_adjoint_kept.argtypes = [P, LL, P, I, I, LL, I, I, P, I, P]
+        lib.repro_adjoint_kept.restype = I
     elif name == "rng_probe":
         lib.repro_rng_probe.argtypes = [U, U, P, P, I, I, P, P, P, P]
         lib.repro_rng_probe.restype = I
@@ -621,18 +631,51 @@ def sjlt_gram(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
     return _sjlt_call("repro_sjlt_gram", keys, X, m, s, G, launches=launches, name=name)
 
 
+def kept_sketch_ld(n: int) -> int:
+    """Row stride (floats) of a kept S with n columns: n up to whole 16 bytes."""
+    return common.round_up(n, KEPT_ROW_ALIGN)
+
+
+def keeps_sketch(m: int, n: int) -> bool:
+    """Whether a worker's Gaussian S (m, n) is kept from its forward S·A for its
+    adjoint (``kept_sketch_ld(n)`` floats a row) rather than drawn again: when it
+    fits SCRATCH_BYTES. A function of the shapes only."""
+    ld = kept_sketch_ld(n)
+    return 4 * m * ld <= SCRATCH_BYTES and m * ld < 2**31
+
+
+def _check_kept(S: torch.Tensor, device: int, m: int, n: int) -> None:
+    """Raise unless S is an (m, ld) kept S on CUDA device ``device`` (an index),
+    ld >= n a multiple of KEPT_ROW_ALIGN. The C entries check the rest (16-byte
+    alignment; for the store, m·ld < 2**31) and refuse it."""
+    if S.get_device() != device or S.dtype != torch.float32 or S.ndim != 2 or not S.is_contiguous():
+        raise ValueError(f"a kept S must be a contiguous 2-D float32 tensor on cuda:{device}, got {S.dtype} "
+                         f"{tuple(S.shape)} on {S.device}")
+    rows, ld = S.shape
+    if rows != m or ld < n or ld % KEPT_ROW_ALIGN:
+        raise ValueError(f"a kept S of {m} rows and {n} columns must be ({m}, ld), ld >= {n} a multiple of "
+                         f"{KEPT_ROW_ALIGN}; got {tuple(S.shape)}")
+
+
 def sketch_apply(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rounds: int,
-                 launches: collections.Counter, name: str) -> torch.Tensor:
+                 launches: collections.Counter, name: str, s_out: torch.Tensor | None = None) -> torch.Tensor:
     """(q, m, d) sketches ``S_w X`` of the CUDA tensor X for q key rows of the
     Gaussian or Rademacher family, on the tensor cores (``csrc/sketch_apply.cu``)
-    with the plan of :func:`plan_apply`, so slice w is bitwise a q = 1 call. Makes
-    no call that waits for the card. Adds one to ``launches[name]`` per call into
-    the C entry (one per chunk of workers)."""
+    with the plan of :func:`plan_apply`, so slice w is bitwise a q = 1 call. With
+    ``s_out`` (the Gaussian, one key: an (m, ld) float32 tensor on the card, ld
+    from :func:`kept_sketch_ld`) the kernel also writes the S it draws there,
+    columns ``:n``, and S·X is bitwise the same. Makes no call that waits for the
+    card. Adds one to ``launches[name]`` per call into the C entry (one per chunk
+    of workers)."""
     n, d, q = _check_sketch_args("sketch_apply", X, keys, m)
     if family not in ("gaussian", "rademacher"):
         raise ValueError(f"the dense S·A kernel takes the gaussian and rademacher families, got {family!r}")
     if rounds <= 0 or rounds % 4:
         raise ValueError(f"threefry rounds must be a positive multiple of 4, got {rounds}")
+    if s_out is not None:
+        if family != "gaussian" or q != 1:
+            raise ValueError(f"the dense S·A keeps S for the gaussian family with one key, got {family!r}, q={q}")
+        _check_kept(s_out, X.get_device(), m, n)
     lib = _library("sketch_apply")
     plan = plan_apply(n, m, d)
     chunk = worker_chunk(n, m, d, q, apply=True)
@@ -650,7 +693,8 @@ def sketch_apply(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, ro
             code = lib.repro_sketch_apply(
                 FAMILIES[family], X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m, common.inv_sqrt(m), rounds,
                 plan.rows_per_split, plan.n_splits, plan.block_cols, plan.cluster, plan.groups,
-                None if partial is None else partial.data_ptr(), out[w0].data_ptr(), stream,
+                None if partial is None else partial.data_ptr(), out[w0].data_ptr(),
+                None if s_out is None else s_out.data_ptr(), 0 if s_out is None else s_out.shape[1], stream,
             )
             _check(lib, code, f"{family} sketch_apply launch")
             launches[name] += 1
@@ -734,16 +778,22 @@ def fwht(x: torch.Tensor, *, launches: collections.Counter, name: str) -> torch.
     return y
 
 
+@functools.lru_cache(maxsize=256)
 def plan_adjoint(m: int, n: int, k: int) -> tuple[int, int]:
-    """``(n_splits, rows_per_split)`` of the m sketch rows for the Gaussian adjoint
-    of Y (m, k) into (n, k): enough blocks of ADJOINT_ROWS output rows to fill the
-    card, at least ADJOINT_MIN_SPLIT_ROWS rows a split (unless m is smaller), no
-    split empty. A function of the shapes only, so reruns add the same partials
-    in the same order."""
-    tiles = -(-n // ADJOINT_ROWS) * -(-k // ADJOINT_COLS)
-    want = max(1, -(-TARGET_BLOCKS // tiles))
+    """``(n_splits, rows_per_split)`` of the m sketch rows for both Gaussian
+    adjoints of Y (m, k) into (n, k): about ADJOINT_TARGET_WARPS strips of
+    ADJOINT_ROWS output rows times splits (whole blocks of
+    ADJOINT_SPLITS_PER_BLOCK where there are that many; at the Fig. 4(b) shape
+    16 splits, the fastest measured, ``tools/adjoint_tune.py``), at most
+    ADJOINT_MAX_SPLITS, at least ADJOINT_MIN_SPLIT_ROWS rows a split (unless m
+    is smaller), no split empty. A function of the shapes only, so reruns add
+    the same partials in the same order, and the two kernels, whose chains and
+    split order agree, are bitwise equal on one key."""
+    want = max(1, ADJOINT_TARGET_WARPS // -(-n // ADJOINT_ROWS))
+    if want >= ADJOINT_SPLITS_PER_BLOCK:
+        want -= want % ADJOINT_SPLITS_PER_BLOCK
     most = max(1, m // ADJOINT_MIN_SPLIT_ROWS)
-    rows = -(-m // min(want, most))
+    rows = -(-m // min(want, most, ADJOINT_MAX_SPLITS))
     return -(-m // rows), rows
 
 
@@ -776,6 +826,40 @@ def gaussian_adjoint(key: torch.Tensor, Y: torch.Tensor, n: int, *, rounds: int,
             partial.data_ptr(), out.data_ptr(), torch.cuda.current_stream(Y.device).cuda_stream,
         )
     _check(lib, code, "gaussian_adjoint launch")
+    launches[name] += 1
+    return out
+
+
+def gaussian_adjoint_kept(S: torch.Tensor, Y: torch.Tensor, n: int, *, launches: collections.Counter,
+                          name: str) -> torch.Tensor:
+    """Sᵀ·Y (n, k) for the CUDA tensors Y (m, k) float32, contiguous, and S, the
+    (m, ld) Gaussian sketch a forward :func:`sketch_apply` kept (``s_out``; its
+    columns ``:n``), read once (``csrc/adjoint.cu`` ``repro_adjoint_kept``, plan
+    :func:`plan_adjoint`: bitwise :func:`gaussian_adjoint` on the same key). One
+    launch, one allocation (the output), no key words, no call that waits for
+    the card; the C entry makes Y's device current for the launch. Adds one to
+    ``launches[name]``."""
+    if not Y.is_cuda:
+        raise ValueError(f"gaussian_adjoint_kept launches a CUDA kernel; Y is on {Y.device}")
+    if Y.dtype != torch.float32 or Y.ndim != 2 or not Y.is_contiguous():
+        raise ValueError(
+            f"Y must be a contiguous 2-D float32 tensor, got {Y.dtype} {tuple(Y.shape)} "
+            f"contiguous={Y.is_contiguous()}"
+        )
+    m, k = Y.shape
+    if not (0 < k <= MAX_GRID_Y * ADJOINT_KEPT_COLS and 0 < n < 2**31):
+        raise ValueError(f"unsupported shape m={m} k={k} n={n}")
+    dev = Y.get_device()
+    _check_kept(S, dev, m, n)
+    n_splits, rows = plan_adjoint(m, n, k)
+    lib = _LIBS.get("adjoint") or _library("adjoint")
+    out = Y.new_empty((n, k))
+    # The raw handle of the device's current stream (torch's own kernel launchers
+    # read it so; ``torch.cuda.current_stream`` builds a Stream object a call).
+    code = lib.repro_adjoint_kept(S.data_ptr(), S.stride(0), Y.data_ptr(), m, k, n, rows, n_splits, out.data_ptr(),
+                                  dev, torch._C._cuda_getCurrentRawStream(dev))
+    if code:
+        _check(lib, code, "gaussian_adjoint_kept launch")
     launches[name] += 1
     return out
 

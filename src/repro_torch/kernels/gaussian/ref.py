@@ -64,3 +64,10 @@ def adjoint(key: torch.Tensor, Y: torch.Tensor, n: int, *, block_rows: int = PLA
         blk = min(block_rows, n - j0)
         out[j0 : j0 + blk] = (columns(k0, k1, m, j0, blk, Y.device).double().T @ Yd).float()
     return out
+
+
+def adjoint_kept(S: torch.Tensor, Y: torch.Tensor, n: int) -> torch.Tensor:
+    """Sᵀ·Y ∈ R^{n×k} in float32 for Y (m, k) and a materialized S (m, ≥ n), its
+    columns ``:n``: multiplied and summed in float64 and rounded once, as
+    :func:`adjoint` does with the S it draws."""
+    return (S[:, :n].double().T @ Y.double()).float()

@@ -456,12 +456,16 @@ def test_gram_makes_no_synchronising_call(cuda, family):
 
 
 def test_sjlt_apply_and_adjoint_make_no_synchronising_call(cuda):
+    """The SJLT S·A, both Gaussian adjoints and the S·A that keeps its S wait for
+    nothing."""
     X = _x(1000, 20, 19, cuda)
     Y = _x(64, 3, 20, cuda)
     keys = prng.worker_keys(prng.prng_key(19), 3)
+    S = gops.gaussian_sketch_keep(keys[0], X, 64)[1]
     got, want = _runs_without_sync(lambda: (
         sops.sjlt_apply(keys[0], X, 64, SJLT_S), sops.sjlt_apply_multi(keys, X, 64, SJLT_S),
-        gops.gaussian_adjoint(keys[0], Y, 1000)))
+        gops.gaussian_adjoint(keys[0], Y, 1000), *gops.gaussian_sketch_keep(keys[0], X, 64),
+        gops.gaussian_adjoint_kept(S, Y, 1000)))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
@@ -580,6 +584,128 @@ def test_adjoint_kernel_matches_plain(cuda, m, n, k):
     assert out.shape == (n, k)
     assert _sx_err(out, gref.adjoint(key, Y, n)) <= REL_TOL
     assert torch.equal(gops.gaussian_adjoint(key, Y, n), out)
+
+
+# The least-norm paths' adjoint shapes (chip_smoke.py ADJOINT_SHAPES) and an n that
+# is not a multiple of 4 (the kept S's rows padded to 16 bytes).
+KEPT_SHAPES = [(4000, 11_556, 1), (4000, 8000, 1), (200, 1000, 1), (200, 500, 1), (129, 1001, 3),
+               (200, 1001, 1), (63, 129, 1), (1, 1, 1), (300, 1001, 33)]
+
+
+@pytest.mark.parametrize("m,n,k", KEPT_SHAPES)
+def test_kept_adjoint_matches_plain_and_redraw(cuda, m, n, k):
+    """The kept-S adjoint over the S its forward kept: per column within 1e-5 of
+    the rms against the float64 product of the same S, bitwise the redraw kernel
+    on the same key (same splits, chains and split order), bitwise run to run,
+    one launch a call."""
+    key = prng.prng_key(m * n + k)
+    SX, S = gops.gaussian_sketch_keep(key, _x(n, 2, n, cuda), m)
+    assert S.shape == (m, tcuda.kept_sketch_ld(n))
+    Y = _x(m, k, m + k, cuda)
+    before = gops.LAUNCHES["gaussian_adjoint_kept"]
+    out = gops.gaussian_adjoint_kept(S, Y, n)
+    assert gops.LAUNCHES["gaussian_adjoint_kept"] == before + 1
+    assert out.shape == (n, k)
+    assert _sx_err(out, gref.adjoint_kept(S, Y, n)) <= REL_TOL
+    assert _sx_err(out, gref.adjoint(key, Y, n)) <= REL_TOL
+    assert torch.equal(out, gops.gaussian_adjoint(key, Y, n))
+    assert torch.equal(gops.gaussian_adjoint_kept(S, Y, n), out)
+
+
+@pytest.mark.parametrize("m,n,d", [(4000, 11_556, 64), (200, 1000, 50), (200, 1001, 5), (130, 1000, 2049),
+                                   (64, 33, 1)])
+def test_sketch_apply_keeping_s_is_bitwise_and_keeps_the_drawn_s(cuda, m, n, d):
+    """With s_out, S·X is bitwise S·X without it (one split or many; at d = 2,049
+    two cluster groups draw each entry, and only the first stores it), and the
+    kept S is the counter S within the draw's tolerance (2e-6 a normal, scaled
+    by 1/√m)."""
+    key = prng.prng_key(n + d)
+    X = _x(n, d, d, cuda)
+    SX, S = gops.gaussian_sketch_keep(key, X, m)
+    assert torch.equal(SX, gops.gaussian_sketch(key, X, m))
+    want = gref.sketch_matrix(key, m, n, device=cuda)
+    assert float((S[:, :n] - want).abs().max()) <= 2e-6 * common.inv_sqrt(m)
+
+
+def test_sketch_apply_refuses_to_keep_what_it_cannot(cuda):
+    """s_out only for the Gaussian with one key and an (m, ld) buffer, ld >= n a
+    multiple of 4: the wrapper raises, and the C entry refuses (1) before
+    launching anything."""
+    key = prng.prng_key(0)
+    X = _x(100, 4, 0, cuda)
+    good = torch.empty((16, 100), device=cuda)
+    kw = dict(rounds=20, launches=gops.LAUNCHES, name="x")
+    with pytest.raises(ValueError, match="one key"):
+        tcuda.sketch_apply("gaussian", prng.worker_keys(key, 2), X, 16, s_out=good, **kw)
+    with pytest.raises(ValueError, match="one key"):
+        tcuda.sketch_apply("rademacher", key.reshape(1, 2), X, 16, s_out=good, **kw)
+    for bad in (torch.empty((16, 102), device=cuda), torch.empty((16, 96), device=cuda),
+                torch.empty((15, 100), device=cuda), torch.empty((16, 101), device=cuda)[:, :100]):
+        with pytest.raises(ValueError):
+            tcuda.sketch_apply("gaussian", key.reshape(1, 2), X, 16, s_out=bad, **kw)
+    lib = tcuda._library("sketch_apply")
+    plan = tcuda.plan_apply(100, 16, 4)
+    kwords = tcuda._u32_words(prng.worker_keys(key, 2), cuda)
+    out = torch.empty((2, 16, 4), device=cuda)
+    partial = torch.empty(2 * plan.n_splits * 16 * 4, device=cuda)
+    S = torch.empty(16 * 104 + 4, device=cuda)
+
+    def call(family=0, q=1, s_ptr=S.data_ptr(), ld=100):
+        return lib.repro_sketch_apply(family, X.data_ptr(), 100, 4, kwords.data_ptr(), q, 16, 0.25, 20,
+                                      plan.rows_per_split, plan.n_splits, plan.block_cols, plan.cluster, plan.groups,
+                                      partial.data_ptr(), out.data_ptr(), s_ptr, ld, torch.cuda.current_stream().cuda_stream)
+
+    assert call() == 0
+    for bad in (dict(q=2), dict(family=1), dict(ld=102), dict(ld=96), dict(s_ptr=S.data_ptr() + 4)):
+        assert call(**bad) == 1, bad
+    torch.cuda.synchronize()
+
+
+def test_kept_adjoint_refuses_what_it_cannot_take(cuda):
+    Y = _x(16, 1, 0, cuda)
+    S = torch.empty((16, 100), device=cuda)
+    with pytest.raises(ValueError, match="kept S"):
+        gops.gaussian_adjoint_kept(torch.empty((16, 98), device=cuda), Y, 100)
+    with pytest.raises(ValueError, match="kept S"):
+        gops.gaussian_adjoint_kept(torch.empty((15, 100), device=cuda), Y, 100)
+    with pytest.raises(ValueError, match="contiguous"):
+        gops.gaussian_adjoint_kept(S, _x(2, 16, 0, cuda).T, 100)
+    lib = tcuda._library("adjoint")
+    out = torch.empty(100, device=cuda)
+
+    def call(ld=100, ptr=S.data_ptr(), splits=1, rows=16):
+        return lib.repro_adjoint_kept(ptr, ld, Y.data_ptr(), 16, 1, 100, rows, splits, out.data_ptr(), 0,
+                                      torch.cuda.current_stream().cuda_stream)
+
+    assert call() == 0
+    for bad in (dict(ld=98), dict(ld=102), dict(ptr=S.data_ptr() + 4), dict(splits=65, rows=1),
+                dict(splits=2, rows=4), dict(splits=2, rows=16)):
+        assert call(**bad) == 1, bad
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "hybrid_gaussian"])
+def test_least_norm_keeps_s_and_reads_it_back(cuda, kind, monkeypatch):
+    """A Gaussian least-norm worker (alone or inside the hybrid) makes one forward
+    that keeps S and one kept-S adjoint, and no redraw; with a scratch one byte
+    short of S it redraws instead, and x̄ agrees (bitwise: the same splits,
+    chains and S)."""
+    rs = np.random.default_rng(21)
+    A = torch.from_numpy(rs.standard_normal((30, 1500)).astype(np.float32))
+    b = torch.from_numpy(rs.standard_normal(30).astype(np.float32))
+    if kind == "gaussian":
+        spec, n = sketches.SketchSpec("gaussian", 120, use_kernel=True), 1500
+    else:
+        spec, n = sketches.SketchSpec("hybrid", 120, m_prime=400, inner="gaussian", use_kernel=True), 400
+    key = prng.prng_key(22)
+    gops.LAUNCHES.clear()
+    kept = distributed.distributed_sketch_least_norm(spec, key, A, b, q=3)
+    assert dict(gops.LAUNCHES) == {"gaussian_sketch": 3, "gaussian_adjoint_kept": 3}
+    monkeypatch.setattr(tcuda, "SCRATCH_BYTES", 4 * 120 * tcuda.kept_sketch_ld(n) - 1)
+    gops.LAUNCHES.clear()
+    redrawn = distributed.distributed_sketch_least_norm(spec, key, A, b, q=3)
+    assert dict(gops.LAUNCHES) == {"gaussian_sketch": 3, "gaussian_adjoint": 3}
+    assert torch.equal(kept, redrawn)
 
 
 @pytest.mark.parametrize("m,n", [(200, 1000), (4000, 11_556)])
