@@ -14,8 +14,9 @@ sketch→Gram kernel (Gaussian, Rademacher and SRHT on one tensor-core pass,
 SJLT with FIG3A's s = 20) against its plain version at the FIG3A shape (n = 500,000, d = 250,
 m = 2,500), q = 1 and 2, and each S·A kernel (Gaussian, Rademacher, SJLT) and
 the FWHT kernel at the shapes of their paths (the hybrid's m′ = 25,000 rows, the
-two-pass path's full n; the FWHT on 2^19 and 2^15 rows), then runs Algorithm 1
-end to end:
+two-pass path's full n; the FWHT and the fused SRHT forward on 2^19 and 2^15
+rows, the forward beside the composition it replaced: D·A, zero rows, the full
+FWHT, the gather), then runs Algorithm 1 end to end:
 
 * Gaussian: master-sketch mode at q = 200 (twice, bitwise equal; once more
   traced), worker-side mode at q = 8;
@@ -37,10 +38,11 @@ back in the adjoint: both Gaussian adjoint kernels (over the kept S, and with S
 drawn again) against their plain version and each other at the shapes the
 paths give them, with the library's product on the same S; each S·A kernel at
 X = Aᵀ and on the hybrid's m′ rows of it (the Gaussian's also with and without
-the store of S); the FWHT on the SRHT's forward and adjoint (one and 33
-columns); then the paths, each twice and bitwise equal: FIG4A (n = 50,
-d = 1,000, m = 200, m′ = 500) and the Fig. 4(b) shape (n = 2,000, d = 11,556,
-m = 4,000, m′ = 8,000) at q = 100 with the Gaussian, uniform sampling without
+the store of S); the FWHT and the fused SRHT forward on the SRHT's forward
+shapes, the FWHT on its adjoint's (one and 33 columns); then the paths, each
+twice and bitwise equal: FIG4A (n = 50, d = 1,000, m = 200, m′ = 500) and the
+Fig. 4(b) shape (n = 2,000, d = 11,556, m = 4,000, m′ = 8,000) at q = 100 with
+the Gaussian, uniform sampling without
 replacement and the hybrid with the Gaussian inside (the paper's Fig. 4
 sketches); every kind at FIG4A, q = 8, each kind with a kernel also with
 ``use_kernel=False`` against the kernel path's x̄, and the Gaussian once more
@@ -287,6 +289,31 @@ def fwht_bound_ms(n: int, k: int) -> tuple[float, str]:
     bytes_ms = 8 * n * k / PEAK_BYTES * 1e3
     ops_ms = n * k * (n.bit_length() - 1) / PEAK_FP32_FLOPS * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def srht_forward_bound_ms(n: int, k: int, m: int, n_pad: int) -> tuple[float, str]:
+    """Least time for the SRHT's S·A, A (n, k) float32, m sampled rows of the
+    n_pad-point transform: A and the m ids read once and the (m, k) output
+    written once, or the operations: the log2(n_pad) stages of one add or
+    subtract per element of the padding at the fp32 peak, one threefry a row of
+    A (its sign) at the int32 rate."""
+    bytes_ms = 4 * (n * k + m + m * k) / PEAK_BYTES * 1e3
+    ops_ms = max(n_pad * k * (n_pad.bit_length() - 1) / PEAK_FP32_FLOPS, n * threefry_ops(20) / PEAK_INT32_OPS) * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def srht_forward_floor_ms(n: int, k: int, m: int, n_pad: int) -> float:
+    """The bytes of the fused SRHT forward's own plan (``cuda.plan_fwht``) at
+    3.35 TB/s: A read once, each pass but the last writing the rows it can make
+    nonzero (n up to whole spans of the stages so far) and the next reading
+    them, the m rows written."""
+    from repro_torch.kernels import cuda
+
+    rows, done = 0, 0
+    for t in cuda.plan_fwht(n_pad)[:-1]:
+        done += t
+        rows += -(-n // (1 << done)) * (1 << done)
+    return 4 * (n * k + 2 * rows * k + m + m * k) / PEAK_BYTES * 1e3
 
 
 def adjoint_bound_ms(m: int, n: int, k: int, rounds: int = 20) -> tuple[float, str]:
@@ -773,30 +800,36 @@ def phase_apply_kernels(X, m: int, m_prime: int, rows: dict) -> None:
         check(all(edge_bitwise.values()), f"{multi} at q = {chunk + 1}: chunk-edge slices {edge_bitwise}")
 
 
-def phase_fwht(X, m_prime: int, rows: dict) -> None:
-    """The FWHT kernel against its plain version, bitwise, on the rows the SRHT
-    transforms: X zero-padded to the two-pass path's n_pad (2^19 at FIG3A), and
-    X's first m′ rows zero-padded to the hybrid's (next_pow2(m′) = 2^15)."""
+def phase_fwht(X, m: int, m_prime: int, rows: dict) -> None:
+    """The FWHT kernel (row 13b) and the fused SRHT forward (row 13a) against
+    their plain versions, bitwise, on the rows the SRHT transforms: X zero-padded
+    to the two-pass path's n_pad (2^19 at FIG3A), and X's first m′ rows
+    zero-padded to the hybrid's (next_pow2(m′) = 2^15); the forward samples m rows."""
     import torch
 
-    from repro_torch.core import sketches as sk
+    from repro_torch.core import operators, sketches as sk
+    from repro_torch.utils import prng
 
     n, dx = X.shape
-    for rows_in in (n, m_prime):
+    for label, rows_in in (("shape", n), ("hybrid_shape", m_prime)):
         n_pad = sk.next_pow2(rows_in)
         x = torch.zeros((n_pad, dx), dtype=torch.float32, device=X.device)
         x[:rows_in] = X[:rows_in]
         r = fwht_check(x)
-        if "fwht" not in rows:
-            rows["fwht"] = {
-                "name": "fwht", "route": "cuda", "source": "src/repro_torch/csrc/fwht.cu",
-                "replaces": FWHT_REPLACES, "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": None, "shape": {"n_pad": n_pad, "d": dx},
-            }
-        else:
-            rows["fwht"]["hybrid_shape"] = {"n_pad": n_pad, "ms": r["ms"], "plain_ms": r["plain_ms"],
-                                            "bound_ms": r["bound_ms"]}
+        del x
+        kd, ids = operators.srht_params(prng.worker_key(prng.prng_key(SEED + 11), rows_in), m, n_pad)
+        f = srht_forward_check(kd, ids, X[:rows_in], n_pad)
+        for name, rep in (("fwht", r), ("srht_forward", f)):
+            keys = ("ms", "plain_ms", "bound_ms", "composed_ms", "plan_floor_ms")
+            shape = {"n_pad": n_pad, "d": dx, **{key: rep[key] for key in keys if key in rep}}
+            if name not in rows:
+                rows[name] = {
+                    "name": name, "route": "cuda", "source": "src/repro_torch/csrc/fwht.cu",
+                    "replaces": FWHT_REPLACES, "launches": 0, "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
+                    "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                    "library_ms": None,
+                }
+            rows[name][label] = shape
 
 
 def fwht_check(x) -> dict:
@@ -822,6 +855,51 @@ def fwht_check(x) -> dict:
     emit({"phase": "fwht", **report})
     check(bitwise, f"fwht on ({n_pad}, {k}) is not bitwise equal to its plain version")
     check(rerun, f"fwht on ({n_pad}, {k}) is not bitwise equal run to run")
+    return report
+
+
+def srht_forward_check(kd, ids, A, n_pad: int) -> dict:
+    """The fused SRHT forward on A (n, k) for the diagonal key words kd and the
+    (m,) sampled row ids against its plain version, a rerun and the composition
+    it replaced on the card (torch D·A, zero rows, the full FWHT kernel, the
+    gather), all bitwise; its card ms beside the composition's, the plain
+    version's, its bound and its plan's bytes floor. Emits one
+    ``srht_forward`` line."""
+    import torch
+
+    from repro_torch.kernels import common, cuda
+    from repro_torch.kernels.fwht import ops, ref
+
+    A = A.contiguous()
+    n, k = A.shape
+    m = ids.shape[0]
+    kd0, kd1 = common.key_words(kd)
+
+    def composed():
+        DA = A * ref.diagonal(kd0, kd1, torch.arange(n, device=A.device))[:, None]
+        if n_pad != n:
+            DA = torch.cat([DA, DA.new_zeros((n_pad - n, k))])
+        return ops.fwht(DA)[ids.to(A.device)] * common.inv_sqrt(m)
+
+    fwd = lambda: ops.srht_forward(kd0, kd1, ids, A, n_pad)
+    y = fwd()
+    plain, plain_s = host_s(lambda: ref.srht_forward(kd0, kd1, ids, A, n_pad))
+    bitwise = torch.equal(y, plain)
+    abs_err = float((y - plain).abs().max())
+    del plain
+    rerun = torch.equal(fwd(), y)
+    composed_bitwise = torch.equal(composed(), y)
+    ms, _ = cuda_ms(fwd, 5)
+    composed_ms, _ = cuda_ms(composed, 5)
+    b_ms, b_by = srht_forward_bound_ms(n, k, m, n_pad)
+    report = {"n": n, "k": k, "m": m, "n_pad": n_pad, "passes": list(cuda.plan_fwht(n_pad)), "ms": ms,
+              "composed_ms": composed_ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,
+              "plan_floor_ms": srht_forward_floor_ms(n, k, m, n_pad), "bitwise_equal_plain": bitwise,
+              "max_abs_err": abs_err, "rerun_bitwise": rerun, "composed_bitwise": composed_bitwise}
+    emit({"phase": "srht_forward", **report})
+    check(bitwise, f"srht_forward on ({n}, {k}) -> {m} rows is not bitwise equal to its plain version")
+    check(rerun and composed_bitwise,
+          f"srht_forward on ({n}, {k}): rerun {rerun}, composition {composed_bitwise} not bitwise equal")
     return report
 
 
@@ -1027,7 +1105,7 @@ def phase_main_path(cfg, rows: dict):
 
 def phase_new_paths(cfg, rows: dict, key, A, b, gate) -> None:
     """The hybrid, uniform sampling, the two-pass reference and leverage sampling,
-    each run twice (bitwise equal), with the S·A and FWHT kernel calls each makes."""
+    each run twice (bitwise equal), with the S·A and SRHT forward kernel calls each makes."""
     from repro_torch.core import distributed, operators, sketches as sk
     from repro_torch.kernels import cuda
     from repro_torch.utils import prng
@@ -1059,7 +1137,8 @@ def phase_new_paths(cfg, rows: dict, key, A, b, gate) -> None:
     phase_trace("master_hybrid_sjlt_traced", path(master, hybrid("sjlt"), cfg.q))
     twice("master_uniform", path(master, sk.SketchSpec("uniform", cfg.m, replacement=False), cfg.q), {},
           cfg.q, THEORY_BAND["uniform"])
-    for inner, name in (("gaussian", "gaussian_sketch"), ("rademacher", "rademacher_sketch"), ("srht", "fwht")):
+    for inner, name in (("gaussian", "gaussian_sketch"), ("rademacher", "rademacher_sketch"),
+                        ("srht", "srht_forward")):
         _, counts = twice(f"worker_hybrid_{inner}", path(worker, hybrid(inner), SIDE_Q), {name: SIDE_Q},
                           SIDE_Q, THEORY_BAND[f"hybrid_{inner}"])
         rows[name].setdefault("launches_by_path", {})[f"worker_hybrid_{inner}"] = counts.get(name, 0)
@@ -1068,7 +1147,7 @@ def phase_new_paths(cfg, rows: dict, key, A, b, gate) -> None:
     for family in ("gaussian", "rademacher", "srht", "sjlt"):
         spec = sk.SketchSpec(family, cfg.m, s=SJLT_S, use_kernel=True)
         if family == "srht":
-            name, want = "fwht", SIDE_Q
+            name, want = "srht_forward", SIDE_Q
         else:
             name = APPLY_ROUTES[family][1]
             want = -(-SIDE_Q // cuda.worker_chunk(cfg.n, cfg.m, dx, SIDE_Q, family=family, s=SJLT_S,
@@ -1243,13 +1322,14 @@ def phase_ln_apply(rows: dict) -> None:
     """The forward kernels at the shapes the least-norm paths give them, on
     Gaussian data: each S·A kernel (rows 6, 7, 12) on X = Aᵀ (d × n) and on the
     hybrid's m′ sampled rows of it, at FIG4A and, for the Gaussian, the Fig. 4(b)
-    shape (eight column tiles); the FWHT (row 13) on the SRHT's forward (Aᵀ
+    shape (eight column tiles); the FWHT (row 13b) on the SRHT's forward (Aᵀ
     zero-padded to next_pow2(d) and next_pow2(m′) rows) and on the one and 33
-    columns its adjoint transforms (m sampled rows scattered into those)."""
+    columns its adjoint transforms (m sampled rows scattered into those); the
+    fused SRHT forward (row 13a) on Aᵀ and its m′ rows, m sampled rows."""
     import torch
 
     from repro_torch.configs.paper_lsq import FIG4A
-    from repro_torch.core import sketches as sk
+    from repro_torch.core import operators, sketches as sk
     from repro_torch.utils import prng
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
@@ -1279,6 +1359,9 @@ def phase_ln_apply(rows: dict) -> None:
             x[hit] = torch.randn((FIG4A.m, k), generator=g, device=DEVICE)
             shapes.append(fwht_check(x))
         rows["fwht"].setdefault("least_norm_shapes", []).extend(shapes)
+        kd, ids = operators.srht_params(keys[0], FIG4A.m, n_pad)
+        rows["srht_forward"].setdefault("least_norm_shapes", []).append(
+            srht_forward_check(kd, ids, X[:rows_in], n_pad))
 
 
 def ln_problem(tag: str, n: int, d: int, seed: int):
@@ -1309,10 +1392,11 @@ def ln_spec(kind: str, m: int, m_prime: int, use_kernel: bool = True):
 
 # Kernel calls per worker of a least-norm path with kernels on: one forward S·Aᵀ
 # and, for the Gaussian, one adjoint over the S that forward kept (the redraw
-# kernel only where S would not fit the scratch); the SRHT transforms forward and
-# back. A hybrid makes its inner kind's calls; sampling makes none.
+# kernel only where S would not fit the scratch); the SRHT's fused forward and
+# the FWHT of its adjoint. A hybrid makes its inner kind's calls; sampling makes none.
 LN_KERNEL_CALLS = {"gaussian": {"gaussian_sketch": 1, "gaussian_adjoint_kept": 1},
-                   "rademacher": {"rademacher_sketch": 1}, "srht": {"fwht": 2}, "sjlt": {"sjlt_apply": 1}}
+                   "rademacher": {"rademacher_sketch": 1}, "srht": {"srht_forward": 1, "fwht": 1},
+                   "sjlt": {"sjlt_apply": 1}}
 LN_FIG4_KINDS = ("gaussian", "uniform_norep", "hybrid_gaussian")  # the paper's Fig. 4 sketches
 LN_SIDE_KINDS = ("gaussian", "rademacher", "srht", "sjlt", "leverage", "uniform", "hybrid_gaussian",
                  "hybrid_rademacher", "hybrid_sjlt", "hybrid_srht")
@@ -1356,7 +1440,9 @@ def phase_least_norm(rows: dict) -> None:
         path(f"least_norm_fig4a_{kind}", kind, *shape, FIG4A.q, FIG4A.m, FIG4A.m_prime)
     q = LN_Q_SIDE
     for kind in LN_SIDE_KINDS:
-        x_kernel, *_ = path(f"least_norm_fig4a_{kind}_q{q}", kind, *shape, q, FIG4A.m, FIG4A.m_prime)
+        x_kernel, counts, _ = path(f"least_norm_fig4a_{kind}_q{q}", kind, *shape, q, FIG4A.m, FIG4A.m_prime)
+        if kind == "srht":  # the SRHT adjoint's FWHT runs on this path alone
+            rows["fwht"]["launches"] = counts.get("fwht", 0)
         if kind.removeprefix("hybrid_") not in LN_KERNEL_CALLS:
             continue
         x_plain, *_ = path(f"least_norm_fig4a_{kind}_plain", kind, *shape, q, FIG4A.m, FIG4A.m_prime,
@@ -1457,7 +1543,7 @@ def main() -> int:
         del A, b
         phase_kernels(X, FIG3A.m, rows)
         phase_apply_kernels(X, FIG3A.m, FIG3A.m_prime, rows)
-        phase_fwht(X, FIG3A.m_prime, rows)
+        phase_fwht(X, FIG3A.m, FIG3A.m_prime, rows)
         del X
         torch.cuda.empty_cache()
         phase_main_path(FIG3A, rows)

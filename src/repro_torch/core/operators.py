@@ -459,14 +459,15 @@ def srht_params(keys: torch.Tensor, m: int, n_pad: int):
 class SRHTOp(SketchOp):
     """Randomized Hadamard (ROS): S = (1/√m) · P · H · D on the 2^⌈log n⌉ padding.
 
-    ``apply`` is D·A, zero rows up to n_pad, the O(n log n) FWHT (the CUDA FWHT
-    kernel with ``spec.use_kernel``, else the plain ``sketches._fwht``), then the
-    m sampled rows scaled by 1/√m; ``adjoint`` is its transpose: a scatter of the
-    m rows into n_pad (:func:`_scatter_rows`), the same FWHT, the first n rows
-    times D and 1/√m. ``columns`` builds Hadamard tiles
-    H[r, j] = (−1)^popcount(r & j) on the fly (the closed form the SRHT
-    sketch→Gram kernel draws), which is what makes blocked and streamed
-    application possible without the full transform.
+    ``apply`` is D·A, zero rows up to n_pad, the O(n log n) FWHT, then the m
+    sampled rows scaled by 1/√m: with ``spec.use_kernel`` one call into the fused
+    SRHT forward kernel (``fwht.ops.srht_forward``, its plain version on a CPU
+    tensor), else that plain composition; ``adjoint`` is its transpose: a
+    scatter of the m rows into n_pad (:func:`_scatter_rows`), the FWHT (the CUDA
+    FWHT kernel with ``spec.use_kernel``), the first n rows times D and 1/√m.
+    ``columns`` builds Hadamard tiles H[r, j] = (−1)^popcount(r & j) on the fly
+    (the closed form the SRHT sketch→Gram kernel draws), which is what makes
+    blocked and streamed application possible without the full transform.
     """
 
     kd0: int = 0  # diagonal key words (D)
@@ -499,11 +500,13 @@ class SRHTOp(SketchOp):
 
     def apply(self, A: torch.Tensor) -> torch.Tensor:
         A2, batch = _to_2d(A, self.n)
-        j = torch.arange(self.n, dtype=torch.int64, device=A.device)
-        DA = A2.to(torch.float32) * self._signs(j)[:, None]
-        if self.n_pad != self.n:
-            DA = torch.cat([DA, DA.new_zeros((self.n_pad - self.n, DA.shape[1]))])
-        out = self._fwht(DA)[self.rows.to(A.device)] * common.inv_sqrt(self.m)
+        if self.spec.use_kernel:
+            from repro_torch.kernels.fwht import ops
+
+            forward = ops.srht_forward
+        else:
+            forward = fref.srht_forward
+        out = forward(self.kd0, self.kd1, self.rows, A2.to(torch.float32).contiguous(), self.n_pad)
         return out.to(A.dtype).reshape((self.m,) + batch)
 
     def adjoint(self, Y: torch.Tensor, *, block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
@@ -711,7 +714,7 @@ class HybridOp(SketchOp):
     from k1, the inner operator (kind ``spec.inner``, with ``spec.s`` and
     ``spec.use_kernel``) from k2 over n = m′ — so an SRHT inner sketch pads to
     next_pow2(m′). With ``spec.use_kernel`` the inner ``apply`` is that kind's
-    S·A kernel (or the FWHT kernel), and a Gaussian inner ``adjoint`` the
+    S·A kernel (the SRHT's fused forward), and a Gaussian inner ``adjoint`` the
     Gaussian adjoint kernel; ``apply_with_adjoint`` passes the inner operator's
     (a Gaussian keeps its S) through the gather and the scatter.
     """

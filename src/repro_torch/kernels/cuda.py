@@ -8,7 +8,8 @@ into ``build/repro_torch_kernels/`` at the root of the checkout:
   one sketch pass on the tensor cores (``repro_dense_gram``);
 * ``sketch_apply`` — the dense S·A (Gaussian, Rademacher) on the tensor cores;
 * ``sjlt_gram``   — the sparse SJLT sketch→Gram and S·A (a bin pass and a scatter pass);
-* ``fwht``        — the fast Walsh-Hadamard transform;
+* ``fwht``        — the fast Walsh-Hadamard transform, and the SRHT's S·A on it
+  (the diagonal at its first pass's loads, only the sampled rows written by its last);
 * ``adjoint``     — the Gaussian adjoint Sᵀ·Y: over an S the forward S·A kept
   (``repro_adjoint_kept``), or with S drawn again (``repro_gaussian_adjoint``);
 * ``rng_probe``   — the device counter RNG alone, for checking it bitwise;
@@ -40,6 +41,7 @@ import time
 from collections.abc import Callable
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import common
@@ -96,9 +98,13 @@ SJLT_BLOCK_COLS, SJLT_CLASSES, SJLT_STAGES = 32, 32, 4
 SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS, SJLT_MAX_BINS, SJLT_MAX_ACC = 64, 2048, 1024, 1 << 16
 SJLT_SMEM = 232_448
 SJLT_TARGET_BLOCKS = 4 * 132
-# FWHT passes of csrc/fwht.cu: a block holds 2**FWHT_MAX_TILE_BITS rows of 32
-# columns (128 KB) in shared memory, so a pass runs at most that many stages.
+# FWHT passes of csrc/fwht.cu: a block holds 2**FWHT_MAX_TILE_BITS rows of a
+# column strip in shared memory, so a pass runs at most that many stages. The
+# SRHT forward's scratch between its passes has rows of whole
+# FWHT_SCRATCH_ALIGN floats (csrc/fwht.cu SCRATCH_ALIGN; the C entry refuses
+# another row length).
 FWHT_MAX_TILE_BITS = 10
+FWHT_SCRATCH_ALIGN = 32
 # Gaussian adjoints of csrc/adjoint.cu. The redraw kernel's block owns
 # ADJOINT_ROWS output rows (one a thread), ADJOINT_COLS columns when k > 1 (all
 # of k = 1 otherwise) and one split of the m sketch rows; the kept-S kernel's
@@ -231,8 +237,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_sjlt_bins.argtypes = [LL, I, P, I, I, I, LL, I, I, I, P, P]
         lib.repro_sjlt_bins.restype = I
     elif name == "fwht":
-        lib.repro_fwht.argtypes = [P, P, LL, I, ctypes.POINTER(I), I, P]
+        lib.repro_fwht.argtypes = [P, P, LL, I, LL, I, I, P]
         lib.repro_fwht.restype = I
+        lib.repro_srht_forward.argtypes = [P, LL, I, U, U, P, I, F, P, P, LL, LL, LL, I, I, P]
+        lib.repro_srht_forward.restype = I
     elif name == "adjoint":
         lib.repro_gaussian_adjoint.argtypes = [P, I, I, LL, U, U, F, I, I, I, P, P, P]
         lib.repro_gaussian_adjoint.restype = I
@@ -752,30 +760,91 @@ def plan_fwht(n: int) -> tuple[int, ...]:
     return tuple(base + (p < extra) for p in range(passes))
 
 
+@functools.lru_cache(maxsize=64)
+def _packed_fwht_plan(n: int) -> tuple[int, int]:
+    """(the stage counts of :func:`plan_fwht` packed 4 bits a pass, pass p in
+    bits 4p..4p+3; the passes): the plan as the C entries take it."""
+    plan = plan_fwht(n)
+    return sum(t << (4 * p) for p, t in enumerate(plan)), len(plan)
+
+
+def _check_2d_float32(name: str, x: torch.Tensor) -> None:
+    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous 2-D float32 tensor, got {x.dtype} {tuple(x.shape)} "
+            f"contiguous={x.is_contiguous()}"
+        )
+
+
 def fwht(x: torch.Tensor, *, launches: collections.Counter, name: str) -> torch.Tensor:
     """H·x for the CUDA tensor x (n, k) float32, contiguous, n a power of two, in
     the passes of :func:`plan_fwht` (the first reads x, the rest work in place
-    on the result). Adds one to ``launches[name]`` per call into the C entry."""
-    if x.device.type != "cuda":
+    on the result). One allocation (the output); the C entry makes x's device
+    current for the launches. Adds one to ``launches[name]`` per call into it."""
+    if not x.is_cuda:
         raise ValueError(f"fwht launches a CUDA kernel; x is on {x.device}")
-    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
-        raise ValueError(
-            f"x must be a contiguous 2-D float32 tensor, got {x.dtype} {tuple(x.shape)} "
-            f"contiguous={x.is_contiguous()}"
-        )
+    _check_2d_float32("x", x)
     n, k = x.shape
     if not (0 < k < 2**31 and n * k < 2**62):
         raise ValueError(f"unsupported shape n={n} k={k}")
-    plan = plan_fwht(n)
-    lib = _library("fwht")
-    bits = (ctypes.c_int * len(plan))(*plan)
+    packed, passes = _packed_fwht_plan(n)
+    lib = _LIBS.get("fwht") or _library("fwht")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        code = lib.repro_fwht(x.data_ptr(), y.data_ptr(), n, k, bits, len(plan),
-                              torch.cuda.current_stream(x.device).cuda_stream)
-    _check(lib, code, "fwht launch")
+    dev = x.get_device()
+    code = lib.repro_fwht(x.data_ptr(), y.data_ptr(), n, k, packed, passes, dev,
+                          torch._C._cuda_getCurrentRawStream(dev))
+    if code:
+        _check(lib, code, "fwht launch")
     launches[name] += 1
     return y
+
+
+def srht_forward(kd0: int, kd1: int, rows: torch.Tensor, A: torch.Tensor, n_pad: int, *,
+                 launches: collections.Counter, name: str) -> torch.Tensor:
+    """The SRHT's S·A (m, k) = (H·pad(D·A, n_pad))[rows] · inv_sqrt(m) for the CUDA
+    tensor A (n, k) float32, contiguous, n <= n_pad (a power of two, at most
+    2**31), D the Rademacher diagonal of key words (kd0, kd1) and ``rows`` the m
+    sampled Hadamard row ids, a 1-D integer tensor on the CPU (as ``SRHTOp``
+    keeps them), each in [0, n_pad). One call into ``csrc/fwht.cu``
+    ``repro_srht_forward``: D at the first pass's loads, only the sampled rows
+    written by the last, on the passes of :func:`plan_fwht` (a scratch between
+    them); each last-pass block scans the ids on the card for its group.
+    Allocations: the output, the scratch (two or more passes) and the ids on the
+    card, copied as int32 through a pinned buffer, so no call waits for the
+    card. Adds one to ``launches[name]``."""
+    if not A.is_cuda:
+        raise ValueError(f"srht_forward launches a CUDA kernel; A is on {A.device}")
+    _check_2d_float32("A", A)
+    if rows.device.type != "cpu" or rows.ndim != 1 or rows.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"rows must be a 1-D int32 or int64 tensor on the CPU, got {rows.dtype} "
+                         f"{tuple(rows.shape)} on {rows.device}")
+    n, k = A.shape
+    m = rows.shape[0]
+    packed, passes = _packed_fwht_plan(n_pad)
+    if not (0 < n <= n_pad <= 2**31 and 0 < k < 2**31 and 0 < m < 2**31
+            and n_pad * common.round_up(k, FWHT_SCRATCH_ALIGN) < 2**62):
+        raise ValueError(f"unsupported shape n={n} k={k} m={m} n_pad={n_pad}")
+    ids = rows.numpy()
+    if ids.view(np.uint64 if ids.itemsize == 8 else np.uint32).max() >= n_pad:  # a negative id wraps past n_pad
+        raise ValueError(f"sampled row ids must lie in [0, n_pad = {n_pad})")
+    staged = torch.empty(m, dtype=torch.int32, pin_memory=True)
+    staged.numpy()[:] = ids
+    ids_dev = staged.to(A.device, non_blocking=True)
+    out = A.new_empty((m, k))
+    ld = common.round_up(k, FWHT_SCRATCH_ALIGN)
+    scratch = None
+    if passes > 1:  # the rows every pass but the last can make nonzero
+        lo = n_pad.bit_length() - 1 - plan_fwht(n_pad)[-1]
+        scratch = A.new_empty((common.round_up(n, 1 << lo), ld))
+    dev = A.get_device()
+    lib = _LIBS.get("fwht") or _library("fwht")
+    code = lib.repro_srht_forward(A.data_ptr(), n, k, kd0, kd1, ids_dev.data_ptr(), m, common.inv_sqrt(m),
+                                  out.data_ptr(), None if scratch is None else scratch.data_ptr(), ld, n_pad,
+                                  packed, passes, dev, torch._C._cuda_getCurrentRawStream(dev))
+    if code:
+        _check(lib, code, "srht_forward launch")
+    launches[name] += 1
+    return out
 
 
 @functools.lru_cache(maxsize=256)

@@ -1,10 +1,16 @@
-"""FWHT and SRHT sketch→Gram wrappers: the CUDA kernels on the card, the plain
-versions on the CPU.
+"""FWHT, SRHT forward and SRHT sketch→Gram wrappers: the CUDA kernels on the
+card, the plain versions on the CPU.
 
 ``fwht(x)`` is the unnormalised Walsh-Hadamard transform H·x along axis 0 of x
 (n, k), n a power of two: the plain ``sketches._fwht`` on a CPU tensor, the
-butterfly kernel (``kernel.py``, ``csrc/fwht.cu``) on a CUDA tensor, bitwise
-equal to each other.
+butterfly kernel (``kernel.py``, ``csrc/fwht.cu`` ``repro_fwht``) on a CUDA
+tensor, bitwise equal to each other.
+
+``srht_forward(kd0, kd1, rows, A, n_pad)`` is the SRHT's S·A (m, k):
+``fwht(pad(D·A, n_pad))[rows] · inv_sqrt(m)``, the plain composition
+(``ref.srht_forward``) on a CPU tensor, one call into ``repro_srht_forward``
+(the diagonal at the first pass's loads, only the m sampled rows written) on a
+CUDA tensor, bitwise equal to each other.
 
 ``srht_gram(key_words, rows, A)`` and ``srht_gram_multi(key_words, rows, A)``
 return G = (SA)ᵀ(SA) for the SRHT S = (1/√m)·P·H·D with sampled Hadamard rows
@@ -15,8 +21,9 @@ call the plain version (``ref.py``); on a CUDA tensor they launch the kernel
 bitwise equal to the single form on ``key_words[w]``, ``rows[w]``.
 
 ``LAUNCHES[name]`` counts the calls into the kernels' C entries that wrapper
-``name`` made: one per ``fwht`` call (all its passes) and single-key Gram, one
-per chunk of workers (``cuda.worker_chunk``) for the multi Gram.
+``name`` made: one per ``fwht`` or ``srht_forward`` call (all its passes) and
+single-key Gram, one per chunk of workers (``cuda.worker_chunk``) for the multi
+Gram.
 """
 from __future__ import annotations
 
@@ -50,3 +57,11 @@ def fwht(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return ref.fwht(x)
     return kernel.fwht_tiles(x, launches=LAUNCHES, name="fwht")
+
+
+def srht_forward(kd0: int, kd1: int, rows: torch.Tensor, A: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """S·A (m, k) float32 for S = (1/√m)·P·H·D on the n_pad padding: D keyed by the
+    words (kd0, kd1), P the (m,) sampled Hadamard row ids ``rows``."""
+    if A.device.type == "cpu":
+        return ref.srht_forward(kd0, kd1, rows, A, n_pad)
+    return kernel.srht_forward_tiles(kd0, kd1, rows, A, n_pad, launches=LAUNCHES, name="srht_forward")

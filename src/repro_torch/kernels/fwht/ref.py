@@ -1,7 +1,11 @@
-"""Plain PyTorch versions of the FWHT and the SRHT sketch→Gram kernels.
+"""Plain PyTorch versions of the FWHT, the SRHT forward and the SRHT sketch→Gram
+kernels.
 
 The FWHT's is ``sketches._fwht`` (radix-2 butterflies in the order h = 1, 2,
-4, ...), re-exported here as :func:`fwht`. The SRHT Gram's materialize S tiles from the Sylvester closed form
+4, ...), re-exported here as :func:`fwht`. The SRHT forward's,
+:func:`srht_forward`, is the composition ``SRHTOp.apply`` made before the fused
+kernel: D·A, zero rows up to n_pad, the full FWHT, the sampled rows times
+1/√m. The SRHT Gram's materialize S tiles from the Sylvester closed form
 ``S[r, j] = (1/√m)·(−1)^popcount(rows[r] & j)·D[j]`` (``rows`` the sampled
 Hadamard row ids, D the Rademacher diagonal from ``counter_rademacher(kd, j, 0)``,
 j the global data row) in blocks of data rows, and contract them with plain
@@ -28,6 +32,16 @@ def parity(x: torch.Tensor) -> torch.Tensor:
 def diagonal(kd0: int, kd1: int, j: torch.Tensor) -> torch.Tensor:
     """D[j] = ±1 (float32) at the global data rows j."""
     return common.counter_rademacher(kd0, kd1, j, 0)
+
+
+def srht_forward(kd0: int, kd1: int, rows: torch.Tensor, A: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """(H·pad(D·A, n_pad))[rows] · inv_sqrt(m), (m, k) float32, for A (n, k), the
+    diagonal key words (kd0, kd1) and the (m,) sampled Hadamard row ids."""
+    n = A.shape[0]
+    DA = A.to(torch.float32) * diagonal(kd0, kd1, torch.arange(n, dtype=torch.int64, device=A.device))[:, None]
+    if n_pad != n:
+        DA = torch.cat([DA, DA.new_zeros((n_pad - n, DA.shape[1]))])
+    return fwht(DA)[rows.to(A.device)] * common.inv_sqrt(rows.shape[0])
 
 
 def columns(kd0: int, kd1: int, rows: torch.Tensor, j0: int, block: int, device=None) -> torch.Tensor:

@@ -10,6 +10,8 @@ plain version, per column: max_i |ΔSX_ij| / rms_i(SX_ij) ≤ 1e-5. The FWHT ker
 is bitwise its plain version. Slices of a multi-key launch are bitwise equal to
 single-key launches.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -735,6 +737,86 @@ def test_fwht_kernel_on_the_srht_adjoint_shapes(cuda, log_n, k):
     rows = torch.randint(0, 1 << log_n, (500,), generator=torch.Generator().manual_seed(log_n))
     x[rows.to(cuda)] = _x(500, k, k, cuda)
     assert torch.equal(fops.fwht(x), fref.fwht(x))
+
+
+def _srht_case(log_n, k, m, seed, device):
+    """(kd0, kd1, rows, A, n_pad) of an SRHT at n_pad = 2**log_n with ragged n
+    (n_pad − n_pad // 3 rows), m sampled rows (repeats where m nears n_pad)."""
+    n_pad = 1 << log_n
+    n = n_pad - n_pad // 3
+    op = operators.make_operator(sketches.SketchSpec("srht", m), prng.prng_key(seed), n)
+    assert op.n_pad == n_pad
+    return op.kd0, op.kd1, op.rows, _x(n, k, seed, device), n_pad
+
+
+@pytest.mark.parametrize("log_n", list(range(0, 21)))
+@pytest.mark.parametrize("k", [1, 33, 251])
+def test_srht_forward_is_bitwise_the_plain_version(cuda, log_n, k):
+    """The fused SRHT forward at n_pad = 1 to 2**20 (one, two and the first
+    three-pass plans' edges), ragged n, m = 2,500 sampled rows (every row many
+    times at small n_pad; groups of the last pass with no sampled row at
+    2**19), one launch a call, bitwise its plain version and its rerun."""
+    if k == 251 and log_n > 19:
+        k = 33
+    kd0, kd1, rows, A, n_pad = _srht_case(log_n, k, 2500, log_n, cuda)
+    before = dict(fops.LAUNCHES)
+    got = fops.srht_forward(kd0, kd1, rows, A, n_pad)
+    assert fops.LAUNCHES["srht_forward"] == before.get("srht_forward", 0) + 1
+    assert fops.LAUNCHES["fwht"] == before.get("fwht", 0)
+    assert got.shape == (2500, k)
+    assert torch.equal(got, fref.srht_forward(kd0, kd1, rows, A, n_pad))
+    assert torch.equal(fops.srht_forward(kd0, kd1, rows, A, n_pad), got)
+
+
+@pytest.mark.parametrize("log_n,m", [(2, 5000), (10, 20000), (11, 9000), (15, 1)])
+def test_srht_forward_with_more_samples_than_a_thread_keeps_bits_of(cuda, log_n, m):
+    """More sampled ids than a last-pass block's threads keep hit bits of (32
+    chunks of the block's 256 or, for the 10-stage tile, 512 threads: the rest
+    read again when written), many hits a group, and a sample of one row (every
+    other group skips)."""
+    kd0, kd1, rows, A, n_pad = _srht_case(log_n, 5, m, 40 + log_n, cuda)
+    assert torch.equal(fops.srht_forward(kd0, kd1, rows, A, n_pad), fref.srht_forward(kd0, kd1, rows, A, n_pad))
+
+
+@pytest.mark.parametrize("kind,n,m_prime", [("srht", 3000, 0), ("hybrid", 3000, 800), ("srht", 1000, 0)])
+def test_srht_apply_on_the_card_goes_through_the_fused_forward(cuda, kind, n, m_prime):
+    """``SRHTOp.apply`` (alone or as the hybrid's inner sketch) with ``use_kernel``
+    is one srht_forward call and no FWHT, bitwise the ``use_kernel=False`` apply."""
+    spec = sketches.SketchSpec(kind, 80, m_prime=m_prime, inner="srht")
+    op = operators.make_operator(dataclasses.replace(spec, use_kernel=True), prng.prng_key(23), n)
+    plain = operators.make_operator(spec, prng.prng_key(23), n)
+    X = _x(n, 13, 24, cuda)
+    fops.LAUNCHES.clear()
+    got = op.apply(X)
+    assert dict(fops.LAUNCHES) == {"srht_forward": 1}
+    assert torch.equal(got, plain.apply(X))
+    assert torch.equal(op.apply(X[:, 3]), got[:, 3])
+
+
+def test_srht_forward_makes_no_synchronising_call(cuda):
+    kd0, kd1, rows, A, n_pad = _srht_case(12, 7, 300, 25, cuda)
+    got, want = _runs_without_sync(lambda: fops.srht_forward(kd0, kd1, rows, A, n_pad))
+    assert torch.equal(got, want)
+
+
+def test_srht_forward_rejects_what_the_kernel_does_not_take(cuda):
+    kd0, kd1, rows, A, n_pad = _srht_case(10, 4, 50, 26, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fops.srht_forward(kd0, kd1, rows, A.double(), n_pad)
+    with pytest.raises(ValueError, match="contiguous"):
+        fops.srht_forward(kd0, kd1, rows, _x(4, A.shape[0], 0, cuda).T, n_pad)
+    with pytest.raises(ValueError, match=r"\[0, n_pad"):
+        fops.srht_forward(kd0, kd1, torch.tensor([0, n_pad]), A, n_pad)
+    with pytest.raises(ValueError, match=r"\[0, n_pad"):
+        fops.srht_forward(kd0, kd1, torch.tensor([-1, 3]), A, n_pad)
+    with pytest.raises(ValueError, match="on the CPU"):
+        fops.srht_forward(kd0, kd1, rows.to(cuda), A, n_pad)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        fops.srht_forward(kd0, kd1, rows.float(), A, n_pad)
+    with pytest.raises(ValueError, match="power-of-two"):
+        fops.srht_forward(kd0, kd1, rows, A, n_pad + 1)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        fops.srht_forward(kd0, kd1, rows, A, n_pad // 2)
 
 
 @pytest.mark.parametrize("k", [None, 3])
