@@ -925,13 +925,15 @@ def check_counts(label: str, counts: dict, expect: dict) -> None:
 
 @dataclass(frozen=True)
 class Gate:
-    """What a path's x̄ (d,) is held to: ``error(x̄)`` over ``pred``, the prediction
-    of ``law`` for q averaged workers, within a band."""
+    """What a path's x̄ (d,) — or X̄ of ``shape`` for several targets — is held
+    to: ``error(x̄)`` over ``pred``, the prediction of ``law`` for q averaged
+    workers, within a band."""
     d: int
     q: int
     pred: float
     error: Callable
     law: str
+    shape: tuple = ()
 
 
 def theorem1(A64, b64, fstar, m: int, q: int) -> Gate:
@@ -976,7 +978,7 @@ def run_path(label: str, solve, expect: dict, gate: Gate, band=None, *, twice: b
         x2, seconds = host_s(solve)
         report.update(seconds_rerun=seconds, rerun_bitwise=torch.equal(xbar, x2))
     emit(report)
-    check(tuple(xbar.shape) == (gate.d,) and bool(torch.isfinite(xbar).all()), f"{label}: bad x̄")
+    check(tuple(xbar.shape) == (gate.shape or (gate.d,)) and bool(torch.isfinite(xbar).all()), f"{label}: bad x̄")
     check_counts(label, counts, expect)
     check(not twice or report["rerun_bitwise"], f"{label}: x̄ is not bitwise equal run to run")
     check(lo * gate.pred <= rel <= hi * gate.pred,
@@ -1058,9 +1060,10 @@ def phase_main_path(cfg, rows: dict):
 
     def master_twice(label, family, spec, band=None):
         multi = FAMILY_ROUTES[family][1]
-        _, counts, seconds2 = run_path(label, master(spec, cfg.q), {multi: calls(family, cfg.q)}, gate(cfg.q),
-                                       band, twice=True)
+        xbar, counts, seconds2 = run_path(label, master(spec, cfg.q), {multi: calls(family, cfg.q)}, gate(cfg.q),
+                                          band, twice=True)
         rows[multi]["launches"] = counts.get(multi, 0)
+        master_rel[label] = gate(cfg.q).error(xbar)
         return seconds2
 
     def worker_side(label, family, spec, band=None):
@@ -1068,6 +1071,7 @@ def phase_main_path(cfg, rows: dict):
         _, counts, _ = run_path(label, worker(spec, SIDE_Q), {single: SIDE_Q}, gate(SIDE_Q), band)
         rows[single]["launches"] = counts.get(single, 0)
 
+    master_rel: dict = {}
     gauss = sk.SketchSpec("gaussian", cfg.m, use_kernel=True)
     seconds2 = master_twice("master_gaussian", "gaussian", gauss)
     phase_trace("master_gaussian_traced", master(gauss, cfg.q))
@@ -1101,6 +1105,7 @@ def phase_main_path(cfg, rows: dict):
     del X
     torch.cuda.empty_cache()
     phase_new_paths(cfg, rows, key, A, b, gate)
+    phase_remaining_paths(cfg, rows, key, A, b, A64, b64, fstar, gate, master_rel["master_gaussian"])
 
 
 def phase_new_paths(cfg, rows: dict, key, A, b, gate) -> None:
@@ -1171,6 +1176,287 @@ def phase_new_paths(cfg, rows: dict, key, A, b, gate) -> None:
           "scores_seconds": scores_s, "draw_seconds": draw_s})
     del scores
     twice("worker_leverage", path(worker, lev, LEVERAGE_Q), {}, LEVERAGE_Q, THEORY_BAND["leverage"])
+
+# Paths of the paper's other solvers and data (IHS, multi-round waves, straggler
+# masks, CG, the host-streamed Gram; Fig. 3a's student-t data and Fig. 2's
+# EMNIST-like least squares).
+IHS_ITERS = 10
+IHS_MIN_CUT = 2.0  # each of IHS's first three steps cuts rel_err at least this much
+MULTIROUND_Q, MULTIROUND_R = 50, 4  # waves of workers: an effective q of 200
+STRAGGLER_DROP, STRAGGLER_QUANTILE = 0.1, 0.8
+CG_Q = 8
+HOST_BLOCK_ROWS = (4096, 65_536)
+# Fig. 3a's data: student-t(1.5) entries, noise 0.1 (FIG3A.heavy_tail_df). rel_err /
+# Theorem 1 of the JAX reference on the CPU (tests/theory_ratio.py --student-t 1.5,
+# PERF.md §6), master mode, per kind: (least, most) over seeds 1-4 at FIG3A's shape
+# (n = 500,000, d = 250, m = 2,500, m′ = 25,000, q = 200). The uniform ratio falls
+# with d (4.9-9.3 at d = 25, 3.1-4.7 at d = 100); the hybrid's too (1.8-5.2, 1.5-2.6).
+# The gate is [least/2, 2·most]. Theorem 1 is exact for the Gaussian on any full-rank
+# A: its band is THEORY_FACTOR's.
+STUDENT_T_RATIO = {"uniform": (2.766, 3.336), "hybrid_sjlt": (1.226, 1.434)}
+STUDENT_T_NOISE = 0.1
+# Fig. 2's EMNIST-like least squares (benchmarks/fig2_emnist.py, full size): 200,000
+# training and 30,000 test rows from one draw (the same class templates), d = 784,
+# 47 one-hot targets, m = 2,000, SJLT s = 20, q = 100. The gate: (f(X̄) − f*)/f* over
+# Theorem 1 within [least/2, 2·most] of the reference's ratio on the CPU
+# (tests/theory_ratio.py --emnist, PERF.md §6).
+EMNIST = {"n": 200_000, "n_test": 30_000, "m": 2000, "q": 100}
+# At this full size, seeds 1-4: SJLT 0.9947-1.0010, uniform 0.9794-1.0148.
+EMNIST_RATIO = {"sjlt": (0.994, 1.001), "uniform": (0.979, 1.015)}
+
+
+def phase_remaining_paths(cfg, rows: dict, key, A, b, A64, b64, fstar, gate, master_gaussian_rel: float) -> None:
+    """On FIG3A's Gaussian data: IHS (one Gram kernel call for its 10 keys), the
+    multi-round waves, a straggler mask drawn on the card, the master CG, and
+    the host-streamed Gram."""
+    import torch
+
+    from repro_torch.core import averaging, distributed, ihs, sketches as sk
+    from repro_torch.kernels import cuda
+    from repro_torch.utils import prng
+
+    gauss = sk.SketchSpec("gaussian", cfg.m, use_kernel=True)
+    sjlt = sk.SketchSpec("sjlt", cfg.m, s=SJLT_S, use_kernel=True)
+
+    # IHS: all 10 Hessians from one multi-key Gram of A (no b column), then 10 solves.
+    chunk = cuda.worker_chunk(cfg.n, cfg.m, cfg.d, IHS_ITERS, family="gaussian")
+    want = {"gaussian_gram_multi": -(-IHS_ITERS // chunk)}
+    run = lambda: ihs.ihs_trace(gauss, key, A, b, iters=IHS_ITERS, device=DEVICE)
+    reset_counts()
+    trace, seconds = host_s(run)
+    counts = read_counts()
+    trace2, seconds2 = host_s(run)
+    rel = [gate(1).error(torch.zeros_like(trace[0]))] + [gate(1).error(x) for x in trace]
+    cuts = [rel[t] / rel[t + 1] for t in range(len(rel) - 1)]
+    emit({"phase": "ihs_fig3a_gaussian", "iters": IHS_ITERS, "m": cfg.m, "seconds": seconds,
+          "seconds_rerun": seconds2, "rel_err": rel, "step_cuts": cuts, "master_gaussian_rel_err": master_gaussian_rel,
+          "theory_q200": gate(cfg.q).pred, "launches": counts, "rerun_bitwise": torch.equal(trace, trace2)})
+    check_counts("ihs_fig3a_gaussian", counts, want)
+    check(torch.equal(trace, trace2), "ihs_fig3a_gaussian: the trace is not bitwise equal run to run")
+    check(bool(torch.isfinite(trace).all()), "ihs_fig3a_gaussian: non-finite iterates")
+    check(all(c >= IHS_MIN_CUT for c in cuts[:3]), f"ihs_fig3a_gaussian: first steps cut rel_err by {cuts[:3]}")
+    check(rel[-1] < master_gaussian_rel,
+          f"ihs_fig3a_gaussian: rel_err {rel[-1]} after {IHS_ITERS} steps not below the q = 200 x̄'s {master_gaussian_rel}")
+    rows["gaussian_gram_multi"].setdefault("launches_by_path", {})["ihs_fig3a_gaussian"] = counts.get(
+        "gaussian_gram_multi", 0)
+
+    # Multi-round waves: R waves of q workers, worker-side SJLT, gated at q = R·q.
+    waves = lambda r: lambda: distributed.distributed_sketch_solve_multiround(
+        sjlt, key, A, b, q=MULTIROUND_Q, rounds=r, device=DEVICE)
+    run_path("multiround_sjlt", waves(MULTIROUND_R), {"sjlt_gram": MULTIROUND_Q * MULTIROUND_R},
+             gate(MULTIROUND_Q * MULTIROUND_R), THEORY_BAND["sjlt"], twice=True, rows=rows,
+             rounds=MULTIROUND_R, workers_a_round=MULTIROUND_Q)
+    one = waves(1)()
+    single = distributed.distributed_sketch_solve(sjlt, key, A, b, q=MULTIROUND_Q, device=DEVICE)
+    emit({"phase": "multiround_one_round", "q": MULTIROUND_Q, "bitwise_equal_distributed_sketch_solve":
+          torch.equal(one, single)})
+    check(torch.equal(one, single), "multiround_sjlt: rounds=1 is not bitwise distributed_sketch_solve")
+
+    # A straggler mask drawn on the card feeds the master: Theorem 1 at the realized q'.
+    mkey = prng.prng_key(SEED + 7)
+    mask, mask_s = host_s(lambda: averaging.simulate_straggler_mask(
+        mkey, cfg.q, drop_prob=STRAGGLER_DROP, deadline_quantile=STRAGGLER_QUANTILE, device=DEVICE))
+    on_cpu = averaging.simulate_straggler_mask(mkey, cfg.q, drop_prob=STRAGGLER_DROP,
+                                               deadline_quantile=STRAGGLER_QUANTILE, device="cpu")
+    arrived = int(mask.sum())
+    emit({"phase": "straggler_mask", "q": cfg.q, "drop_prob": STRAGGLER_DROP, "deadline_quantile": STRAGGLER_QUANTILE,
+          "arrived": arrived, "seconds": mask_s, "bitwise_equal_cpu_draw": torch.equal(mask.cpu(), on_cpu)})
+    check(torch.equal(mask.cpu(), on_cpu), "straggler_mask: the card's mask is not the CPU's")
+    calls_g = -(-cfg.q // cuda.worker_chunk(cfg.n, cfg.m, cfg.d + 1, cfg.q, family="gaussian"))
+    run_path("master_gaussian_stragglers", lambda: distributed.distributed_sketch_solve_master(
+        gauss, key, A, b, q=cfg.q, straggler_mask=mask, device=DEVICE), {"gaussian_gram_multi": calls_g},
+        gate(arrived), twice=True, rows=rows, arrived=arrived)
+
+    # CG on each worker's sketched problem (the two-pass master), against the fused x̄.
+    chunk_a = cuda.worker_chunk(cfg.n, cfg.m, cfg.d + 1, CG_Q, family="gaussian", apply=True)
+    x_cg, _, _ = run_path("master_cg_gaussian", lambda: distributed.distributed_sketch_solve_master(
+        gauss, key, A, b, q=CG_Q, method="cg", device=DEVICE), {"gaussian_sketch_multi": -(-CG_Q // chunk_a)},
+        gate(CG_Q), twice=True, rows=rows)
+    x_fused = distributed.distributed_sketch_solve_master(gauss, key, A, b, q=CG_Q, device=DEVICE)
+    diff = float((x_cg - x_fused).abs().max() / x_fused.abs().max())
+    emit({"phase": "master_cg_gaussian_vs_fused", "q": CG_Q, "max_rel_diff": diff, "tol": QR_FUSED_TOL})
+    check(diff <= QR_FUSED_TOL, f"master_cg_gaussian: x̄ {diff} off the fused x̄ (same S)")
+
+    phase_host_stream(cfg, rows, key, A, b)
+
+
+def phase_host_stream(cfg, rows: dict, key, A, b) -> None:
+    """``gram_blocked_host`` over FIG3A's [A | b] in pinned host memory, in tiles
+    of HOST_BLOCK_ROWS rows, for the Gaussian and SJLT S·A kernels at their row
+    offsets, against ``gram_blocked`` on the card (the Gram rows' measure):
+    exact kernel calls, a bitwise rerun, ms, the stream's GB/s (the bytes over
+    the whole call: staging, copies, kernels, sums), one plain ``copy_`` of the
+    same bytes, and the host's staging of every tile into a pinned buffer alone."""
+    import torch
+
+    from repro_torch.core import operators, sketches as sk
+
+    X = torch.cat([A, b[:, None]], dim=1)
+    host = torch.empty(X.shape, dtype=torch.float32, pin_memory=DEVICE != "cpu")
+    host.copy_(X)
+    Xh = host.numpy()
+    nbytes = host.numel() * 4
+    dev_copy = torch.empty_like(X)
+    plain_s = min(host_s(lambda: dev_copy.copy_(host, non_blocking=True))[1] for _ in range(3))
+    del dev_copy
+    staging = torch.empty((max(HOST_BLOCK_ROWS), Xh.shape[1]), dtype=torch.float32, pin_memory=DEVICE != "cpu")
+
+    def stage_all(bs: int) -> None:  # what gram_blocked_host's host side does to each tile, alone
+        view = staging.numpy()
+        for j0 in range(0, cfg.n, bs):
+            rows = min(bs, cfg.n - j0)
+            view[:rows] = Xh[j0 : j0 + rows]
+
+    for family, name in (("gaussian", "gaussian_sketch"), ("sjlt", "sjlt_apply")):
+        spec = sk.SketchSpec(family, cfg.m, s=SJLT_S, use_kernel=True)
+        want = operators.gram_blocked(spec, key, X)[0]
+        for bs in HOST_BLOCK_ROWS:
+            label = f"host_stream_{family}_{bs}"
+            run = lambda: operators.gram_blocked_host(spec, key, Xh, None, block_rows=bs, device=DEVICE)[0]
+            reset_counts()
+            G, seconds = host_s(run)
+            counts = read_counts()
+            G2, seconds2 = host_s(run)
+            err = gram_err(G, want)
+            tiles = -(-cfg.n // bs)
+            stage_s = min(host_s(lambda: stage_all(bs))[1] for _ in range(2))
+            emit({"phase": label, "block_rows": bs, "tiles": tiles, "bytes": nbytes, "seconds": seconds,
+                  "seconds_rerun": seconds2, "stream_gb_s": nbytes / min(seconds, seconds2) / 1e9,
+                  "plain_copy_seconds": plain_s, "plain_copy_gb_s": nbytes / plain_s / 1e9,
+                  "host_staging_seconds": stage_s, "host_staging_gb_s": nbytes / stage_s / 1e9,
+                  "entry_rel_err_vs_gram_blocked": err, "tol": GRAM_TOL, "launches": counts,
+                  "rerun_bitwise": torch.equal(G, G2)})
+            check_counts(label, counts, {name: tiles})
+            check(torch.equal(G, G2), f"{label}: G is not bitwise equal run to run")
+            check(err <= GRAM_TOL, f"{label}: G off gram_blocked's by {err}")
+            rows[name].setdefault("launches_by_path", {})[label] = counts.get(name, 0)
+        del want
+    del X, host, staging
+    torch.cuda.empty_cache()
+
+
+def phase_row_offsets(X, m: int, rows: dict) -> None:
+    """Rows 6, 7 and 12 at a row offset: the single-key S·A of a tile of
+    HOST_BLOCK_ROWS[0] rows of FIG3A's X whose first row is data row row0 (the
+    host stream's tile shape), against its plain version at the same offset
+    (SX_TOL), a rerun (bitwise), ms and bound."""
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.utils import prng
+
+    bs = HOST_BLOCK_ROWS[0]
+    row0 = (X.shape[0] // 2) // bs * bs
+    Y = X[row0 : row0 + bs].contiguous()
+    key = prng.prng_key(SEED + 11)
+    for family, (single, _, _) in APPLY_ROUTES.items():
+        ops, ref = family_modules(family)
+        tail = (m, SJLT_S) if family == "sjlt" else (m,)
+        kernel = lambda: getattr(ops, single)(key, Y, *tail, row0=row0)
+        SX = kernel()
+        rerun = torch.equal(kernel(), SX)
+        plain, plain_s = host_s(lambda: ref.sketch(key, Y, *tail, row0=row0))
+        err, abs_err = sx_err(SX, plain), float((SX - plain).abs().max())
+        ms, _ = cuda_ms(kernel, 20)
+        rounds = common.rng_rounds() if family == "gaussian" else common.DEFAULT_ROUNDS
+        report = {"n": bs, "d": Y.shape[1], "m": m, "row0": row0, "ms": ms, "plain_ms": plain_s * 1e3,
+                  **apply_bound(family, bs, Y.shape[1], m, 1, rounds), "max_abs_err": abs_err,
+                  "max_col_rel_err": err, "tol": SX_TOL, "rerun_bitwise": rerun}
+        emit({"phase": "row_offset", "name": single, **report})
+        rows[single]["offset_shape"] = report
+        check(err <= SX_TOL, f"{single} at row0 = {row0} disagrees with its plain version ({err})")
+        check(rerun, f"{single} at row0 = {row0} is not bitwise equal run to run")
+
+
+def ratio_band(ratio) -> tuple:
+    least, most = ratio
+    return (least / 2, 2 * most)
+
+
+def phase_fig3a_student_t(cfg, rows: dict) -> None:
+    """Fig. 3a's own data (student-t(1.5) entries, FIG3A.heavy_tail_df) in master
+    mode at q = 200: the Gaussian (Theorem 1, exact for any full-rank A), uniform
+    sampling without replacement and the hybrid with the SJLT inside (bands
+    around the reference's ratios on the same kind of data); and the float32
+    floor: worker 0's fp32 x̂ against a float64 solve of its own (G, c)."""
+    import torch
+
+    from repro_torch.core import distributed, operators, sketches as sk, solve
+    from repro_torch.data import regression
+    from repro_torch.kernels import cuda
+    from repro_torch.utils import prng
+
+    A, b, _ = regression.student_t_regression(SEED + 13, cfg.n, cfg.d, df=cfg.heavy_tail_df,
+                                              noise=STUDENT_T_NOISE, device=DEVICE)
+    A64, b64 = A.double(), b.double()
+    (xstar, fstar), xs_s = host_s(lambda: _exact(solve, A64, b64))
+    key = prng.prng_key(SEED + 14)
+    gate = lambda q: theorem1(A64, b64, fstar, cfg.m, q)
+    emit({"phase": "fig3a_student_t_data", "df": cfg.heavy_tail_df, "noise": STUDENT_T_NOISE, "exact_seconds": xs_s,
+          "fstar": float(fstar), "fstar_over_b2": float(fstar / (b64 @ b64)), "max_abs_a": float(A.abs().max())})
+    gauss = sk.SketchSpec("gaussian", cfg.m, use_kernel=True)
+    # The float32 floor at this data: one worker's fp32 solve against float64 on the same (G, c).
+    G, c = operators.gram_batched(gauss, prng.worker_keys(key, 1), A, b)
+    x32 = solve.lstsq_gram(G, c)[0]
+    x64 = torch.linalg.solve(G[0].double(), c[0].double())
+    err = gate(1).error
+    floor = abs(err(x32) - err(x64))
+    emit({"phase": "fig3a_student_t_fp32_floor", "worker_rel_err_fp32": err(x32), "worker_rel_err_fp64": err(x64),
+          "floor": floor, "theorem1_q200": gate(cfg.q).pred, "lemma1": gate(1).pred})
+    del G, c
+    master = lambda spec: lambda: distributed.distributed_sketch_solve_master(spec, key, A, b, q=cfg.q, device=DEVICE)
+    calls_g = -(-cfg.q // cuda.worker_chunk(cfg.n, cfg.m, cfg.d + 1, cfg.q, family="gaussian"))
+    run_path("fig3a_student_t_gaussian", master(gauss), {"gaussian_gram_multi": calls_g}, gate(cfg.q), twice=True,
+             rows=rows, fp32_floor=floor)
+    run_path("fig3a_student_t_uniform_norep", master(sk.SketchSpec("uniform", cfg.m, replacement=False)), {},
+             gate(cfg.q), ratio_band(STUDENT_T_RATIO["uniform"]), twice=True, rows=rows)
+    hybrid = sk.SketchSpec("hybrid", cfg.m, m_prime=cfg.m_prime, inner="sjlt", s=SJLT_S, use_kernel=True)
+    run_path("fig3a_student_t_hybrid_sjlt", master(hybrid), {"sjlt_apply": cfg.q}, gate(cfg.q),
+             ratio_band(STUDENT_T_RATIO["hybrid_sjlt"]), twice=True, rows=rows)
+    del A, b, A64, b64
+    torch.cuda.empty_cache()
+
+
+def phase_fig2_emnist(rows: dict) -> None:
+    """Fig. 2's EMNIST-like multiclass least squares at its full size, master
+    mode: the SJLT (the first kernel path with X 831 columns wide and 47
+    targets) and uniform sampling without replacement, each gated on its cost
+    ratio over Theorem 1 against the reference's, with the test accuracy of X̄
+    and of the float64 X*."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import distributed, sketches as sk, solve
+    from repro_torch.data import regression
+    from repro_torch.kernels import cuda
+    from repro_torch.utils import prng
+
+    n, n_test, m, q = EMNIST["n"], EMNIST["n_test"], EMNIST["m"], EMNIST["q"]
+    A_all, B_all, meta = regression.emnist_like(SEED + 17, n + n_test, device=DEVICE)
+    A, B = A_all[:n], B_all[:n]
+    At, labels_t = A_all[n:], meta["labels"][n:]
+    d, k = A.shape[1], B.shape[1]
+    A64, B64 = A.double(), B.double()
+    (Xstar, fstar), xs_s = host_s(lambda: _exact(solve, A64, B64))
+    acc_star = float(regression.accuracy(At.double(), None, Xstar, labels_t))
+    key = prng.prng_key(SEED + 18)
+    gate = dataclasses.replace(theorem1(A64, B64, fstar, m, q), shape=(d, k))
+    emit({"phase": "fig2_emnist_data", "n": n, "n_test": n_test, "d": d, "targets": k, "m": m, "q": q,
+          "exact_seconds": xs_s, "fstar": float(fstar), "test_accuracy_xstar": acc_star})
+    master = lambda spec: lambda: distributed.distributed_sketch_solve_master(spec, key, A, B, q=q, device=DEVICE)
+    chunk = cuda.worker_chunk(n, m, d + k, q, family="sjlt", s=SJLT_S)
+    for label, spec, want, ratio in (
+            ("fig2_emnist_sjlt", sk.SketchSpec("sjlt", m, s=SJLT_S, use_kernel=True),
+             {"sjlt_gram_multi": -(-q // chunk)}, EMNIST_RATIO["sjlt"]),
+            ("fig2_emnist_uniform_norep", sk.SketchSpec("uniform", m, replacement=False), {}, EMNIST_RATIO["uniform"])):
+        Xbar, _, _ = run_path(label, master(spec), want, gate, ratio_band(ratio), twice=True, rows=rows,
+                              targets=k, workers_per_call=chunk if want else None)
+        acc = float(regression.accuracy(At, None, Xbar, labels_t))
+        emit({"phase": f"{label}_accuracy", "test_accuracy_xbar": acc, "test_accuracy_xstar": acc_star})
+    del A_all, B_all, A64, B64
+    torch.cuda.empty_cache()
+
 
 ADJOINT_REPLACES = "src/repro/kernels/gaussian/gram.py:152"
 # (m, n, k) of the Gaussian adjoint on the least-norm paths: the Fig. 4(b) Gaussian
@@ -1544,9 +1830,12 @@ def main() -> int:
         phase_kernels(X, FIG3A.m, rows)
         phase_apply_kernels(X, FIG3A.m, FIG3A.m_prime, rows)
         phase_fwht(X, FIG3A.m, FIG3A.m_prime, rows)
+        phase_row_offsets(X, FIG3A.m, rows)
         del X
         torch.cuda.empty_cache()
         phase_main_path(FIG3A, rows)
+        phase_fig3a_student_t(FIG3A, rows)
+        phase_fig2_emnist(rows)
         phase_adjoint_kernel(rows)
         phase_ln_apply(rows)
         phase_least_norm(rows)

@@ -19,6 +19,10 @@ class RegressionConfig:
     planted: bool = False
 
 
+# Paper Fig. 1 (airline, n=1.21e8×774, m=5e5, q=100) scaled to container size while
+# preserving the ratios m/d ≈ 646 → we keep m/d large and n/m ≈ 242.
+FIG1 = RegressionConfig("fig1_airline", n=2_000_000, d=774 // 4, m=8000, m_prime=80_000, q=100)
+
 # Paper Fig. 3a: A ∈ R^{1e7×1e3}, m=1e4, m'=1e5, student-t(1.5), q=200 — the
 # reference package's container-sized version of it.
 FIG3A = RegressionConfig(

@@ -1,7 +1,7 @@
 """Algorithm 1 on one GPU: q sketch-and-solve workers and the master's average,
-and the §V right-sketch least-norm average.
+its multi-round form, and the §V right-sketch least-norm average.
 
-Port of three entry points of ``repro.core.distributed``. The q workers are a
+Port of four entry points of ``repro.core.distributed``. The q workers are a
 batch over worker keys on one device (the reference shards them over a mesh;
 multi-GPU ``torch.distributed`` is a later slice). Worker w of round r uses
 ``prng.worker_key(key, w, r)``, the reference's key, so both packages draw the
@@ -138,3 +138,46 @@ def distributed_sketch_least_norm(
     A = A.T.contiguous().T  # a view whose transpose is contiguous: no copy per worker
     xs = torch.stack([solve.sketch_least_norm(spec, keys[w], A, b) for w in range(q)])
     return averaging.masked_average(xs, mask, on_empty=on_empty)
+
+
+def distributed_sketch_solve_multiround(
+    spec: sk.SketchSpec,
+    key: torch.Tensor,
+    A: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    q: int,
+    rounds: int,
+    reg: float = 0.0,
+    method: str = "fused",
+    on_empty: str = "nan",
+    latency=None,
+    runtime_config=None,
+    error_fn=None,
+    device=None,
+) -> torch.Tensor:
+    """Elastic scaling in time, synchronous form: ``rounds`` successive waves of q
+    workers, every output averaged (effective q = rounds · q). Wave r is
+    :func:`distributed_sketch_solve` with ``round_id=r`` (worker w of wave r uses
+    ``prng.worker_key(key, w, r)``, the reference's key), and the waves' x̄ are
+    averaged as they come: acc ← acc + (x̄_r − acc)/(r + 1), the reference's
+    running mean. With ``rounds=1`` it is ``distributed_sketch_solve`` bitwise.
+
+    The reference's asynchronous mode (``latency``, ``runtime_config``,
+    ``error_fn``) runs on its serverless runtime, which the port does not have
+    yet (ROADMAP.md Queue 1 item 6, ``runtime/``): passing any of them raises
+    ``NotImplementedError``.
+    """
+    if latency is not None or runtime_config is not None or error_fn is not None:
+        raise NotImplementedError(
+            "the asynchronous multi-round mode runs on the serverless runtime, which the port does not "
+            "have yet (ROADMAP.md Queue 1 item 6, runtime/)"
+        )
+    if rounds < 1:
+        raise ValueError(f"rounds must be at least 1, got {rounds}")
+    acc = None
+    for r in range(rounds):
+        xbar_r = distributed_sketch_solve(spec, key, A, b, q=q, round_id=r, reg=reg, method=method,
+                                          on_empty=on_empty, device=device)
+        acc = xbar_r if acc is None else acc + (xbar_r - acc) / (r + 1.0)
+    return acc

@@ -813,6 +813,129 @@ def gram_blocked(
     return op.gram_blocked(A, b, block_rows=block_rows)
 
 
+def _kernel_tile_sketch(spec: sk.SketchSpec, key: torch.Tensor):
+    """``f(X, row0) = S[:, row0 : row0 + len(X)]·X`` by the kind's S·A kernel with
+    ``spec.use_kernel`` and a Gaussian, Rademacher or SJLT kind (its plain
+    version on a CPU tensor), else None."""
+    if not spec.use_kernel:
+        return None
+    if spec.kind == "gaussian":
+        from repro_torch.kernels.gaussian import ops
+
+        return lambda X, row0: ops.gaussian_sketch(key, X, spec.m, row0=row0)
+    if spec.kind == "rademacher":
+        from repro_torch.kernels.rademacher import ops
+
+        return lambda X, row0: ops.rademacher_sketch(key, X, spec.m, row0=row0)
+    if spec.kind == "sjlt":
+        from repro_torch.kernels.sjlt import ops
+
+        return lambda X, row0: ops.sjlt_apply(key, X, spec.m, spec.s, row0=row0)
+    return None
+
+
+def gram_blocked_host(
+    spec: sk.SketchSpec,
+    key: torch.Tensor,
+    A,
+    b=None,
+    *,
+    block_rows: int = DEFAULT_BLOCK_ROWS,
+    scores=None,
+    device=None,
+):
+    """Out-of-core :func:`gram_blocked` for A on the HOST (a numpy array or an
+    ``np.memmap``, b likewise or None): n may exceed the card's memory.
+
+    Row tiles of ``block_rows`` rows of ``[A | b]`` (the last one shorter when
+    block_rows does not divide n; the reference zero-pads it, and zero rows add
+    nothing) are copied into pinned host memory, two buffers in turn, and from
+    there to the card on a stream of their own: the copy of tile i+1 runs while
+    tile i is reduced, the two ordered by events. With ``spec.use_kernel`` a
+    Gaussian, Rademacher or SJLT tile goes through the kind's S·A kernel at its
+    row offset (``S[:, j0 : j0 + len]·tile``; a Rademacher tile must start at a
+    whole sign word, so ``block_rows`` is then a multiple of 32), and the m×k
+    partial sums are added into one accumulator on the card in tile order, so
+    a rerun is bitwise the same. Every other kind and ``use_kernel=False``
+    reduce each tile with the kind's plain stream pieces, as the reference does
+    for every kind: the SRHT's closed-form column tiles (O(n·m) work; its FWHT
+    kernel needs all n_pad rows at once, which streaming does not give it), a
+    gather for the sampling kinds, the hybrid's gather then its inner sketch.
+    The Gram of the m×k result is one full-float32 product. Peak card memory is
+    O(block_rows·k + m·k).
+
+    ``device``: ``None`` means CUDA (raises when absent); pass ``"cpu"`` for the
+    CPU, where the tiles are used in place (no pinned buffers, no streams).
+    """
+    import numpy as np
+
+    from repro_torch.utils.device import resolve_device
+
+    if A.ndim != 2:
+        raise ValueError(f"gram_blocked_host expects A of shape (n, d), got {tuple(A.shape)}")
+    dev = resolve_device(device)
+    n, d = A.shape
+    bm = None if b is None else (b if b.ndim == 2 else np.asarray(b)[:, None])
+    k = d + (0 if bm is None else bm.shape[1])
+    op = make_operator(spec, key, n, scores=scores, device=dev)
+    tile_sketch = _kernel_tile_sketch(spec, key)
+    bs = max(1, min(block_rows, n))
+    if tile_sketch is not None and spec.kind == "rademacher" and dev.type == "cuda" and bs % 32 and bs < n:
+        raise ValueError(f"a Rademacher kernel tile starts at a whole sign word: block_rows must be a multiple "
+                         f"of 32, got {block_rows}")
+    if tile_sketch is None:
+        acc, reducer, finish = op._stream_pieces(k, dev)
+    else:
+        acc, finish = None, lambda a: a
+
+    def host_rows(j0: int, rows: int, into: torch.Tensor) -> torch.Tensor:
+        view = into.numpy()  # the (pinned) host buffer itself: one copy from A, converted on the way
+        view[:, :d] = A[j0 : j0 + rows]
+        if bm is not None:
+            view[:, d:] = bm[j0 : j0 + rows]
+        return into
+
+    def reduce(acc, j0: int, tile: torch.Tensor):
+        if tile_sketch is None:
+            return reducer(acc, j0, tile)
+        part = tile_sketch(tile, j0)
+        return part if acc is None else acc.add_(part)
+
+    with common.full_fp32_matmul():
+        if dev.type != "cuda":
+            for j0 in range(0, n, bs):
+                rows = min(bs, n - j0)
+                acc = reduce(acc, j0, host_rows(j0, rows, torch.empty((rows, k), dtype=torch.float32)))
+        else:
+            pinned = [torch.empty((bs, k), dtype=torch.float32, pin_memory=True) for _ in range(2)]
+            bufs = [torch.empty((bs, k), dtype=torch.float32, device=dev) for _ in range(2)]
+            main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(device=dev)
+            copied = [torch.cuda.Event() for _ in range(2)]  # a tile reached its card buffer
+            freed = [torch.cuda.Event() for _ in range(2)]   # a card buffer's tile was reduced
+
+            def stage(i: int) -> None:
+                slot, j0 = i % 2, i * bs
+                rows = min(bs, n - j0)
+                copied[slot].synchronize()  # the copy out of this pinned buffer two tiles ago is done
+                host_rows(j0, rows, pinned[slot][:rows])
+                with torch.cuda.stream(side):
+                    side.wait_event(freed[slot])
+                    bufs[slot][:rows].copy_(pinned[slot][:rows], non_blocking=True)
+                    copied[slot].record(side)
+
+            nb = -(-n // bs)
+            stage(0)
+            for i in range(nb):
+                slot, j0 = i % 2, i * bs
+                main.wait_event(copied[slot])
+                acc = reduce(acc, j0, bufs[slot][: min(bs, n - j0)])
+                freed[slot].record(main)
+                if i + 1 < nb:
+                    stage(i + 1)  # host and copy work for tile i+1 while the card reduces tile i
+        SAb = finish(acc).to(torch.float32)
+        return _split_gram(SAb.T @ SAb, d, b)
+
+
 def gram_batched(
     spec: sk.SketchSpec,
     keys: torch.Tensor,

@@ -61,6 +61,18 @@ class SketchSpec:
             if self.inner not in ("gaussian", "rademacher", "sjlt", "srht"):
                 raise ValueError(f"unsupported hybrid inner sketch {self.inner!r}")
 
+    def apply(self, key: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+        """Return ``S @ A`` where A has shape (n, ...)."""
+        return apply_sketch(self, key, A)
+
+    def operator(self, key: torch.Tensor, n: int, *, scores: Optional[torch.Tensor] = None, device=None):
+        """The frozen :class:`repro_torch.core.operators.SketchOp` for this spec
+        (``device``: where a sampling kind draws its rows, as for
+        ``operators.make_operator``)."""
+        from repro_torch.core import operators
+
+        return operators.make_operator(self, key, n, scores=scores, device=device)
+
 
 def sketch_data(spec: SketchSpec, key: torch.Tensor, A: torch.Tensor, b: torch.Tensor):
     """Sketch (A, b) with the *same* S (Algorithm 1): returns (SA, Sb).

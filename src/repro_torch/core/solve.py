@@ -1,9 +1,13 @@
 """Least squares and sketch-and-solve: one worker of Algorithm 1 (PyTorch port).
 
-Port of ``repro.core.solve`` (``lstsq`` qr/chol, ``lstsq_gram``,
-``sketch_and_solve`` fused/qr, ``least_norm`` and the right-sketch
+Port of ``repro.core.solve`` (``lstsq`` qr/chol/cg, ``lstsq_gram``,
+``sketch_and_solve`` fused/qr/chol/cg, ``least_norm`` and the right-sketch
 ``sketch_least_norm`` of §V, ``residual_cost``, ``relative_error``). The small
 factorizations stay with ``torch.linalg``, as the reference leaves them to XLA.
+A Cholesky factorization that fails (a Gram that is not positive definite)
+gives NaN for the solutions it should have produced, batch entry by batch
+entry, as ``jnp.linalg.cholesky`` does; nothing raises, and nothing waits on
+the card to look at the factorization's status.
 """
 from __future__ import annotations
 
@@ -40,28 +44,73 @@ def _lstsq(A: torch.Tensor, b: torch.Tensor, *, reg: float, method: str) -> torc
         G = A.T @ A + reg * torch.eye(d, dtype=A.dtype, device=A.device)
         return lstsq_gram(G, A.T @ b)
     if method == "cg":
-        raise NotImplementedError("lstsq(method='cg') is not ported yet (ROADMAP.md Queue 1, 'solvers')")
+        return _cg_normal(A, b, reg=reg)
     raise ValueError(f"unknown method {method!r}")
+
+
+def _vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Sum of all products of x and y (``jnp.vdot`` for real x, y of any shape)."""
+    return torch.sum(x * y)
+
+
+def _cg_normal(A: torch.Tensor, b: torch.Tensor, *, reg: float = 0.0, iters: int = 64) -> torch.Tensor:
+    """CG on the normal equations (AᵀA + reg·I)x = Aᵀb, matrix-free, a fixed
+    ``iters`` steps from x = 0 (the reference's loop, its 1e-30 guards included)."""
+
+    def mv(x):
+        return A.T @ (A @ x) + reg * x
+
+    rhs = A.T @ b
+    x = torch.zeros_like(rhs)
+    r = rhs - mv(x)
+    p = r
+    rs = _vdot(r, r)
+    for _ in range(iters):
+        Ap = mv(p)
+        alpha = rs / (_vdot(p, Ap) + 1e-30)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rs_new = _vdot(r, r)
+        p = r + (rs_new / (rs + 1e-30)) * p
+        rs = rs_new
+    return x
+
+
+def _cholesky(G: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lower Cholesky factor of (..., d, d) G and a (...,) mask of the batch
+    entries whose factorization failed (``info`` ≠ 0: G not positive definite)."""
+    L, info = torch.linalg.cholesky_ex(G)
+    return L, info != 0
+
+
+def _nan_where(x: torch.Tensor, failed: torch.Tensor) -> torch.Tensor:
+    """x with every batch entry that ``failed`` marks set to NaN (x's batch dims
+    lead, as failed's do)."""
+    mask = failed.reshape(tuple(failed.shape) + (1,) * (x.ndim - failed.ndim))
+    return torch.where(mask, torch.full_like(x, float("nan")), x)
 
 
 def lstsq_gram(G: torch.Tensor, c: torch.Tensor, *, reg: float = 0.0) -> torch.Tensor:
     """Solve ``(G + reg·I) x = c`` by Cholesky — the d×d tail of the fused path.
 
     Batched over leading dimensions: G (..., d, d) with c (..., d) or (..., d, k).
+    A batch entry whose G + reg·I is not positive definite gets NaN, as the
+    reference's ``jnp.linalg.cholesky`` gives; the others are untouched.
     """
     d = G.shape[-1]
-    L = torch.linalg.cholesky(G + reg * torch.eye(d, dtype=G.dtype, device=G.device))
+    L, failed = _cholesky(G + reg * torch.eye(d, dtype=G.dtype, device=G.device))
     y = _solve_tri(L, c, upper=False)
-    return _solve_tri(L.mT, y, upper=True)
+    return _nan_where(_solve_tri(L.mT, y, upper=True), failed)
 
 
 def least_norm(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """min ‖x‖² s.t. Ax = b (n < d, full row rank): x = Aᵀ(AAᵀ)⁻¹b by Cholesky and
-    two triangular solves; matrix products in full float32 (TF32 off)."""
+    two triangular solves; matrix products in full float32 (TF32 off). NaN when
+    AAᵀ is not positive definite, as in the reference."""
     with common.full_fp32_matmul():
-        L = torch.linalg.cholesky(A @ A.T)
+        L, failed = _cholesky(A @ A.T)
         z = _solve_tri(L.T, _solve_tri(L, b, upper=False), upper=True)
-        return A.T @ z
+        return _nan_where(A.T @ z, failed)
 
 
 def sketch_and_solve(
@@ -77,9 +126,9 @@ def sketch_and_solve(
     """One worker of Algorithm 1: x̂ = argmin_x ‖S(Ax − b)‖² with S ~ spec.
 
     ``method="fused"`` streams ``(G, c)`` in one pass over ``[A | b]`` (the fused
-    kernel when ``spec.use_kernel``) and solves d×d by Cholesky; ``"qr"``/``"chol"``
-    materialize ``(SA, Sb)`` (the S·A kernel when ``spec.use_kernel``) and
-    factorize — the two-pass reference.
+    kernel when ``spec.use_kernel``) and solves d×d by Cholesky;
+    ``"qr"``/``"chol"``/``"cg"`` materialize ``(SA, Sb)`` (the S·A kernel when
+    ``spec.use_kernel``) and factorize or iterate — the two-pass reference.
     """
     if method == "fused":
         G, c = operators.gram_blocked(spec, key, A, b, block_rows=block_rows)

@@ -152,7 +152,7 @@ __device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t v, int lane) {
 __global__ void __launch_bounds__(32 * BIN_WARPS)
 sjlt_bin_kernel(long long n, const uint32_t* __restrict__ keys, int m, uint64_t m_magic, int s, int chunk_rows,
                 int bucket_tile, int m_tiles, int spare_row, int hdr_ints, int region_ints, long long chunks,
-                uint32_t* __restrict__ list) {
+                long long row_base, uint32_t* __restrict__ list) {
   extern __shared__ __align__(16) uint32_t bin_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -180,7 +180,7 @@ sjlt_bin_kernel(long long n, const uint32_t* __restrict__ keys, int m, uint64_t 
   int t = p_lo - r * s;
 #pragma unroll 2
   for (int k = 0; k < mine; ++k) {
-    const uint32_t row = static_cast<uint32_t>(row0 + r);
+    const uint32_t row = static_cast<uint32_t>(row_base + row0 + r);  // the pair's global row
     uint32_t b0, b1;
     if constexpr (kAblate & kNoDraw) {
       b0 = row * 2654435761u + static_cast<uint32_t>(t) * 40503u;
@@ -439,29 +439,31 @@ cudaError_t allow_shared_memory() {
 }
 
 cudaError_t launch_bins(long long n, const uint32_t* keys, int q, int m, int s, int chunk_rows, int bucket_tile,
-                        const Layout& L, uint32_t* list, cudaStream_t stream) {
+                        const Layout& L, long long row_base, uint32_t* list, cudaStream_t stream) {
   const cudaError_t err = allow_shared_memory();
   if (err != cudaSuccess) return err;
   const long long blocks = (L.chunks + L.bin_warps - 1) / L.bin_warps;
   sjlt_bin_kernel<<<dim3(static_cast<unsigned>(blocks), q), 32 * L.bin_warps, L.bin_smem_bytes, stream>>>(
       n, keys, m, L.m_magic, s, chunk_rows, bucket_tile, L.m_tiles, L.spare_row, L.hdr_ints, L.region_ints,
-      L.chunks, list);
+      L.chunks, row_base, list);
   return cudaGetLastError();
 }
 
-// The bin pass into list and the scatter pass into partial (q, n_splits, m, d);
-// returns cudaErrorInvalidValue for a plan it cannot take, else the first CUDA
-// error.
+// The bin pass into list and the scatter pass into partial (q, n_splits, m, d),
+// X's row j being the sketch's data row row_base + j (its (row, t) pairs drawn
+// at that row); returns cudaErrorInvalidValue for a plan it cannot take, else
+// the first CUDA error.
 cudaError_t sjlt_pass(const float* X, long long n, int d, const uint32_t* keys, int q, int m, int s,
                       float inv_sqrt_s, long long rows_per_split, int n_splits, int chunk_rows, int bucket_tile,
-                      uint32_t* list, float* partial, cudaStream_t stream) {
+                      uint32_t* list, float* partial, long long row_base, cudaStream_t stream) {
   Layout L;
-  if (q <= 0 || q > 65535 || !layout(n, d, m, s, rows_per_split, n_splits, chunk_rows, bucket_tile, &L)) {
+  if (q <= 0 || q > 65535 || row_base < 0 || row_base + n > (1LL << 32) ||
+      !layout(n, d, m, s, rows_per_split, n_splits, chunk_rows, bucket_tile, &L)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err;
   if (!(kAblate & kNoBinPass)) {
-    err = launch_bins(n, keys, q, m, s, chunk_rows, bucket_tile, L, list, stream);
+    err = launch_bins(n, keys, q, m, s, chunk_rows, bucket_tile, L, row_base, list, stream);
     if (err != cudaSuccess) return err;
   }
   if (kAblate & kNoScatterPass) return cudaSuccess;
@@ -497,19 +499,23 @@ int repro_sjlt_gram(const float* X, long long n, int d, const uint32_t* keys, in
                     uint32_t* list, float* partial, float* G, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const cudaError_t err = sjlt_pass(X, n, d, keys, q, m, s, inv_sqrt_s, rows_per_split, n_splits, chunk_rows,
-                                    bucket_tile, list, partial, stream);
+                                    bucket_tile, list, partial, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(repro::reduce_and_gram(partial, q, n_splits, m, d, G, stream));
 }
 
 // S_w X: the two passes of repro_sjlt_gram and the split reduction into out
-// (q, m, d) float32, no Gram. Arguments and returns as for repro_sjlt_gram.
+// (q, m, d) float32, no Gram. row0: the sketch's data row that X's row 0 is
+// (its pairs, buckets and owner classes drawn at row0 + j), so the call
+// computes S_w[:, row0 : row0 + n] X, a row tile of a taller matrix streamed a
+// tile at a time; row0 >= 0, row0 + n <= 2^32. row0 = 0 is the whole-matrix
+// S.X. Other arguments and returns as for repro_sjlt_gram.
 int repro_sjlt_apply(const float* X, long long n, int d, const uint32_t* keys, int q, int m, int s,
                      float inv_sqrt_s, long long rows_per_split, int n_splits, int chunk_rows, int bucket_tile,
-                     uint32_t* list, float* partial, float* out, void* stream_ptr) {
+                     uint32_t* list, float* partial, float* out, long long row0, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const cudaError_t err = sjlt_pass(X, n, d, keys, q, m, s, inv_sqrt_s, rows_per_split, n_splits, chunk_rows,
-                                    bucket_tile, list, partial, stream);
+                                    bucket_tile, list, partial, row0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(repro::reduce_splits(partial, q, n_splits, m, d, out,
                                                static_cast<long long>(m) * d, stream));
@@ -525,7 +531,7 @@ int repro_sjlt_bins(long long n, int d, const uint32_t* keys, int q, int m, int 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(
-      launch_bins(n, keys, q, m, s, chunk_rows, bucket_tile, L, list, static_cast<cudaStream_t>(stream_ptr)));
+      launch_bins(n, keys, q, m, s, chunk_rows, bucket_tile, L, 0, list, static_cast<cudaStream_t>(stream_ptr)));
 }
 
 }  // extern "C"

@@ -188,7 +188,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 sketch_apply_kernel(const float* __restrict__ X, long long n, int d, const uint32_t* __restrict__ keys,
                     int m, float scale, int rounds,
                     long long rows_per_split, int groups, float* __restrict__ dst, int direct,
-                    float* __restrict__ s_out, int ld_s) {
+                    float* __restrict__ s_out, int ld_s, long long j_base) {
   static_assert(!KEEP || FAMILY == kGaussian, "only the Gaussian S is kept");
   using G = Geometry<BN>;
   constexpr bool kTwoParts = FAMILY == kGaussian;  // the Rademacher S has no lo part
@@ -263,7 +263,7 @@ sketch_apply_kernel(const float* __restrict__ X, long long n, int d, const uint3
             for (int u = 0; u < DRAW_ILP; ++u) {  // independent threefry chains first
               const int e = base + u * PRODUCERS;
               bits[u] = repro::threefry2x32(k0, k1, static_cast<uint32_t>(row0 + s_lo + e / BK),
-                                            static_cast<uint32_t>(j0 + e % BK), nrounds);
+                                            static_cast<uint32_t>(j_base + j0 + e % BK), nrounds);
             }
 #pragma unroll
             for (int u = 0; u < DRAW_ILP; ++u) {
@@ -290,7 +290,7 @@ sketch_apply_kernel(const float* __restrict__ X, long long n, int d, const uint3
             const long long jw = j0 + 32 * half;
             const uint32_t word =
                 row < m ? repro::packed_sign_word(k0, k1, static_cast<uint32_t>(row),
-                                                  static_cast<uint32_t>(jw >> 5))
+                                                  static_cast<uint32_t>((j_base + jw) >> 5))
                         : 0u;
             const float one = row < m ? 1.f : 0.f;
 #pragma unroll
@@ -481,6 +481,7 @@ struct Args {
   int direct;
   float* s_out;  // the kept S, or null
   int ld_s;
+  long long j_base;  // S's column of X's row 0 (the counter of data row j is j_base + j)
 };
 
 // A cluster launch of sketch_apply_kernel<FAMILY, ROUNDS, BN>: sets the kernel's
@@ -511,7 +512,8 @@ cudaError_t launch(dim3 grid, int cluster, cudaStream_t stream, const Args& a) {
   cudaError_t err = configure<FAMILY, ROUNDS, BN, KEEP>(grid, cluster, stream, cfg, attr);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, sketch_apply_kernel<FAMILY, ROUNDS, BN, KEEP>, a.X, a.n, a.d, a.keys, a.m,
-                           a.scale, a.rounds, a.rows_per_split, a.groups, a.dst, a.direct, a.s_out, a.ld_s);
+                           a.scale, a.rounds, a.rows_per_split, a.groups, a.dst, a.direct, a.s_out, a.ld_s,
+                           a.j_base);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -560,12 +562,21 @@ const char* repro_error_string(int code) {
 // sums it into out. s_out: null, or for the Gaussian family and q = 1 an
 // (m, ld_s) float32 buffer, 16-byte aligned, ld_s >= n a multiple of 4 and
 // m * ld_s < 2^31, into which the kernel writes S (columns past n untouched).
+// row0: the column of S that X's row 0 meets, so the call computes
+// S_w[:, row0 : row0 + n] X, a row tile of a taller matrix streamed a tile at a
+// time; row0 + n <= 2^32 (the counter), a multiple of 32 for the Rademacher
+// (whole packed sign words), 0 with s_out. row0 = 0 is the whole-matrix S.X.
 // Returns cudaErrorInvalidValue for a plan or s_out it cannot take, else the
 // first CUDA error of the launches (0 when all were accepted).
 int repro_sketch_apply(int family, const float* X, long long n, int d, const uint32_t* keys,
                        int q, int m, float scale, int rounds,
                        long long rows_per_split, int n_splits, int block_cols, int cluster, int groups,
-                       float* partial, float* out, float* s_out, long long ld_s, void* stream_ptr) {
+                       float* partial, float* out, float* s_out, long long ld_s, long long row0,
+                       void* stream_ptr) {
+  if (row0 < 0 || row0 + n > (1LL << 32) || (family == kRademacher && row0 % SPLIT_ROWS != 0) ||
+      (s_out != nullptr && row0 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (s_out != nullptr &&
       (family != kGaussian || q != 1 || ld_s < n || ld_s % 4 != 0 || ld_s >= (1LL << 31) ||
        static_cast<long long>(m) * ld_s >= (1LL << 31) ||
@@ -584,7 +595,7 @@ int repro_sketch_apply(int family, const float* X, long long n, int d, const uin
   const dim3 grid(m_tiles * groups * cluster, n_splits, q);
   const int direct = n_splits == 1;
   const Args a{X, n, d, keys, m, scale, rounds, rows_per_split, groups,
-               direct ? out : partial, direct, s_out, static_cast<int>(ld_s)};
+               direct ? out : partial, direct, s_out, static_cast<int>(ld_s), row0};
   cudaError_t err;
   if (family == kGaussian && s_out != nullptr) {
     err = rounds == 20 ? launch_width<kGaussian, 20, true>(block_cols, grid, cluster, stream, a)

@@ -179,19 +179,20 @@ def full_fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def plain_sketch(columns, key: torch.Tensor, A: torch.Tensor, m: int, block_rows: int) -> torch.Tensor:
+def plain_sketch(columns, key: torch.Tensor, A: torch.Tensor, m: int, block_rows: int, row0: int = 0) -> torch.Tensor:
     """S·A (m, d), float32, from ``columns(k0, k1, m, j0, block, device)`` tiles of
     S, drawn ``block_rows`` data rows at a time: the plain version of a dense S·A
     kernel (S materialized block by block, plain matrix products). The float32
     tiles of S and A are multiplied and summed in float64 and rounded once, so
     the kernels are held against the exact S·A of the same S: a float32 sum of
-    500,000 products in another order is off by as much as the kernel is."""
+    500,000 products in another order is off by as much as the kernel is.
+    ``row0``: the column of S that A's first row meets (S[:, row0 : row0 + n]·A)."""
     k0, k1 = key_words(key)
     n, d = A.shape
     acc = torch.zeros((m, d), dtype=torch.float64, device=A.device)
     for j0 in range(0, n, block_rows):
         blk = A[j0 : j0 + block_rows].to(torch.float64)
-        acc += columns(k0, k1, m, j0, blk.shape[0], A.device).double() @ blk
+        acc += columns(k0, k1, m, row0 + j0, blk.shape[0], A.device).double() @ blk
     return acc.float()
 
 

@@ -225,14 +225,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_dense_gram_clusters.argtypes = [I, I, I, ctypes.POINTER(I)]
         lib.repro_dense_gram_clusters.restype = I
     elif name == "sketch_apply":
-        lib.repro_sketch_apply.argtypes = [I, P, LL, I, P, I, I, F, I, LL, I, I, I, I, P, P, P, LL, P]
+        lib.repro_sketch_apply.argtypes = [I, P, LL, I, P, I, I, F, I, LL, I, I, I, I, P, P, P, LL, LL, P]
         lib.repro_sketch_apply.restype = I
         lib.repro_sketch_apply_clusters.argtypes = [I, I, ctypes.POINTER(I)]
         lib.repro_sketch_apply_clusters.restype = I
     elif name == "sjlt_gram":
         lib.repro_sjlt_gram.argtypes = [P, LL, I, P, I, I, I, F, LL, I, I, I, P, P, P, P]
         lib.repro_sjlt_gram.restype = I
-        lib.repro_sjlt_apply.argtypes = [P, LL, I, P, I, I, I, F, LL, I, I, I, P, P, P, P]
+        lib.repro_sjlt_apply.argtypes = [P, LL, I, P, I, I, I, F, LL, I, I, I, P, P, P, LL, P]
         lib.repro_sjlt_apply.restype = I
         lib.repro_sjlt_bins.argtypes = [LL, I, P, I, I, I, LL, I, I, I, P, P]
         lib.repro_sjlt_bins.restype = I
@@ -602,9 +602,10 @@ def gram_clusters(block_cols: int, cluster: int, family: str = "gaussian") -> in
 
 
 def _sjlt_call(entry: str, keys: torch.Tensor, X: torch.Tensor, m: int, s: int, out: torch.Tensor, *,
-               launches: collections.Counter, name: str) -> torch.Tensor:
-    """Run ``repro_sjlt_gram`` or ``repro_sjlt_apply`` over the workers of keys
-    in chunks of :func:`worker_chunk`, into ``out`` (its first dim is q)."""
+               launches: collections.Counter, name: str, row0: int = 0) -> torch.Tensor:
+    """Run ``repro_sjlt_gram`` or ``repro_sjlt_apply`` (with ``row0``, the data
+    row X's first row is) over the workers of keys in chunks of
+    :func:`worker_chunk`, into ``out`` (its first dim is q)."""
     n, d = X.shape
     q = keys.shape[0]
     plan = plan_sjlt(n, m, d, s)
@@ -620,8 +621,9 @@ def _sjlt_call(entry: str, keys: torch.Tensor, X: torch.Tensor, m: int, s: int, 
         stream = torch.cuda.current_stream(X.device).cuda_stream
         for w0 in range(0, q, chunk):
             qc = min(chunk, q - w0)
-            code = fn(X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m, s, common.inv_sqrt(s), plan.rows_per_split,
-                      plan.n_splits, plan.chunk_rows, plan.bucket_tile, pairs, partial, out[w0].data_ptr(), stream)
+            args = (X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m, s, common.inv_sqrt(s), plan.rows_per_split,
+                    plan.n_splits, plan.chunk_rows, plan.bucket_tile, pairs, partial, out[w0].data_ptr())
+            code = fn(*args, stream) if entry == "repro_sjlt_gram" else fn(*args, row0, stream)
             _check(lib, code, f"{entry} launch")
             launches[name] += 1
     return out
@@ -665,19 +667,33 @@ def _check_kept(S: torch.Tensor, device: int, m: int, n: int) -> None:
                          f"{KEPT_ROW_ALIGN}; got {tuple(S.shape)}")
 
 
+def _check_row0(row0: int, n: int) -> None:
+    if row0 < 0 or row0 + n > 2**32:
+        raise ValueError(f"row0 must lie in [0, 2**32 - n] (the counter), got {row0} for n = {n}")
+
+
 def sketch_apply(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rounds: int,
-                 launches: collections.Counter, name: str, s_out: torch.Tensor | None = None) -> torch.Tensor:
+                 launches: collections.Counter, name: str, s_out: torch.Tensor | None = None,
+                 row0: int = 0) -> torch.Tensor:
     """(q, m, d) sketches ``S_w X`` of the CUDA tensor X for q key rows of the
     Gaussian or Rademacher family, on the tensor cores (``csrc/sketch_apply.cu``)
     with the plan of :func:`plan_apply`, so slice w is bitwise a q = 1 call. With
     ``s_out`` (the Gaussian, one key: an (m, ld) float32 tensor on the card, ld
     from :func:`kept_sketch_ld`) the kernel also writes the S it draws there,
-    columns ``:n``, and S·X is bitwise the same. Makes no call that waits for the
-    card. Adds one to ``launches[name]`` per call into the C entry (one per chunk
-    of workers)."""
+    columns ``:n``, and S·X is bitwise the same. ``row0`` (a multiple of 32 for
+    the Rademacher, 0 with ``s_out``) is the column of S that X's first row
+    meets: the call computes ``S_w[:, row0 : row0 + n] X``, a row tile of a
+    taller matrix. Makes no call that waits for the card. Adds one to
+    ``launches[name]`` per call into the C entry (one per chunk of workers)."""
     n, d, q = _check_sketch_args("sketch_apply", X, keys, m)
     if family not in ("gaussian", "rademacher"):
         raise ValueError(f"the dense S·A kernel takes the gaussian and rademacher families, got {family!r}")
+    _check_row0(row0, n)
+    if family == "rademacher" and row0 % STEP_ROWS:
+        raise ValueError(f"the Rademacher S·A starts a tile at a whole sign word: row0 % {STEP_ROWS} must be 0, "
+                         f"got {row0}")
+    if s_out is not None and row0:
+        raise ValueError("the dense S·A keeps S for a whole matrix (row0 = 0) only")
     if rounds <= 0 or rounds % 4:
         raise ValueError(f"threefry rounds must be a positive multiple of 4, got {rounds}")
     if s_out is not None:
@@ -702,7 +718,7 @@ def sketch_apply(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, ro
                 FAMILIES[family], X.data_ptr(), n, d, kw[w0].data_ptr(), qc, m, common.inv_sqrt(m), rounds,
                 plan.rows_per_split, plan.n_splits, plan.block_cols, plan.cluster, plan.groups,
                 None if partial is None else partial.data_ptr(), out[w0].data_ptr(),
-                None if s_out is None else s_out.data_ptr(), 0 if s_out is None else s_out.shape[1], stream,
+                None if s_out is None else s_out.data_ptr(), 0 if s_out is None else s_out.shape[1], row0, stream,
             )
             _check(lib, code, f"{family} sketch_apply launch")
             launches[name] += 1
@@ -720,15 +736,18 @@ def apply_clusters(block_cols: int, cluster: int) -> int:
 
 
 def sjlt_apply(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
-               launches: collections.Counter, name: str) -> torch.Tensor:
+               launches: collections.Counter, name: str, row0: int = 0) -> torch.Tensor:
     """(q, m, d) SJLT sketches ``S_w X`` of the CUDA tensor X for q key rows, s
     nonzeros per data row: the SJLT Gram's bin and scatter passes and split
-    reduction on its plan (:func:`plan_sjlt`). Adds one to ``launches[name]`` per
-    call into the C entry (one per chunk of workers)."""
+    reduction on its plan (:func:`plan_sjlt`). ``row0`` is the data row X's first
+    row is (its pairs drawn there): the call computes ``S_w[:, row0 : row0 + n] X``.
+    Adds one to ``launches[name]`` per call into the C entry (one per chunk of
+    workers)."""
     n, d, q = _check_sketch_args("sjlt_apply", X, keys, m)
+    _check_row0(row0, n)
     plan_sjlt(n, m, d, s)
     out = torch.empty((q, m, d), dtype=torch.float32, device=X.device)
-    return _sjlt_call("repro_sjlt_apply", keys, X, m, s, out, launches=launches, name=name)
+    return _sjlt_call("repro_sjlt_apply", keys, X, m, s, out, launches=launches, name=name, row0=row0)
 
 
 def sjlt_bins(keys: torch.Tensor, n: int, m: int, d: int, s: int) -> torch.Tensor:

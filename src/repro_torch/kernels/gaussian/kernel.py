@@ -23,11 +23,12 @@ from repro_torch.kernels import common, cuda
 
 
 def gaussian_tiles(keys: torch.Tensor, X: torch.Tensor, m: int, *,
-                   launches: collections.Counter, name: str) -> torch.Tensor:
+                   launches: collections.Counter, name: str, row0: int = 0) -> torch.Tensor:
     """(q, m, d) sketches S_w X of the CUDA tensor X (n, d) float32 for (q, 2) key
-    words; ``launches[name]`` gains one per call into the kernel's C entry."""
+    words (``S_w[:, row0 : row0 + n]·X`` with ``row0``); ``launches[name]`` gains
+    one per call into the kernel's C entry."""
     return cuda.sketch_apply("gaussian", keys, X, m, rounds=common.rng_rounds(),
-                             launches=launches, name=name)
+                             launches=launches, name=name, row0=row0)
 
 
 def gaussian_adjoint_tiles(key: torch.Tensor, Y: torch.Tensor, n: int, *,

@@ -49,11 +49,12 @@ def gaussian_gram_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Te
     return gram.gaussian_gram_tiles(keys, A, m, launches=LAUNCHES, name="gaussian_gram_multi")
 
 
-def gaussian_sketch(key: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:
-    """S·A ∈ R^{m×d} in float32, S drawn in-core."""
+def gaussian_sketch(key: torch.Tensor, A: torch.Tensor, m: int, *, row0: int = 0) -> torch.Tensor:
+    """S·A ∈ R^{m×d} in float32, S drawn in-core; with ``row0``, the row tile
+    ``S[:, row0 : row0 + len(A)]·A`` of a taller A (its first row being row0)."""
     if A.device.type == "cpu":
-        return ref.sketch(key, A, m)
-    return kernel.gaussian_tiles(key.reshape(1, 2), A, m, launches=LAUNCHES, name="gaussian_sketch")[0]
+        return ref.sketch(key, A, m, row0=row0)
+    return kernel.gaussian_tiles(key.reshape(1, 2), A, m, launches=LAUNCHES, name="gaussian_sketch", row0=row0)[0]
 
 
 def gaussian_sketch_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:

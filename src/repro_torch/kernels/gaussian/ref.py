@@ -41,9 +41,11 @@ def gaussian_gram_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Te
     return torch.stack([gaussian_gram(k, A, m) for k in keys])
 
 
-def sketch(key: torch.Tensor, A: torch.Tensor, m: int, *, block_rows: int = PLAIN_BLOCK_ROWS) -> torch.Tensor:
-    """S·A ∈ R^{m×d}, float32, with S drawn in blocks of ``block_rows`` columns."""
-    return common.plain_sketch(columns, key, A, m, block_rows)
+def sketch(key: torch.Tensor, A: torch.Tensor, m: int, *, block_rows: int = PLAIN_BLOCK_ROWS,
+           row0: int = 0) -> torch.Tensor:
+    """S·A ∈ R^{m×d}, float32, with S drawn in blocks of ``block_rows`` columns;
+    ``S[:, row0 : row0 + n]·A`` with ``row0``."""
+    return common.plain_sketch(columns, key, A, m, block_rows, row0)
 
 
 def sketch_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:

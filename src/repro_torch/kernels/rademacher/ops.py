@@ -40,11 +40,14 @@ def rademacher_gram_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.
     return gram.rademacher_gram_tiles(keys, A, m, launches=LAUNCHES, name="rademacher_gram_multi")
 
 
-def rademacher_sketch(key: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:
-    """S·A ∈ R^{m×d} in float32, the signs drawn in-core."""
+def rademacher_sketch(key: torch.Tensor, A: torch.Tensor, m: int, *, row0: int = 0) -> torch.Tensor:
+    """S·A ∈ R^{m×d} in float32, the signs drawn in-core; with ``row0`` (on the
+    card a multiple of 32: whole sign words), the row tile
+    ``S[:, row0 : row0 + len(A)]·A`` of a taller A."""
     if A.device.type == "cpu":
-        return ref.sketch(key, A, m)
-    return kernel.rademacher_tiles(key.reshape(1, 2), A, m, launches=LAUNCHES, name="rademacher_sketch")[0]
+        return ref.sketch(key, A, m, row0=row0)
+    return kernel.rademacher_tiles(key.reshape(1, 2), A, m, launches=LAUNCHES, name="rademacher_sketch",
+                                   row0=row0)[0]
 
 
 def rademacher_sketch_multi(keys: torch.Tensor, A: torch.Tensor, m: int) -> torch.Tensor:

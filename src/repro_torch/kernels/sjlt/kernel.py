@@ -15,9 +15,10 @@ import torch
 
 
 def sjlt_tiles(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
-               launches: collections.Counter, name: str) -> torch.Tensor:
+               launches: collections.Counter, name: str, row0: int = 0) -> torch.Tensor:
     """(q, m, d) sketches S_w X of the CUDA tensor X (n, d) float32 for (q, 2) key
-    words; ``launches[name]`` gains one per call into the kernel's C entry."""
+    words (``S_w[:, row0 : row0 + n]·X`` with ``row0``); ``launches[name]`` gains
+    one per call into the kernel's C entry."""
     from repro_torch.kernels import cuda
 
-    return cuda.sjlt_apply(keys, X, m, s, launches=launches, name=name)
+    return cuda.sjlt_apply(keys, X, m, s, launches=launches, name=name, row0=row0)

@@ -48,11 +48,13 @@ def sjlt_gram_multi(keys: torch.Tensor, A: torch.Tensor, m: int, s: int) -> torc
     return gram.sjlt_gram_tiles(keys, A, m, s, launches=LAUNCHES, name="sjlt_gram_multi")
 
 
-def sjlt_apply(key: torch.Tensor, A: torch.Tensor, m: int, s: int) -> torch.Tensor:
-    """S·A ∈ R^{m×d} in float32, the parameters drawn in-core."""
+def sjlt_apply(key: torch.Tensor, A: torch.Tensor, m: int, s: int, *, row0: int = 0) -> torch.Tensor:
+    """S·A ∈ R^{m×d} in float32, the parameters drawn in-core; with ``row0``, the
+    row tile ``S[:, row0 : row0 + len(A)]·A`` of a taller A (its pairs drawn at
+    the global rows)."""
     if A.device.type == "cpu":
-        return ref.sketch(key, A, m, s)
-    return kernel.sjlt_tiles(key.reshape(1, 2), A, m, s, launches=LAUNCHES, name="sjlt_apply")[0]
+        return ref.sketch(key, A, m, s, row0=row0)
+    return kernel.sjlt_tiles(key.reshape(1, 2), A, m, s, launches=LAUNCHES, name="sjlt_apply", row0=row0)[0]
 
 
 def sjlt_apply_multi(keys: torch.Tensor, A: torch.Tensor, m: int, s: int) -> torch.Tensor:

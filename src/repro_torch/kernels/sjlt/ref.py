@@ -41,16 +41,16 @@ def sjlt_apply(A: torch.Tensor, buckets: torch.Tensor, signs: torch.Tensor, m: i
 
 
 def sketch(key: torch.Tensor, A: torch.Tensor, m: int, s: int, *,
-           block_rows: int = PLAIN_BLOCK_ROWS) -> torch.Tensor:
+           block_rows: int = PLAIN_BLOCK_ROWS, row0: int = 0) -> torch.Tensor:
     """S·A ∈ R^{m×d}, float32, with parameters drawn ``block_rows`` rows at a time;
     the signed rows are summed in float64 and rounded once, as the dense plain
-    versions do."""
+    versions do. ``row0``: the data row A's first row is (S[:, row0 : row0 + n]·A)."""
     k0, k1 = common.key_words(key)
     n, d = A.shape
     acc = torch.zeros((m, d), dtype=torch.float64, device=A.device)
     for j0 in range(0, n, block_rows):
         blk = A[j0 : j0 + block_rows].to(torch.float64)
-        rows = j0 + torch.arange(blk.shape[0], dtype=torch.int64, device=A.device)
+        rows = row0 + j0 + torch.arange(blk.shape[0], dtype=torch.int64, device=A.device)
         buckets, signs = common.sjlt_counter_params(k0, k1, rows, s, m, dtype=torch.float64)
         sjlt_apply(blk, buckets, signs, m, out=acc)
     return acc.float()

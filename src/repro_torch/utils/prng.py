@@ -12,8 +12,8 @@ so ``worker_key(base, w, r) = fold_in(fold_in(base, r), w)`` reproduces the
 reference's worker keys bit for bit (workers are stateless i.i.d. copies: any
 worker can be re-run and redraws the same sketch).
 
-``split``, ``random_bits``, ``randint``, ``uniform``, ``gumbel``,
-``gumbel_top_k`` and ``categorical`` follow jax's threefry in its partitionable
+``split``, ``random_bits``, ``randint``, ``uniform``, ``bernoulli``, ``normal``,
+``lognormal``, ``gumbel``, ``gumbel_top_k`` and ``categorical`` follow jax's threefry in its partitionable
 mode (``jax_threefry_partitionable``, the default of the jax the reference runs
 on): element e of a draw of shape ``shape`` is ``threefry2x32(key, hi(e),
 lo(e))``, the counter being its flat index e split into 32-bit halves. The
@@ -22,10 +22,13 @@ draws are one call. A draw runs on ``device`` (default the CPU): the key words
 are copied there, and every operation is exact, so the words are the same on
 every device.
 
-The float draws (``uniform``, ``gumbel``, ``categorical``) are bitwise those of
-jax on the CPU, the platform the reference's tests run on: ``xla_log`` repeats
-XLA's CPU float32 logarithm operation for operation, since ``torch.log`` differs
-from it by an ulp on about one input in seven.
+The float draws (``uniform``, ``bernoulli``, ``gumbel``, ``categorical``) are
+bitwise those of jax on the CPU, the platform the reference's tests run on:
+``xla_log`` repeats XLA's CPU float32 logarithm operation for operation, since
+``torch.log`` differs from it by an ulp on about one input in seven. ``normal``
+(√2·erfinv(u), ``xla_erfinv``) is bitwise jax's except in its far tails, where
+XLA's CPU square root is a reciprocal-square-root estimate refined by one
+Newton step (see :func:`xla_erfinv`); ``lognormal`` takes ``torch.exp`` of it.
 """
 from __future__ import annotations
 
@@ -184,6 +187,81 @@ def uniform(key: torch.Tensor, shape: tuple, minval: float = 0.0, maxval: float 
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo, hi = np.float32(minval), np.float32(maxval)
     return torch.clamp_min(_fma(f, float(hi - lo), float(lo)), float(lo))
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: tuple, *, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a float32 p: ``uniform(key) < p``."""
+    return uniform(key, tuple(shape), device=device) < float(np.float32(p))
+
+
+# XLA's float32 erf_inv (Giles' polynomials in w = −log1p(−x²), one for w < 5 and
+# one for w >= 5), its log1p's rational form for small arguments (Cephes), and
+# the float32 √2 jax multiplies it by: the constants as XLA's CPU backend emits them.
+_ERFINV_LT5 = tuple(float(np.float32(v)) for v in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+    -0.00125372503, -0.00417768164, 0.246640727, 1.50140941))
+_ERFINV_GE5 = tuple(float(np.float32(v)) for v in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+    -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
+_LOG1P_DEN = tuple(_f32_const(h) for h in (
+    "402E2035A0000000", "4054C30B60000000", "406BB865A0000000", "4073519460000000",
+    "406B0DB140000000", "404E0F3040000000"))
+_LOG1P_NUM = tuple(_f32_const(h) for h in (
+    "3F07BC0960000000", "3FDFE818A0000000", "401A509F40000000", "403DE97380000000",
+    "404E798EC0000000", "404C8E75A0000000", "40340A2020000000"))
+_LOG1P_SMALL = _f32_const("3FDA8279A0000000")  # √2 − 1
+_SQRT2_F32 = _f32_const("3FF6A09E60000000")
+
+
+def _xla_log1p(t: torch.Tensor) -> torch.Tensor:
+    """``jnp.log1p`` of float32 t > −1 as XLA's CPU backend computes it: below
+    |t| = √2 − 1 the Cephes rational form t − t²/2 + t³·P(t)/Q(t), its Horner
+    steps fused; above, ``xla_log(1 + t)`` (the sum rounded first)."""
+    z = t * t
+    den = torch.ones_like(t)
+    for c in _LOG1P_DEN:
+        den = _fma(den, t, c)
+    num = torch.full_like(t, _LOG1P_NUM[0])
+    for c in _LOG1P_NUM[1:]:
+        num = _fma(num, t, c)
+    small = t + _fma(z, -0.5, (t * z) * (num / den))
+    return torch.where(t.abs() < _LOG1P_SMALL, small, xla_log(t + 1.0))
+
+
+def xla_erfinv(x: torch.Tensor) -> torch.Tensor:
+    """erfinv of float32 x in (−1, 1) as XLA's CPU backend computes
+    ``lax.erf_inv``: w = −log1p(−x²) (``_xla_log1p``), then Giles' degree-8
+    polynomial in w − 2.5 (w < 5) or in √w − 3, its Horner steps fused, times x;
+    ±1 gives ±inf. Bitwise XLA's for w < 5, that is |erfinv(x)| below about 2;
+    for w >= 5 XLA takes √w from the CPU's reciprocal-square-root estimate and
+    one Newton step, which is not the correctly rounded root ``torch.sqrt``
+    gives, so there the two differ by an ulp or two of the result (on 137 of
+    the 2**23 inputs ``normal`` draws)."""
+    x = x.to(torch.float32)
+    lg = _xla_log1p(x * (-x))
+    lt = lg > -5.0
+    wv = torch.where(lt, -2.5 - lg, torch.sqrt(-lg) - 3.0)
+    p = None
+    for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
+        c = torch.where(lt, torch.tensor(a, device=x.device), torch.tensor(b, device=x.device))
+        p = c if p is None else _fma(p, wv, c)
+    p = torch.where(x.abs() == 1.0, torch.full_like(p, float("inf")), p)
+    return x * p
+
+
+def normal(key: torch.Tensor, shape: tuple, *, device=None) -> torch.Tensor:
+    """float32 ``jax.random.normal(key, shape)``: √2·erfinv(u) with u uniform in
+    (nextafter(−1, 0), 1) (:func:`xla_erfinv`)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return (xla_erfinv(uniform(key, tuple(shape), lo, 1.0, device=device))) * _SQRT2_F32
+
+
+def lognormal(key: torch.Tensor, shape: tuple, *, device=None) -> torch.Tensor:
+    """float32 ``jax.random.lognormal(key, shape=shape)``: exp(normal).
+    ``torch.exp`` is not XLA's CPU exp bit for bit; a caller that needs jax's
+    values exactly should use the order of the draws (exp is increasing), as
+    ``averaging.simulate_straggler_mask`` does."""
+    return torch.exp(normal(key, shape, device=device))
 
 
 def gumbel(key: torch.Tensor, shape: tuple, *, offset: int = 0, device=None) -> torch.Tensor:

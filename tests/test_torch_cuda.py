@@ -186,9 +186,10 @@ def test_sjlt_entries_refuse_plans_they_cannot_take(cuda):
 
     def call(entry, **kw_):
         a = {**good, **kw_}
-        return getattr(lib, entry)(X.data_ptr(), n, d, kw.data_ptr(), 1, a["m"], a["s"], 0.25, a["rows"],
-                                   a["splits"], a["chunk"], a["tile"], pairs.data_ptr(), partial.data_ptr(),
-                                   G.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        args = (X.data_ptr(), n, d, kw.data_ptr(), 1, a["m"], a["s"], 0.25, a["rows"], a["splits"], a["chunk"],
+                a["tile"], pairs.data_ptr(), partial.data_ptr(), G.data_ptr())
+        row0 = (a.get("row0", 0),) if entry == "repro_sjlt_apply" else ()
+        return getattr(lib, entry)(*args, *row0, torch.cuda.current_stream().cuda_stream)
 
     for entry in ("repro_sjlt_gram", "repro_sjlt_apply"):
         assert call(entry) == 0
@@ -196,6 +197,9 @@ def test_sjlt_entries_refuse_plans_they_cannot_take(cuda):
                     dict(splits=plan.n_splits + 1), dict(tile=0), dict(m=3000, tile=3000),
                     dict(m=2800, tile=1400), dict(m=200_000, tile=200)):
             assert call(entry, **bad) == 1, bad
+    assert call("repro_sjlt_apply", row0=5) == 0
+    for bad in (dict(row0=-1), dict(row0=2**32 - n + 1)):
+        assert call("repro_sjlt_apply", **bad) == 1, bad
     torch.cuda.synchronize()
 
 
@@ -652,13 +656,17 @@ def test_sketch_apply_refuses_to_keep_what_it_cannot(cuda):
     partial = torch.empty(2 * plan.n_splits * 16 * 4, device=cuda)
     S = torch.empty(16 * 104 + 4, device=cuda)
 
-    def call(family=0, q=1, s_ptr=S.data_ptr(), ld=100):
+    def call(family=0, q=1, s_ptr=S.data_ptr(), ld=100, row0=0):
         return lib.repro_sketch_apply(family, X.data_ptr(), 100, 4, kwords.data_ptr(), q, 16, 0.25, 20,
                                       plan.rows_per_split, plan.n_splits, plan.block_cols, plan.cluster, plan.groups,
-                                      partial.data_ptr(), out.data_ptr(), s_ptr, ld, torch.cuda.current_stream().cuda_stream)
+                                      partial.data_ptr(), out.data_ptr(), s_ptr, ld, row0,
+                                      torch.cuda.current_stream().cuda_stream)
 
     assert call() == 0
-    for bad in (dict(q=2), dict(family=1), dict(ld=102), dict(ld=96), dict(s_ptr=S.data_ptr() + 4)):
+    assert call(s_ptr=None, row0=7) == 0 and call(family=1, s_ptr=None, row0=64) == 0
+    for bad in (dict(q=2), dict(family=1), dict(ld=102), dict(ld=96), dict(s_ptr=S.data_ptr() + 4),
+                dict(row0=32), dict(s_ptr=None, row0=-1), dict(family=1, s_ptr=None, row0=7),
+                dict(s_ptr=None, row0=2**32 - 99)):
         assert call(**bad) == 1, bad
     torch.cuda.synchronize()
 
@@ -871,3 +879,73 @@ def test_least_norm_on_the_card_matches_the_cpu(cuda, kind):
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
     assert torch.equal(distributed.distributed_sketch_least_norm(spec, key, A, b, q=4, straggler_mask=mask), got)
+
+
+# ------------------------------------------------------------ row offsets (row0)
+
+ROW0_FNS = {
+    "gaussian": (lambda k, X, m, r: gops.gaussian_sketch(k, X, m, row0=r),
+                 lambda k, X, m, r: gref.sketch(k, X, m, row0=r)),
+    "rademacher": (lambda k, X, m, r: rops.rademacher_sketch(k, X, m, row0=r),
+                   lambda k, X, m, r: rref.sketch(k, X, m, row0=r)),
+    "sjlt": (lambda k, X, m, r: sops.sjlt_apply(k, X, m, SJLT_S, row0=r),
+             lambda k, X, m, r: sref.sketch(k, X, m, SJLT_S, row0=r)),
+}
+
+
+@pytest.mark.parametrize("family", list(ROW0_FNS))
+def test_row0_zero_is_the_whole_matrix_call_bitwise(cuda, family):
+    """row0 = 0 passed explicitly is the call without it, bit for bit, and the
+    slice of a multi-key call."""
+    kernel, _ = ROW0_FNS[family]
+    X = _x(3001, 251, 5, cuda)
+    keys = prng.worker_keys(prng.prng_key(3), 2)
+    plain = {"gaussian": gops.gaussian_sketch, "rademacher": rops.rademacher_sketch,
+             "sjlt": lambda k, X, m: sops.sjlt_apply(k, X, m, SJLT_S)}[family]
+    multi = {"gaussian": gops.gaussian_sketch_multi, "rademacher": rops.rademacher_sketch_multi,
+             "sjlt": lambda k, X, m: sops.sjlt_apply_multi(k, X, m, SJLT_S)}[family]
+    got = kernel(keys[1], X, 200, 0)
+    assert torch.equal(got, plain(keys[1], X, 200))
+    assert torch.equal(got, multi(keys, X, 200)[1])
+
+
+@pytest.mark.parametrize("row0", [32, 4096, 499_968])
+@pytest.mark.parametrize("family", list(ROW0_FNS))
+def test_row0_tile_matches_plain_and_tiles_sum_to_whole(cuda, family, row0):
+    """A tile at row0 against its plain version at the same offset (the S·A
+    rows' measure, 1e-5), a rerun bitwise, and the tiles of a matrix summed in
+    order against the whole-matrix kernel call (the same measure)."""
+    kernel, plain = ROW0_FNS[family]
+    m = 320
+    X = _x(4096, 67, row0 % 97, cuda)
+    key = prng.prng_key(row0 % 13)
+    got = kernel(key, X, m, row0)
+    assert torch.equal(got, kernel(key, X, m, row0))
+    assert _sx_err(got.cpu(), plain(key, X.cpu(), m, row0)) <= REL_TOL
+    whole = kernel(key, X, m, 0)
+    parts = None
+    for j in range(0, 4096, 1024):
+        part = kernel(key, X[j : j + 1024].contiguous(), m, j)
+        parts = part if parts is None else parts + part
+    assert _sx_err(parts.cpu(), whole.cpu()) <= REL_TOL
+
+
+@pytest.mark.parametrize("block_rows", [4096, 5000])
+@pytest.mark.parametrize("family", ["gaussian", "sjlt"])
+def test_host_stream_reruns_bitwise_and_matches_gram_blocked(cuda, family, block_rows):
+    """``gram_blocked_host`` over a pinned numpy [A | b] on the card: a rerun
+    is bitwise, the kernel tiles were launched once each, and G against
+    ``gram_blocked``'s (the Gram rows' measure, 1e-5)."""
+    n, d, m = 20_011, 40, 256
+    A = _x(n, d, 1, "cpu").numpy()
+    b = _x(n, 1, 2, "cpu")[:, 0].numpy()
+    spec = sketches.SketchSpec(family, m, s=SJLT_S, use_kernel=True)
+    key = prng.prng_key(9)
+    mod, name = (gops, "gaussian_sketch") if family == "gaussian" else (sops, "sjlt_apply")
+    before = mod.LAUNCHES[name]
+    G, c = operators.gram_blocked_host(spec, key, A, b, block_rows=block_rows)
+    assert mod.LAUNCHES[name] - before == -(-n // block_rows)
+    G2, c2 = operators.gram_blocked_host(spec, key, A, b, block_rows=block_rows)
+    assert torch.equal(G, G2) and torch.equal(c, c2)
+    Gw, cw = operators.gram_blocked(spec, key, torch.from_numpy(A).to(cuda), torch.from_numpy(b).to(cuda))
+    assert _gram_err(G.cpu(), Gw.cpu()) <= REL_TOL

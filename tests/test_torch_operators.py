@@ -196,8 +196,11 @@ def test_lstsq_gram_batches_like_single_solves():
     for w in range(4):
         want = jsolve.lstsq_gram(jnp.asarray(G[w].numpy()), jnp.asarray(c[w].numpy()), reg=0.1)
         np.testing.assert_allclose(xs[w].numpy(), np.asarray(want), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolve.lstsq(torch.zeros(3, 2), torch.zeros(3), method="cg")
+    An = rs.standard_normal((30, D)).astype(np.float32)
+    bn = rs.standard_normal(30).astype(np.float32)
+    want = jsolve.lstsq(jnp.asarray(An), jnp.asarray(bn), method="cg")
+    got = tsolve.lstsq(torch.from_numpy(An), torch.from_numpy(bn), method="cg")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError, match="unknown method"):
         tsolve.lstsq(torch.zeros(3, 2), torch.zeros(3), method="svd")
 

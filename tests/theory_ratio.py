@@ -30,6 +30,26 @@ with replacement, "hybrid_K" takes m′ = M_PRIME rows):
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/theory_ratio.py --least-norm N D M M_PRIME Q SEED[,SEED...] [KIND,...]
 
 e.g. ``--least-norm 50 1000 200 500 100 0,1,2,3`` (FIG4A).
+
+Other data for Algorithm 1's ratio (the same kinds and columns):
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/theory_ratio.py --student-t DF N D M Q SEED[,SEED...] [KIND,...]
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/theory_ratio.py --emnist N M Q SEED[,SEED...] [KIND,...]
+
+``--student-t`` draws the port's ``student_t_regression(seed, N, D, df=DF,
+noise=0.1)`` (Fig. 3a's data at DF = 1.5) and also prints, per seed and kind,
+the float32 floor: worker 0's fp32 x̂ against a float64 solve of the same
+(G, c) in rel_err terms. ``--emnist`` draws ``emnist_like(seed, N + 3N/20)`` (d = 784,
+47 one-hot targets, Fig. 2's data), trains on the first N rows and measures
+(f(X̄) − f(X*))/f(X*) with f(X) = ‖AX − B‖²_F over Theorem 1, also printing
+the test accuracy of X̄ and X* on the last 3N/20 rows (one call, so the test
+rows share the training rows' class templates).
+
+IHS's calibration (the smoke's ``ihs_fig3a_gaussian`` gate): the reference's
+``ihs_trace`` with a Gaussian sketch of M rows on the planted Gaussian data,
+rel_err after each of ITERS steps, beside Theorem 1 at Q workers:
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/theory_ratio.py --ihs N D M ITERS Q SEED[,SEED...]
 """
 from __future__ import annotations
 
@@ -41,7 +61,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from repro.core import averaging, operators, sketches, solve, theory
+from repro.core import averaging, ihs, operators, sketches, solve, theory
 from repro.utils import prng
 from repro_torch.data import regression
 
@@ -51,6 +71,7 @@ LEAST_NORM_KINDS = ("gaussian", "rademacher", "srht", "sjlt", "uniform", "unifor
                     "hybrid_gaussian", "hybrid_rademacher", "hybrid_sjlt", "hybrid_srht")
 SJLT_S = 20
 M_PRIME_PER_M = 10  # FIG3A: m′ = 25,000 for m = 2,500
+WORKER_CHUNK = 8  # worker keys per reference gram_batched call
 
 
 def spec_for(kind: str, m: int, m_prime: int = 0) -> sketches.SketchSpec:
@@ -66,22 +87,42 @@ def spec_for(kind: str, m: int, m_prime: int = 0) -> sketches.SketchSpec:
     return sketches.SketchSpec(kind, m, s=SJLT_S)
 
 
-def ratios(n: int, d: int, m: int, q: int, seeds, kinds=FAMILIES) -> dict:
-    """{kind: [rel_err / Theorem 1 for each seed]}."""
+def gaussian_data(seed: int, n: int, d: int):
+    return regression.gaussian_regression(seed, n, d, device="cpu")[:2]
+
+
+def ratios(n: int, d: int, m: int, q: int, seeds, kinds=FAMILIES, data=gaussian_data, floor: dict | None = None,
+           test=None, accuracy: dict | None = None) -> dict:
+    """{kind: [rel_err / Theorem 1 for each seed]}, rel_err = (f(x̄) − f*)/f* with
+    f the squared (Frobenius) residual of ``data(seed, n, d)`` (b may be (n, k)).
+    With ``floor``, also {kind: [worker 0's float32 x̂ against a float64 solve
+    of its own (G, c), in rel_err terms]}; with ``test(seed)`` -> (A, B, labels)
+    and ``accuracy``, {kind: [(accuracy of x̄, of x*)]}."""
     pred = theory.gaussian_averaged_error(m, d, q)
     out: dict = {kind: [] for kind in kinds}
     for seed in seeds:
-        A, b, _ = regression.gaussian_regression(seed, n, d, device="cpu")
+        A, b = data(seed, n, d)
         A64, b64 = A.double().numpy(), b.double().numpy()
         xstar, *_ = np.linalg.lstsq(A64, b64, rcond=None)
         fstar = float(np.sum((A64 @ xstar - b64) ** 2))
+        cost = lambda x: (float(np.sum((A64 @ x - b64) ** 2)) - fstar) / fstar
         for kind in kinds:
             keys = prng.worker_keys(jax.random.PRNGKey(seed), q)
             spec = spec_for(kind, m)
-            Gs, cs = operators.gram_batched(spec, keys, jnp.asarray(A.numpy()), jnp.asarray(b.numpy()))
-            xbar = np.asarray(averaging.masked_average(jax.vmap(solve.lstsq_gram)(Gs, cs), None), np.float64)
-            rel = (float(np.sum((A64 @ xbar - b64) ** 2)) - fstar) / fstar
-            out[kind].append(rel / pred)
+            Aj, bj = jnp.asarray(A.numpy()), jnp.asarray(b.numpy())
+            parts = [operators.gram_batched(spec, keys[w : w + WORKER_CHUNK], Aj, bj)
+                     for w in range(0, q, WORKER_CHUNK)]  # the reference's batch of q workers can outgrow the host
+            Gs, cs = (jnp.concatenate([p[i] for p in parts]) for i in (0, 1))
+            xs = jax.vmap(solve.lstsq_gram)(Gs, cs)
+            xbar = np.asarray(averaging.masked_average(xs, None), np.float64)
+            out[kind].append(cost(xbar) / pred)
+            if floor is not None:
+                x64 = np.linalg.solve(np.asarray(Gs[0], np.float64), np.asarray(cs[0], np.float64))
+                floor.setdefault(kind, []).append(abs(cost(np.asarray(xs[0], np.float64)) - cost(x64)))
+            if accuracy is not None:
+                At, Bt, labels = test(seed)
+                acc = lambda x: float(np.mean(np.argmax(At @ x, axis=1) == labels))
+                accuracy.setdefault(kind, []).append((acc(xbar), acc(xstar)))
     return out
 
 
@@ -111,6 +152,58 @@ def _report(got: dict, **shape) -> None:
 
 
 def main(argv) -> int:
+    if argv[:1] == ["--student-t"]:
+        df = float(argv[1])
+        n, d, m, q = (int(a) for a in argv[2:6])
+        seeds = [int(x) for x in argv[6].split(",")]
+        kinds = tuple(argv[7].split(",")) if len(argv) > 7 else FAMILIES
+        data = lambda seed, n, d: regression.student_t_regression(seed, n, d, df=df, noise=0.1, device="cpu")[:2]
+        floor: dict = {}
+        _report(ratios(n, d, m, q, seeds, kinds, data=data, floor=floor), data="student_t", df=df, n=n, d=d, m=m,
+                q=q, seeds=seeds)
+        for kind, vals in floor.items():
+            print(json.dumps({"kind": kind, "fp32_floor_rel_err": vals, "theorem1": theory.gaussian_averaged_error(m, d, q),
+                              "lemma1": theory.gaussian_single_error(m, d)}))
+        return 0
+    if argv[:1] == ["--ihs"]:
+        n, d, m, iters, q = (int(a) for a in argv[1:6])
+        for seed in (int(x) for x in argv[6].split(",")):
+            A, b = gaussian_data(seed, n, d)
+            A64, b64 = A.double().numpy(), b.double().numpy()
+            xstar, *_ = np.linalg.lstsq(A64, b64, rcond=None)
+            fstar = float(np.sum((A64 @ xstar - b64) ** 2))
+            trace = ihs.ihs_trace(sketches.SketchSpec("gaussian", m), jax.random.PRNGKey(seed),
+                                  jnp.asarray(A.numpy()), jnp.asarray(b.numpy()), iters=iters)
+            rel = [(float(np.sum((A64 @ np.asarray(x, np.float64) - b64) ** 2)) - fstar) / fstar for x in trace]
+            print(json.dumps({"mode": "ihs", "n": n, "d": d, "m": m, "seed": seed, "rel_err": rel,
+                              "step_cuts": [rel[t] / rel[t + 1] for t in range(len(rel) - 1)],
+                              "theorem1_q": q, "theorem1": theory.gaussian_averaged_error(m, d, q)}))
+        return 0
+    if argv[:1] == ["--emnist"]:
+        n, m, q = (int(a) for a in argv[1:4])
+        seeds = [int(x) for x in argv[4].split(",")]
+        kinds = tuple(argv[5].split(",")) if len(argv) > 5 else ("sjlt", "uniform")
+        n_test = n * 3 // 20  # Fig. 2's 30,000 test rows to 200,000 training rows
+        drawn = {}
+
+        def draw(seed):  # training and test rows from one call: the same class templates
+            if seed not in drawn:
+                drawn.clear()
+                drawn[seed] = regression.emnist_like(seed, n + n_test, device="cpu")
+            return drawn[seed]
+
+        data = lambda seed, n, d: (draw(seed)[0][:n], draw(seed)[1][:n])
+
+        def test(seed):
+            A, _, meta = draw(seed)
+            return A[n:].double().numpy(), None, meta["labels"][n:].numpy()
+
+        acc: dict = {}
+        _report(ratios(n, 784, m, q, seeds, kinds, data=data, test=test, accuracy=acc), data="emnist", n=n, d=784,
+                m=m, q=q, seeds=seeds)
+        for kind, vals in acc.items():
+            print(json.dumps({"kind": kind, "test_accuracy_xbar_xstar": vals}))
+        return 0
     if argv[:1] == ["--least-norm"]:
         n, d, m, m_prime, q = (int(a) for a in argv[1:6])
         seeds = [int(x) for x in argv[6].split(",")]
