@@ -50,10 +50,27 @@ with a scratch too small to keep S (the redraw kernel). Each is gated on
 ‖x̄ − x*‖²/‖x*‖² over Lemma 7's (d − n)/(q(m − n − 1)), x* from a plain
 float64 solve.
 
+Then the serverless runtime and the solve server (``repro_torch.runtime``,
+``repro_torch.serve``), on FIG3A's Gaussian data: one SJLT job at q = 200 under a
+Pareto latency tail with retries on the inline, thread (8 threads) and process
+(2 spawned workers) backends, which must give one event log byte for byte and one
+x̄ bitwise, each arrival one ``sjlt_gram`` call (a traced thread run gives the
+device's idle share); two Gaussian jobs of one seed through ``SolveServer``
+(drops, adaptive deadlines, the probe error), their x̄ held within 1e-6 against
+the synchronous solves of the same arrivals (the master's multi-key Gram over the
+realized mask, each retried arrival alone); a job that stops at q′ = 100 on
+Theorem 1; a least-norm job at FIG4A (q = 100) on Lemma 7; the asynchronous
+multi-round mode (4 × 50, the engine's x̄ bitwise); a process-backend worker
+killed at one (worker, round), which must show as a drop and a fresh-round retry;
+and ``python -m repro_torch.launch.serve --solve`` as a subprocess.
+
 The SJLT rows carry their plan (splits, m-tiles, column tiles, blocks,
 workers a call) and the scatter's shared-memory floor beside the bound; the SJLT
 S·A at each shape also its device time under ``torch.profiler``, which splits
 the event time into kernel time and launch path.
+
+The row-offset S·A calls are timed beside the library on the same tile (one
+``torch.matmul`` over the pre-drawn S tile, one ``index_add_`` of the signed rows).
 
 Each new path runs twice, bitwise equal. Each path runs with the launch counts
 at 0 and must make exactly the calls into the kernels' C entries that its
@@ -1335,11 +1352,36 @@ def phase_host_stream(cfg, rows: dict, key, A, b) -> None:
     torch.cuda.empty_cache()
 
 
+def offset_library(family: str, key, Y, m: int, row0: int):
+    """The yardstick at a row offset: the dense S tile ``S[:, row0 : row0 + n]``
+    drawn once with the plain tiles, then one ``torch.matmul`` for S·Y; for the
+    SJLT the signed rows of Y (their (row, t) draws at the global rows) made once,
+    then one ``index_add_`` into (m, d). Returns ``run()``; the port never calls it."""
+    import torch
+
+    from repro_torch.kernels import common
+
+    n, dx = Y.shape
+    k0, k1 = common.key_words(key)
+    if family == "sjlt":
+        rows = torch.arange(row0, row0 + n, dtype=torch.int64, device=Y.device)
+        buckets, signs = common.sjlt_counter_params(k0, k1, rows, SJLT_S, m)
+        idx, src = buckets.reshape(-1), (signs[..., None] * Y[:, None, :]).reshape(n * SJLT_S, dx)
+        return lambda: torch.zeros((m, dx), dtype=torch.float32, device=Y.device).index_add_(0, idx, src)
+    S = family_modules(family)[1].columns(k0, k1, m, row0, n, Y.device)
+
+    def run():
+        with common.full_fp32_matmul():
+            return S @ Y
+
+    return run
+
+
 def phase_row_offsets(X, m: int, rows: dict) -> None:
     """Rows 6, 7 and 12 at a row offset: the single-key S·A of a tile of
     HOST_BLOCK_ROWS[0] rows of FIG3A's X whose first row is data row row0 (the
     host stream's tile shape), against its plain version at the same offset
-    (SX_TOL), a rerun (bitwise), ms and bound."""
+    (SX_TOL), a rerun (bitwise), ms, bound and the library's ms on the same tile."""
     import torch
 
     from repro_torch.kernels import common
@@ -1357,9 +1399,14 @@ def phase_row_offsets(X, m: int, rows: dict) -> None:
         rerun = torch.equal(kernel(), SX)
         plain, plain_s = host_s(lambda: ref.sketch(key, Y, *tail, row0=row0))
         err, abs_err = sx_err(SX, plain), float((SX - plain).abs().max())
+        library = offset_library(family, key, Y, m, row0)
+        lib_ms, lib_SX = cuda_ms(library, 20)
+        lib_err = sx_err(lib_SX, plain)
+        del library, lib_SX
         ms, _ = cuda_ms(kernel, 20)
         rounds = common.rng_rounds() if family == "gaussian" else common.DEFAULT_ROUNDS
         report = {"n": bs, "d": Y.shape[1], "m": m, "row0": row0, "ms": ms, "plain_ms": plain_s * 1e3,
+                  "library_ms": lib_ms, "library_max_col_rel_err": lib_err,
                   **apply_bound(family, bs, Y.shape[1], m, 1, rounds), "max_abs_err": abs_err,
                   "max_col_rel_err": err, "tol": SX_TOL, "rerun_bitwise": rerun}
         emit({"phase": "row_offset", "name": single, **report})
@@ -1769,10 +1816,262 @@ def ln_redraw_path(key, A, b, xstar, q: int, rows: dict):
     return x
 
 
+# The serverless runtime and the solve server (repro_torch.runtime, repro_torch.serve):
+# Algorithm 1 served as jobs whose tasks arrive under a latency model, on FIG3A's
+# Gaussian data (and FIG4A's for the least-norm job), every task on the card.
+SERVERLESS_BACKENDS = (("inline", 1, True), ("thread", 8, True), ("process", 2, False))  # pool width, rerun
+EARLY_STOP_Q = 100  # the early-stop job's target: Theorem 1 at this many arrivals
+SERVER_TOL = 1e-6  # a server job's x̄ against the synchronous solves of its arrivals: max |Δx| / max |x|
+KILL_SHAPE = {"n": 4096, "d": 32, "m": 256, "q": 8, "victim": 3}
+SERVE_CLI = ("--solve", "--q", "8", "--jobs", "2", "--backend", "thread")
+
+
+def run_job(label: str, job, kernels: tuple, gate_at, band, rows: dict, *, twice: bool = False,
+            traced: bool = False, call_ms: float | None = None, **fields):
+    """Drive one runtime job (``job()`` returns a ``RuntimeResult``) with the counts
+    at 0. Each kernel of ``kernels`` must be called once per arrival, and no other
+    kernel (none in this process when ``kernels`` is empty: the process backend's
+    children keep their counts). x̄ must be finite,
+    its error at the realized q′ over the gate's within ``band``; with ``twice``
+    a rerun must replay the log byte for byte and x̄ bitwise (with ``traced``, the
+    rerun runs under ``torch.profiler``: ``phase_trace``'s line ``<label>_traced``
+    gives the device's busy share, and seconds_rerun is the traced wall time). Reports the job's
+    seconds, q′, retries, timeouts, drops, simulated makespan and, with
+    ``call_ms`` (the one kernel's event time a call at this shape), the kernels'
+    ms and the host loop's share of the seconds. Returns (result, report)."""
+    import numpy as np
+    import torch
+
+    reset_counts()
+    res, seconds = host_s(job)
+    counts = read_counts()
+    s = res.summary()
+    gate = gate_at(res.count)
+    rel = gate.error(torch.as_tensor(res.xbar, device=DEVICE))
+    lo, hi = band or (1 / THEORY_FACTOR, THEORY_FACTOR)
+    report = {"phase": label, **fields, "seconds": seconds, "q_effective": res.count, "submitted": res.submitted,
+              "dispatched": res.dispatched, "retries": s["retries"], "timeouts": s["timeouts"], "drops": s["drops"],
+              "cancelled": s["cancelled"], "stopped_early": res.stopped_early, "sim_makespan_s": s["sim_makespan_s"],
+              "rel_err": rel, "law": gate.law, "theory": gate.pred, "ratio": rel / gate.pred, "ratio_band": [lo, hi],
+              "launches": counts}
+    if call_ms is not None:
+        kernel_ms = counts.get(kernels[0], 0) * call_ms
+        report.update(kernel_ms=kernel_ms, host_loop_share=1 - kernel_ms / (seconds * 1e3))
+    if twice:
+        res2, seconds2 = phase_trace(f"{label}_traced", job) if traced else host_s(job)
+        report.update(seconds_rerun=seconds2, rerun_traced=traced,
+                      rerun_log_identical=res2.events.lines() == res.events.lines(),
+                      rerun_bitwise=bool(np.array_equal(res2.xbar, res.xbar)))
+    emit(report)
+    check(res.xbar.shape == (gate.d,) and bool(np.isfinite(res.xbar).all()), f"{label}: bad x̄")
+    check_counts(label, counts, {k: res.count for k in kernels})
+    check(not twice or (report["rerun_log_identical"] and report["rerun_bitwise"]),
+          f"{label}: the rerun is not the same run")
+    check(lo * gate.pred <= rel <= hi * gate.pred, f"{label}: error {rel} outside [{lo}, {hi}]× {gate.law}'s {gate.pred}")
+    for k in kernels:
+        if counts.get(k):
+            rows[k].setdefault("launches_by_path", {})[label] = counts[k]
+    return res, report
+
+
+def phase_serverless(rows: dict) -> None:
+    """The serverless runtime and the solve server on the card: FIG3A's SJLT job on
+    the inline, thread and process backends (one log, one x̄); two Gaussian jobs
+    through ``SolveServer`` (probe error, adaptive deadlines, drops) held against
+    the synchronous solves of their arrivals; an early stop on Theorem 1; a
+    least-norm job at FIG4A; the asynchronous multi-round mode; a killed worker;
+    and the ``--solve`` launcher as a user runs it."""
+    import numpy as np
+    import torch
+
+    from repro_torch import runtime as rt
+    from repro_torch.configs.paper_lsq import FIG3A, FIG4A
+    from repro_torch.core import distributed, sketches as sk, solve, theory
+    from repro_torch.data import regression
+    from repro_torch.serve import SolveServer
+    from repro_torch.utils import prng
+
+    cfg = FIG3A
+    A, b, _ = regression.gaussian_regression(SEED, cfg.n, cfg.d, device=DEVICE)
+    A64, b64 = A.double(), b.double()
+    _, fstar = _exact(solve, A64, b64)
+    key = prng.prng_key(SEED + 12)
+    gate = lambda q: theorem1(A64, b64, fstar, cfg.m, q)
+    sjlt = sk.SketchSpec("sjlt", cfg.m, s=SJLT_S, use_kernel=True)
+    gauss = sk.SketchSpec("gaussian", cfg.m, use_kernel=True)
+
+    # One SJLT job at q = 200 under a Pareto tail on each backend: one log, one x̄.
+    heavy = rt.HeavyTailLatency(scale_s=0.5, alpha=1.5, seed=SEED)
+    runs = {}
+    for backend, width, twice in SERVERLESS_BACKENDS:
+        conf = rt.RuntimeConfig(deadline_s=1.0, max_retries=2, backoff_base_s=0.05, max_threads=width)
+        job = lambda: rt.serverless_sketch_solve(sjlt, key, A, b, q=cfg.q, latency=heavy, config=conf,
+                                                 backend=backend, device=DEVICE)
+        runs[backend], _ = run_job(f"serverless_fig3a_sjlt_{backend}", job,
+                                   () if backend == "process" else ("sjlt_gram",), gate, THEORY_BAND["sjlt"], rows,
+                                   twice=twice, traced=backend == "thread",
+                                   call_ms=None if backend == "process" else rows["sjlt_gram"]["ms"],
+                                   backend=backend, pool=width)
+    ref = runs["inline"]
+    same_log = {k: r.events.lines() == ref.events.lines() for k, r in runs.items()}
+    bitwise = {k: bool(np.array_equal(r.xbar, ref.xbar)) for k, r in runs.items()}
+    emit({"phase": "serverless_fig3a_sjlt", "q": cfg.q, "log_identical_to_inline": same_log,
+          "xbar_bitwise_inline": bitwise, "first_attempt_timeouts": sum(
+              1 for ev in ref.events if ev.kind == "timeout" and ev.attempt == 0)})
+    check(all(same_log.values()) and all(bitwise.values()),
+          f"serverless_fig3a_sjlt: backends differ (logs {same_log}, x̄ {bitwise})")
+
+    # Two Gaussian jobs of one seed through the server: probe error, drops, adaptive deadlines.
+    server = SolveServer(latency=rt.DropLatency(seed=SEED, inner=rt.LognormalLatency(seed=SEED, mean_s=0.4, sigma=0.6),
+                                                drop_prob=0.2),
+                         deadline=rt.AdaptiveDeadline(), device=DEVICE)
+    job_seed = SEED + 13
+    submit = lambda: server.submit_solve(A, b, gauss, q=cfg.q, seed=job_seed, error_fn="probe").result
+    res, _ = run_job("serverless_fig3a_gaussian_server", submit, ("gaussian_gram",), gate, None, rows, twice=True,
+                     traced=True, call_ms=rows["gaussian_gram"]["ms"], backend="thread")
+    tele = server.telemetry()
+    j0, j1 = server.jobs
+    check(tele["jobs"] == 2 and tele["retries"] == j0.summary["retries"] + j1.summary["retries"]
+          and tele["dispatched"] == 2 * res.dispatched, f"serverless_fig3a_gaussian_server: telemetry {tele}")
+    # x̄ against the synchronous solves of the same arrivals: the first attempts through
+    # the master's multi-key Gram over the realized mask, each retried arrival alone.
+    jkey = prng.prng_key(job_seed)
+    mask = j0.realized_mask
+    first = distributed.distributed_sketch_solve_master(gauss, jkey, A, b, q=cfg.q, straggler_mask=mask,
+                                                        device=DEVICE).double()
+    retried = [(w, r) for w, r, attempt in res.arrived if attempt > 0]
+    acc = first * float(mask.sum())
+    for w, r in retried:
+        acc = acc + solve.sketch_and_solve(gauss, prng.worker_key(jkey, w, r), A, b).double()
+    want = (acc / res.count).cpu().numpy()
+    diff = float(np.abs(j0.xbar - want).max() / np.abs(want).max())
+    emit({"phase": "serverless_server_vs_synchronous", "first_attempts": int(mask.sum()),
+          "retried_arrivals": len(retried), "max_rel_diff": diff, "tol": SERVER_TOL,
+          "telemetry": {k: v for k, v in tele.items() if k != "per_job"},
+          "final_error": [j.summary["final_error"] for j in server.jobs]})
+    check(diff <= SERVER_TOL, f"serverless_fig3a_gaussian_server: x̄ {diff} off the synchronous solves")
+
+    # Early stop on Theorem 1 at q' = 100: the rest are cancelled, and (inline) never computed.
+    target = theory.gaussian_averaged_error(cfg.m, cfg.d, EARLY_STOP_Q)
+    conf = rt.RuntimeConfig(deadline_s=10.0, max_retries=0, target_error=target)
+    lat = rt.LognormalLatency(seed=SEED + 1, mean_s=0.4, sigma=0.6)
+    res, _ = run_job("serverless_early_stop", lambda: rt.serverless_sketch_solve(
+        gauss, key, A, b, q=cfg.q, latency=lat, config=conf, error_fn="theory", backend="inline", device=DEVICE),
+        ("gaussian_gram",), gate, None, rows, call_ms=rows["gaussian_gram"]["ms"], backend="inline",
+        target_error=target)
+    check(res.stopped_early and res.count == EARLY_STOP_Q and res.events.counts().get("cancel") == cfg.q - EARLY_STOP_Q,
+          f"serverless_early_stop: stopped {res.stopped_early} at q' = {res.count}")
+    # The same job on the thread backend, the server's default: the same log and x̄.
+    # Its pool computes in dispatch order while the master folds in arrival order,
+    # so it may compute any task submitted before the stop, and no other.
+    reset_counts()
+    res_t, seconds = host_s(lambda: rt.serverless_sketch_solve(
+        gauss, key, A, b, q=cfg.q, latency=lat, config=conf, error_fn="theory", backend="thread", device=DEVICE))
+    counts = read_counts()
+    stop = next(ev for ev in res_t.events if ev.kind == "stop")
+    submitted = sum(1 for ev in res_t.events if ev.kind == "dispatch" and ev.seq < stop.seq
+                    and (ev.extra["deadline_s"] is None or ev.extra["latency_s"] <= ev.extra["deadline_s"]))
+    same = {"log": res_t.events.lines() == res.events.lines(), "xbar": bool(np.array_equal(res_t.xbar, res.xbar))}
+    emit({"phase": "serverless_early_stop_thread", "seconds": seconds, "q_effective": res_t.count,
+          "submitted_before_stop": submitted, "launches": counts, "identical_to_inline": same})
+    check(all(same.values()), f"serverless_early_stop_thread: not the inline run ({same})")
+    check(res_t.count <= counts.get("gaussian_gram", 0) <= submitted
+          and not {k: c for k, c in counts.items() if c and k != "gaussian_gram"},
+          f"serverless_early_stop_thread: launches {counts} outside [{res_t.count}, {submitted}]")
+
+    # The asynchronous multi-round mode returns the engine's x̄.
+    lat = rt.HeavyTailLatency(scale_s=0.5, alpha=1.5, seed=SEED + 3)
+    conf = rt.RuntimeConfig(deadline_s=1.0, max_retries=2, backoff_base_s=0.05, backend="inline")
+    reset_counts()
+    x, seconds = host_s(lambda: distributed.distributed_sketch_solve_multiround(
+        sjlt, key, A, b, q=MULTIROUND_Q, rounds=MULTIROUND_R, latency=lat, runtime_config=conf, device=DEVICE))
+    counts = read_counts()
+    res = rt.serverless_sketch_solve(sjlt, key, A, b, q=MULTIROUND_Q, rounds=MULTIROUND_R, latency=lat,
+                                     config=conf, device=DEVICE)
+    same = torch.equal(x.cpu(), torch.as_tensor(res.xbar, dtype=torch.float32))
+    rel = gate(res.count).error(x)
+    emit({"phase": "serverless_multiround_sjlt", "q": MULTIROUND_Q, "rounds": MULTIROUND_R, "seconds": seconds,
+          "q_effective": res.count, "retries": res.summary()["retries"], "rel_err": rel,
+          "ratio": rel / gate(res.count).pred, "ratio_band": list(THEORY_BAND["sjlt"]), "launches": counts,
+          "bitwise_engine_xbar": same})
+    check(same, "serverless_multiround_sjlt: x̄ is not the engine's")
+    check_counts("serverless_multiround_sjlt", counts, {"sjlt_gram": res.count})
+    lo, hi = THEORY_BAND["sjlt"]
+    check(lo <= rel / gate(res.count).pred <= hi, f"serverless_multiround_sjlt: rel_err {rel} out of band")
+    rows["sjlt_gram"].setdefault("launches_by_path", {})["serverless_multiround_sjlt"] = counts.get("sjlt_gram", 0)
+    del A, b, A64, b64
+    torch.cuda.empty_cache()
+
+    # A least-norm job at FIG4A (q = 100): the S·A kernel keeps S, the adjoint reads it.
+    A4, b4, xstar = ln_problem("serverless_fig4a", FIG4A.n, FIG4A.d, SEED + 14)
+    server = SolveServer(latency=rt.LognormalLatency(seed=SEED + 2, mean_s=0.4, sigma=0.6),
+                         config=rt.RuntimeConfig(deadline_s=0.8, max_retries=2), backend="inline", device=DEVICE)
+    run_job("serverless_fig4a_least_norm", lambda: server.submit_solve(
+        A4, b4, ln_spec("gaussian", FIG4A.m, FIG4A.m_prime), q=FIG4A.q, seed=SEED + 15, least_norm=True).result,
+        ("gaussian_sketch", "gaussian_adjoint_kept"), lambda q: lemma7(xstar, FIG4A.n, FIG4A.m, q),
+        LN_BAND["gaussian"], rows, twice=True, backend="inline")
+
+    phase_killswitch(key)
+    phase_serve_cli()
+
+
+def phase_killswitch(key) -> None:
+    """The process backend with one (worker, round) whose process is killed: that
+    task becomes a drop, then a retry with a fresh round that arrives; each break
+    builds one pool; x̄ is finite."""
+    import numpy as np
+
+    from repro_torch import runtime as rt
+    from repro_torch.core import sketches as sk
+    from repro_torch.data import regression
+
+    c = KILL_SHAPE
+    A, b, _ = regression.gaussian_regression(SEED + 16, c["n"], c["d"], device=DEVICE)
+    compute = rt.make_sketch_solve_compute(sk.SketchSpec("sjlt", c["m"], s=SJLT_S, use_kernel=True), key, A, b,
+                                           device=DEVICE)
+    backend = rt.ProcessBackend(rt.KillSwitch(compute, kill_coords=((c["victim"], 0),)), max_workers=2)
+    engine = rt.ServerlessEngine(compute, rt.ConstantLatency(value_s=0.1),
+                                 rt.RuntimeConfig(deadline_s=1.0, max_retries=2), backend=backend)
+    try:
+        res, seconds = host_s(lambda: engine.run(q=c["q"]))
+    finally:
+        backend.shutdown()
+    drops = [(ev.worker_id, ev.round_id) for ev in res.events if ev.kind == "drop"]
+    retries = [(ev.worker_id, ev.round_id) for ev in res.events if ev.kind == "retry"]
+    emit({"phase": "serverless_killswitch", **c, "seconds": seconds, "drops": drops, "retries": retries,
+          "pools_built": backend.pools_built, "q_effective": res.count, "arrived": res.arrived,
+          "finite": bool(np.isfinite(res.xbar).all())})
+    check(drops == [(c["victim"], 0)] and len(retries) == 1 and retries[0][0] == c["victim"] and retries[0][1] >= 1,
+          f"serverless_killswitch: drops {drops}, retries {retries}")
+    # The victim breaks its pool and the one it is resubmitted to; the tasks queued
+    # behind it go to the third pool without building another.
+    check(backend.pools_built == 3, f"serverless_killswitch: {backend.pools_built} pools built for 2 breaks")
+    check(res.count == c["q"] and bool(np.isfinite(res.xbar).all()), "serverless_killswitch: x̄ or q' wrong")
+
+
+def phase_serve_cli() -> None:
+    """``python -m repro_torch.launch.serve --solve`` as a user runs it, at its
+    default shape: exit 0, one line a job and the aggregate line."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *SERVE_CLI], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    jobs = [line for line in lines if line.startswith("job ")]
+    agg = [line for line in lines if line.startswith("backend=")]
+    emit({"phase": "serve_cli", "args": list(SERVE_CLI), "returncode": out.returncode, "seconds": seconds,
+          "lines": lines, "stderr_tail": out.stderr[-2000:] if out.returncode else ""})
+    check(out.returncode == 0 and len(jobs) == 2 and len(agg) == 1, "serve_cli: the launcher failed")
+
+
 def phase_trace(label: str, solve) -> None:
     """One more run of a path under ``torch.profiler``: device time by kernel and the
     device's busy share of the run's wall time (kernels on one stream, so their
-    times add). The untraced runs give the end-to-end numbers."""
+    times add). The untraced runs give the end-to-end numbers. Returns the path's
+    output and the traced run's wall seconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1780,7 +2079,7 @@ def phase_trace(label: str, solve) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve()
+        out = solve()
         enqueued = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1794,6 +2093,7 @@ def phase_trace(label: str, solve) -> None:
     emit({"phase": label, "wall_ms": wall * 1e3, "host_enqueue_ms": enqueued * 1e3, "device_busy_ms": busy_ms,
           "device_busy_share": busy_ms / (wall * 1e3), "device_kernels": len(by_kernel),
           "top_kernels_ms": top})
+    return out, wall
 
 
 def _exact(solve, A64, b64):
@@ -1839,6 +2139,7 @@ def main() -> int:
         phase_adjoint_kernel(rows)
         phase_ln_apply(rows)
         phase_least_norm(rows)
+        phase_serverless(rows)
         for name, row in rows.items():
             check(row["launches"] > 0, f"{name} was not launched on its path")
     except SmokeFailure as exc:

@@ -163,18 +163,25 @@ def distributed_sketch_solve_multiround(
     averaged as they come: acc ← acc + (x̄_r − acc)/(r + 1), the reference's
     running mean. With ``rounds=1`` it is ``distributed_sketch_solve`` bitwise.
 
-    The reference's asynchronous mode (``latency``, ``runtime_config``,
-    ``error_fn``) runs on its serverless runtime, which the port does not have
-    yet (ROADMAP.md Queue 1 item 6, ``runtime/``): passing any of them raises
-    ``NotImplementedError``.
+    Asynchronous mode: pass a :class:`repro_torch.runtime.LatencyModel` as
+    ``latency`` (optionally a :class:`repro_torch.runtime.RuntimeConfig` and an
+    ``error_fn``: ``"theory"`` / ``"probe"`` / callable) and the call becomes a
+    thin wrapper over :func:`repro_torch.runtime.serverless_sketch_solve`: the
+    same (worker, round) key grid, but arrival-ordered streaming averaging,
+    deadlines, retries and early stopping instead of the synchronous wave
+    barrier. It returns the engine's x̄ (float64 on the host) as a tensor of A's
+    dtype on the device.
     """
-    if latency is not None or runtime_config is not None or error_fn is not None:
-        raise NotImplementedError(
-            "the asynchronous multi-round mode runs on the serverless runtime, which the port does not "
-            "have yet (ROADMAP.md Queue 1 item 6, runtime/)"
-        )
     if rounds < 1:
         raise ValueError(f"rounds must be at least 1, got {rounds}")
+    if latency is not None:
+        from repro_torch import runtime as rt
+
+        dev = resolve_device(device)
+        res = rt.serverless_sketch_solve(spec, key, A, b, q=q, rounds=rounds, latency=latency,
+                                         config=runtime_config, reg=reg, method=method, error_fn=error_fn,
+                                         device=dev)
+        return torch.as_tensor(res.xbar, dtype=A.dtype).to(dev)
     acc = None
     for r in range(rounds):
         xbar_r = distributed_sketch_solve(spec, key, A, b, q=q, round_id=r, reg=reg, method=method,

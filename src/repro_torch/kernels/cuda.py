@@ -37,6 +37,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from collections.abc import Callable
 from pathlib import Path
@@ -119,6 +120,11 @@ ADJOINT_KEPT_COLS, ADJOINT_SPLITS_PER_BLOCK, ADJOINT_MAX_SPLITS, ADJOINT_TARGET_
 KEPT_ROW_ALIGN = 4
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# Kernel wrappers are called from several host threads at once (the runtime's
+# thread backend): one lock makes a library's check, build and load happen once,
+# another makes each launch counter's read-modify-write whole.
+_LIBS_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +181,12 @@ def nvcc_command(nvcc: str, name: str, out: Path) -> list[str]:
     return [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
+def _tmp_name(out: Path) -> Path:
+    """Where one build writes ``out`` before moving it in place: a file of its own
+    for each process and thread, so concurrent builds never write one file."""
+    return out.with_name(f"{out.name}.tmp{os.getpid()}-{threading.get_ident()}")
+
+
 def build(names=SOURCES) -> list[Built]:
     """Build every named source that is not built yet, all ``nvcc`` at once."""
     todo = [n for n in names if not library_path(n).is_file()]
@@ -186,7 +198,7 @@ def build(names=SOURCES) -> list[Built]:
     procs = []
     for name in todo:
         out = library_path(name)
-        tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+        tmp = _tmp_name(out)
         proc = subprocess.Popen(
             nvcc_command(nvcc, name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -207,12 +219,22 @@ def build(names=SOURCES) -> list[Built]:
 
 def _library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _declare(name, lib)
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LIBS_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _declare(name, lib)
+            _LIBS[name] = lib
     return lib
+
+
+def count_launch(launches: collections.Counter, name: str) -> None:
+    """Add one to ``launches[name]``, whole under concurrent callers."""
+    with _COUNT_LOCK:
+        launches[name] += 1
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
@@ -586,7 +608,7 @@ def sketch_gram(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, rou
                 xs.data_ptr(), plan.x_rows, int(w0 == 0), partial.data_ptr(), G[w0].data_ptr(), stream,
             )
             _check(lib, code, f"{family} sketch_gram launch")
-            launches[name] += 1
+            count_launch(launches, name)
     return G
 
 
@@ -625,7 +647,7 @@ def _sjlt_call(entry: str, keys: torch.Tensor, X: torch.Tensor, m: int, s: int, 
                     plan.n_splits, plan.chunk_rows, plan.bucket_tile, pairs, partial, out[w0].data_ptr())
             code = fn(*args, stream) if entry == "repro_sjlt_gram" else fn(*args, row0, stream)
             _check(lib, code, f"{entry} launch")
-            launches[name] += 1
+            count_launch(launches, name)
     return out
 
 
@@ -721,7 +743,7 @@ def sketch_apply(family: str, keys: torch.Tensor, X: torch.Tensor, m: int, *, ro
                 None if s_out is None else s_out.data_ptr(), 0 if s_out is None else s_out.shape[1], row0, stream,
             )
             _check(lib, code, f"{family} sketch_apply launch")
-            launches[name] += 1
+            count_launch(launches, name)
     return out
 
 
@@ -814,7 +836,7 @@ def fwht(x: torch.Tensor, *, launches: collections.Counter, name: str) -> torch.
                           torch._C._cuda_getCurrentRawStream(dev))
     if code:
         _check(lib, code, "fwht launch")
-    launches[name] += 1
+    count_launch(launches, name)
     return y
 
 
@@ -862,7 +884,7 @@ def srht_forward(kd0: int, kd1: int, rows: torch.Tensor, A: torch.Tensor, n_pad:
                                   packed, passes, dev, torch._C._cuda_getCurrentRawStream(dev))
     if code:
         _check(lib, code, "srht_forward launch")
-    launches[name] += 1
+    count_launch(launches, name)
     return out
 
 
@@ -914,7 +936,7 @@ def gaussian_adjoint(key: torch.Tensor, Y: torch.Tensor, n: int, *, rounds: int,
             partial.data_ptr(), out.data_ptr(), torch.cuda.current_stream(Y.device).cuda_stream,
         )
     _check(lib, code, "gaussian_adjoint launch")
-    launches[name] += 1
+    count_launch(launches, name)
     return out
 
 
@@ -948,7 +970,7 @@ def gaussian_adjoint_kept(S: torch.Tensor, Y: torch.Tensor, n: int, *, launches:
                                   dev, torch._C._cuda_getCurrentRawStream(dev))
     if code:
         _check(lib, code, "gaussian_adjoint_kept launch")
-    launches[name] += 1
+    count_launch(launches, name)
     return out
 
 

@@ -12,8 +12,9 @@ so ``worker_key(base, w, r) = fold_in(fold_in(base, r), w)`` reproduces the
 reference's worker keys bit for bit (workers are stateless i.i.d. copies: any
 worker can be re-run and redraws the same sketch).
 
-``split``, ``random_bits``, ``randint``, ``uniform``, ``bernoulli``, ``normal``,
-``lognormal``, ``gumbel``, ``gumbel_top_k`` and ``categorical`` follow jax's threefry in its partitionable
+``split``, ``random_bits``, ``randint``, ``permutation``, ``choice``, ``uniform``,
+``bernoulli``, ``normal``, ``lognormal``, ``gumbel``, ``gumbel_top_k`` and
+``categorical`` follow jax's threefry in its partitionable
 mode (``jax_threefry_partitionable``, the default of the jax the reference runs
 on): element e of a draw of shape ``shape`` is ``threefry2x32(key, hi(e),
 lo(e))``, the counter being its flat index e split into 32-bit halves. The
@@ -123,6 +124,31 @@ def randint(key: torch.Tensor, shape: tuple, minval: int, maxval: int, *, device
     offset = (_mul32(higher % span, multiplier) + lower % span) & MASK32
     value = (minval + offset % span) & MASK32
     return torch.where(value >= 2**31, value - 2**32, value)
+
+
+def permutation(key: torch.Tensor, n: int, *, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: a permutation of 0..n-1 (int64) on ``device``.
+    jax shuffles by sorting: ``ceil(3·ln n / ln(2**32 − 1))`` rounds (2 for n
+    from 1,622 to 2.6 million), each splitting the key, drawing 32 random bits
+    per element under the second half and stably sorting the elements by them."""
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        halves = split(key)
+        key = halves[0]
+        bits = random_bits(halves[1], (n,), device=device)
+        x = x[torch.sort(bits, stable=True).indices]
+    return x
+
+
+def choice(key: torch.Tensor, n: int, shape: tuple, *, device=None) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace=False)`` (uniform, no ``p``):
+    int64 indices of 0..n-1 on ``device``, the first prod(shape) entries of
+    ``permutation(key, n)``."""
+    k = math.prod(shape)
+    if k > n:
+        raise ValueError(f"cannot take {k} of {n} indices without replacement")
+    return permutation(key, n, device=device)[:k].reshape(tuple(shape))
 
 
 # ------------------------------------------------------------------- float draws
@@ -247,6 +273,60 @@ def xla_erfinv(x: torch.Tensor) -> torch.Tensor:
         p = c if p is None else _fma(p, wv, c)
     p = torch.where(x.abs() == 1.0, torch.full_like(p, float("inf")), p)
     return x * p
+
+
+# jax.scipy.special.ndtri's piecewise rational forms (Cephes), as float32 constants.
+_NDTRI_P0 = (-5.99633501014107895267E1, 9.80010754185999661536E1, -5.66762857469070293439E1,
+             1.39312609387279679503E1, -1.23916583867381258016E0)
+_NDTRI_Q0 = (1.0, 1.95448858338141759834E0, 4.67627912898881538453E0, 8.63602421390890590575E1,
+             -2.25462687854119370527E2, 2.00260212380060660359E2, -8.20372256168333339912E1,
+             1.59056225126211695515E1, -1.18331621121330003142E0)
+_NDTRI_P1 = (4.05544892305962419923E0, 3.15251094599893866154E1, 5.71628192246421288162E1,
+             4.40805073893200834700E1, 1.46849561928858024014E1, 2.18663306850790267539E0,
+             -1.40256079171354495875E-1, -3.50424626827848203418E-2, -8.57456785154685413611E-4)
+_NDTRI_Q1 = (1.0, 1.57799883256466749731E1, 4.53907635128879210584E1, 4.13172038254672030440E1,
+             1.50425385692907503408E1, 2.50464946208309415979E0, -1.42182922854787788574E-1,
+             -3.80806407691578277194E-2, -9.33259480895457427372E-4)
+_NDTRI_P2 = (3.23774891776946035970E0, 6.91522889068984211695E0, 3.93881025292474443415E0,
+             1.33303460815807542389E0, 2.01485389549179081538E-1, 1.23716634817820021358E-2,
+             3.01581553508235416007E-4, 2.65806974686737550832E-6, 6.23974539184983293730E-9)
+_NDTRI_Q2 = (1.0, 6.02427039364742014255E0, 3.67983563856160859403E0, 1.37702099489081330271E0,
+             2.16236993594496635890E-1, 1.34204006088543189037E-2, 3.28014464682127739104E-4,
+             2.89247864745380683936E-6, 6.79019408009981274425E-9)
+
+
+def _polyval_fused(coeffs, x: torch.Tensor) -> torch.Tensor:
+    """``jnp.polyval`` in float32, its Horner steps fused."""
+    y = torch.zeros_like(x)
+    for c in coeffs:
+        y = _fma(y, x, float(np.float32(c)))
+    return y
+
+
+def xla_ndtri(p: torch.Tensor) -> torch.Tensor:
+    """float32 ``jax.scipy.special.ndtri`` (the inverse normal CDF) of p in (0, 1), as
+    jax computes it on the CPU: Cephes' rational form in w = p − 1/2 for
+    exp(−2) < p < 1 − exp(−2), else in 1/z with z = √(−2·log p′), p′ = min(p, 1 − p)
+    (one of two forms by z < 8), with ``xla_log`` and fused Horner steps. Bitwise
+    jax's at the quantiles 0.01, 0.02, …, 0.99 and 0.001, 0.995, 0.999, 0.9999; on
+    a dense grid of (0, 1) about one value in 500 is off, by at most 5 ulp, in the
+    tails, where XLA's CPU square root is an estimate refined by a Newton step
+    (see :func:`xla_erfinv`)."""
+    p = p.to(torch.float32)
+    f32 = np.float32
+    mcp = torch.where(p > float(f32(-np.expm1(-2.0))), 1.0 - p, p)
+    mcp = torch.where(mcp == 0, torch.full_like(mcp, 0.5), mcp)
+    w = mcp - 0.5
+    ww = w * w
+    big = (w + w * ww * (_polyval_fused(_NDTRI_P0, ww) / _polyval_fused(_NDTRI_Q0, ww))) * float(
+        -f32(np.sqrt(2.0 * np.pi)))
+    z = torch.sqrt(-2.0 * xla_log(mcp))
+    first, iz = z - xla_log(z) / z, 1.0 / z
+    tiny = first - _polyval_fused(_NDTRI_P2, iz) / _polyval_fused(_NDTRI_Q2, iz) / z
+    small = first - _polyval_fused(_NDTRI_P1, iz) / _polyval_fused(_NDTRI_Q1, iz) / z
+    x = torch.where(mcp > float(f32(np.exp(-2.0))), big, torch.where(z >= 8.0, tiny, small))
+    x = torch.where(p > float(f32(1.0 - np.exp(-2.0))), x, -x)
+    return torch.where(p == 0, -math.inf, torch.where(p == 1, math.inf, x))
 
 
 def normal(key: torch.Tensor, shape: tuple, *, device=None) -> torch.Tensor:

@@ -949,3 +949,40 @@ def test_host_stream_reruns_bitwise_and_matches_gram_blocked(cuda, family, block
     assert torch.equal(G, G2) and torch.equal(c, c2)
     Gw, cw = operators.gram_blocked(spec, key, torch.from_numpy(A).to(cuda), torch.from_numpy(b).to(cuda))
     assert _gram_err(G.cpu(), Gw.cpu()) <= REL_TOL
+
+
+@pytest.mark.parametrize("family", ["gaussian", "sjlt"])
+def test_runtime_thread_backend_is_bitwise_inline_on_the_card(cuda, family):
+    """The serverless runtime on the card: 8 threads launching the single-key Gram
+    give the inline run's log byte for byte and its x̄ bitwise, and each arrival
+    made exactly one kernel call (the counters are exact under threads)."""
+    from repro_torch import runtime as rt
+
+    A, b = _x(4096, 24, 1, cuda), _x(4096, 1, 2, cuda)[:, 0]
+    spec = sketches.SketchSpec(family, 128, s=SJLT_S, use_kernel=True)
+    launches, name = FAMILIES[family][3], f"{family}_gram"
+    lat = rt.HeavyTailLatency(seed=3, scale_s=0.5, alpha=1.5)
+    runs = {}
+    for backend in ("inline", "thread"):
+        before = launches[name]
+        runs[backend] = rt.serverless_sketch_solve(spec, prng.prng_key(4), A, b, q=32, latency=lat,
+                                                   config=rt.RuntimeConfig(max_threads=8), backend=backend)
+        assert launches[name] - before == runs[backend].count
+    assert runs["thread"].events.lines() == runs["inline"].events.lines()
+    np.testing.assert_array_equal(runs["thread"].xbar, runs["inline"].xbar)
+    assert runs["inline"].events.counts().get("retry", 0) > 0
+
+
+def test_process_backend_children_reach_the_card(cuda):
+    """Spawned workers make their own device copy and launch the kernels there:
+    the log and x̄ are the inline run's."""
+    from repro_torch import runtime as rt
+
+    A, b = _x(2048, 12, 3, cuda), _x(2048, 1, 4, cuda)[:, 0]
+    spec = sketches.SketchSpec("sjlt", 96, s=SJLT_S, use_kernel=True)
+    lat = rt.DropLatency(seed=5, inner=rt.LognormalLatency(seed=5, mean_s=0.4, sigma=0.6), drop_prob=0.2)
+    cfg = rt.RuntimeConfig(deadline_s=0.5, max_threads=2)
+    inline = rt.serverless_sketch_solve(spec, prng.prng_key(6), A, b, q=8, latency=lat, config=cfg, backend="inline")
+    proc = rt.serverless_sketch_solve(spec, prng.prng_key(6), A, b, q=8, latency=lat, config=cfg, backend="process")
+    assert proc.events.lines() == inline.events.lines()
+    np.testing.assert_array_equal(proc.xbar, inline.xbar)

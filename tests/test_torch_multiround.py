@@ -95,15 +95,46 @@ def test_waves_are_the_running_mean_of_rounds():
     torch.testing.assert_close(got, torch.stack(waves).mean(0), rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("arg", ["latency", "runtime_config", "error_fn"])
-def test_asynchronous_mode_is_not_ported(arg):
-    A, b = (torch.from_numpy(x) for x in _data(5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdist.distributed_sketch_solve_multiround(_spec(tsk, "gaussian"), tprng.prng_key(0), A, b, q=2, rounds=2,
-                                                  device="cpu", **{arg: object()})
+ASYNC_MODES = {
+    "latency": {},
+    "runtime_config": {"runtime_config": dict(deadline_s=0.5, max_retries=1, backoff_base_s=0.1)},
+    "error_fn": {"runtime_config": dict(deadline_s=10.0, max_retries=0, target_error=D / (M - D - 1) / 5),
+                 "error_fn": "theory"},
+}
+
+
+@pytest.mark.parametrize("mode", list(ASYNC_MODES))
+def test_asynchronous_mode_matches_the_reference_runtime(mode):
+    """With a latency model the call runs on the serverless runtime: x̄ within 1e-5
+    of the reference's ``repro.runtime.serverless_sketch_solve`` at the same q and
+    rounds (and, with ``error_fn="theory"``, its early stop); rounds=0 raises."""
+    from repro import runtime as jrt
+    from repro_torch import runtime as trt
+
+    A, b = _data(5)
+
+    def args(rt):
+        lat = rt.DropLatency(seed=7, inner=rt.LognormalLatency(seed=7, mean_s=0.4, sigma=0.6), drop_prob=0.2)
+        kw = dict(ASYNC_MODES[mode])
+        if "runtime_config" in kw:
+            kw["runtime_config"] = rt.RuntimeConfig(**kw["runtime_config"])
+        return lat, kw
+
+    lat, kw = args(jrt)
+    cfg = kw.pop("runtime_config", None)
+    want = jrt.serverless_sketch_solve(_spec(jsk, "gaussian"), jax.random.PRNGKey(8), jnp.asarray(A), jnp.asarray(b),
+                                       q=3, rounds=3, latency=lat, config=cfg, **kw)
+    lat, kw = args(trt)
+    got = tdist.distributed_sketch_solve_multiround(_spec(tsk, "gaussian"), tprng.prng_key(8), torch.from_numpy(A),
+                                                    torch.from_numpy(b), q=3, rounds=3, latency=lat, device="cpu",
+                                                    **kw)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.xbar, rtol=0, atol=1e-5 * np.abs(want.xbar).max())
+    if mode == "error_fn":
+        assert want.stopped_early and want.count == 5
     with pytest.raises(ValueError, match="rounds"):
-        tdist.distributed_sketch_solve_multiround(_spec(tsk, "gaussian"), tprng.prng_key(0), A, b, q=2, rounds=0,
-                                                  device="cpu")
+        tdist.distributed_sketch_solve_multiround(_spec(tsk, "gaussian"), tprng.prng_key(0), torch.from_numpy(A),
+                                                  torch.from_numpy(b), q=2, rounds=0, latency=lat, device="cpu")
 
 
 ENTRIES = ["multiround", "ihs_trace", "ihs_solve", "gram_blocked_host", "straggler_mask", "student_t", "airline",
