@@ -51,6 +51,8 @@ from repro_torch.kernels.sjlt import ref as sref
 from repro_torch.utils import prng
 
 DEFAULT_BLOCK_ROWS = 4096
+# (column, t) pairs whose SJLT parameters SJLTOp.adjoint draws at once by default.
+SJLT_ADJOINT_PAIRS = 1 << 20
 
 
 # ----------------------------------------------------------------------- registry
@@ -678,11 +680,19 @@ class SJLTOp(SketchOp):
             return _split_gram(ops.sjlt_gram(self.key, _join_b(A, b), self.m, self.spec.s), A.shape[1], b)
         return super().gram_blocked(A, b, block_rows=block_rows)
 
-    def adjoint(self, Y: torch.Tensor, *, block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
-        # Column j of S holds ±1/√s at its s buckets: a gather of Y, signed, summed over s.
+    def adjoint(self, Y: torch.Tensor, *, block_rows: int | None = None) -> torch.Tensor:
+        # Column j of S holds ±1/√s at its s buckets: a gather of Y, signed, summed
+        # over s. The parameters are drawn block_rows columns at a time (default
+        # SJLT_ADJOINT_PAIRS pairs; their int64 threefry temporaries take ≈ 100
+        # bytes a pair); each row's sum is its own, so any block gives the same bits.
         Y2, batch = _to_2d(Y, self.m)
-        buckets, signs = self._params(torch.arange(self.n, dtype=torch.int64, device=Y.device))
-        out = torch.sum(Y2.to(torch.float32)[buckets] * signs[..., None], dim=1)
+        Yf = Y2.to(torch.float32)
+        out = torch.empty((self.n, Yf.shape[1]), dtype=torch.float32, device=Y.device)
+        bs = max(1, min(block_rows or SJLT_ADJOINT_PAIRS // self.spec.s, self.n))
+        for j0 in range(0, self.n, bs):
+            rows = torch.arange(j0, min(j0 + bs, self.n), dtype=torch.int64, device=Y.device)
+            buckets, signs = self._params(rows)
+            out[j0 : j0 + rows.shape[0]] = torch.sum(Yf[buckets] * signs[..., None], dim=1)
         return out.to(Y.dtype).reshape((self.n,) + batch)
 
     @classmethod

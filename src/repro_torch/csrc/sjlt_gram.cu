@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernels of the JAX reference package:
 //   kernels/sjlt/gram.py    sjlt_gram_tiles, sjlt_gram_tiles_multi
-//   kernels/sjlt/kernel.py  sjlt_tiles  (entry repro_sjlt_apply)
+//   kernels/sjlt/kernel.py  sjlt_tiles  (entry repro_sjlt_apply; for few, long
+//                           columns or an m past the m-tiles, repro_sjlt_apply_long,
+//                           row 12b, at the end of this file)
 // The TPU kernels contract a one-hot (m x n) tile on the MXU, m / s times the
 // work of the sparse sum. Here the sketch is a sparse scatter: for q keys (one
 // per worker) and X = [A | b] of shape (n, d), data row i adds sign(i, t) * X[i]
@@ -476,6 +478,136 @@ cudaError_t sjlt_pass(const float* X, long long n, int d, const uint32_t* keys, 
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Row 12b: S.X for few, long columns (d' of 1 to 8, n up to 2^32) and any
+// m < 2^31: sketched gradient compression's CountSketch (s = 1) of one
+// gradient vector, D = 2^20 + 2^16 to 2^28 coordinates, m up to a quarter of
+// D. The passes above keep an m-tile's accumulator in shared memory (at most
+// 32 m-tiles of <= 992 rows: m <= 31,744) and a scatter block is 32 columns
+// wide, so one column would use a lane of 32. Here the accumulator lives in
+// global memory, one entry per (bucket, column), and the pairs are spread over
+// the whole card:
+//   1. long_scale_kernel: one thread per (row i, t) pair draws it once (the
+//      same threefry20(key, row0 + i, t), bucket b0 mod m, sign from b1's low
+//      bit), stores bucket | sign << 31, counts the bucket's pairs L_b and
+//      takes the largest float32 exponent e_bc of its column-c entries
+//      (integer atomics: the results do not depend on their order);
+//   2. long_fixed_kernel: each pair's term t = +-(1/sqrt s) x (exact in
+//      float64) becomes the integer round(t * 2^S_bc), S_bc = 188 - e_bc -
+//      ceil(log2 L_b), and is added into the (bucket, column) entry with a
+//      64-bit integer atomic. |t| < 2^(e_bc - 126), so every term is below
+//      2^(62 - ceil(log2 L_b)) and the L_b of them sum below 2^62: no overflow,
+//      and the sum is exact whatever the order of the adds;
+//   3. long_finish_kernel: the entry rounded to float32, times 2^-S_bc.
+// Determinism: no float atomics; every atomic is an integer add, max or or,
+// so each output is bitwise the same run to run and a q-key call's slice w is
+// bitwise the call on key w alone. Accuracy: each term is rounded at
+// 2^-S_bc, so an entry is off the exact sum by at most L^2 2^-61 of
+// max |term| <= sum |terms| (2.7e-8 at L = 256), then rounded once to
+// float32; the plain version (kernels/sjlt/ref.py) sums the same terms in
+// float64, in pair order, and rounds once. A non-finite term (exponent 255)
+// makes its entry +-inf or NaN, as the float64 sum would: its class is or-ed
+// into the entry instead of a value.
+// What bounds it on this card: per worker at n = 2^28, s = 1, d' = 1, m =
+// 0.1 n, the n threefry draws (77 integer operations each) take 1.24 ms at
+// 16.7 T ops/s, X's 1.07 GB and the output 0.35 ms at 3.35 TB/s. The passes
+// move more: the pair list (4 B a pair, written and read), the counts,
+// exponents and 64-bit entries, hit at random (each atomic a 32-byte sector of
+// L2 or, past its 50 MB, of device memory). A simple design that is right
+// first; a faster one would sort the pairs by bucket in shared memory.
+constexpr int LONG_THREADS = 256;
+constexpr int LONG_MAX_BLOCKS = 132 * 32;
+constexpr uint32_t NONFINITE = 255u;  // the biased exponent of inf and NaN
+constexpr unsigned long long POS_INF = 1ull, NEG_INF = 2ull, NOT_A_NUMBER = 4ull;
+
+__device__ __forceinline__ uint32_t biased_exponent(float x) { return (__float_as_uint(x) >> 23) & 0xFFu; }
+
+__device__ __forceinline__ int ceil_log2(uint32_t v) { return v <= 1u ? 0 : 32 - __clz(v - 1u); }
+
+// The power of two that scales the terms of entry (bucket, column) to integers.
+__device__ __forceinline__ int fixed_shift(uint32_t e_max, uint32_t count) {
+  return 188 - static_cast<int>(e_max) - ceil_log2(count);
+}
+
+__global__ void __launch_bounds__(LONG_THREADS)
+sjlt_long_scale_kernel(const float* __restrict__ X, long long n, int d, const uint32_t* __restrict__ keys, int m,
+                       uint64_t m_magic, int s, long long row0, uint32_t* __restrict__ pairs,
+                       uint32_t* __restrict__ counts, uint32_t* __restrict__ exps) {
+  const uint32_t k0 = keys[0], k1 = keys[1];
+  const long long total = n * s;
+  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; p < total;
+       p += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long i = p / s;
+    const uint32_t t = static_cast<uint32_t>(p - i * s);
+    const uint2 r = repro::threefry2x32(k0, k1, static_cast<uint32_t>(row0 + i), t, 20);
+    const uint32_t bucket = fast_mod(r.x, m_magic, static_cast<uint32_t>(m));
+    pairs[p] = bucket | (r.y & 1u) << 31;
+    atomicAdd(counts + bucket, 1u);
+    for (int c = 0; c < d; ++c) {
+      const uint32_t e = biased_exponent(X[i * d + c]);
+      uint32_t* slot = exps + static_cast<long long>(bucket) * d + c;
+      if (e > *slot) atomicMax(slot, e);  // the read only skips atomics that cannot raise it
+    }
+  }
+}
+
+__global__ void __launch_bounds__(LONG_THREADS)
+sjlt_long_fixed_kernel(const float* __restrict__ X, long long n, int d, int s, float inv_sqrt_s,
+                       const uint32_t* __restrict__ pairs, const uint32_t* __restrict__ counts,
+                       const uint32_t* __restrict__ exps, unsigned long long* __restrict__ acc) {
+  const long long total = n * s;
+  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; p < total;
+       p += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const uint32_t e = pairs[p];
+    const long long bucket = e & 0x7FFFFFFFu;
+    const bool neg = e >> 31;
+    const long long i = p / s;
+    const uint32_t count = counts[bucket];
+    for (int c = 0; c < d; ++c) {
+      const long long k = bucket * d + c;
+      const uint32_t e_max = exps[k];
+      const float x = X[i * d + c];
+      if (e_max == NONFINITE) {
+        if (biased_exponent(x) == NONFINITE) {
+          atomicOr(acc + k, x != x ? NOT_A_NUMBER : ((x > 0.f) != neg ? POS_INF : NEG_INF));
+        }
+        continue;
+      }
+      const double term = (neg ? -static_cast<double>(inv_sqrt_s) : static_cast<double>(inv_sqrt_s)) * x;
+      const long long v = __double2ll_rn(scalbn(term, fixed_shift(e_max, count)));
+      if (v != 0) atomicAdd(acc + k, static_cast<unsigned long long>(v));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(LONG_THREADS)
+sjlt_long_finish_kernel(long long entries, int d, const uint32_t* __restrict__ counts,
+                        const uint32_t* __restrict__ exps, const unsigned long long* __restrict__ acc,
+                        float* __restrict__ out) {
+  for (long long k = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; k < entries;
+       k += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const uint32_t count = counts[k / d];
+    const uint32_t e_max = exps[k];
+    const unsigned long long a = acc[k];
+    float y = 0.f;
+    if (count > 0 && e_max == NONFINITE) {
+      const bool is_nan = (a & NOT_A_NUMBER) || (a & (POS_INF | NEG_INF)) == (POS_INF | NEG_INF);
+      y = __int_as_float(is_nan ? 0x7FC00000 : (a & POS_INF) ? 0x7F800000 : static_cast<int>(0xFF800000u));
+    } else if (count > 0) {
+      // one rounding of the exact sum to float32 (a second only below float32's normal range)
+      y = scalbnf(__ll2float_rn(static_cast<long long>(a)), -fixed_shift(e_max, count));
+    }
+    out[k] = y;
+  }
+}
+
+// Blocks of a grid-stride pass over `work` items: enough for one each, at most LONG_MAX_BLOCKS.
+int long_blocks(long long work) {
+  const long long want = (work + LONG_THREADS - 1) / LONG_THREADS;
+  return static_cast<int>(want < 1 ? 1 : want > LONG_MAX_BLOCKS ? LONG_MAX_BLOCKS : want);
+}
+
 }  // namespace
 
 extern "C" {
@@ -532,6 +664,45 @@ int repro_sjlt_bins(long long n, int d, const uint32_t* keys, int q, int m, int 
   }
   return static_cast<int>(
       launch_bins(n, keys, q, m, s, chunk_rows, bucket_tile, L, 0, list, static_cast<cudaStream_t>(stream_ptr)));
+}
+
+
+// Row 12b: S_w X for q keys into out (q, m, d) float32, X (n, d) float32
+// row-major on the device, keys (q, 2) uint32 on the device, m < 2^31 sketch
+// rows, s nonzeros per data row of +-inv_sqrt_s, X's row j the sketch's data
+// row row0 + j (row0 >= 0, row0 + n <= 2^32), n * s < 2^32 pairs. scratch:
+// 12 m d + 4 m + 4 n s bytes, 8-byte aligned (the (m, d) 64-bit entries, the
+// (m, d) exponents, the m counts, the n s pairs), reused by each worker in
+// turn. Returns cudaErrorInvalidValue for arguments it cannot take, else the
+// first CUDA error of the launches.
+
+int repro_sjlt_apply_long(const float* X, long long n, int d, const uint32_t* keys, int q, int m, int s,
+                          float inv_sqrt_s, long long row0, void* scratch, float* out, void* stream_ptr) {
+  if (n <= 0 || d <= 0 || m <= 0 || s <= 0 || q <= 0 || row0 < 0 || row0 + n > (1LL << 32) ||
+      n * s >= (1LL << 32) || (reinterpret_cast<uintptr_t>(scratch) & 7u)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const long long entries = static_cast<long long>(m) * d;
+  unsigned long long* acc = static_cast<unsigned long long*>(scratch);
+  uint32_t* exps = reinterpret_cast<uint32_t*>(acc + entries);
+  uint32_t* counts = exps + entries;
+  uint32_t* pairs = counts + m;
+  const uint64_t m_magic = ~0ull / static_cast<uint64_t>(m) + 1u;
+  const int blocks = long_blocks(n * s);
+  for (int w = 0; w < q; ++w) {
+    cudaError_t err = cudaMemsetAsync(scratch, 0, 12 * entries + 4LL * m, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sjlt_long_scale_kernel<<<blocks, LONG_THREADS, 0, stream>>>(X, n, d, keys + 2 * w, m, m_magic, s, row0, pairs,
+                                                                counts, exps);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    sjlt_long_fixed_kernel<<<blocks, LONG_THREADS, 0, stream>>>(X, n, d, s, inv_sqrt_s, pairs, counts, exps, acc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    sjlt_long_finish_kernel<<<long_blocks(entries), LONG_THREADS, 0, stream>>>(entries, d, counts, exps, acc,
+                                                                               out + w * entries);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ into ``build/repro_torch_kernels/`` at the root of the checkout:
 * ``sketch_gram`` — the dense sketch→Gram families (Gaussian, Rademacher, SRHT),
   one sketch pass on the tensor cores (``repro_dense_gram``);
 * ``sketch_apply`` — the dense S·A (Gaussian, Rademacher) on the tensor cores;
-* ``sjlt_gram``   — the sparse SJLT sketch→Gram and S·A (a bin pass and a scatter pass);
+* ``sjlt_gram``   — the sparse SJLT sketch→Gram and S·A (a bin pass and a scatter pass),
+  and the S·A of few, long columns (row 12b: fixed-point sums in device memory);
 * ``fwht``        — the fast Walsh-Hadamard transform, and the SRHT's S·A on it
   (the diagonal at its first pass's loads, only the sampled rows written by its last);
 * ``adjoint``     — the Gaussian adjoint Sᵀ·Y: over an S the forward S·A kept
@@ -99,6 +100,10 @@ SJLT_BLOCK_COLS, SJLT_CLASSES, SJLT_STAGES = 32, 32, 4
 SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS, SJLT_MAX_BINS, SJLT_MAX_ACC = 64, 2048, 1024, 1 << 16
 SJLT_SMEM = 232_448
 SJLT_TARGET_BLOCKS = 4 * 132
+# Row 12b, csrc/sjlt_gram.cu repro_sjlt_apply_long: the SJLT S·A for at most
+# SJLT_LONG_MAX_COLS columns (one scatter block's 32 columns would leave most
+# lanes idle) or an m past plan_sjlt's m-tiles, its accumulator in device memory.
+SJLT_LONG_MAX_COLS = 8
 # FWHT passes of csrc/fwht.cu: a block holds 2**FWHT_MAX_TILE_BITS rows of a
 # column strip in shared memory, so a pass runs at most that many stages. The
 # SRHT forward's scratch between its passes has rows of whole
@@ -258,6 +263,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_sjlt_apply.restype = I
         lib.repro_sjlt_bins.argtypes = [LL, I, P, I, I, I, LL, I, I, I, P, P]
         lib.repro_sjlt_bins.restype = I
+        lib.repro_sjlt_apply_long.argtypes = [P, LL, I, P, I, I, I, F, LL, P, P, P]
+        lib.repro_sjlt_apply_long.restype = I
     elif name == "fwht":
         lib.repro_fwht.argtypes = [P, P, LL, I, LL, I, I, P]
         lib.repro_fwht.restype = I
@@ -428,6 +435,26 @@ def _sjlt_fits(m_tiles: int, bucket_tile: int, chunk_rows: int, pairs: int) -> b
             and _sjlt_smem(region, chunk_rows, bucket_tile) <= SJLT_SMEM)
 
 
+def _sjlt_m_tiles(m: int, chunk_rows: int, pairs: int) -> int | None:
+    """The fewest balanced m-tiles of m sketch rows whose scatter block fits, or None."""
+    return next((t for t in range(1, SJLT_MAX_BINS // SJLT_CLASSES + 1)
+                 if _sjlt_fits(t, -(-m // t), chunk_rows, pairs)), None)
+
+
+def sjlt_apply_is_long(n: int, m: int, d: int, s: int) -> bool:
+    """Whether the SJLT S·A of X (n, d) at m rows takes row 12b
+    (:func:`sjlt_apply_long`) rather than the bin and scatter passes: for at most
+    SJLT_LONG_MAX_COLS columns, or an m that :func:`plan_sjlt`'s m-tiles cannot
+    hold (m > 31,744 at s = 1). A function of the shapes only, so a key's S·X
+    takes the same entry alone or among q."""
+    if d <= SJLT_LONG_MAX_COLS:
+        return True
+    if not 0 < s <= SJLT_MAX_PAIRS:
+        return False  # plan_sjlt refuses it by its s
+    chunk_rows = min(SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS // s)
+    return _sjlt_m_tiles(m, chunk_rows, chunk_rows * s) is None
+
+
 @functools.lru_cache(maxsize=256)
 def plan_sjlt(n: int, m: int, d: int, s: int) -> SjltPlan:
     """The SJLT passes' plan: chunks of ``min(SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS // s)``
@@ -441,8 +468,7 @@ def plan_sjlt(n: int, m: int, d: int, s: int) -> SjltPlan:
         raise ValueError(f"the SJLT kernel takes 1 <= s <= {SJLT_MAX_PAIRS}, got s={s}")
     chunk_rows = min(SJLT_MAX_CHUNK_ROWS, SJLT_MAX_PAIRS // s)
     pairs = chunk_rows * s
-    m_tiles = next((t for t in range(1, SJLT_MAX_BINS // SJLT_CLASSES + 1)
-                    if _sjlt_fits(t, -(-m // t), chunk_rows, pairs)), None)
+    m_tiles = _sjlt_m_tiles(m, chunk_rows, pairs)
     if m_tiles is None:
         raise ValueError(f"the SJLT kernel's {SJLT_MAX_BINS} bins cannot hold m={m} sketch rows")
     chunks = -(-n // chunk_rows)
@@ -770,6 +796,39 @@ def sjlt_apply(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
     plan_sjlt(n, m, d, s)
     out = torch.empty((q, m, d), dtype=torch.float32, device=X.device)
     return _sjlt_call("repro_sjlt_apply", keys, X, m, s, out, launches=launches, name=name, row0=row0)
+
+
+def sjlt_long_scratch_bytes(n: int, m: int, d: int, s: int) -> int:
+    """Scratch of one call into ``repro_sjlt_apply_long``: the (m, d) 64-bit
+    fixed-point entries and float32 exponents, the m pair counts, the n·s pairs
+    (bucket and sign), reused by each worker in turn."""
+    return 12 * m * d + 4 * m + 4 * n * s
+
+
+def sjlt_apply_long(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
+                    launches: collections.Counter, name: str, row0: int = 0) -> torch.Tensor:
+    """Row 12b: (q, m, d) SJLT sketches ``S_w[:, row0 : row0 + n] X`` of the CUDA
+    tensor X for q key rows, for few, long columns and any m < 2**31
+    (``csrc/sjlt_gram.cu`` ``repro_sjlt_apply_long``: each pair drawn once, every
+    (bucket, column) summed in 64-bit fixed point at its own power of two with
+    integer atomics, to L²·2⁻⁶¹ of its largest term of L, rounded once). Bitwise the same run to run, and slice w of a q-key call is
+    the call on key w. Adds one to ``launches[name]`` per call into the C entry
+    (one for all q workers)."""
+    n, d, q = _check_sketch_args("sjlt_apply_long", X, keys, m)
+    _check_row0(row0, n)
+    if s <= 0 or n * s >= 2**32:
+        raise ValueError(f"the long-column SJLT S·A takes s >= 1 and n·s < 2**32 pairs, got n={n} s={s}")
+    lib = _library("sjlt_gram")
+    kw = _u32_words(keys, X.device)
+    scratch = torch.empty(-(-sjlt_long_scratch_bytes(n, m, d, s) // 8), dtype=torch.int64, device=X.device)
+    out = torch.empty((q, m, d), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        code = lib.repro_sjlt_apply_long(X.data_ptr(), n, d, kw.data_ptr(), q, m, s, common.inv_sqrt(s), row0,
+                                         scratch.data_ptr(), out.data_ptr(), stream)
+        _check(lib, code, "repro_sjlt_apply_long launch")
+        count_launch(launches, name)
+    return out
 
 
 def sjlt_bins(keys: torch.Tensor, n: int, m: int, d: int, s: int) -> torch.Tensor:

@@ -5,7 +5,9 @@ Counterpart of the reference's ``kernels/sjlt/kernel.py`` ``sjlt_tiles``. The TP
 kernel takes ``buckets`` and ``signs`` arrays and contracts a one-hot matrix on
 the MXU; this one is the sparse sketch pass of the SJLT sketch→Gram kernel
 (O(n·s·d), the same ``sjlt_counter_params`` drawn in-core, so S is identical)
-and its split reduction, without the Gram pass.
+and its split reduction, without the Gram pass. Few, long columns take the
+long-column entry instead (row 12b, ``cuda.sjlt_apply_long``; ``ops.sjlt_apply``
+picks it by the shapes).
 """
 from __future__ import annotations
 
@@ -22,3 +24,4 @@ def sjlt_tiles(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
     from repro_torch.kernels import cuda
 
     return cuda.sjlt_apply(keys, X, m, s, launches=launches, name=name, row0=row0)
+

@@ -9,9 +9,15 @@ versions (``ref.py``, segment sums); on a CUDA tensor they launch the kernels
 (``kernel.py`` and ``gram.py``, ``csrc/sjlt_gram.cu``) or raise. Slice w of a
 multi form is bitwise equal to the single form on ``keys[w]``.
 
+The S·A takes one of two hand-written entries by the shapes alone
+(``cuda.sjlt_apply_is_long``): the bin and scatter passes (row 12), or, for at
+most 8 columns or an m past their m-tiles, the long-column entry (row 12b:
+gradient compression's CountSketch of one long vector). Its calls count as
+``sjlt_apply_long`` and ``sjlt_apply_long_multi``.
+
 ``LAUNCHES[name]`` counts the calls into the kernels' C entries that wrapper
 ``name`` made: one per single-key call, one per chunk of workers
-(``cuda.worker_chunk``) for a multi form.
+(``cuda.worker_chunk``) for a multi form, one for all workers of a long one.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ import collections
 
 import torch
 
-from repro_torch.kernels import common
+from repro_torch.kernels import common, cuda
 from repro_torch.kernels.sjlt import gram, kernel, ref
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -54,6 +60,9 @@ def sjlt_apply(key: torch.Tensor, A: torch.Tensor, m: int, s: int, *, row0: int 
     the global rows)."""
     if A.device.type == "cpu":
         return ref.sketch(key, A, m, s, row0=row0)
+    if cuda.sjlt_apply_is_long(A.shape[0], m, A.shape[1], s):
+        return cuda.sjlt_apply_long(key.reshape(1, 2), A, m, s, launches=LAUNCHES, name="sjlt_apply_long",
+                                    row0=row0)[0]
     return kernel.sjlt_tiles(key.reshape(1, 2), A, m, s, launches=LAUNCHES, name="sjlt_apply", row0=row0)[0]
 
 
@@ -62,4 +71,6 @@ def sjlt_apply_multi(keys: torch.Tensor, A: torch.Tensor, m: int, s: int) -> tor
     ``cuda.worker_chunk`` workers."""
     if A.device.type == "cpu":
         return ref.sketch_multi(keys, A, m, s)
+    if cuda.sjlt_apply_is_long(A.shape[0], m, A.shape[1], s):
+        return cuda.sjlt_apply_long(keys, A, m, s, launches=LAUNCHES, name="sjlt_apply_long_multi")
     return kernel.sjlt_tiles(keys, A, m, s, launches=LAUNCHES, name="sjlt_apply_multi")

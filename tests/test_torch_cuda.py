@@ -526,7 +526,9 @@ def test_apply_and_fwht_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 def test_apply_launch_counters_count_kernel_launches(cuda):
-    X = _x(500, 4, 3, cuda)
+    """One count a call under each wrapper's name; the SJLT's at most 8 columns
+    under the long-column entry's names (row 12b), past them under its own."""
+    X = _x(500, 12, 3, cuda)
     keys = prng.worker_keys(prng.prng_key(4), 2)
     for single, multi, _, launches, name in APPLIES.values():
         single_name = name.removesuffix("_multi")
@@ -534,6 +536,11 @@ def test_apply_launch_counters_count_kernel_launches(cuda):
         single(keys[0], X, 16)
         multi(keys, X, 16)
         assert (launches[single_name], launches[name]) == (before[0] + 1, before[1] + 1)
+    before = dict(sops.LAUNCHES)
+    sops.sjlt_apply(keys[0], X[:, :4].contiguous(), 16, SJLT_S)
+    sops.sjlt_apply_multi(keys, X[:, :4].contiguous(), 16, SJLT_S)
+    grew = {k: v - before.get(k, 0) for k, v in sops.LAUNCHES.items() if v != before.get(k, 0)}
+    assert grew == {"sjlt_apply_long": 1, "sjlt_apply_long_multi": 1}
 
 
 NEW_KINDS = ["uniform", "uniform_norep", "leverage", "hybrid_gaussian", "hybrid_rademacher",
@@ -986,3 +993,175 @@ def test_process_backend_children_reach_the_card(cuda):
     proc = rt.serverless_sketch_solve(spec, prng.prng_key(6), A, b, q=8, latency=lat, config=cfg, backend="process")
     assert proc.events.lines() == inline.events.lines()
     np.testing.assert_array_equal(proc.xbar, inline.xbar)
+
+
+# ------------------------------------------- row 12b: the SJLT S·A of few, long columns
+
+# (n, m, d′, s): gradient compression's CountSketch from a small vector to
+# gradcomp_bench's full one (D = 2^20 + 2^16) at ratios 0.01, 0.1 and 0.25, m
+# past plan_sjlt's 31,744 rows, d′ = 8 and s = 4.
+LONG_CASES = [(4096, 64, 1, 1), (2**20 + 2**16, 11_142, 1, 1), (2**20 + 2**16, 111_412, 1, 1),
+              (2**20 + 2**16, 278_528, 1, 1), (100_000, 40_000, 8, 1), (65_536, 3000, 1, 4), (30_001, 997, 8, 4)]
+
+
+def _bucket_mass(key, X, m, s, row0=0):
+    """Σ|terms| of each (bucket, column) of S·X, in float64 (the measure's denominator)."""
+    k0, k1 = common.key_words(key)
+    n, d = X.shape
+    buckets, _ = common.sjlt_counter_params(k0, k1, row0 + torch.arange(n, device=X.device), s, m)
+    terms = X.double().abs().repeat_interleave(s, dim=0) * common.inv_sqrt(s)
+    return torch.zeros((m, d), dtype=torch.float64, device=X.device).index_add_(0, buckets.reshape(-1), terms)
+
+
+def _bucket_err(got, want, mass) -> float:
+    return float(((got.double() - want.double()).abs() / mass.clamp_min(1e-300)).max())
+
+
+@pytest.mark.parametrize("n,m,d,s", LONG_CASES)
+def test_long_column_apply_matches_plain_per_bucket(cuda, n, m, d, s):
+    """Per bucket, max |Δ| / Σ|terms| ≤ 1e-6 against the plain version; bitwise
+    its fixed-point model (``sjlt.ref.sketch_fixed_point``) and bitwise run to
+    run; one call into the long-column entry; q-key slices bitwise single keys."""
+    X = _x(n, d, n + m, cuda) * torch.exp2(torch.from_numpy(
+        np.random.default_rng(m).integers(-10, 11, (n, 1))).to(cuda, torch.float32))
+    keys = prng.worker_keys(prng.prng_key(m + s), 2)
+    before = dict(sops.LAUNCHES)
+    got = sops.sjlt_apply(keys[0], X, m, s)
+    assert sops.LAUNCHES["sjlt_apply_long"] == before.get("sjlt_apply_long", 0) + 1
+    assert sops.LAUNCHES["sjlt_apply"] == before.get("sjlt_apply", 0)
+    want = sref.sketch(keys[0], X, m, s)
+    assert _bucket_err(got, want, _bucket_mass(keys[0], X, m, s)) <= 1e-6
+    assert torch.equal(got, sref.sketch_fixed_point(keys[0], X, m, s))
+    assert torch.equal(sops.sjlt_apply(keys[0], X, m, s), got)
+    multi = sops.sjlt_apply_multi(keys, X, m, s)
+    assert torch.equal(multi[0], got) and torch.equal(multi[1], sops.sjlt_apply(keys[1], X, m, s))
+
+
+@pytest.mark.parametrize("row0", [17, 4096, 2**32 - 8192])
+def test_long_column_row0_keeps_its_meaning(cuda, row0):
+    """A tile at row0 against the plain version at that offset; row0 = 0 passed
+    explicitly is the call without it; the tiles of a column summed in order
+    against the whole call (per bucket, 1e-6 of Σ|terms|)."""
+    n, m, d, s = 8192, 512, 2, 1
+    X = _x(n, d, row0 % 89, cuda)
+    key = prng.prng_key(row0 % 31)
+    got = sops.sjlt_apply(key, X, m, s, row0=row0)
+    assert _bucket_err(got, sref.sketch(key, X, m, s, row0=row0), _bucket_mass(key, X, m, s, row0)) <= 1e-6
+    whole = sops.sjlt_apply(key, X, m, s)
+    assert torch.equal(sops.sjlt_apply(key, X, m, s, row0=0), whole)
+    parts = sum(sops.sjlt_apply(key, X[j : j + 2048].contiguous(), m, s, row0=j) for j in range(0, n, 2048))
+    assert _bucket_err(parts, whole, _bucket_mass(key, X, m, s)) <= 1e-6
+
+
+def test_long_column_apply_keeps_infinities_and_nans(cuda):
+    X = _x(5000, 2, 3, cuda)
+    X[5, 0], X[9, 1], X[11, 1] = float("inf"), float("nan"), -float("inf")
+    key = prng.prng_key(4)
+    got, want = sops.sjlt_apply(key, X, 40, 1), sref.sketch(key, X, 40, 1)
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf())
+    inf = got.isinf()
+    assert torch.equal(got[inf], want[inf])
+    fin = want.isfinite()
+    assert torch.equal(got[fin], sref.sketch_fixed_point(key, X, 40, 1)[fin])
+
+
+@pytest.mark.parametrize("n,d,m", [(3001, 251, 2500), (1000, 50, 200), (2000, 40, 3100), (300, 9, 12_000)])
+def test_old_entry_is_the_path_for_the_shapes_it_keeps(cuda, n, d, m):
+    """Past 8 columns and within the m-tiles the S·A is the bin and scatter
+    passes' entry, bit for bit, and counts as it did."""
+    X = _x(n, d, 5, cuda)
+    keys = prng.worker_keys(prng.prng_key(n), 2)
+    before = dict(sops.LAUNCHES)
+    got = sops.sjlt_apply_multi(keys, X, m, SJLT_S)
+    assert sops.LAUNCHES["sjlt_apply_multi"] == before.get("sjlt_apply_multi", 0) + 1
+    assert sops.LAUNCHES.get("sjlt_apply_long_multi", 0) == before.get("sjlt_apply_long_multi", 0)
+    assert torch.equal(got, tcuda.sjlt_apply(keys, X, m, SJLT_S, launches=sops.LAUNCHES, name="x"))
+
+
+@pytest.mark.parametrize("n,d,m", [(1001, 7, 40), (33, 1, 1), (777, 5, 1536)])
+def test_old_entry_still_takes_the_shapes_that_moved(cuda, n, d, m):
+    """The bin and scatter passes, called directly, still compute S·X at the
+    shapes that now go to the long-column entry (the S·A rows' measure)."""
+    X = _x(n, d, 6, cuda)
+    keys = prng.worker_keys(prng.prng_key(m), 2)
+    got = tcuda.sjlt_apply(keys, X, m, SJLT_S, launches=sops.LAUNCHES, name="x")
+    assert _sx_err(got, sref.sketch_multi(keys, X, m, SJLT_S)) <= REL_TOL
+
+
+def test_long_column_apply_makes_no_synchronising_call(cuda):
+    X = _x(2**16, 1, 7, cuda)
+    keys = prng.worker_keys(prng.prng_key(7), 2)
+    got, want = _runs_without_sync(lambda: (sops.sjlt_apply(keys[0], X, 6554, 1),
+                                            sops.sjlt_apply_multi(keys, X, 6554, 1)))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_long_column_entry_refuses_what_it_cannot_take(cuda):
+    lib = tcuda._library("sjlt_gram")
+    n, d, m, s = 1000, 1, 64, 1
+    X = _x(n, d, 0, cuda)
+    kw = tcuda._u32_words(prng.worker_keys(prng.prng_key(0), 1), cuda)
+    scratch = torch.empty(tcuda.sjlt_long_scratch_bytes(n, m, d, s) // 8 + 1, dtype=torch.int64, device=cuda)
+    out = torch.empty((m, d), dtype=torch.float32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(n=n, m=m, s=s, row0=0, q=1, offset=0):
+        return lib.repro_sjlt_apply_long(X.data_ptr(), n, d, kw.data_ptr(), q, m, s, 1.0, row0,
+                                         scratch.data_ptr() + offset, out.data_ptr(), stream)
+
+    assert call() == 0
+    for bad in (dict(n=0), dict(m=0), dict(s=0), dict(q=0), dict(row0=-1), dict(row0=2**32 - n + 1), dict(offset=4)):
+        assert call(**bad) == 1, bad
+    with pytest.raises(ValueError, match="n·s"):
+        tcuda.sjlt_apply_long(prng.worker_keys(prng.prng_key(0), 1), X, m, 2**23, launches=sops.LAUNCHES, name="x")
+    torch.cuda.synchronize()
+
+
+def test_gradient_compression_runs_its_kernels_on_the_card(cuda):
+    """CountSketch: one long-column S·A call a compress, its payload within the
+    measure of the plain version's; the Gaussian: one dense S·A and one adjoint
+    that draws S again; each reconstruction against the CPU plain path."""
+    from repro_torch.core import gradcomp
+
+    rs = np.random.default_rng(8)
+    g = {"w": torch.from_numpy(rs.standard_normal(2**16).astype(np.float32)),
+         "b": torch.from_numpy(rs.standard_normal(2**12).astype(np.float32))}
+    gc = {k: v.to(cuda) for k, v in g.items()}
+    key = prng.prng_key(9)
+    for kind, ratio, calls in (("countsketch", 0.1, {"sjlt_apply_long": 1}),
+                               ("gaussian", 0.01, {"gaussian_sketch": 1, "gaussian_adjoint": 1})):
+        cfg = gradcomp.GradCompressionConfig(enabled=True, ratio=ratio, kind=kind)
+        sops.LAUNCHES.clear()
+        gops.LAUNCHES.clear()
+        payload, ctx = gradcomp.compress(cfg, key, gc)
+        rec = gradcomp.decompress(cfg, payload, ctx)
+        assert {**{k: v for k, v in sops.LAUNCHES.items() if v}, **{k: v for k, v in gops.LAUNCHES.items() if v}} == calls
+        want_p, want_ctx = gradcomp.compress(cfg, key, g)
+        want = gradcomp.decompress(cfg, want_p, want_ctx)
+        for leaf in g:
+            assert _sx_err(rec[leaf].cpu()[:, None], want[leaf][:, None]) <= 1e-4
+
+
+def test_fit_head_and_row_sharded_workers_on_the_card(cuda):
+    """fit_head's one multi-key Gram call against the CPU plain path (1e-4:
+    d×d ridge solves of Grams that agree to 1e-5); the row-sharded worker mode
+    one single-key Gram call a worker."""
+    from repro_torch.train import solvers
+
+    rs = np.random.default_rng(10)
+    H = torch.from_numpy(rs.standard_normal((20_000, 24)).astype(np.float32))
+    Y = H @ torch.from_numpy(rs.standard_normal((24, 3)).astype(np.float32))
+    spec = sketches.SketchSpec("sjlt", 200, s=SJLT_S, use_kernel=True)
+    sops.LAUNCHES.clear()
+    W = solvers.fit_head(prng.prng_key(1), H.to(cuda), Y.to(cuda), spec, q=8)
+    assert dict(sops.LAUNCHES) == {"sjlt_gram_multi": 1}
+    want = solvers.fit_head(prng.prng_key(1), H, Y, spec, q=8, device="cpu")
+    torch.testing.assert_close(W.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    gops.LAUNCHES.clear()
+    gauss = sketches.SketchSpec("gaussian", 200, use_kernel=True)
+    x = distributed.distributed_sketch_solve(gauss, prng.prng_key(2), H.to(cuda), Y[:, 0].to(cuda), q=8,
+                                             row_sharded=True)
+    assert dict(gops.LAUNCHES) == {"gaussian_gram": 8}
+    want = distributed.distributed_sketch_solve(gauss, prng.prng_key(2), H, Y[:, 0], q=8, row_sharded=True,
+                                                device="cpu")
+    torch.testing.assert_close(x.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))

@@ -45,6 +45,18 @@ the float32 floor: worker 0's fp32 x̂ against a float64 solve of the same
 the test accuracy of X̄ and X* on the last 3N/20 rows (one call, so the test
 rows share the training rows' class templates).
 
+Row-sharded workers (the smoke's ``row_sharded_fig3a_*`` gates): worker w of Q
+sketches only its own rows [w·N/Q, (w+1)·N/Q) of A and b (the reference's
+``solve.sketch_and_solve`` on (A_w, b_w) with ``worker_key(PRNGKey(seed), w)``,
+the composition the port's ``row_sharded=True`` follows) and rel_err of the
+average on all of A is divided by Theorem 1 at Q. This local-block estimator is
+not Theorem 1's; on the planted Gaussian data it predicts about the same error
+(each worker's sketch error on its block, plus the spread of the blocks' own
+least-squares solutions around the global one, a term about q²d(m−d−1)/n² of
+the first):
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/theory_ratio.py --row-sharded N D M Q SEED[,SEED...] [KIND,...]
+
 IHS's calibration (the smoke's ``ihs_fig3a_gaussian`` gate): the reference's
 ``ihs_trace`` with a Gaussian sketch of M rows on the planted Gaussian data,
 rel_err after each of ITERS steps, beside Theorem 1 at Q workers:
@@ -145,6 +157,26 @@ def least_norm_ratios(n: int, d: int, m: int, m_prime: int, q: int, seeds,
     return out
 
 
+def row_sharded_ratios(n: int, d: int, m: int, q: int, seeds, kinds) -> dict:
+    """{kind: [rel_err / Theorem 1 of the q local-block workers' average, each seed]}."""
+    pred = theory.gaussian_averaged_error(m, d, q)
+    out: dict = {kind: [] for kind in kinds}
+    blk = n // q
+    for seed in seeds:
+        A, b = gaussian_data(seed, n, d)
+        A64, b64 = A.double().numpy(), b.double().numpy()
+        xstar, *_ = np.linalg.lstsq(A64, b64, rcond=None)
+        fstar = float(np.sum((A64 @ xstar - b64) ** 2))
+        An, bn = A.numpy(), b.numpy()
+        for kind in kinds:
+            one = jax.jit(functools.partial(solve.sketch_and_solve, spec_for(kind, m)))
+            xs = [np.asarray(one(prng.worker_key(jax.random.PRNGKey(seed), w), jnp.asarray(An[w * blk:(w + 1) * blk]),
+                                 jnp.asarray(bn[w * blk:(w + 1) * blk])), np.float64) for w in range(q)]
+            xbar = np.mean(xs, axis=0)
+            out[kind].append((float(np.sum((A64 @ xbar - b64) ** 2)) - fstar) / fstar / pred)
+    return out
+
+
 def _report(got: dict, **shape) -> None:
     for kind, vals in got.items():
         print(json.dumps({"kind": kind, **shape, "ratios": vals, "mean": float(np.mean(vals)),
@@ -203,6 +235,12 @@ def main(argv) -> int:
                 m=m, q=q, seeds=seeds)
         for kind, vals in acc.items():
             print(json.dumps({"kind": kind, "test_accuracy_xbar_xstar": vals}))
+        return 0
+    if argv[:1] == ["--row-sharded"]:
+        n, d, m, q = (int(a) for a in argv[1:5])
+        seeds = [int(x) for x in argv[5].split(",")]
+        kinds = tuple(argv[6].split(",")) if len(argv) > 6 else ("gaussian", "srht", "sjlt")
+        _report(row_sharded_ratios(n, d, m, q, seeds, kinds), mode="row_sharded", n=n, d=d, m=m, q=q, seeds=seeds)
         return 0
     if argv[:1] == ["--least-norm"]:
         n, d, m, m_prime, q = (int(a) for a in argv[1:6])
