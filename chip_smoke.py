@@ -79,9 +79,10 @@ serverless phases, Algorithm 1 across processes: FIG3A in worker mode at q = 8
 with each worker sketching only its own 62,500 rows of A and b
 (``row_sharded=True``; Gaussian, SRHT and SJLT, one fused single-key Gram a
 worker, twice, bitwise, gated on bands from the reference's local-block
-ratios); worker, master and least-norm solves through
+ratios); worker, master and least-norm solves and the masked gradient mean
+(compression off and on, a scalar mask) through
 ``launch.mesh.init_worker_group``'s NCCL group of one rank in this process,
-each x̄ bitwise the one without a group; and two spawned ranks in a gloo group,
+each result bitwise the one without a group; and two spawned ranks in a gloo group,
 both on the card, running the replicated and row-sharded worker mode (4
 workers a rank) and the masked, compressed gradient mean, each within 1e-6 of
 the one-process result and bitwise on a rerun.
@@ -2160,17 +2161,19 @@ def _free_port() -> int:
 
 
 def phase_group_nccl_world1(key, A, b, rows: dict) -> None:
-    """Worker, master and least-norm solves through ``init_worker_group``'s NCCL
-    group of one rank (this process): each x̄ bitwise the x̄ without a group, its
-    kernel calls the same."""
+    """Worker, master and least-norm solves and the masked gradient mean (with
+    compression off and on, a scalar mask) through ``init_worker_group``'s NCCL
+    group of one rank (this process): each result bitwise the one without a
+    group, its kernel calls the same."""
     import os
 
     import torch
     import torch.distributed as dist
 
     from repro_torch.configs.paper_lsq import FIG3A, FIG4A
-    from repro_torch.core import distributed, sketches as sk
+    from repro_torch.core import distributed, gradcomp, sketches as sk
     from repro_torch.launch import mesh
+    from repro_torch.train import sketch_dp
 
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # a sealed machine: the loopback is the one interface
     (group, dev), init_s = host_s(lambda: mesh.init_worker_group(
@@ -2178,6 +2181,8 @@ def phase_group_nccl_world1(key, A, b, rows: dict) -> None:
     A4, b4, _ = ln_problem("group_nccl", FIG4A.n, FIG4A.d, SEED + 20)
     gauss = sk.SketchSpec("gaussian", FIG3A.m, use_kernel=True)
     sjlt = sk.SketchSpec("sjlt", FIG3A.m, s=SJLT_S, use_kernel=True)
+    grads = _grads(SEED + 21, dev)
+    uncompressed, countsketch = (gradcomp.GradCompressionConfig(enabled=on, ratio=0.1) for on in (False, True))
     paths = {
         "worker_gaussian": lambda g: distributed.distributed_sketch_solve(gauss, key, A, b, q=ROW_SHARDED_Q,
                                                                           device=dev, group=g),
@@ -2185,7 +2190,11 @@ def phase_group_nccl_world1(key, A, b, rows: dict) -> None:
                                                                              group=g),
         "least_norm_gaussian": lambda g: distributed.distributed_sketch_least_norm(
             ln_spec("gaussian", FIG4A.m, FIG4A.m_prime), key, A4, b4, q=FIG4A.q, device=dev, group=g),
+        # no kernel: the mean of the leaves, the scalar mask reduced on the card
+        "masked_mean_uncompressed": lambda g: sketch_dp.masked_compressed_mean(uncompressed, key, grads, 1.0, g),
+        "masked_mean_countsketch": lambda g: sketch_dp.masked_compressed_mean(countsketch, key, grads, 1.0, g),
     }
+    leaves = lambda x: list(x.values()) if isinstance(x, dict) else [x]
     report = {"phase": "group_nccl_world1", "card": nvidia_smi_line(), "backend": dist.get_backend(group),
               "world_size": dist.get_world_size(group), "device": str(dev), "init_seconds": init_s}
     try:
@@ -2196,8 +2205,10 @@ def phase_group_nccl_world1(key, A, b, rows: dict) -> None:
             reset_counts()
             x_none = solve(None)
             counts_none = read_counts()
-            report[label] = {"seconds": seconds, "bitwise_no_group": torch.equal(x_group, x_none),
-                             "finite": bool(torch.isfinite(x_group).all()), "launches": counts_group,
+            report[label] = {"seconds": seconds,
+                             "bitwise_no_group": all(map(torch.equal, leaves(x_group), leaves(x_none))),
+                             "finite": all(bool(torch.isfinite(v).all()) for v in leaves(x_group)),
+                             "launches": counts_group,
                              "launches_no_group": counts_none}
     finally:
         dist.destroy_process_group()
@@ -2205,7 +2216,8 @@ def phase_group_nccl_world1(key, A, b, rows: dict) -> None:
     for label in paths:
         r = report[label]
         check(r["bitwise_no_group"] and r["finite"], f"group_nccl_world1 {label}: x̄ not bitwise the one without a group")
-        check(r["launches"] == r["launches_no_group"] and sum(r["launches"].values()) > 0,
+        check(r["launches"] == r["launches_no_group"]
+              and (sum(r["launches"].values()) > 0) == (label != "masked_mean_uncompressed"),
               f"group_nccl_world1 {label}: kernel calls {r['launches']} against {r['launches_no_group']}")
         for name, c in r["launches"].items():
             if c:
@@ -2221,9 +2233,10 @@ def _grads(seed: int, device, shapes=None) -> dict:
 
 
 def _gloo_rank(rank: int, world: int, rendezvous: str, out_dir: str, device: str, shape: tuple,
-               grad_shapes: dict) -> None:
+               grad_shapes: dict, t_spawn: float) -> None:
     """One of the two spawned ranks of ``group_gloo_two_ranks``, both on ``device``,
-    on FIG3A's data of ``shape`` (n, d, m)."""
+    on FIG3A's data of ``shape`` (n, d, m). ``t_spawn``: the parent's wall clock
+    at the spawn, for the seconds until this rank's group and data are ready."""
     import torch
     import torch.distributed as dist
 
@@ -2242,6 +2255,8 @@ def _gloo_rank(rank: int, world: int, rendezvous: str, out_dir: str, device: str
     gauss = sk.SketchSpec("gaussian", m, use_kernel=True)
     rows_r = slice(rank * n // world, (rank + 1) * n // world)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    ready_seconds = time.time() - t_spawn
 
     def timed(fn):
         sync()
@@ -2250,7 +2265,7 @@ def _gloo_rank(rank: int, world: int, rendezvous: str, out_dir: str, device: str
         sync()
         return res, time.perf_counter() - t0
 
-    out: dict = {}
+    out: dict = {"ready_seconds": ready_seconds}
     reset_counts()
     for label, solve in (
             ("replicated", lambda: distributed.distributed_sketch_solve(gauss, key, A, b, q=ROW_SHARDED_Q,
@@ -2289,7 +2304,7 @@ def phase_group_gloo_two_ranks(key, A, b, x_row_sharded, gate, rows: dict) -> No
     work.mkdir(parents=True)
     t0 = time.perf_counter()
     args = (2, str(work / "rendezvous"), str(work), "cuda:0" if DEVICE == "cuda" else DEVICE,
-            (A.shape[0], A.shape[1], FIG3A.m), GRAD_SHAPES)
+            (A.shape[0], A.shape[1], FIG3A.m), GRAD_SHAPES, time.time())
     ctx = mp.start_processes(_gloo_rank, args=args, nprocs=2, join=False, start_method="spawn")
     try:
         while not ctx.join(timeout=5):
@@ -2310,7 +2325,7 @@ def phase_group_gloo_two_ranks(key, A, b, x_row_sharded, gate, rows: dict) -> No
     want_mean = {k: v.cpu() for k, v in sketch_dp.masked_compressed_mean(comp, key, g0, 1.0).items()}
     rel = lambda x, w: float((x.double() - w.double()).abs().max() / w.double().abs().max())
     report = {"phase": "group_gloo_two_ranks", "card": nvidia_smi_line(), "ranks": 2, "device": "cuda:0",
-              "seconds_whole": seconds}
+              "seconds_whole": seconds, "ready_seconds": [r["ready_seconds"] for r in res]}
     for label in ("replicated", "row_sharded"):
         report[label] = {"max_rel_diff": [rel(r[label]["x"], want[label]) for r in res],
                          "rerun_bitwise": [r[label]["rerun_bitwise"] for r in res],

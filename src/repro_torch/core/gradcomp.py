@@ -45,7 +45,6 @@ class GradCompressionConfig:
     ratio: float = 0.1          # m = ceil(ratio * D)
     kind: str = "countsketch"   # countsketch | gaussian
     mode: str = "same_sketch"   # same_sketch | fresh_sketch
-    min_size: int = 4096        # leaves smaller than this are sent uncompressed
 
 
 def _sketch_spec(cfg: GradCompressionConfig, m: int, use_kernel: bool = False) -> SketchSpec:

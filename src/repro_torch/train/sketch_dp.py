@@ -30,14 +30,15 @@ def masked_compressed_mean(cfg: gradcomp.GradCompressionConfig, key: torch.Tenso
     compression on, the masked payload and the mask go in one ``all_reduce``.
     A leaf comes back in the type its product with the float32 mask takes (the
     reference's promotion: a bf16 leaf's mean is float32 when compression is
-    off), the denominator at least 1.
+    off), the denominator at least 1. The mask goes to the gradients' device
+    (a scalar mask is a CPU tensor, which NCCL does not reduce).
     """
-    mask = torch.as_tensor(mask_local, dtype=torch.float32)
+    leaves = tu.tree_leaves(grads)
+    mask = torch.as_tensor(mask_local, dtype=torch.float32, device=leaves[0].device if leaves else None)
     if not cfg.enabled:
         den = torch.clamp(averaging.psum(mask, group), min=1.0)
-        return tu.tree_map(lambda g: averaging.psum(g.to(torch.promote_types(g.dtype, mask.dtype))
-                                                     * mask.to(g.device), group) / den.to(g.device), grads)
+        return tu.tree_map(lambda g: averaging.psum(g.to(torch.promote_types(g.dtype, mask.dtype)) * mask, group)
+                           / den, grads)
     payload, ctx = gradcomp.compress(cfg, key, grads)
-    mask = mask.to(payload.device)
     packed = averaging.psum(torch.cat([payload * mask, mask.reshape(1)]), group)
     return gradcomp.decompress(cfg, packed[:-1] / torch.clamp(packed[-1], min=1.0), ctx)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _sjlt_fixed_point as fixed
 from repro_torch.core import distributed, operators, sketches
 from repro_torch.kernels import common, cuda as tcuda
 from repro_torch.kernels.fwht import ops as fops, ref as fref
@@ -1020,7 +1021,7 @@ def _bucket_err(got, want, mass) -> float:
 @pytest.mark.parametrize("n,m,d,s", LONG_CASES)
 def test_long_column_apply_matches_plain_per_bucket(cuda, n, m, d, s):
     """Per bucket, max |Δ| / Σ|terms| ≤ 1e-6 against the plain version; bitwise
-    its fixed-point model (``sjlt.ref.sketch_fixed_point``) and bitwise run to
+    its fixed-point model (``_sjlt_fixed_point.sketch_fixed_point``) and bitwise run to
     run; one call into the long-column entry; q-key slices bitwise single keys."""
     X = _x(n, d, n + m, cuda) * torch.exp2(torch.from_numpy(
         np.random.default_rng(m).integers(-10, 11, (n, 1))).to(cuda, torch.float32))
@@ -1031,7 +1032,7 @@ def test_long_column_apply_matches_plain_per_bucket(cuda, n, m, d, s):
     assert sops.LAUNCHES["sjlt_apply"] == before.get("sjlt_apply", 0)
     want = sref.sketch(keys[0], X, m, s)
     assert _bucket_err(got, want, _bucket_mass(keys[0], X, m, s)) <= 1e-6
-    assert torch.equal(got, sref.sketch_fixed_point(keys[0], X, m, s))
+    assert torch.equal(got, fixed.sketch_fixed_point(keys[0], X, m, s))
     assert torch.equal(sops.sjlt_apply(keys[0], X, m, s), got)
     multi = sops.sjlt_apply_multi(keys, X, m, s)
     assert torch.equal(multi[0], got) and torch.equal(multi[1], sops.sjlt_apply(keys[1], X, m, s))
@@ -1062,7 +1063,7 @@ def test_long_column_apply_keeps_infinities_and_nans(cuda):
     inf = got.isinf()
     assert torch.equal(got[inf], want[inf])
     fin = want.isfinite()
-    assert torch.equal(got[fin], sref.sketch_fixed_point(key, X, 40, 1)[fin])
+    assert torch.equal(got[fin], fixed.sketch_fixed_point(key, X, 40, 1)[fin])
 
 
 @pytest.mark.parametrize("n,d,m", [(3001, 251, 2500), (1000, 50, 200), (2000, 40, 3100), (300, 9, 12_000)])

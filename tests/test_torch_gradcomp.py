@@ -12,16 +12,19 @@
   the worker's own; fresh_sketch folds in worker 0); the straggler-masked mean.
 * The reference's own checks (``tests/test_gradcomp.py``) repeated on the port.
 * The SJLT adjoint drawn in blocks is bitwise the adjoint drawn at once.
-* Row 12b's arithmetic (``sjlt.ref.sketch_fixed_point``, the long-column
+* Row 12b's arithmetic (``_sjlt_fixed_point.sketch_fixed_point``, the long-column
   entry's fixed-point sums) against the plain SJLT S·A, and the rule that
   routes an S·A to that entry.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import _sjlt_fixed_point as fixed
 from repro.core import gradcomp as jgc, operators as jops, sketches as jsk
 from repro.utils import tree as jtree
 from repro_torch.core import gradcomp as tgc, operators as tops, sketches as tsk
@@ -154,6 +157,28 @@ def test_masked_mean_of_a_bf16_leaf_promotes_as_the_reference():
     assert out["w"].dtype == torch.float32
 
 
+def test_masked_mean_reduces_the_mask_on_the_gradients_device(monkeypatch):
+    """A scalar mask goes into the ``all_reduce`` on the gradients' device, not
+    the CPU (NCCL reduces only CUDA tensors): every tensor the uncompressed mean
+    hands to ``psum`` lies where the leaves lie (here the meta device)."""
+    from repro_torch.core import averaging as tavg
+
+    seen = []
+    monkeypatch.setattr(tavg, "psum", lambda x, group=None: seen.append(x.device) or x)
+    tg = {"w": torch.ones(16, device="meta"), "b": torch.ones(4, device="meta")}
+    out = tdp.masked_compressed_mean(tgc.GradCompressionConfig(enabled=False), tprng.prng_key(0), tg, 1.0)
+    assert seen and all(dev.type == "meta" for dev in seen)
+    assert all(v.device.type == "meta" for v in out.values())
+
+
+def test_config_takes_no_knob_it_would_ignore():
+    """The reference's ``min_size`` is read by nothing (every leaf is
+    flattened into the one sketched vector): the port has no such field."""
+    assert "min_size" not in {f.name for f in dataclasses.fields(tgc.GradCompressionConfig)}
+    with pytest.raises(TypeError):
+        tgc.GradCompressionConfig(enabled=True, min_size=4096)
+
+
 # ------------------------------------------------ the reference's own checks, on the port
 
 
@@ -231,7 +256,7 @@ def test_long_column_fixed_point_matches_the_plain_sketch(n, m, d, s, row0):
     A = torch.from_numpy((rs.standard_normal((n, d)) * np.exp2(rs.integers(-14, 15, (n, 1)))).astype(np.float32))
     key = tprng.prng_key(m)
     want = sref.sketch(key, A, m, s, row0=row0)
-    got = sref.sketch_fixed_point(key, A, m, s, row0=row0)
+    got = fixed.sketch_fixed_point(key, A, m, s, row0=row0)
     k0, k1 = tprng.prng_key(m).tolist()
     buckets, _ = sref.common.sjlt_counter_params(k0, k1, row0 + torch.arange(n), s, m)
     mass = torch.zeros((m, d), dtype=torch.float64).index_add_(
@@ -242,7 +267,7 @@ def test_long_column_fixed_point_matches_the_plain_sketch(n, m, d, s, row0):
 def test_long_column_fixed_point_keeps_infinities_and_nans():
     A = torch.from_numpy(np.random.default_rng(3).standard_normal((600, 2)).astype(np.float32))
     A[5, 0], A[9, 1], A[11, 1] = float("inf"), float("nan"), -float("inf")
-    want, got = sref.sketch(tprng.prng_key(1), A, 40, 1), sref.sketch_fixed_point(tprng.prng_key(1), A, 40, 1)
+    want, got = sref.sketch(tprng.prng_key(1), A, 40, 1), fixed.sketch_fixed_point(tprng.prng_key(1), A, 40, 1)
     assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf())
     fin = want.isfinite()
     assert torch.equal(torch.sign(got[~fin & ~got.isnan()]), torch.sign(want[~fin & ~want.isnan()]))
