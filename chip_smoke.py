@@ -70,9 +70,11 @@ size (D = 2^20 + 2^16): CountSketch at ratios 0.01-0.25 through row 12b
 (``repro_sjlt_apply_long``, the SJLT S·A of few, long columns), its payload
 against the plain version per bucket and its error² against (D − 1)/m, the
 Gaussian at 1% through rows 6 and 5b, the fresh-sketch mean of q = 1, 4, 16;
-row 12b at D = 2^28 against its bound and the library's ``index_add_``, with
-the whole compress + decompress and its peak memory (its device time by kernel:
-``tools/sjlt_long_profile.py``); and
+row 12b at D = 2^28 and ratios 0.01, 0.1 and 0.25 against its bound and the
+library's ``index_add_``, with the whole compress + decompress and its peak
+memory; in both, decompress's adjoint over the pair list the compress kept
+beside the adjoint that draws the pairs again, bitwise (row 12b's device time by
+pass: ``tools/sjlt_long_profile.py``); and
 ``train.solvers.fit_head`` at whisper-small's width (262,144 × 768 features, 16
 outputs, q = 16, 12 arriving) through rows 2 and 11, on Theorem 1. After the
 serverless phases, Algorithm 1 across processes: FIG3A in worker mode at q = 8
@@ -2110,7 +2112,7 @@ GAUSS_RATIO = 0.01
 FRESH_QS = (1, 4, 16)
 FRESH_RATIO = 0.05
 LONG_TOL = 1e-6  # row 12b against its plain version, per bucket: max |Δ| / Σ|terms|
-GRAD_LARGE_D, GRAD_LARGE_RATIO = 1 << 28, 0.1
+GRAD_LARGE_D, GRAD_LARGE_RATIOS = 1 << 28, (0.01, 0.1, 0.25)
 HEAD = {"n": 262_144, "d": 768, "k": 16, "q": 16, "m": 3072, "reg": 1e-4, "arrived": 12}
 ROW12B = "src/repro/kernels/sjlt/kernel.py:25"
 
@@ -2430,6 +2432,7 @@ def phase_gradcomp(rows: dict) -> None:
     report = {"phase": "gradcomp_bench_size", "card": card, "D": D, "launches": counts, "countsketch": {}}
     for r, cfg in cs.items():
         m = max(1, math.ceil(r * D))
+        kept = kept_adjoint_report(cfg, key, g, D)
         want, plain_s = host_s(lambda m=m: sref.sketch(key, X, m, 1))
         err = long_bucket_err(key, X, m, 1, payloads[r][:, None], want)
         ms, _ = cuda_ms(lambda m=m: sops.sjlt_apply(key, X, m, 1), 5)
@@ -2441,7 +2444,7 @@ def phase_gradcomp(rows: dict) -> None:
             "m": m, "seconds_error": seconds[r], "rel_err": errs[r], "err2_m_over_D_minus_1": errs[r] ** 2 * m / (D - 1),
             "per_bucket_rel_err": err, "max_abs_err": float((payloads[r][:, None] - want).abs().max()),
             "tol": LONG_TOL, "ms": ms, "plain_ms": plain_s * 1e3, "library_ms": lib_ms, "bound_ms": bound,
-            "bound_by": by, "rerun_bitwise": torch.equal(gradcomp.compress(cfg, key, g)[0], payloads[r])}
+            "bound_by": by, "rerun_bitwise": torch.equal(gradcomp.compress(cfg, key, g)[0], payloads[r]), **kept}
     r10 = report["countsketch"]["0.1"]
     rows["sjlt_apply_long"] = {
         "name": "sjlt_apply_long", "row": "12b", "route": "cuda", "source": "src/repro_torch/csrc/sjlt_gram.cu",
@@ -2476,6 +2479,8 @@ def phase_gradcomp(rows: dict) -> None:
     for r, c in report["countsketch"].items():
         check(0.9 <= c["err2_m_over_D_minus_1"] <= 1.1, f"gradcomp countsketch {r}: error² {c}")
         check(c["per_bucket_rel_err"] <= LONG_TOL and c["rerun_bitwise"], f"gradcomp countsketch {r}: payload {c}")
+        check(c["kept_adjoint_bitwise"] and c["kept_adjoint_launches"] == {"sjlt_apply_long": 1},
+              f"gradcomp countsketch {r}: the kept adjoint {c}")
     gr = report["gaussian"]
     check(gcounts == {"gaussian_sketch": 1, "gaussian_adjoint": 1}, f"gradcomp gaussian: launches {gcounts}")
     check(0.9 <= gr["err2_m_over_D_plus_1"] <= 1.1, f"gradcomp gaussian: error² {gr}")
@@ -2490,10 +2495,45 @@ def phase_gradcomp(rows: dict) -> None:
     phase_gradcomp_large(rows)
 
 
+def kept_adjoint_report(cfg, key, g, D: int) -> dict:
+    """One CountSketch compress and decompress of the gradient tree g (D
+    coordinates) on the card, timed, with the peak device memory over the
+    pair: decompress's adjoint reads the pair list the compress kept
+    (``operators.sjlt_adjoint_kept``). Then that adjoint (``ctx[0]``) beside
+    the one that draws the pairs again (``SJLTOp.adjoint``), each timed with
+    CUDA events on the payload and held bitwise against the other, and the
+    calls of the compress into row 12b."""
+    import torch
+
+    from repro_torch.core import gradcomp, operators
+    from repro_torch.core.sketches import SketchSpec
+    from repro_torch.kernels.sjlt import ops as sops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = dict(sops.LAUNCHES)
+    (payload, ctx), compress_s = host_s(lambda: gradcomp.compress(cfg, key, g))
+    launches = {k: v - before.get(k, 0) for k, v in sops.LAUNCHES.items() if v != before.get(k, 0)}
+    rec, decompress_s = host_s(lambda: gradcomp.decompress(cfg, payload, ctx))
+    peak = torch.cuda.max_memory_allocated() - base
+    del rec
+    kept_adjoint = ctx[0]
+    op = operators.make_operator(SketchSpec("sjlt", payload.shape[0], s=1), key, D, device=payload.device)
+    kept_ms, kept = cuda_ms(lambda: kept_adjoint(payload), 2)
+    # one run, warmed up below 2^24 coordinates (at 2^28 a redraw takes 0.6 s)
+    redraw_ms, redrawn = cuda_ms(lambda: op.adjoint(payload), 1, warmup=D < 1 << 24)
+    return {"compress_seconds": compress_s, "decompress_seconds": decompress_s, "peak_bytes": peak,
+            "kept_adjoint_ms": kept_ms, "redraw_adjoint_ms": redraw_ms,
+            "kept_adjoint_bitwise": bool(torch.equal(kept, redrawn)), "kept_adjoint_launches": launches}
+
+
 def phase_gradcomp_large(rows: dict) -> None:
-    """CountSketch of one D = 2^28 gradient (1.07 GB of float32) at ratio 0.1:
-    row 12b's event time against its bound and the library's ``index_add_``, the
-    whole compress + decompress with its peak memory, and the adjoint's share."""
+    """CountSketch of one D = 2^28 gradient (1.07 GB of float32) at ratios
+    0.01, 0.1 and 0.25: row 12b's event time against its bound and the
+    library's ``index_add_``, the whole compress + decompress with its peak
+    memory, and decompress's adjoint over the kept pair list beside the one
+    that draws the pairs again."""
     import math
 
     import torch
@@ -2505,38 +2545,40 @@ def phase_gradcomp_large(rows: dict) -> None:
     D = GRAD_LARGE_D
     g = _grads(SEED + 22, DEVICE, {"w": (D,)})
     key = prng.prng_key(SEED + 22)
-    cfg = gradcomp.GradCompressionConfig(enabled=True, ratio=GRAD_LARGE_RATIO)
-    m = max(1, math.ceil(GRAD_LARGE_RATIO * D))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    (payload, ctx), compress_s = host_s(lambda: gradcomp.compress(cfg, key, g))
-    rec, decompress_s = host_s(lambda: gradcomp.decompress(cfg, payload, ctx))
-    peak = torch.cuda.max_memory_allocated() - base
-    _, adjoint_s = host_s(lambda: ctx[0].adjoint(payload))
-    err = float(torch.linalg.norm(rec["w"].double() - g["w"].double()) / torch.linalg.norm(g["w"].double()))
     X = g["w"][:, None]
-    ms, out = cuda_ms(lambda: sops.sjlt_apply(key, X, m, 1), 3)
-    rerun = torch.equal(out[:, 0], payload)
-    library = long_library(key, X, m, 1)
-    lib_ms, lib_out = cuda_ms(library, 3)
-    lib_err = long_bucket_err(key, X, m, 1, out, lib_out)
-    del library, lib_out
-    bound, by = bound_ms("sjlt", D, 1, m, 1, s=1, apply=True)
-    report = {"phase": "gradcomp_large", "card": nvidia_smi_line(), "D": D, "m": m, "ratio": GRAD_LARGE_RATIO,
-              "ms": ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
-              "library_per_bucket_rel_diff": lib_err, "compress_seconds": compress_s,
-              "decompress_seconds": decompress_s, "adjoint_seconds": adjoint_s,
-              "adjoint_share_of_decompress": adjoint_s / decompress_s, "peak_bytes": peak,
-              "rel_err": err, "err2_m_over_D_minus_1": err ** 2 * m / (D - 1), "rerun_bitwise": rerun}
-    emit(report)
-    rows["sjlt_apply_long"]["large"] = {k: report[k] for k in ("D", "m", "ms", "bound_ms", "bound_by", "library_ms",
-                                                               "compress_seconds", "decompress_seconds", "peak_bytes")}
-    check(0.9 <= report["err2_m_over_D_minus_1"] <= 1.1 and rerun, f"gradcomp_large: {report}")
-    # the library adds in float32 with atomics, in an order that changes: its
-    # rounding (≤ L·2⁻²⁴ of Σ|terms|, L ≈ 10 pairs a bucket) bounds the gap
-    check(lib_err <= 1e-5, f"gradcomp_large: off the library's index_add_ by {lib_err}")
-    del g, rec, payload, ctx, out, X
+    card = nvidia_smi_line()
+    large = {}
+    for ratio in GRAD_LARGE_RATIOS:
+        cfg = gradcomp.GradCompressionConfig(enabled=True, ratio=ratio)
+        m = max(1, math.ceil(ratio * D))
+        kept = kept_adjoint_report(cfg, key, g, D)
+        payload, ctx = gradcomp.compress(cfg, key, g)
+        rec = gradcomp.decompress(cfg, payload, ctx)
+        err = float(torch.linalg.norm(rec["w"].double() - g["w"].double()) / torch.linalg.norm(g["w"].double()))
+        del rec, ctx
+        ms, out = cuda_ms(lambda m=m: sops.sjlt_apply(key, X, m, 1), 3)
+        rerun = torch.equal(out[:, 0], payload)
+        library = long_library(key, X, m, 1)
+        lib_ms, lib_out = cuda_ms(library, 3)
+        lib_err = long_bucket_err(key, X, m, 1, out, lib_out)
+        del library, lib_out, out, payload
+        bound, by = bound_ms("sjlt", D, 1, m, 1, s=1, apply=True)
+        report = {"phase": "gradcomp_large", "card": card, "D": D, "m": m, "ratio": ratio, "ms": ms,
+                  "bound_ms": bound, "bound_by": by, "library_ms": lib_ms, "library_per_bucket_rel_diff": lib_err,
+                  **kept, "rel_err": err, "err2_m_over_D_minus_1": err ** 2 * m / (D - 1), "rerun_bitwise": rerun}
+        emit(report)
+        large[str(ratio)] = {k: report[k] for k in ("D", "m", "ms", "bound_ms", "bound_by", "library_ms",
+                                                    "compress_seconds", "decompress_seconds", "peak_bytes",
+                                                    "kept_adjoint_ms", "redraw_adjoint_ms")}
+        check(0.9 <= report["err2_m_over_D_minus_1"] <= 1.1 and rerun, f"gradcomp_large {ratio}: {report}")
+        # the library adds in float32 with atomics, in an order that changes: its
+        # rounding (≤ L·2⁻²⁴ of Σ|terms|, L ≈ 1/ratio pairs a bucket) bounds the gap
+        check(lib_err <= 1e-5, f"gradcomp_large {ratio}: off the library's index_add_ by {lib_err}")
+        check(report["kept_adjoint_bitwise"] and report["kept_adjoint_launches"] == {"sjlt_apply_long": 1},
+              f"gradcomp_large {ratio}: the kept adjoint {report}")
+        torch.cuda.empty_cache()
+    rows["sjlt_apply_long"]["large"] = large
+    del g, X
     torch.cuda.empty_cache()
 
 

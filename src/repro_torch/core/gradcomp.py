@@ -20,12 +20,14 @@ The gradient tree is flattened in the reference's leaf order
 (``utils.tree.tree_flatten_to_vector``), so coordinate j of the vector meets
 column j of S in both packages. On a CUDA vector the compressor runs the
 hand-written kernels (``use_kernel`` is set from the vector's device): the
-CountSketch S·g through the SJLT S·A kernel's entry for few, long columns, its
-adjoint the operator's gather; the Gaussian S·g through the dense S·A kernel
-and Sᵀy through the Gaussian adjoint kernel that draws S again. On the CPU
-both run their plain versions. ``group`` is a ``torch.distributed`` process
-group (``launch.mesh.init_worker_group``), one worker a rank; ``None`` is one
-worker alone, whose mean is its own gradient.
+CountSketch S·g through the SJLT S·A kernel's entry for few, long columns,
+which keeps the pair list it draws, its adjoint a gather over that list
+(``operators.sjlt_adjoint_kept``: no pair is drawn twice); the Gaussian S·g
+through the dense S·A kernel and Sᵀy through the Gaussian adjoint kernel that
+draws S again (a kept S would be m·D floats). On the CPU both run their plain
+versions and the CountSketch's adjoint draws its pairs again. ``group`` is a
+``torch.distributed`` process group (``launch.mesh.init_worker_group``), one
+worker a rank; ``None`` is one worker alone, whose mean is its own gradient.
 """
 from __future__ import annotations
 
@@ -66,22 +68,28 @@ def _pmean(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def compress(cfg: GradCompressionConfig, key: torch.Tensor, grads):
-    """Project the gradient tree into sketch space. Returns (payload, ctx).
+    """Project the gradient tree into sketch space. Returns (payload, ctx), ctx
+    holding the adjoint that :func:`decompress` applies.
 
     The projection and its adjoint are one ``SketchOp`` (E[SᵀS] = I ⇒ unbiased),
     from the registry the solvers dispatch through, with the kernels on a CUDA
-    vector."""
+    vector; the CountSketch's comes from ``apply_with_adjoint``, so on the card
+    its adjoint reads the pair list its S·A kept."""
     vec, vz = tu.tree_flatten_to_vector(grads)
     D = vec.shape[0]
     m = max(1, int(math.ceil(cfg.ratio * D)))
     spec = _sketch_spec(cfg, m, use_kernel=vec.device.type == "cuda")
     op = operators.make_operator(spec, key, D, device=vec.device)
-    return op.apply(vec), (op, vz)
+    if cfg.kind == "countsketch":
+        payload, adjoint = op.apply_with_adjoint(vec)
+    else:
+        payload, adjoint = op.apply(vec), op.adjoint
+    return payload, (adjoint, vz)
 
 
 def decompress(cfg: GradCompressionConfig, payload: torch.Tensor, ctx):
-    op, vz = ctx
-    return vz.unflatten(op.adjoint(payload))
+    adjoint, vz = ctx
+    return vz.unflatten(adjoint(payload))
 
 
 def compressed_psum_mean(cfg: GradCompressionConfig, key: torch.Tensor, grads, group=None):

@@ -22,11 +22,15 @@ for ``leverage``):
                                    (:func:`_scatter_rows`), the scatter and the
                                    FWHT for the SRHT, a gather for the SJLT;
   * ``apply_with_adjoint(A)``    — ``(S @ A, adjoint)`` for a caller that applies
-                                   Sᵀ right after S (the least-norm worker): a
-                                   Gaussian with ``spec.use_kernel`` keeps the S
-                                   its S·A kernel draws (where it fits) and its
-                                   adjoint reads it; every other kind returns
-                                   ``(apply(A), adjoint)``;
+                                   Sᵀ right after S (the least-norm worker,
+                                   gradient compression): a Gaussian with
+                                   ``spec.use_kernel`` keeps the S its S·A kernel
+                                   draws (where it fits) and its adjoint reads
+                                   it; an SJLT with ``spec.use_kernel`` whose
+                                   S·A takes row 12b keeps the pair list that
+                                   kernel draws and its adjoint gathers from it
+                                   (:func:`sjlt_adjoint_kept`); every other kind
+                                   returns ``(apply(A), adjoint)``;
   * ``materialize()``            — the explicit S (small problems only).
 
 :func:`gram_batched` gives all q workers' ``(G_k, c_k)`` and :func:`apply_batched`
@@ -681,19 +685,40 @@ class SJLTOp(SketchOp):
         return super().gram_blocked(A, b, block_rows=block_rows)
 
     def adjoint(self, Y: torch.Tensor, *, block_rows: int | None = None) -> torch.Tensor:
-        # Column j of S holds ±1/√s at its s buckets: a gather of Y, signed, summed
-        # over s. The parameters are drawn block_rows columns at a time (default
-        # SJLT_ADJOINT_PAIRS pairs; their int64 threefry temporaries take ≈ 100
-        # bytes a pair); each row's sum is its own, so any block gives the same bits.
-        Y2, batch = _to_2d(Y, self.m)
-        Yf = Y2.to(torch.float32)
-        out = torch.empty((self.n, Yf.shape[1]), dtype=torch.float32, device=Y.device)
-        bs = max(1, min(block_rows or SJLT_ADJOINT_PAIRS // self.spec.s, self.n))
-        for j0 in range(0, self.n, bs):
-            rows = torch.arange(j0, min(j0 + bs, self.n), dtype=torch.int64, device=Y.device)
-            buckets, signs = self._params(rows)
-            out[j0 : j0 + rows.shape[0]] = torch.sum(Yf[buckets] * signs[..., None], dim=1)
-        return out.to(Y.dtype).reshape((self.n,) + batch)
+        def params(j0: int, j1: int):
+            return self._params(torch.arange(j0, j1, dtype=torch.int64, device=Y.device))
+
+        return _sjlt_gather(params, Y, self.n, self.m, self.spec.s, block_rows)
+
+    def apply_with_adjoint(self, A: torch.Tensor):
+        """With ``spec.use_kernel``, A on the card and shapes that take row 12b
+        (``cuda.sjlt_apply_is_long``: gradient compression's CountSketch), the S·A
+        kernel also returns the pair list it draws, and the adjoint returned
+        gathers from it (:func:`sjlt_adjoint_kept`) instead of drawing the pairs
+        again, bitwise the same. The list (4·n·s bytes) lives as long as that
+        adjoint. Elsewhere ``(apply(A), adjoint)``: the plain versions keep
+        nothing, so the CPU path is the operator's own."""
+        from repro_torch.kernels import cuda
+        from repro_torch.kernels.sjlt import ops
+
+        k = _to_2d(A, self.n)[0].shape[1]
+        if not (self.spec.use_kernel and A.device.type == "cuda"
+                and cuda.sjlt_apply_is_long(self.n, self.m, k, self.spec.s)):
+            return super().apply_with_adjoint(A)
+        kept = []
+
+        def sketch(X):
+            SX, pairs = ops.sjlt_apply_keep(self.key, X, self.m, self.spec.s)
+            kept.append(pairs)
+            return SX
+
+        SA = _kernel_apply(sketch, A, self.n)
+        pairs = kept[0]
+
+        def adjoint(Y: torch.Tensor, *, block_rows: int | None = None) -> torch.Tensor:
+            return sjlt_adjoint_kept(pairs, Y, self.m, self.spec.s, block_rows=block_rows)
+
+        return SA, adjoint
 
     @classmethod
     def gram_batched_kernel(cls, spec, keys, A, b):
@@ -708,6 +733,41 @@ class SJLTOp(SketchOp):
         from repro_torch.kernels.sjlt import ops
 
         return _kernel_apply(lambda X: ops.sjlt_apply_multi(keys, X, spec.m, spec.s), A, A.shape[0])
+
+
+def _sjlt_gather(params, Y: torch.Tensor, n: int, m: int, s: int, block_rows: int | None) -> torch.Tensor:
+    """Sᵀ·Y of an SJLT whose columns [j0, j1) have ``params(j0, j1)`` (buckets,
+    signs), each (j1 − j0, s). Column j of S holds ±1/√s at its s buckets: a
+    gather of Y, signed, summed over s. The columns are taken block_rows at a
+    time (default SJLT_ADJOINT_PAIRS pairs; a redraw's int64 threefry
+    temporaries take ≈ 100 bytes a pair); each row's sum is its own, so any
+    block gives the same bits."""
+    Y2, batch = _to_2d(Y, m)
+    Yf = Y2.to(torch.float32)
+    out = torch.empty((n, Yf.shape[1]), dtype=torch.float32, device=Y.device)
+    bs = max(1, min(block_rows or SJLT_ADJOINT_PAIRS // s, n))
+    for j0 in range(0, n, bs):
+        j1 = min(j0 + bs, n)
+        buckets, signs = params(j0, j1)
+        out[j0:j1] = torch.sum(Yf[buckets] * signs[..., None], dim=1)
+    return out.to(Y.dtype).reshape((n,) + batch)
+
+
+def sjlt_adjoint_kept(pairs: torch.Tensor, Y: torch.Tensor, m: int, s: int, *,
+                      block_rows: int | None = None) -> torch.Tensor:
+    """Sᵀ·Y of the SJLT whose pair list an S·A kept: ``pairs`` (n·s,) int32 words
+    ``bucket | sign << 31`` in pair order (``kernels/sjlt/ops.sjlt_apply_keep``;
+    a set bit 31, a negative word, is −1/√s). The gather of ``SJLTOp.adjoint``
+    over those pairs instead of pairs drawn again: the same (n, s) products
+    and sums in the same blocks, so bitwise the same. Plain torch, on the
+    device of ``pairs`` and Y."""
+
+    def params(j0: int, j1: int):
+        words = pairs[j0 * s : j1 * s].reshape(j1 - j0, s)
+        signs = (1 - 2 * (words < 0).to(torch.int64)).to(torch.float32) * common.inv_sqrt(s)
+        return (words & 0x7FFFFFFF).to(torch.int64), signs
+
+    return _sjlt_gather(params, Y, pairs.shape[0] // s, m, s, block_rows)
 
 
 # ------------------------------------------------------------------------ hybrid

@@ -485,40 +485,108 @@ cudaError_t sjlt_pass(const float* X, long long n, int d, const uint32_t* keys, 
 // gradient vector, D = 2^20 + 2^16 to 2^28 coordinates, m up to a quarter of
 // D. The passes above keep an m-tile's accumulator in shared memory (at most
 // 32 m-tiles of <= 992 rows: m <= 31,744) and a scatter block is 32 columns
-// wide, so one column would use a lane of 32. Here the accumulator lives in
-// global memory, one entry per (bucket, column), and the pairs are spread over
-// the whole card:
-//   1. long_scale_kernel: one thread per (row i, t) pair draws it once (the
-//      same threefry20(key, row0 + i, t), bucket b0 mod m, sign from b1's low
-//      bit), stores bucket | sign << 31, counts the bucket's pairs L_b and
-//      takes the largest float32 exponent e_bc of its column-c entries
-//      (integer atomics: the results do not depend on their order);
-//   2. long_fixed_kernel: each pair's term t = +-(1/sqrt s) x (exact in
-//      float64) becomes the integer round(t * 2^S_bc), S_bc = 188 - e_bc -
-//      ceil(log2 L_b), and is added into the (bucket, column) entry with a
-//      64-bit integer atomic. |t| < 2^(e_bc - 126), so every term is below
-//      2^(62 - ceil(log2 L_b)) and the L_b of them sum below 2^62: no overflow,
-//      and the sum is exact whatever the order of the adds;
-//   3. long_finish_kernel: the entry rounded to float32, times 2^-S_bc.
-// Determinism: no float atomics; every atomic is an integer add, max or or,
-// so each output is bitwise the same run to run and a q-key call's slice w is
-// bitwise the call on key w alone. Accuracy: each term is rounded at
-// 2^-S_bc, so an entry is off the exact sum by at most L^2 2^-61 of
-// max |term| <= sum |terms| (2.7e-8 at L = 256), then rounded once to
-// float32; the plain version (kernels/sjlt/ref.py) sums the same terms in
-// float64, in pair order, and rounds once. A non-finite term (exponent 255)
-// makes its entry +-inf or NaN, as the float64 sum would: its class is or-ed
-// into the entry instead of a value.
+// wide, so one column would use a lane of 32.
+//
+// Arithmetic: entry (b, c) is the sum of the integers round(t * 2^S_bc) of
+// its terms t = +-(1/sqrt s) x (exact in float64), S_bc = 188 - e_bc -
+// ceil(log2 L_b), e_bc the largest float32 exponent field of its column-c
+// terms and L_b its pair count. |t| < 2^(e_bc - 126), so every term is below
+// 2^(62 - ceil(log2 L_b)) and the L_b of them sum below 2^62: no overflow, and
+// the sum is exact whatever the order of the adds. It is rounded once to
+// float32 and scaled by 2^-S_bc. A non-finite term (exponent 255) makes its
+// entry +-inf or NaN, as the float64 sum would: its class is or-ed into the
+// entry instead of a value. Accuracy: each term is rounded at 2^-S_bc, so an
+// entry is off the exact sum by at most L^2 2^-61 of max |term| (2.7e-8 at
+// L = 256); the plain version (kernels/sjlt/ref.py) sums the same terms in
+// float64 and rounds once.
+//
 // What bounds it on this card: per worker at n = 2^28, s = 1, d' = 1, m =
 // 0.1 n, the n threefry draws (77 integer operations each) take 1.24 ms at
-// 16.7 T ops/s, X's 1.07 GB and the output 0.35 ms at 3.35 TB/s. The passes
-// move more: the pair list (4 B a pair, written and read), the counts,
-// exponents and 64-bit entries, hit at random (each atomic a 32-byte sector of
-// L2 or, past its 50 MB, of device memory). A simple design that is right
-// first; a faster one would sort the pairs by bucket in shared memory.
-constexpr int LONG_THREADS = 256;
-constexpr int LONG_MAX_BLOCKS = 132 * 32;
+// 16.7 T ops/s, X's 1.07 GB and the output 0.35 ms at 3.35 TB/s. Its first
+// form summed each pair into device-memory tables of counts, exponents and
+// 64-bit entries with three random global atomics a pair (63.7 ms there): at
+// 2^28 the tables were 430 MB, far past the 50 MB L2, and even inside L2 the
+// rate of random global atomics held it at 9.5x the draw. This form sorts the
+// pairs by bucket range first (a partition: bucket_tile buckets), so every add
+// is a shared-memory atomic on a block's own buckets, and device memory is
+// streamed:
+//   1. count pass (sjlt_long_count_kernel): one block per chunk of chunk_pairs
+//      consecutive (row, t) pairs draws each pair once (the same
+//      threefry20(key, row0 + i, t), bucket b0 mod m, sign from b1's low bit),
+//      stores bucket | sign << 31 in the pair list in pair order (4 B a pair:
+//      the list the CountSketch's adjoint reads back), and counts its pairs
+//      by partition in a shared histogram, one row of (chunks, parts) counts;
+//   2. two scans (sjlt_long_scan_chunks_kernel, sjlt_long_scan_parts_kernel) turn the
+//      counts into each (partition, chunk)'s place: partitions in order, and
+//      chunks in order within a partition;
+//   3. scatter pass (sjlt_long_scatter_kernel): each block walks its chunk again,
+//      reading the pair list and X, a tile of 1,024 pairs at a time. Each warp
+//      ranks its keys among its own (__match_any_sync), and the warps' counts
+//      summed in warp order place them, so a partition's entries keep pair
+//      order and the list is the same on every run. The tile's entries (the
+//      bucket within the partition, 16 bits, and the signed values, 4 B a
+//      column) are laid out in shared memory in the order of their places and
+//      written from there, consecutive threads to consecutive places: stored
+//      where each goes, one L2 transaction of 2 or 4 bytes a store, they held
+//      the pass at 38.5 of 44.2 ms in a first version of this form;
+//   4. accumulate pass (sjlt_long_accumulate_kernel): one block per partition
+//      reads its contiguous entries twice: first each bucket's count and
+//      largest exponent, then the fixed-point integers, both with integer
+//      atomics on the block's shared counts, exponents and 64-bit sums (16 B a
+//      bucket at d' = 1), eight entries in flight a thread, and writes its
+//      float32 rows. The plan makes at least two waves of 132 SMs' blocks
+//      where m allows (partitions of fewer buckets than fit), so no partition
+//      is split over blocks: a small m gets small partitions instead.
+// Past 128 partitions (and 2^22 pairs; kernels/cuda.py plan_sjlt_long) a
+// tile's run for one partition is too short to fill sectors, so the sort takes
+// two levels, as an MSD radix sort does: steps 1 to 3 put each pair's full
+// bucket and values into the segment of its group of group_parts partitions
+// (about sqrt(parts) groups), and a second count, scan and scatter, sub blocks a
+// group, each over its share of one group's segment, put the entries into that
+// group's partitions; a block then writes to about sqrt(parts) segments at
+// either level. At 2^28 and 0.1 n the passes stream about 13 GB (the pair list
+// written and read with X, the group list, 8 B a pair, written and read twice,
+// the entries, 6 B a pair, written once and read twice: 3.9 ms at 3.35 TB/s)
+// and take 11.6 ms on an H100 80GB HBM3 at 700 W (tools/sjlt_long_profile.py):
+// the two scatter passes 4.63 and 3.33, the accumulate 1.94, the count passes
+// 1.25 and 0.41. The scatter passes hold it, by their shared-memory work a key
+// (ranking, staging, writing out): with no entry written to device memory they
+// still take 2.69 and 3.09 ms, where the second count pass reads the same keys
+// in 0.41. More than LONG_MAX_COLS columns are taken in groups of that many,
+// each group scattered and summed on its own. Device memory at d' = 1: the
+// pair list 4 B a pair, the entries 6 and, with two levels, the group list 8
+// (the first form: 4 B a pair and 16 B a bucket). Determinism: every atomic is an
+// integer add, max or or on exact integers, so each output is bitwise the same
+// run to run, whatever the plan, and a q-key call's slice w is bitwise the call
+// on key w alone. The key words are launch arguments read from the host, so
+// the call copies nothing to the card before it launches.
+// Switch of tools/sjlt_long_profile.py --ablate, which builds the scatter pass
+// with its device-memory writes left out, to time what the rest costs (the
+// results are then wrong); the port builds with 0.
+#ifndef SJLT_LONG_ABLATE
+#define SJLT_LONG_ABLATE 0
+#endif
+constexpr int kLongAblate = SJLT_LONG_ABLATE;
+constexpr int kLongNoWrites = 4;    // no entry is written to device memory
+constexpr int LONG_THREADS = 256;                           // count, scatter and scan blocks
+constexpr int LONG_WARPS = LONG_THREADS / 32;
+constexpr int LONG_LANE_PAIRS = 4;                          // keys a lane counts or ranks a step
+constexpr int LONG_LIST_LANES = 8;                          // keys a lane ranks over the group list
+constexpr int LONG_CHUNK_ALIGN = 1024;                      // chunk_pairs is a multiple of it
+// Keys a lane ranks in a scatter tile: the pass over the pairs and X, and the
+// pass over the group list (its larger tiles cost more registers but leave
+// longer runs to write). kernels/cuda.py SJLT_LONG_TILE and
+// SJLT_LONG_LIST_TILE are LONG_THREADS times these.
+__host__ __device__ constexpr int scatter_lanes(bool from_x) { return from_x ? LONG_LANE_PAIRS : LONG_LIST_LANES; }
+constexpr int LONG_SCAN_THREADS = 1024;
+constexpr int LONG_ACC_THREADS = 512;
+constexpr int LONG_ACC_UNROLL = 8;                          // entries a thread loads before it adds them
+constexpr int LONG_ACC_SMEM = 115712;                       // an accumulate block's bytes: two fit an SM
+constexpr int LONG_MAX_BINS = 2048;                         // partitions (or groups) of one count or scatter pass
+constexpr int LONG_MAX_COLS = 8;                            // columns of one group
 constexpr uint32_t NONFINITE = 255u;  // the biased exponent of inf and NaN
+constexpr uint32_t NO_PART = 0xFFFFFFFFu;
+constexpr uint32_t NO_SHIFT = 0x80000000u;  // a (bucket, column) with a non-finite term
 constexpr unsigned long long POS_INF = 1ull, NEG_INF = 2ull, NOT_A_NUMBER = 4ull;
 
 __device__ __forceinline__ uint32_t biased_exponent(float x) { return (__float_as_uint(x) >> 23) & 0xFFu; }
@@ -530,82 +598,583 @@ __device__ __forceinline__ int fixed_shift(uint32_t e_max, uint32_t count) {
   return 188 - static_cast<int>(e_max) - ceil_log2(count);
 }
 
-__global__ void __launch_bounds__(LONG_THREADS)
-sjlt_long_scale_kernel(const float* __restrict__ X, long long n, int d, const uint32_t* __restrict__ keys, int m,
-                       uint64_t m_magic, int s, long long row0, uint32_t* __restrict__ pairs,
-                       uint32_t* __restrict__ counts, uint32_t* __restrict__ exps) {
-  const uint32_t k0 = keys[0], k1 = keys[1];
-  const long long total = n * s;
-  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; p < total;
-       p += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long i = p / s;
-    const uint32_t t = static_cast<uint32_t>(p - i * s);
-    const uint2 r = repro::threefry2x32(k0, k1, static_cast<uint32_t>(row0 + i), t, 20);
-    const uint32_t bucket = fast_mod(r.x, m_magic, static_cast<uint32_t>(m));
-    pairs[p] = bucket | (r.y & 1u) << 31;
-    atomicAdd(counts + bucket, 1u);
-    for (int c = 0; c < d; ++c) {
-      const uint32_t e = biased_exponent(X[i * d + c]);
-      uint32_t* slot = exps + static_cast<long long>(bucket) * d + c;
-      if (e > *slot) atomicMax(slot, e);  // the read only skips atomics that cannot raise it
-    }
+// 2^k for integer k in [-1022, 1023], exactly: its exponent bits. A term times
+// 2^fixed_shift (-97 to 188) is exact (a float32 term's double stays normal),
+// so it is the scalbn of the term without scalbn's cases.
+__device__ __forceinline__ double pow2(int k) { return __longlong_as_double(static_cast<long long>(k + 1023) << 52); }
+
+// a / d for 32-bit a, from the magic of fast_mod (d = 1: a itself).
+__device__ __forceinline__ uint32_t fast_div(uint32_t a, uint64_t magic, uint32_t d) {
+  return d == 1u ? a : static_cast<uint32_t>(__umul64hi(magic, static_cast<uint64_t>(a)));
+}
+
+// Output entry from its count, its power of two (NO_SHIFT: a non-finite term)
+// and its fixed-point sum.
+__device__ __forceinline__ float shifted_entry(uint32_t count, uint32_t shift, unsigned long long a) {
+  if (count == 0u) return 0.f;
+  if (shift == NO_SHIFT) {
+    const bool is_nan = (a & NOT_A_NUMBER) || (a & (POS_INF | NEG_INF)) == (POS_INF | NEG_INF);
+    return __int_as_float(is_nan ? 0x7FC00000 : (a & POS_INF) ? 0x7F800000 : static_cast<int>(0xFF800000u));
+  }
+  // one rounding of the exact sum to float32 (a second only below float32's normal range)
+  return scalbnf(__ll2float_rn(static_cast<long long>(a)), -static_cast<int>(shift));
+}
+
+// The keys block (x, y) of a count or scatter pass takes: with gbase null,
+// chunk x of chunk_pairs keys; else share x of gridDim.x of group y's
+// segment [gbase[y], gbase[y + 1]) of a group list.
+__device__ __forceinline__ void block_keys(long long n_keys, long long chunk_pairs, const uint32_t* gbase,
+                                           long long* begin, long long* end) {
+  if (gbase == nullptr) {
+    *begin = blockIdx.x * chunk_pairs;
+    *end = min(n_keys, *begin + chunk_pairs);
+  } else {
+    const long long s0 = gbase[blockIdx.y];
+    const long long len = static_cast<long long>(gbase[blockIdx.y + 1]) - s0;
+    *begin = s0 + len * blockIdx.x / gridDim.x;
+    *end = s0 + len * (blockIdx.x + 1) / gridDim.x;
   }
 }
 
+// Count pass: with DRAW, draws pair i of the chunk and stores its word in
+// keys; else reads keys[i] (a pair word or a group list's bucket). Counts the
+// keys of each of the block's partitions, (bucket / tile) - first with first
+// = 0 or, by group, y * width, into the block's row of hist (rows, width), row
+// y * gridDim.x + x.
+template <bool DRAW>
 __global__ void __launch_bounds__(LONG_THREADS)
-sjlt_long_fixed_kernel(const float* __restrict__ X, long long n, int d, int s, float inv_sqrt_s,
-                       const uint32_t* __restrict__ pairs, const uint32_t* __restrict__ counts,
-                       const uint32_t* __restrict__ exps, unsigned long long* __restrict__ acc) {
-  const long long total = n * s;
-  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; p < total;
-       p += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const uint32_t e = pairs[p];
-    const long long bucket = e & 0x7FFFFFFFu;
-    const bool neg = e >> 31;
-    const long long i = p / s;
-    const uint32_t count = counts[bucket];
-    for (int c = 0; c < d; ++c) {
-      const long long k = bucket * d + c;
-      const uint32_t e_max = exps[k];
-      const float x = X[i * d + c];
-      if (e_max == NONFINITE) {
-        if (biased_exponent(x) == NONFINITE) {
-          atomicOr(acc + k, x != x ? NOT_A_NUMBER : ((x > 0.f) != neg ? POS_INF : NEG_INF));
-        }
-        continue;
+sjlt_long_count_kernel(long long n_keys, int s, uint32_t k0, uint32_t k1, long long row0, int m, uint64_t m_magic,
+                       uint32_t* __restrict__ keys, uint32_t tile, uint64_t t_magic, int width, long long chunk_pairs,
+                       const uint32_t* __restrict__ gbase, uint32_t* __restrict__ hist) {
+  extern __shared__ __align__(16) unsigned char long_smem[];
+  uint32_t* cnt = reinterpret_cast<uint32_t*>(long_smem);
+  for (int p = threadIdx.x; p < width; p += LONG_THREADS) cnt[p] = 0u;
+  __syncthreads();
+  long long begin, end;
+  block_keys(n_keys, chunk_pairs, gbase, &begin, &end);
+  const int first = gbase == nullptr ? 0 : blockIdx.y * width;  // the block's first partition
+  if (DRAW) {
+    for (long long i = begin + threadIdx.x; i < end; i += LONG_THREADS) {
+      const uint32_t iu = static_cast<uint32_t>(i);  // n_keys < 2^32
+      const uint32_t row = s == 1 ? iu : iu / static_cast<uint32_t>(s);
+      const uint2 r = repro::threefry2x32(k0, k1, static_cast<uint32_t>(row0 + row), iu - row * s, 20);
+      const uint32_t word = fast_mod(r.x, m_magic, static_cast<uint32_t>(m)) | (r.y & 1u) << 31;
+      keys[i] = word;
+      atomicAdd(cnt + (fast_div(word & 0x7FFFFFFFu, t_magic, tile) - first), 1u);
+    }
+  } else {
+    for (long long i0 = begin + threadIdx.x; i0 < end; i0 += LONG_THREADS * LONG_LANE_PAIRS) {
+      uint32_t word[LONG_LANE_PAIRS];
+#pragma unroll
+      for (int k = 0; k < LONG_LANE_PAIRS; ++k) {
+        const long long i = i0 + k * LONG_THREADS;
+        word[k] = i < end ? keys[i] : 0u;
       }
-      const double term = (neg ? -static_cast<double>(inv_sqrt_s) : static_cast<double>(inv_sqrt_s)) * x;
-      const long long v = __double2ll_rn(scalbn(term, fixed_shift(e_max, count)));
-      if (v != 0) atomicAdd(acc + k, static_cast<unsigned long long>(v));
+#pragma unroll
+      for (int k = 0; k < LONG_LANE_PAIRS; ++k) {
+        if (i0 + k * LONG_THREADS < end) atomicAdd(cnt + (fast_div(word[k] & 0x7FFFFFFFu, t_magic, tile) - first), 1u);
+      }
     }
   }
+  __syncthreads();
+  uint32_t* out = hist + (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * width;
+  for (int p = threadIdx.x; p < width; p += LONG_THREADS) out[p] = cnt[p];
 }
 
+// hist (groups * rows, width): each partition's counts over its group's rows
+// become exclusive places in row order, in place, and totals[p] its count,
+// partition p = y * width + column for y < groups, p < limit. A block takes 32
+// columns (a lane each; coalesced rows) of group blockIdx.y, its warps
+// consecutive ranges of rows.
 __global__ void __launch_bounds__(LONG_THREADS)
-sjlt_long_finish_kernel(long long entries, int d, const uint32_t* __restrict__ counts,
-                        const uint32_t* __restrict__ exps, const unsigned long long* __restrict__ acc,
-                        float* __restrict__ out) {
-  for (long long k = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; k < entries;
-       k += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const uint32_t count = counts[k / d];
-    const uint32_t e_max = exps[k];
-    const unsigned long long a = acc[k];
-    float y = 0.f;
-    if (count > 0 && e_max == NONFINITE) {
-      const bool is_nan = (a & NOT_A_NUMBER) || (a & (POS_INF | NEG_INF)) == (POS_INF | NEG_INF);
-      y = __int_as_float(is_nan ? 0x7FC00000 : (a & POS_INF) ? 0x7F800000 : static_cast<int>(0xFF800000u));
-    } else if (count > 0) {
-      // one rounding of the exact sum to float32 (a second only below float32's normal range)
-      y = scalbnf(__ll2float_rn(static_cast<long long>(a)), -fixed_shift(e_max, count));
+sjlt_long_scan_chunks_kernel(int rows, int width, int limit, uint32_t* __restrict__ hist,
+                             uint32_t* __restrict__ totals) {
+  __shared__ uint32_t warp_sum[LONG_WARPS][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
+  const long long p = static_cast<long long>(blockIdx.y) * width + col;
+  const bool mine = col < width && p < limit;
+  uint32_t* h = hist + static_cast<long long>(blockIdx.y) * rows * width + col;
+  const int per = (rows + LONG_WARPS - 1) / LONG_WARPS;
+  const int r0 = min(rows, warp * per);
+  const int r1 = min(rows, r0 + per);
+  uint32_t sum = 0u;
+  if (mine) {
+    for (int r = r0; r < r1; ++r) sum += h[static_cast<long long>(r) * width];
+  }
+  warp_sum[warp][lane] = sum;
+  __syncthreads();
+  uint32_t run = 0u;
+  for (int w = 0; w < warp; ++w) run += warp_sum[w][lane];
+  if (!mine) return;
+  for (int r = r0; r < r1; ++r) {
+    const uint32_t v = h[static_cast<long long>(r) * width];
+    h[static_cast<long long>(r) * width] = run;
+    run += v;
+  }
+  if (warp == LONG_WARPS - 1) totals[p] = run;
+}
+
+// base[p] = the entries of the partitions before p (base[parts]: all of them).
+__global__ void __launch_bounds__(LONG_SCAN_THREADS)
+sjlt_long_scan_parts_kernel(int parts, const uint32_t* __restrict__ totals, uint32_t* __restrict__ base) {
+  __shared__ uint32_t warp_sum[32];
+  __shared__ uint32_t tile_sum;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint32_t carry = 0u;
+  for (int p0 = 0; p0 < parts; p0 += LONG_SCAN_THREADS) {
+    const int p = p0 + threadIdx.x;
+    const uint32_t v = p < parts ? totals[p] : 0u;
+    const uint32_t inc = warp_inclusive_scan(v, lane);
+    if (lane == 31) warp_sum[warp] = inc;
+    __syncthreads();
+    if (warp == 0) {
+      const uint32_t w = warp_sum[lane];
+      const uint32_t w_inc = warp_inclusive_scan(w, lane);
+      warp_sum[lane] = w_inc - w;
+      if (lane == 31) tile_sum = w_inc;
     }
-    out[k] = y;
+    __syncthreads();
+    if (p < parts) base[p] = carry + warp_sum[warp] + inc - v;
+    carry += tile_sum;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) base[parts] = carry;
+}
+
+// Scatter pass, block as in the count pass: each key into its partition's
+// segment, with its cols values: from X (FROM_X: keys are pair words, the sign
+// their bit 31, X's columns c0 .. c0 + cols of the pair's row) or from vals (a
+// group list's signed values, cols a key). WIDE writes the key's full bucket
+// into wide (the group list); else its bucket within its partition into local
+// (16 bits). A tile of LONG_THREADS LANES keys at a time (the next tile's keys
+// loaded while this one is placed): warp w holds keys w * 32 LANES onwards and
+// ranks them among its own, 32 at a time (__match_any_sync, a running count a
+// partition in its row of cnt); the rows, summed in warp order, place each key
+// in pair order. The tile's entries are then laid out in shared memory in the
+// order of their places and written from there, consecutive threads to
+// consecutive places, so a partition's run of the tile goes out in whole
+// sectors.
+template <bool FROM_X, bool WIDE>
+__global__ void __launch_bounds__(LONG_THREADS)
+sjlt_long_scatter_kernel(const float* __restrict__ X, const float* __restrict__ vals, long long n_keys, int d,
+                         int s, int c0, int cols, const uint32_t* __restrict__ keys, uint32_t tile, uint64_t t_magic,
+                         int width, int limit, long long chunk_pairs, const uint32_t* __restrict__ gbase,
+                         const uint32_t* __restrict__ hist, const uint32_t* __restrict__ base,
+                         uint32_t* __restrict__ wide, uint16_t* __restrict__ local, float* __restrict__ out_vals) {
+  constexpr int LANES = scatter_lanes(FROM_X);
+  constexpr int TILE = LONG_THREADS * LANES;
+  extern __shared__ __align__(16) unsigned char long_smem[];
+  __shared__ uint32_t warp_sum[LONG_WARPS + 1];
+  uint32_t* run = reinterpret_cast<uint32_t*>(long_smem);  // [width]: each partition's next place
+  uint32_t* pre = run + width;                              // [width]: its first slot in the stage
+  uint32_t* cnt = pre + width;                              // [LONG_WARPS][width]: counts, then offsets
+  uint32_t* stage_pos = cnt + LONG_WARPS * width;           // [TILE]: the staged entries' places
+  uint32_t* stage_key = stage_pos + TILE;              // [TILE]: their buckets
+  float* stage_val = reinterpret_cast<float*>(stage_key + TILE);  // [TILE][cols]: their values
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int first = gbase == nullptr ? 0 : blockIdx.y * width;  // the block's first partition
+  const int parts = min(width, limit - first);
+  const uint32_t* place = hist + (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * width;
+  for (int p = threadIdx.x; p < parts; p += LONG_THREADS) run[p] = base[first + p] + place[p];
+  for (int k = threadIdx.x; k < LONG_WARPS * width; k += LONG_THREADS) cnt[k] = 0u;
+  const int per = (parts + LONG_THREADS - 1) / LONG_THREADS;  // partitions a thread sums
+  const int p_lo = min(parts, static_cast<int>(threadIdx.x) * per);
+  const int p_hi = min(parts, p_lo + per);
+  uint32_t* row = cnt + warp * width;
+  long long begin, end;
+  block_keys(n_keys, chunk_pairs, gbase, &begin, &end);
+  // lane L of warp w takes the tile's keys w * 32 LANES + k * 32 + L, k < LANES
+  auto load = [&](long long t0, uint32_t* word, float* v0) {
+#pragma unroll
+    for (int k = 0; k < LANES; ++k) {
+      const long long i = t0 + warp * (32 * LANES) + 32 * k + lane;
+      word[k] = 0u;
+      v0[k] = 0.f;
+      if (i < end) {
+        word[k] = keys[i];
+        if (FROM_X) {
+          const uint32_t iu = static_cast<uint32_t>(i);
+          const float x = X[static_cast<long long>(s == 1 ? iu : iu / static_cast<uint32_t>(s)) * d + c0];
+          v0[k] = word[k] >> 31 ? -x : x;
+        } else {
+          v0[k] = vals[i * cols];
+        }
+      }
+    }
+  };
+  uint32_t next_word[LANES];
+  float next_v0[LANES];
+  load(begin, next_word, next_v0);
+  for (long long t0 = begin; t0 < end; t0 += TILE) {
+    uint32_t word[LANES], part[LANES], rank[LANES];
+    float v0[LANES];
+#pragma unroll
+    for (int k = 0; k < LANES; ++k) {
+      word[k] = next_word[k];
+      v0[k] = next_v0[k];
+    }
+    if (t0 + TILE < end) load(t0 + TILE, next_word, next_v0);
+    const long long lead = t0 + warp * (32 * LANES) + lane;
+    __syncthreads();  // the last tile's stage is written out and cnt cleared
+#pragma unroll
+    for (int k = 0; k < LANES; ++k) {
+      part[k] = lead + 32 * k < end ? fast_div(word[k] & 0x7FFFFFFFu, t_magic, tile) - first : NO_PART;
+      const unsigned peers = __match_any_sync(FULL, part[k]);
+      const int leader = __ffs(peers) - 1;
+      uint32_t old = 0u;
+      if (part[k] != NO_PART && lane == leader) {
+        old = row[part[k]];
+        row[part[k]] = old + __popc(peers);
+      }
+      rank[k] = __shfl_sync(FULL, old, leader) + __popc(peers & below);
+      __syncwarp();
+    }
+    __syncthreads();
+    // each partition's warp counts to offsets in warp order; its tile count to pre,
+    // then pre to exclusive sums over the partitions
+    uint32_t mine = 0u;
+    for (int p = p_lo; p < p_hi; ++p) {
+      uint32_t acc = 0u;
+      for (int w = 0; w < LONG_WARPS; ++w) {
+        const uint32_t c = cnt[w * width + p];
+        cnt[w * width + p] = acc;
+        acc += c;
+      }
+      pre[p] = acc;
+      mine += acc;
+    }
+    const uint32_t inc = warp_inclusive_scan(mine, lane);
+    if (lane == 31) warp_sum[warp] = inc;
+    __syncthreads();
+    if (warp == 0) {
+      const uint32_t w = lane < LONG_WARPS ? warp_sum[lane] : 0u;
+      const uint32_t w_inc = warp_inclusive_scan(w, lane);
+      if (lane < LONG_WARPS) warp_sum[lane] = w_inc - w;
+      if (lane == LONG_WARPS - 1) warp_sum[LONG_WARPS] = w_inc;
+    }
+    __syncthreads();
+    uint32_t at = warp_sum[warp] + inc - mine;
+    for (int p = p_lo; p < p_hi; ++p) {
+      const uint32_t c = pre[p];
+      pre[p] = at;
+      at += c;
+    }
+    __syncthreads();
+    const int staged = static_cast<int>(warp_sum[LONG_WARPS]);
+#pragma unroll
+    for (int k = 0; k < LANES; ++k) {
+      if (part[k] == NO_PART) continue;
+      const uint32_t off = row[part[k]] + rank[k];  // the key's place within its partition's run of the tile
+      const int j = static_cast<int>(pre[part[k]] + off);
+      const uint32_t bucket = word[k] & 0x7FFFFFFFu;
+      stage_pos[j] = run[part[k]] + off;
+      stage_key[j] = WIDE ? bucket : bucket - (static_cast<uint32_t>(first) + part[k]) * tile;
+      float* v = stage_val + j * cols;
+      v[0] = v0[k];
+      const long long i = lead + 32 * k;
+      for (int c = 1; c < cols; ++c) {
+        if (FROM_X) {
+          const uint32_t iu = static_cast<uint32_t>(i);
+          const float x = X[static_cast<long long>(s == 1 ? iu : iu / static_cast<uint32_t>(s)) * d + c0 + c];
+          v[c] = word[k] >> 31 ? -x : x;
+        } else {
+          v[c] = vals[i * cols + c];
+        }
+      }
+    }
+    __syncthreads();
+    for (int p = p_lo; p < p_hi; ++p) run[p] += (p + 1 < parts ? pre[p + 1] : staged) - pre[p];
+    for (int k = threadIdx.x; k < LONG_WARPS * width; k += LONG_THREADS) cnt[k] = 0u;
+    if (kLongAblate & kLongNoWrites) continue;
+    for (int j = threadIdx.x; j < staged; j += LONG_THREADS) {
+      if (WIDE) {
+        wide[stage_pos[j]] = stage_key[j];
+      } else {
+        local[stage_pos[j]] = static_cast<uint16_t>(stage_key[j]);
+      }
+    }
+    for (int f = threadIdx.x; f < staged * cols; f += LONG_THREADS) {
+      const int j = f / cols;
+      out_vals[static_cast<long long>(stage_pos[j]) * cols + (f - j * cols)] = stage_val[f];
+    }
   }
 }
 
-// Blocks of a grid-stride pass over `work` items: enough for one each, at most LONG_MAX_BLOCKS.
-int long_blocks(long long work) {
-  const long long want = (work + LONG_THREADS - 1) / LONG_THREADS;
-  return static_cast<int>(want < 1 ? 1 : want > LONG_MAX_BLOCKS ? LONG_MAX_BLOCKS : want);
+// Block lp sums partition lp's entries: first each bucket's count and each
+// (bucket, column)'s largest exponent, then the fixed-point integers, all with
+// integer atomics in shared memory (the 64-bit sums [bucket][col], the largest
+// exponents [bucket][col], the counts [bucket]), and writes the partition's
+// float32 rows of out. Each thread loads LONG_ACC_UNROLL entries (their
+// buckets, and values when cols = 1) before it adds any of them.
+__global__ void __launch_bounds__(LONG_ACC_THREADS, 2)
+sjlt_long_accumulate_kernel(int m, int d, int c0, int cols, float inv_sqrt_s, int bucket_tile,
+                            const uint32_t* __restrict__ base, const uint16_t* __restrict__ ebucket,
+                            const float* __restrict__ evals, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char long_smem[];
+  constexpr int U = LONG_ACC_UNROLL;
+  const int lp = blockIdx.x;
+  const long long b0 = static_cast<long long>(lp) * bucket_tile;
+  const int nb = static_cast<int>(min(static_cast<long long>(bucket_tile), m - b0));
+  const int ne = nb * cols;
+  unsigned long long* acc = reinterpret_cast<unsigned long long*>(long_smem);
+  uint32_t* exps = reinterpret_cast<uint32_t*>(acc + bucket_tile * cols);
+  uint32_t* counts = exps + bucket_tile * cols;
+  const long long e0 = base[lp];
+  const long long e1 = base[lp + 1];
+  for (int b = threadIdx.x; b < nb; b += LONG_ACC_THREADS) counts[b] = 0u;
+  for (int k = threadIdx.x; k < ne; k += LONG_ACC_THREADS) exps[k] = 0u;
+  __syncthreads();
+  for (long long e = e0 + threadIdx.x; e < e1; e += LONG_ACC_THREADS * U) {
+    int lb[U];
+    float x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long f = e + u * LONG_ACC_THREADS;
+      lb[u] = f < e1 ? ebucket[f] : -1;
+      x[u] = f < e1 && cols == 1 ? evals[f] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (lb[u] < 0) continue;
+      atomicAdd(counts + lb[u], 1u);
+      for (int c = 0; c < cols; ++c) {
+        const uint32_t ex = biased_exponent(cols == 1 ? x[u] : evals[(e + u * LONG_ACC_THREADS) * cols + c]);
+        atomicMax(exps + lb[u] * cols + c, ex);
+      }
+    }
+  }
+  __syncthreads();
+  // each (bucket, column)'s largest exponent becomes its power of two (or NO_SHIFT)
+  for (int k = threadIdx.x; k < ne; k += LONG_ACC_THREADS) {
+    acc[k] = 0ull;
+    exps[k] = exps[k] == NONFINITE ? NO_SHIFT : static_cast<uint32_t>(fixed_shift(exps[k], counts[k / cols]));
+  }
+  __syncthreads();
+  for (long long e = e0 + threadIdx.x; e < e1; e += LONG_ACC_THREADS * U) {
+    int lb[U];
+    float x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long f = e + u * LONG_ACC_THREADS;
+      lb[u] = f < e1 ? ebucket[f] : -1;
+      x[u] = f < e1 && cols == 1 ? evals[f] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (lb[u] < 0) continue;
+      for (int c = 0; c < cols; ++c) {
+        const int k = lb[u] * cols + c;
+        const uint32_t shift = exps[k];
+        const float v = cols == 1 ? x[u] : evals[(e + u * LONG_ACC_THREADS) * cols + c];
+        if (shift == NO_SHIFT) {
+          if (biased_exponent(v) == NONFINITE) atomicOr(acc + k, v != v ? NOT_A_NUMBER : v > 0.f ? POS_INF : NEG_INF);
+          continue;
+        }
+        const long long f = __double2ll_rn(static_cast<double>(inv_sqrt_s) * v * pow2(static_cast<int>(shift)));
+        if (f != 0) atomicAdd(acc + k, static_cast<unsigned long long>(f));
+      }
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < ne; k += LONG_ACC_THREADS) {
+    const int lb = k / cols;
+    out[(b0 + lb) * d + c0 + (k - lb * cols)] = shifted_entry(counts[lb], exps[k], acc[k]);
+  }
+}
+
+// The caller's plan (kernels/cuda.py plan_sjlt_long) and the scratch pieces it
+// implies, each 16-byte aligned: with two levels, the first level's hist
+// (chunks, groups), totals (groups) and base (groups + 1) uint32 and the group
+// list's buckets (n s) uint32 and values (n s, cols) float32; then the
+// partitions' hist (chunks, parts) or, with two levels, (groups sub,
+// group_parts), their totals (parts) and base (parts + 1) uint32, the entries'
+// buckets (n s) uint16 and values (n s, cols) float32. kernels/cuda.py
+// LongPlan.scratch_bytes mirrors this layout to plan memory on the host; the
+// wrappers size their scratch with repro_sjlt_long_scratch_bytes.
+struct LongPlan {
+  long long n_pairs, chunks, scratch_bytes;
+  int parts, groups;  // groups: 0 for one level
+  uint64_t m_magic, b_magic, g_magic;
+  uint32_t *hist1, *totals1, *base1, *list1;
+  float* vals1;
+  uint32_t *hist, *totals, *base;
+  uint16_t* ebucket;
+  float* evals;
+};
+
+long long align16(long long bytes) { return (bytes + 15) & ~15LL; }
+
+// Returns false for arguments or a plan the passes cannot take; lays the pieces
+// out from scratch (nullptr: only their bytes).
+bool long_plan(long long n, int d, int m, int s, long long row0, int bucket_tile, int group_parts, int sub,
+               long long chunk_pairs, int cols, char* scratch, LongPlan* L) {
+  if (n <= 0 || d <= 0 || m <= 0 || s <= 0 || row0 < 0 || row0 + n > (1LL << 32)) return false;
+  L->n_pairs = n * s;
+  if (L->n_pairs >= (1LL << 32) || cols < 1 || cols > LONG_MAX_COLS || cols > d || bucket_tile < 1 ||
+      bucket_tile > 65536 || bucket_tile > m || static_cast<long long>(bucket_tile) * (4 + 12 * cols) > LONG_ACC_SMEM ||
+      chunk_pairs < LONG_CHUNK_ALIGN || chunk_pairs % LONG_CHUNK_ALIGN != 0 || group_parts < 0) {
+    return false;
+  }
+  L->parts = static_cast<int>((static_cast<long long>(m) + bucket_tile - 1) / bucket_tile);  // m up to 2^31 - 1
+  L->groups = group_parts > 0 ? (L->parts + group_parts - 1) / group_parts : 0;
+  if (L->groups > 0 ? (group_parts > LONG_MAX_BINS || L->groups > LONG_MAX_BINS || L->groups > 65535 || sub < 1 ||
+                       static_cast<long long>(L->groups) * sub > 0x7FFFFFFF)
+                    : (L->parts > LONG_MAX_BINS || sub != 0)) {
+    return false;
+  }
+  L->chunks = (L->n_pairs + chunk_pairs - 1) / chunk_pairs;
+  if (L->chunks > 0x7FFFFFFF) return false;
+  L->m_magic = ~0ull / static_cast<uint64_t>(m) + 1u;
+  L->b_magic = ~0ull / static_cast<uint64_t>(bucket_tile) + 1u;
+  L->g_magic = ~0ull / (static_cast<uint64_t>(bucket_tile) * (group_parts > 0 ? group_parts : 1)) + 1u;
+  const long long two = L->groups > 0;
+  long long at = 0;
+  auto piece = [&](long long bytes) {
+    char* p = scratch == nullptr ? nullptr : scratch + at;
+    at += align16(bytes);
+    return p;
+  };
+  L->hist1 = reinterpret_cast<uint32_t*>(piece(4 * L->chunks * L->groups));
+  L->totals1 = reinterpret_cast<uint32_t*>(piece(4LL * L->groups));
+  L->base1 = reinterpret_cast<uint32_t*>(piece(4LL * (L->groups + 1) * two));
+  L->list1 = reinterpret_cast<uint32_t*>(piece(4 * L->n_pairs * two));
+  L->vals1 = reinterpret_cast<float*>(piece(4 * L->n_pairs * cols * two));
+  L->hist = reinterpret_cast<uint32_t*>(
+      piece(4 * (two ? static_cast<long long>(L->groups) * sub * group_parts : L->chunks * L->parts)));
+  L->totals = reinterpret_cast<uint32_t*>(piece(4LL * L->parts));
+  L->base = reinterpret_cast<uint32_t*>(piece(4LL * (L->parts + 1)));
+  L->ebucket = reinterpret_cast<uint16_t*>(piece(2 * L->n_pairs));
+  L->evals = reinterpret_cast<float*>(piece(4 * L->n_pairs * cols));
+  L->scratch_bytes = at;
+  return true;
+}
+
+int scatter_smem(int width, int cols, bool from_x) {
+  return 4 * ((2 + LONG_WARPS) * width + (2 + cols) * LONG_THREADS * scatter_lanes(from_x));
+}
+
+// Lets the row 12b kernels take their dynamic shared memory (over 48 KB), and
+// the accumulate kernel all of an SM's, once per device.
+cudaError_t allow_long_shared_memory() {
+  static std::atomic<unsigned long long> done{0};  // bit d: device d is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  const void* scatters[] = {reinterpret_cast<const void*>(sjlt_long_scatter_kernel<true, true>),
+                            reinterpret_cast<const void*>(sjlt_long_scatter_kernel<true, false>),
+                            reinterpret_cast<const void*>(sjlt_long_scatter_kernel<false, false>)};
+  const void* sum = reinterpret_cast<const void*>(sjlt_long_accumulate_kernel);
+  for (const void* f : scatters) {
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 scatter_smem(LONG_MAX_BINS, LONG_MAX_COLS, false));
+    }
+  }
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(sum, cudaFuncAttributeMaxDynamicSharedMemorySize, LONG_ACC_SMEM);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(sum, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// A count pass (drawing the pairs into keys with draw) into hist, over the
+// chunks (gbase null) or sub blocks a group of the groups of gbase, and its
+// scans into totals and base.
+cudaError_t long_count(const LongPlan& L, bool draw, int s, uint32_t k0, uint32_t k1, long long row0, int m,
+                       uint32_t* keys, uint32_t tile, uint64_t t_magic, int width, int limit, long long chunk_pairs,
+                       const uint32_t* gbase, int groups, int sub, uint32_t* hist, uint32_t* totals, uint32_t* base,
+                       cudaStream_t stream) {
+  const dim3 grid = gbase == nullptr ? dim3(static_cast<unsigned>(L.chunks)) : dim3(sub, groups);
+  if (draw) {
+    sjlt_long_count_kernel<true><<<grid, LONG_THREADS, 4 * width, stream>>>(
+        L.n_pairs, s, k0, k1, row0, m, L.m_magic, keys, tile, t_magic, width, chunk_pairs, gbase, hist);
+  } else {
+    sjlt_long_count_kernel<false><<<grid, LONG_THREADS, 4 * width, stream>>>(
+        L.n_pairs, s, k0, k1, row0, m, L.m_magic, keys, tile, t_magic, width, chunk_pairs, gbase, hist);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sjlt_long_scan_chunks_kernel<<<dim3((width + 31) / 32, grid.y), LONG_THREADS, 0, stream>>>(grid.x, width, limit,
+                                                                                            hist, totals);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  sjlt_long_scan_parts_kernel<<<1, LONG_SCAN_THREADS, 0, stream>>>(limit, totals, base);
+  return cudaGetLastError();
+}
+
+// A scatter pass over the blocks of long_count: of the pairs and X (FROM_X)
+// or of the group list, into the group list (WIDE) or the entries.
+template <bool FROM_X, bool WIDE>
+cudaError_t long_scatter(const LongPlan& L, const float* X, const float* vals, int d, int s, int c0, int cols,
+                         const uint32_t* keys, uint32_t tile, uint64_t t_magic, int width, int limit,
+                         long long chunk_pairs, const uint32_t* gbase, int groups, int sub, const uint32_t* hist,
+                         const uint32_t* base, uint32_t* wide, uint16_t* local, float* out_vals,
+                         cudaStream_t stream) {
+  const dim3 grid = gbase == nullptr ? dim3(static_cast<unsigned>(L.chunks)) : dim3(sub, groups);
+  sjlt_long_scatter_kernel<FROM_X, WIDE><<<grid, LONG_THREADS, scatter_smem(width, cols, FROM_X), stream>>>(
+      X, vals, L.n_pairs, d, s, c0, cols, keys, tile, t_magic, width, limit, chunk_pairs, gbase, hist, base, wide,
+      local, out_vals);
+  return cudaGetLastError();
+}
+
+// The accumulate pass for columns c0 .. c0 + cols: one block a partition.
+cudaError_t long_accumulate(const LongPlan& L, int m, int d, float inv_sqrt_s, int bucket_tile, int c0, int cols,
+                            float* out, cudaStream_t stream) {
+  sjlt_long_accumulate_kernel<<<L.parts, LONG_ACC_THREADS, bucket_tile * (12 * cols + 4), stream>>>(
+      m, d, c0, cols, inv_sqrt_s, bucket_tile, L.base, L.ebucket, L.evals, out);
+  return cudaGetLastError();
+}
+
+// One worker's S.X into out (m, d); with stop_after_partition only the
+// partition passes of columns 0 .. cols (the check entry), without summing.
+cudaError_t long_worker(const LongPlan& L, const float* X, int d, int m, int s, float inv_sqrt_s, uint32_t k0,
+                        uint32_t k1, long long row0, int bucket_tile, int group_parts, int sub, long long chunk_pairs,
+                        int cols, uint32_t* pairs, float* out, bool stop_after_partition,
+                        cudaStream_t stream) {
+  const uint32_t B = static_cast<uint32_t>(bucket_tile);
+  const int P = L.parts;
+  cudaError_t err;
+  if (L.groups > 0) {
+    // Two levels: the pairs into groups of group_parts partitions, then each
+    // group's share of the group list into its partitions.
+    const uint32_t G = B * static_cast<uint32_t>(group_parts);
+    err = long_count(L, true, s, k0, k1, row0, m, pairs, G, L.g_magic, L.groups, L.groups, chunk_pairs, nullptr, 0, 0,
+                     L.hist1, L.totals1, L.base1, stream);
+    for (int c0 = 0; c0 < d && err == cudaSuccess; c0 += cols) {
+      const int group = min(cols, d - c0);
+      err = long_scatter<true, true>(L, X, nullptr, d, s, c0, group, pairs, G, L.g_magic, L.groups, L.groups,
+                                     chunk_pairs, nullptr, 0, 0, L.hist1, L.base1, L.list1, nullptr, L.vals1, stream);
+      if (err == cudaSuccess && c0 == 0) {  // the group list's buckets are the same for every column group
+        err = long_count(L, false, s, k0, k1, row0, m, L.list1, B, L.b_magic, group_parts, P, chunk_pairs, L.base1,
+                         L.groups, sub, L.hist, L.totals, L.base, stream);
+      }
+      if (err == cudaSuccess) {
+        err = long_scatter<false, false>(L, nullptr, L.vals1, d, s, 0, group, L.list1, B, L.b_magic, group_parts, P,
+                                         chunk_pairs, L.base1, L.groups, sub, L.hist, L.base, nullptr, L.ebucket,
+                                         L.evals, stream);
+      }
+      if (stop_after_partition) return err;
+      if (err == cudaSuccess) err = long_accumulate(L, m, d, inv_sqrt_s, bucket_tile, c0, group, out, stream);
+    }
+    return err;
+  }
+  err = long_count(L, true, s, k0, k1, row0, m, pairs, B, L.b_magic, P, P, chunk_pairs, nullptr, 0, 0, L.hist,
+                   L.totals, L.base, stream);
+  for (int c0 = 0; c0 < d && err == cudaSuccess; c0 += cols) {
+    const int group = min(cols, d - c0);
+    err = long_scatter<true, false>(L, X, nullptr, d, s, c0, group, pairs, B, L.b_magic, P, P, chunk_pairs, nullptr,
+                                    0, 0, L.hist, L.base, nullptr, L.ebucket, L.evals, stream);
+    if (stop_after_partition) return err;
+    if (err == cudaSuccess) err = long_accumulate(L, m, d, inv_sqrt_s, bucket_tile, c0, group, out, stream);
+  }
+  return err;
 }
 
 }  // namespace
@@ -668,41 +1237,74 @@ int repro_sjlt_bins(long long n, int d, const uint32_t* keys, int q, int m, int 
 
 
 // Row 12b: S_w X for q keys into out (q, m, d) float32, X (n, d) float32
-// row-major on the device, keys (q, 2) uint32 on the device, m < 2^31 sketch
-// rows, s nonzeros per data row of +-inv_sqrt_s, X's row j the sketch's data
-// row row0 + j (row0 >= 0, row0 + n <= 2^32), n * s < 2^32 pairs. scratch:
-// 12 m d + 4 m + 4 n s bytes, 8-byte aligned (the (m, d) 64-bit entries, the
-// (m, d) exponents, the m counts, the n s pairs), reused by each worker in
-// turn. Returns cudaErrorInvalidValue for arguments it cannot take, else the
-// first CUDA error of the launches.
-
+// row-major on the device, keys (q, 2) uint32 in host memory (each worker's two
+// words go to its kernels as launch arguments), m < 2^31 sketch rows, s nonzeros
+// per data row of +-inv_sqrt_s, X's row j the sketch's data row row0 + j
+// (row0 >= 0, row0 + n <= 2^32), n * s < 2^32 pairs. The plan (kernels/cuda.py
+// plan_sjlt_long): bucket_tile buckets a partition, group_parts partitions a
+// group of the first level (0: one level) and sub second-level blocks a group,
+// chunk_pairs pairs a first-level count and scatter block (a multiple of
+// LONG_CHUNK_ALIGN), cols columns a group. pairs: n s uint32, the pair list
+// (bucket | sign << 31, in pair order), written by each worker in turn (the
+// last one's stays). scratch: scratch_bytes of 16-byte aligned device memory,
+// at least repro_sjlt_long_scratch_bytes. Returns cudaErrorInvalidValue for
+// arguments it cannot take, else the first CUDA error of the launches.
 int repro_sjlt_apply_long(const float* X, long long n, int d, const uint32_t* keys, int q, int m, int s,
-                          float inv_sqrt_s, long long row0, void* scratch, float* out, void* stream_ptr) {
-  if (n <= 0 || d <= 0 || m <= 0 || s <= 0 || q <= 0 || row0 < 0 || row0 + n > (1LL << 32) ||
-      n * s >= (1LL << 32) || (reinterpret_cast<uintptr_t>(scratch) & 7u)) {
+                          float inv_sqrt_s, long long row0, int bucket_tile, int group_parts, int sub,
+                          long long chunk_pairs, int cols, uint32_t* pairs, void* scratch, long long scratch_bytes,
+                          float* out, void* stream_ptr) {
+  LongPlan L;
+  if (q <= 0 || keys == nullptr || (reinterpret_cast<uintptr_t>(scratch) & 15u) ||
+      !long_plan(n, d, m, s, row0, bucket_tile, group_parts, sub, chunk_pairs, cols, static_cast<char*>(scratch),
+                 &L) ||
+      L.scratch_bytes > scratch_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long entries = static_cast<long long>(m) * d;
-  unsigned long long* acc = static_cast<unsigned long long*>(scratch);
-  uint32_t* exps = reinterpret_cast<uint32_t*>(acc + entries);
-  uint32_t* counts = exps + entries;
-  uint32_t* pairs = counts + m;
-  const uint64_t m_magic = ~0ull / static_cast<uint64_t>(m) + 1u;
-  const int blocks = long_blocks(n * s);
-  for (int w = 0; w < q; ++w) {
-    cudaError_t err = cudaMemsetAsync(scratch, 0, 12 * entries + 4LL * m, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sjlt_long_scale_kernel<<<blocks, LONG_THREADS, 0, stream>>>(X, n, d, keys + 2 * w, m, m_magic, s, row0, pairs,
-                                                                counts, exps);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    sjlt_long_fixed_kernel<<<blocks, LONG_THREADS, 0, stream>>>(X, n, d, s, inv_sqrt_s, pairs, counts, exps, acc);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    sjlt_long_finish_kernel<<<long_blocks(entries), LONG_THREADS, 0, stream>>>(entries, d, counts, exps, acc,
-                                                                               out + w * entries);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = allow_long_shared_memory();
+  for (int w = 0; w < q && err == cudaSuccess; ++w) {
+    err = long_worker(L, X, d, m, s, inv_sqrt_s, keys[2 * w], keys[2 * w + 1], row0, bucket_tile, group_parts, sub,
+                      chunk_pairs, cols, pairs, out + static_cast<long long>(w) * m * d, false, stream);
   }
-  return static_cast<int>(cudaSuccess);
+  return static_cast<int>(err);
+}
+
+// The scratch bytes of repro_sjlt_apply_long (and repro_sjlt_long_partition)
+// on a plan, as long_plan lays them out; -1 for arguments the entry refuses.
+long long repro_sjlt_long_scratch_bytes(long long n, int d, int m, int s, int bucket_tile, int group_parts, int sub,
+                                        long long chunk_pairs, int cols) {
+  LongPlan L;
+  return long_plan(n, d, m, s, 0, bucket_tile, group_parts, sub, chunk_pairs, cols, nullptr, &L) ? L.scratch_bytes
+                                                                                                 : -1;
+}
+
+// The partition passes of repro_sjlt_apply_long alone, for one key (two host
+// words) and columns 0 .. cols: the pair list into pairs (n s uint32), the
+// partitions' first entries into base (parts + 1 uint32) and the entries into
+// ebucket (n s uint16) and evals (n s, cols float32), for checking them against
+// their plain version. Other arguments as for repro_sjlt_apply_long (the
+// scratch's entry pieces unused).
+int repro_sjlt_long_partition(const float* X, long long n, int d, const uint32_t* key, int m, int s, long long row0,
+                              int bucket_tile, int group_parts, int sub, long long chunk_pairs, int cols,
+                              uint32_t* pairs, uint32_t* base, uint16_t* ebucket, float* evals,
+                              void* scratch, long long scratch_bytes, void* stream_ptr) {
+  LongPlan L;
+  if (key == nullptr || (reinterpret_cast<uintptr_t>(scratch) & 15u) ||
+      !long_plan(n, d, m, s, row0, bucket_tile, group_parts, sub, chunk_pairs, cols, static_cast<char*>(scratch),
+                 &L) ||
+      L.scratch_bytes > scratch_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  L.base = base;
+  L.ebucket = ebucket;
+  L.evals = evals;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err = allow_long_shared_memory();
+  if (err == cudaSuccess) {
+    err = long_worker(L, X, d, m, s, 1.f, key[0], key[1], row0, bucket_tile, group_parts, sub, chunk_pairs, cols,
+                      pairs, nullptr, true, stream);
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -8,7 +8,8 @@ into ``build/repro_torch_kernels/`` at the root of the checkout:
   one sketch pass on the tensor cores (``repro_dense_gram``);
 * ``sketch_apply`` — the dense S·A (Gaussian, Rademacher) on the tensor cores;
 * ``sjlt_gram``   — the sparse SJLT sketch→Gram and S·A (a bin pass and a scatter pass),
-  and the S·A of few, long columns (row 12b: fixed-point sums in device memory);
+  and the S·A of few, long columns (row 12b: the pairs partitioned by bucket range,
+  fixed-point sums in shared memory);
 * ``fwht``        — the fast Walsh-Hadamard transform, and the SRHT's S·A on it
   (the diagonal at its first pass's loads, only the sampled rows written by its last);
 * ``adjoint``     — the Gaussian adjoint Sᵀ·Y: over an S the forward S·A kept
@@ -34,6 +35,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import math
 import os
 import re
 import shutil
@@ -102,8 +104,28 @@ SJLT_SMEM = 232_448
 SJLT_TARGET_BLOCKS = 4 * 132
 # Row 12b, csrc/sjlt_gram.cu repro_sjlt_apply_long: the SJLT S·A for at most
 # SJLT_LONG_MAX_COLS columns (one scatter block's 32 columns would leave most
-# lanes idle) or an m past plan_sjlt's m-tiles, its accumulator in device memory.
+# lanes idle) or an m past plan_sjlt's m-tiles (plan_sjlt_long). Its scatter
+# blocks place SJLT_LONG_TILE pairs a step (SJLT_LONG_LIST_TILE entries of the
+# group list); its first-level count and scatter blocks take chunks of whole
+# SJLT_LONG_TILE pairs, about
+# SJLT_LONG_CHUNKS of them (six blocks on each of 132 SMs); a partition holds
+# at most the buckets whose sums fit an accumulate block's SJLT_LONG_ACC_SMEM
+# bytes (two blocks an SM), the partitions a multiple of SJLT_LONG_TARGET_BLOCKS
+# (whole waves; fewer, of one bucket each, where m is smaller). Past
+# SJLT_LONG_ONE_LEVEL_PARTS partitions and SJLT_LONG_ONE_LEVEL_PAIRS pairs (or
+# past SJLT_LONG_MAX_BINS partitions, a pass's most) the pairs are sorted in two
+# levels, through groups of about sqrt(partitions) partitions. More than
+# SJLT_LONG_GROUP_COLS columns are summed a group at a time.
 SJLT_LONG_MAX_COLS = 8
+SJLT_LONG_TILE = 1024
+SJLT_LONG_LIST_TILE = 2048
+SJLT_LONG_CHUNKS = 6 * 132
+SJLT_LONG_ACC_SMEM = 115_712
+SJLT_LONG_MAX_BINS = 2048
+SJLT_LONG_TARGET_BLOCKS = 2 * 132
+SJLT_LONG_ONE_LEVEL_PARTS = 128
+SJLT_LONG_ONE_LEVEL_PAIRS = 1 << 22
+SJLT_LONG_GROUP_COLS = 8
 # FWHT passes of csrc/fwht.cu: a block holds 2**FWHT_MAX_TILE_BITS rows of a
 # column strip in shared memory, so a pass runs at most that many stages. The
 # SRHT forward's scratch between its passes has rows of whole
@@ -263,8 +285,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.repro_sjlt_apply.restype = I
         lib.repro_sjlt_bins.argtypes = [LL, I, P, I, I, I, LL, I, I, I, P, P]
         lib.repro_sjlt_bins.restype = I
-        lib.repro_sjlt_apply_long.argtypes = [P, LL, I, P, I, I, I, F, LL, P, P, P]
+        W = ctypes.POINTER(ctypes.c_uint32)
+        lib.repro_sjlt_apply_long.argtypes = [P, LL, I, W, I, I, I, F, LL, I, I, I, LL, I, P, P, LL, P, P]
         lib.repro_sjlt_apply_long.restype = I
+        lib.repro_sjlt_long_scratch_bytes.argtypes = [LL, I, I, I, I, I, I, LL, I]
+        lib.repro_sjlt_long_scratch_bytes.restype = LL
+        lib.repro_sjlt_long_partition.argtypes = [P, LL, I, W, I, I, LL, I, I, I, LL, I, P, P, P, P, P, LL, P]
+        lib.repro_sjlt_long_partition.restype = I
     elif name == "fwht":
         lib.repro_fwht.argtypes = [P, P, LL, I, LL, I, I, P]
         lib.repro_fwht.restype = I
@@ -798,37 +825,184 @@ def sjlt_apply(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
     return _sjlt_call("repro_sjlt_apply", keys, X, m, s, out, launches=launches, name=name, row0=row0)
 
 
+@dataclasses.dataclass(frozen=True)
+class LongPlan:
+    """Row 12b's plan (:func:`plan_sjlt_long`)."""
+    pairs: int  # n·s (row, t) pairs
+    cols: int  # columns of a group
+    bucket_tile: int  # buckets of a partition
+    parts: int  # partitions: ceil(m / bucket_tile)
+    group_parts: int  # partitions of a first-level group; 0: one level
+    sub: int  # second-level count and scatter blocks a group; 0: one level
+    chunk_pairs: int  # pairs of a first-level count and scatter block, whole SJLT_LONG_TILE
+    chunks: int  # ceil(pairs / chunk_pairs)
+
+    @property
+    def groups(self) -> int:
+        return -(-self.parts // self.group_parts) if self.group_parts else 0
+
+    @property
+    def acc_smem(self) -> int:
+        """Shared bytes of an accumulate block: a 64-bit sum and an exponent a
+        (bucket, column), a count a bucket."""
+        return self.bucket_tile * (12 * self.cols + 4)
+
+    @property
+    def pass_width(self) -> int:
+        """Partitions (or groups) a count or scatter block counts and places."""
+        return max(self.groups, self.group_parts) if self.group_parts else self.parts
+
+    @property
+    def scatter_smem(self) -> int:
+        """Shared bytes of a scatter block, the larger of the two levels': ten
+        words a partition (its place, its first slot in the stage, eight warps'
+        counts) and the staged tile (a place, a bucket and cols values an entry;
+        SJLT_LONG_LIST_TILE entries over the group list)."""
+        per_part, per_entry = 4 * (2 + 8), 4 * (2 + self.cols)
+        first = per_part * (self.groups or self.parts) + per_entry * SJLT_LONG_TILE
+        return max(first, per_part * self.group_parts + per_entry * SJLT_LONG_LIST_TILE)
+
+    @property
+    def scratch_bytes(self) -> int:
+        """Device bytes of the C entry's scratch, a mirror of ``long_plan`` in
+        ``csrc/sjlt_gram.cu`` (the wrappers ask the C entry itself,
+        ``repro_sjlt_long_scratch_bytes``; a ``gpu`` test holds the two equal),
+        for planning memory on the host. Each piece to a whole 16 bytes: with
+        two levels the groups' (chunks, groups) counts, totals and first entries
+        and the group list (a bucket and the values a pair); the partitions'
+        counts ((chunks, parts), or (groups·sub, group_parts) with two levels),
+        totals and first entries, the entries' buckets (uint16) and values. At
+        d′ = 1: 6 B a pair, 14 with two levels; with the pair list and X, 14 and
+        22 B a pair of device memory at the call's peak."""
+        a16 = lambda b: common.round_up(b, 16)  # noqa: E731
+        g, two = self.groups, int(self.groups > 0)
+        rows = g * self.sub * self.group_parts if two else self.chunks * self.parts
+        return (a16(4 * self.chunks * g) + a16(4 * g) + a16(4 * (g + 1) * two)
+                + a16(4 * self.pairs * two) + a16(4 * self.pairs * self.cols * two)
+                + a16(4 * rows) + a16(4 * self.parts) + a16(4 * (self.parts + 1))
+                + a16(2 * self.pairs) + a16(4 * self.pairs * self.cols))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_sjlt_long(n: int, m: int, d: int, s: int) -> LongPlan:
+    """Row 12b's plan for X (n, d) at m sketch rows and s nonzeros a data row, a
+    function of the shapes only: partitions of at most as many buckets as an
+    accumulate block's shared memory holds for ``min(d, 8)`` columns (its 64-bit
+    sums, exponents and counts), as many as fill whole waves of
+    SJLT_LONG_TARGET_BLOCKS accumulate blocks (one bucket each where m is
+    smaller); chunks of whole SJLT_LONG_TILE pairs; for many partitions and
+    pairs, two levels through groups of ceil(sqrt(parts)) partitions, so a
+    scatter block writes to about that many segments. No plan changes a result:
+    every sum is of exact integers."""
+    pairs = n * s
+    if not (n > 0 and d > 0 and 0 < m < 2**31 and s > 0 and pairs < 2**32):
+        raise ValueError(f"the long-column SJLT S·A takes n, d, s >= 1, 1 <= m < 2**31 and n·s < 2**32 pairs, "
+                         f"got n={n} d={d} m={m} s={s}")
+    cols = min(d, SJLT_LONG_GROUP_COLS)
+    fits = SJLT_LONG_ACC_SMEM // (12 * cols + 4)
+    # whole waves of accumulate blocks: a multiple of SJLT_LONG_TARGET_BLOCKS partitions
+    want = max(SJLT_LONG_TARGET_BLOCKS, common.round_up(-(-m // fits), SJLT_LONG_TARGET_BLOCKS))
+    bucket_tile = -(-m // want)
+    parts = -(-m // bucket_tile)
+    chunks = max(1, min(SJLT_LONG_CHUNKS, -(-pairs // SJLT_LONG_TILE)))
+    chunk_pairs = common.round_up(-(-pairs // chunks), SJLT_LONG_TILE)
+    chunks = -(-pairs // chunk_pairs)
+    one_level = parts <= SJLT_LONG_ONE_LEVEL_PARTS or (pairs <= SJLT_LONG_ONE_LEVEL_PAIRS
+                                                       and parts <= SJLT_LONG_MAX_BINS)
+    group_parts = 0 if one_level else math.isqrt(parts - 1) + 1
+    sub = 0 if one_level else -(-SJLT_LONG_CHUNKS // -(-parts // group_parts))
+    return LongPlan(pairs, cols, bucket_tile, parts, group_parts, sub, chunk_pairs, chunks)
+
+
 def sjlt_long_scratch_bytes(n: int, m: int, d: int, s: int) -> int:
-    """Scratch of one call into ``repro_sjlt_apply_long``: the (m, d) 64-bit
-    fixed-point entries and float32 exponents, the m pair counts, the n·s pairs
-    (bucket and sign), reused by each worker in turn."""
-    return 12 * m * d + 4 * m + 4 * n * s
+    """Scratch of one call into ``repro_sjlt_apply_long`` (:attr:`LongPlan.scratch_bytes`),
+    reused by each worker in turn; the pair list is beside it."""
+    return plan_sjlt_long(n, m, d, s).scratch_bytes
 
 
-def sjlt_apply_long(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *,
-                    launches: collections.Counter, name: str, row0: int = 0) -> torch.Tensor:
+def _long_scratch_bytes(lib, n: int, d: int, m: int, s: int, plan: LongPlan) -> int:
+    """The scratch bytes the C entry lays out for ``plan`` (``long_plan``'s own count)."""
+    size = lib.repro_sjlt_long_scratch_bytes(n, d, m, s, plan.bucket_tile, plan.group_parts, plan.sub,
+                                             plan.chunk_pairs, plan.cols)
+    if size < 0:
+        raise ValueError(f"repro_sjlt_long_scratch_bytes refused the plan {plan} for n={n} d={d} m={m} s={s}")
+    return size
+
+
+def _host_key_words(keys: torch.Tensor):
+    """The (q, 2) key words as a host array of uint32 for the C entry, which
+    passes them to its kernels as launch arguments. Keys on the card are
+    refused: reading them would wait for the card."""
+    if keys.device.type != "cpu":
+        raise ValueError(f"row 12b takes its key words from the host; keys are on {keys.device}")
+    words = [int(w) & common.MASK32 for w in keys.reshape(-1).tolist()]
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
+def sjlt_apply_long(keys: torch.Tensor, X: torch.Tensor, m: int, s: int, *, launches: collections.Counter,
+                    name: str, row0: int = 0, keep_pairs: bool = False):
     """Row 12b: (q, m, d) SJLT sketches ``S_w[:, row0 : row0 + n] X`` of the CUDA
-    tensor X for q key rows, for few, long columns and any m < 2**31
-    (``csrc/sjlt_gram.cu`` ``repro_sjlt_apply_long``: each pair drawn once, every
-    (bucket, column) summed in 64-bit fixed point at its own power of two with
-    integer atomics, to L²·2⁻⁶¹ of its largest term of L, rounded once). Bitwise the same run to run, and slice w of a q-key call is
-    the call on key w. Adds one to ``launches[name]`` per call into the C entry
-    (one for all q workers)."""
+    tensor X for q key rows (on the host), for few, long columns and any
+    m < 2**31 (``csrc/sjlt_gram.cu`` ``repro_sjlt_apply_long``: each pair drawn
+    once, the pairs partitioned by bucket range, every (bucket, column) summed
+    in 64-bit fixed point at its own power of two in shared memory, to L²·2⁻⁶¹
+    of its largest term of L, rounded once; plan :func:`plan_sjlt_long`).
+    Bitwise the same run to run, and slice w of a q-key call is the call on key
+    w. With ``keep_pairs`` (one key) also returns the pair list the kernel drew,
+    (n·s,) int32 words ``bucket | sign << 31`` in pair order
+    (``operators.sjlt_adjoint_kept`` reads it). Adds one to ``launches[name]``
+    per call into the C entry (one for all q workers)."""
     n, d, q = _check_sketch_args("sjlt_apply_long", X, keys, m)
     _check_row0(row0, n)
     if s <= 0 or n * s >= 2**32:
         raise ValueError(f"the long-column SJLT S·A takes s >= 1 and n·s < 2**32 pairs, got n={n} s={s}")
+    if keep_pairs and q != 1:
+        raise ValueError(f"the pair list is kept for one key, got {q}")
+    plan = plan_sjlt_long(n, m, d, s)
+    words = _host_key_words(keys)
     lib = _library("sjlt_gram")
-    kw = _u32_words(keys, X.device)
-    scratch = torch.empty(-(-sjlt_long_scratch_bytes(n, m, d, s) // 8), dtype=torch.int64, device=X.device)
+    size = _long_scratch_bytes(lib, n, d, m, s, plan)
+    # One scratch allocation, the pair list at its end unless it is kept.
+    kept = torch.empty(plan.pairs, dtype=torch.int32, device=X.device) if keep_pairs else None
+    extra = 0 if keep_pairs else 4 * plan.pairs
+    scratch = torch.empty(-(-(size + extra) // 8), dtype=torch.int64, device=X.device)
+    pairs = kept.data_ptr() if keep_pairs else scratch.data_ptr() + size
     out = torch.empty((q, m, d), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
-        code = lib.repro_sjlt_apply_long(X.data_ptr(), n, d, kw.data_ptr(), q, m, s, common.inv_sqrt(s), row0,
-                                         scratch.data_ptr(), out.data_ptr(), stream)
+        code = lib.repro_sjlt_apply_long(X.data_ptr(), n, d, words, q, m, s, common.inv_sqrt(s), row0,
+                                         plan.bucket_tile, plan.group_parts, plan.sub, plan.chunk_pairs, plan.cols,
+                                         pairs, scratch.data_ptr(), size, out.data_ptr(), stream)
         _check(lib, code, "repro_sjlt_apply_long launch")
         count_launch(launches, name)
-    return out
+    return (out, kept) if keep_pairs else out
+
+
+def sjlt_long_partition(key: torch.Tensor, X: torch.Tensor, m: int, s: int, *, row0: int = 0) -> dict:
+    """Row 12b's count, scan and scatter passes alone (``repro_sjlt_long_partition``)
+    for one host key and its first column group: the pair list (int32), each
+    partition's first entry (``base``, parts + 1, int32) and
+    the entries' buckets within their partitions (int16 bits of uint16) and
+    values, on the card, for checking them against ``sjlt.ref.long_partition``."""
+    n, d = X.shape
+    _check_sketch_args("sjlt_long_partition", X, key.reshape(1, 2), m)
+    plan = plan_sjlt_long(n, m, d, s)
+    lib = _library("sjlt_gram")
+    dev = X.device
+    got = {"pairs": torch.empty(plan.pairs, dtype=torch.int32, device=dev),
+           "base": torch.empty(plan.parts + 1, dtype=torch.int32, device=dev),
+           "ebucket": torch.empty(plan.pairs, dtype=torch.int16, device=dev),
+           "evals": torch.empty((plan.pairs, plan.cols), dtype=torch.float32, device=dev)}
+    size = _long_scratch_bytes(lib, n, d, m, s, plan)
+    scratch = torch.empty(-(-size // 8), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.repro_sjlt_long_partition(
+            X.data_ptr(), n, d, _host_key_words(key), m, s, row0, plan.bucket_tile, plan.group_parts, plan.sub,
+            plan.chunk_pairs, plan.cols, got["pairs"].data_ptr(), got["base"].data_ptr(),
+            got["ebucket"].data_ptr(), got["evals"].data_ptr(), scratch.data_ptr(), size,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, code, "repro_sjlt_long_partition launch")
+    return got
 
 
 def sjlt_bins(keys: torch.Tensor, n: int, m: int, d: int, s: int) -> torch.Tensor:

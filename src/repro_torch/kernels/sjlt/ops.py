@@ -13,7 +13,9 @@ The S·A takes one of two hand-written entries by the shapes alone
 (``cuda.sjlt_apply_is_long``): the bin and scatter passes (row 12), or, for at
 most 8 columns or an m past their m-tiles, the long-column entry (row 12b:
 gradient compression's CountSketch of one long vector). Its calls count as
-``sjlt_apply_long`` and ``sjlt_apply_long_multi``.
+``sjlt_apply_long`` and ``sjlt_apply_long_multi``. ``sjlt_apply_keep`` is that
+entry for one key with the pair list it draws kept, for the CountSketch's
+adjoint (``operators.sjlt_adjoint_kept``); it counts as ``sjlt_apply_long``.
 
 ``LAUNCHES[name]`` counts the calls into the kernels' C entries that wrapper
 ``name`` made: one per single-key call, one per chunk of workers
@@ -74,3 +76,19 @@ def sjlt_apply_multi(keys: torch.Tensor, A: torch.Tensor, m: int, s: int) -> tor
     if cuda.sjlt_apply_is_long(A.shape[0], m, A.shape[1], s):
         return cuda.sjlt_apply_long(keys, A, m, s, launches=LAUNCHES, name="sjlt_apply_long_multi")
     return kernel.sjlt_tiles(keys, A, m, s, launches=LAUNCHES, name="sjlt_apply_multi")
+
+
+def sjlt_apply_keep(key: torch.Tensor, A: torch.Tensor, m: int, s: int):
+    """``(S·A, pairs)`` for shapes that take the long-column entry
+    (``cuda.sjlt_apply_is_long``): S·A as :func:`sjlt_apply` computes it, and
+    the (n·s,) int32 pair list its kernel drew, ``bucket | sign << 31`` in pair
+    order (``ref.long_pairs`` on a CPU tensor)."""
+    n, d = A.shape
+    if A.device.type == "cpu":
+        return ref.sketch(key, A, m, s), ref.long_pairs(key, n, m, s)
+    if not cuda.sjlt_apply_is_long(n, m, d, s):
+        raise ValueError(f"the pair list is kept by the long-column entry only; (n, m, d, s) = {(n, m, d, s)} "
+                         f"takes the bin and scatter passes")
+    out, pairs = cuda.sjlt_apply_long(key.reshape(1, 2), A, m, s, launches=LAUNCHES, name="sjlt_apply_long",
+                                      keep_pairs=True)
+    return out[0], pairs

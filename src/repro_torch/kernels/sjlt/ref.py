@@ -12,13 +12,15 @@ to run. So the sums are the same on every device and run.
 :func:`bin_pairs` is the plain version of the kernels' bin pass (the binned pair
 list the scatter pass reads) and :func:`sketch_from_bins` adds a list back into
 S·A, so the CPU tests can hold the list's order against the reference's pairs.
+:func:`long_pairs` and :func:`long_partition` are the plain versions of the
+long-column entry's pair list and partitioned entries (row 12b).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.cuda import SJLT_BLOCK_COLS, SJLT_CLASSES, SjltPlan
+from repro_torch.kernels.cuda import SJLT_BLOCK_COLS, SJLT_CLASSES, LongPlan, SjltPlan
 
 PLAIN_BLOCK_ROWS = 4096
 
@@ -134,3 +136,29 @@ def sketch_from_bins(lists: torch.Tensor, A: torch.Tensor, m: int, s: int, plan:
         sign = 1.0 - 2.0 * (ent[real] >> 31).double()
         acc.index_add_(0, bucket, sign[:, None] * A[row].double())
     return (acc * common.inv_sqrt(s)).float()
+
+
+def long_pairs(key: torch.Tensor, n: int, m: int, s: int, *, row0: int = 0) -> torch.Tensor:
+    """The long-column entry's pair list: (n·s,) int32 words ``bucket | sign << 31``
+    (sign 1 for −1/√s) in pair order (row, then t), rows drawn at row0 + i."""
+    k0, k1 = common.key_words(key)
+    buckets, signs = common.sjlt_counter_params(k0, k1, row0 + torch.arange(n, dtype=torch.int64), s, m)
+    words = buckets.reshape(-1) | (signs.reshape(-1) < 0).to(torch.int64) << 31
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def long_partition(pairs: torch.Tensor, A: torch.Tensor, s: int, plan: LongPlan, *, c0: int = 0) -> dict:
+    """The column group c0 .. c0 + plan.cols of the long-column entry as its
+    count, scan and scatter passes leave it (one level or two: the same):
+    ``base`` (parts + 1, int64), each partition's first entry; ``ebucket``
+    (int64), each entry's bucket within its partition; ``evals`` (entries,
+    columns) float32, its signed values. Entries are in partition order and,
+    within a partition, in pair order."""
+    words = pairs.to(torch.int64)
+    buckets = words & 0x7FFFFFFF
+    part = buckets // plan.bucket_tile
+    order = torch.sort(part, stable=True).indices
+    base = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(torch.bincount(part, minlength=plan.parts), 0)])
+    x = A[order // s, c0 : c0 + plan.cols].to(torch.float32)
+    evals = torch.where((words[order] < 0)[:, None], -x, x)
+    return {"base": base, "ebucket": buckets[order] - part[order] * plan.bucket_tile, "evals": evals}

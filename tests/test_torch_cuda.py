@@ -1101,21 +1101,121 @@ def test_long_column_entry_refuses_what_it_cannot_take(cuda):
     lib = tcuda._library("sjlt_gram")
     n, d, m, s = 1000, 1, 64, 1
     X = _x(n, d, 0, cuda)
-    kw = tcuda._u32_words(prng.worker_keys(prng.prng_key(0), 1), cuda)
-    scratch = torch.empty(tcuda.sjlt_long_scratch_bytes(n, m, d, s) // 8 + 1, dtype=torch.int64, device=cuda)
+    kw = tcuda._host_key_words(prng.worker_keys(prng.prng_key(0), 1))
+    plan = tcuda.plan_sjlt_long(n, m, d, s)
+    size = lib.repro_sjlt_long_scratch_bytes(n, d, m, s, plan.bucket_tile, plan.group_parts, plan.sub,
+                                             plan.chunk_pairs, plan.cols)
+    scratch = torch.empty(size // 8 + 2, dtype=torch.int64, device=cuda)
+    pairs = torch.empty(n * s, dtype=torch.int32, device=cuda)
     out = torch.empty((m, d), dtype=torch.float32, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def call(n=n, m=m, s=s, row0=0, q=1, offset=0):
-        return lib.repro_sjlt_apply_long(X.data_ptr(), n, d, kw.data_ptr(), q, m, s, 1.0, row0,
-                                         scratch.data_ptr() + offset, out.data_ptr(), stream)
+    def call(n=n, m=m, s=s, row0=0, q=1, offset=0, keys=kw, bucket_tile=plan.bucket_tile,
+             group_parts=plan.group_parts, sub=plan.sub, chunk_pairs=plan.chunk_pairs, cols=plan.cols, size=size):
+        return lib.repro_sjlt_apply_long(X.data_ptr(), n, d, keys, q, m, s, 1.0, row0, bucket_tile, group_parts,
+                                         sub, chunk_pairs, cols, pairs.data_ptr(), scratch.data_ptr() + offset, size,
+                                         out.data_ptr(), stream)
 
     assert call() == 0
-    for bad in (dict(n=0), dict(m=0), dict(s=0), dict(q=0), dict(row0=-1), dict(row0=2**32 - n + 1), dict(offset=4)):
+    for bad in (dict(n=0), dict(m=0), dict(s=0), dict(q=0), dict(row0=-1), dict(row0=2**32 - n + 1),
+                dict(offset=8), dict(keys=None), dict(bucket_tile=m + 1), dict(group_parts=-1), dict(sub=1),
+                dict(group_parts=4, sub=0), dict(chunk_pairs=1000), dict(cols=0), dict(cols=2), dict(size=size - 16)):
         assert call(**bad) == 1, bad
+    assert lib.repro_sjlt_long_scratch_bytes(n, d, m, s, m + 1, 0, 0, plan.chunk_pairs, plan.cols) == -1
     with pytest.raises(ValueError, match="n·s"):
         tcuda.sjlt_apply_long(prng.worker_keys(prng.prng_key(0), 1), X, m, 2**23, launches=sops.LAUNCHES, name="x")
+    with pytest.raises(ValueError, match="from the host"):
+        tcuda.sjlt_apply_long(prng.worker_keys(prng.prng_key(0), 1).to(cuda), X, m, s, launches=sops.LAUNCHES,
+                              name="x")
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n,m,d,s", [(200_003, 50_000, 3, 1), (60_000, 40_000, 11, 2)])
+def test_long_column_sum_is_the_same_on_every_plan(cuda, n, m, d, s, monkeypatch):
+    """Larger or smaller partitions, one level or two, other chunks and column
+    groups: the output is bitwise ``sketch_fixed_point`` on every plan (every
+    sum is of exact integers)."""
+    X = _x(n, d, m, cuda) * torch.exp2(torch.from_numpy(
+        np.random.default_rng(n).integers(-10, 11, (n, 1))).to(cuda, torch.float32))
+    key = prng.prng_key(m)
+    want = fixed.sketch_fixed_point(key, X, m, s)
+    base = tcuda.plan_sjlt_long(n, m, d, s)
+    plans = [base]
+    # bucket_tile, group_parts (0: one level), sub, chunk_pairs, cols
+    for tile, grp, sub, chunk, cols in ((1000, 0, 0, 4096, base.cols), (1000, 0, 0, 2048, 2), (7232, 0, 0, 1024, 1),
+                                        (333, 0, 0, 8192, base.cols), (333, 13, 5, 3072, base.cols),
+                                        (100, 8, 40, 1024, 2), (100, 23, 1, 1024, 1)):
+        plans.append(dataclasses.replace(base, bucket_tile=tile, parts=-(-m // tile), group_parts=grp, sub=sub,
+                                         chunk_pairs=chunk, chunks=-(-base.pairs // chunk), cols=cols))
+    for plan in plans:
+        assert plan.acc_smem <= tcuda.SJLT_LONG_ACC_SMEM
+        monkeypatch.setattr(tcuda, "plan_sjlt_long", lambda *a, plan=plan: plan)
+        assert torch.equal(sops.sjlt_apply(key, X, m, s), want), plan
+
+
+@pytest.mark.parametrize("n,m,d,s", [(1000, 64, 1, 1), (200_003, 50_000, 3, 1), (2**28, 26_843_546, 1, 1),
+                                     (2**20 + 2**16, 11_142, 8, 4), (2**32 - 1, 2**31 - 1, 1, 1)])
+def test_long_scratch_mirror_is_the_entrys_layout(cuda, n, m, d, s):
+    """``LongPlan.scratch_bytes`` (the host's mirror, for planning memory) is
+    the C entry's own count, one level and two."""
+    lib = tcuda._library("sjlt_gram")
+    plan = tcuda.plan_sjlt_long(n, m, d, s)
+    assert lib.repro_sjlt_long_scratch_bytes(n, d, m, s, plan.bucket_tile, plan.group_parts, plan.sub,
+                                             plan.chunk_pairs, plan.cols) == plan.scratch_bytes
+
+
+@pytest.mark.parametrize("n,m,d,s", [(4096, 64, 1, 1), (2**20 + 2**16, 111_412, 1, 1), (100_000, 40_000, 8, 1),
+                                     (30_001, 997, 3, 4), (2**20 + 2**16, 11_142, 1, 1),
+                                     (2**22 + 4096, 2_000_000, 1, 1), (2**21 + 77, 500_000, 2, 2)])
+def test_long_column_partition_pass_is_its_plain_version(cuda, n, m, d, s):
+    """The count, scan and scatter passes alone (``repro_sjlt_long_partition``;
+    two levels at the last two shapes): the pair list, each partition's first
+    entry and the entries, word for word the plain model's
+    (``sjlt.ref.long_partition``), and bitwise run to run."""
+    X = _x(n, d, m, cuda)
+    key = prng.prng_key(n + m)
+    plan = tcuda.plan_sjlt_long(n, m, d, s)
+    assert (plan.group_parts > 0) == (n > 2**21)
+    got = tcuda.sjlt_long_partition(key, X, m, s)
+    pairs = sref.long_pairs(key, n, m, s)
+    assert torch.equal(got["pairs"].cpu(), pairs)
+    want = sref.long_partition(pairs, X.cpu(), s, plan)
+    entries = int(want["base"][-1])
+    assert torch.equal(got["base"].cpu().to(torch.int64), want["base"])
+    assert torch.equal(got["ebucket"][:entries].cpu().to(torch.int64) & 0xFFFF, want["ebucket"])
+    assert torch.equal(got["evals"][:entries].cpu().view(torch.int32), want["evals"].view(torch.int32))
+    again = tcuda.sjlt_long_partition(key, X, m, s)
+    assert all(torch.equal(got[k][:entries], again[k][:entries]) for k in ("ebucket", "evals"))
+
+
+@pytest.mark.parametrize("ratio", [0.01, 0.1])
+def test_decompress_reads_the_kept_pairs_bitwise_the_redraw(cuda, ratio):
+    """A CountSketch compress keeps the pair list of its one row-12b call;
+    decompress gathers from it, drawing no pair (``SJLTOp._params`` raises), and
+    its reconstruction is bitwise the operator's redraw adjoint on the card."""
+    from repro_torch.core import gradcomp
+
+    rs = np.random.default_rng(12)
+    g = {"w": torch.from_numpy(rs.standard_normal(2**20).astype(np.float32)).to(cuda),
+         "b": torch.from_numpy(rs.standard_normal(2**16).astype(np.float32)).to(cuda)}
+    key = prng.prng_key(13)
+    cfg = gradcomp.GradCompressionConfig(enabled=True, ratio=ratio)
+    sops.LAUNCHES.clear()
+    payload, ctx = gradcomp.compress(cfg, key, g)
+    assert dict(sops.LAUNCHES) == {"sjlt_apply_long": 1}
+    draws = operators.SJLTOp._params
+    try:
+        operators.SJLTOp._params = lambda *a, **k: pytest.fail("decompress drew the pairs again")
+        rec = gradcomp.decompress(cfg, payload, ctx)
+    finally:
+        operators.SJLTOp._params = draws
+    D = 2**20 + 2**16
+    op = operators.make_operator(sketches.SketchSpec("sjlt", payload.shape[0], s=1, use_kernel=True), key, D,
+                                 device=cuda)
+    want = op.adjoint(payload)
+    vec = torch.cat([rec["b"], rec["w"]])  # the tree's leaf order: sorted keys
+    assert torch.equal(vec, want)
+    assert torch.equal(payload, op.apply(torch.cat([g["b"], g["w"]])))
 
 
 def test_gradient_compression_runs_its_kernels_on_the_card(cuda):

@@ -285,4 +285,24 @@ def test_sjlt_apply_takes_the_long_entry_by_shape(n, m, d, s, long):
 
 
 def test_long_scratch_holds_entries_exponents_counts_and_pairs():
-    assert tcuda.sjlt_long_scratch_bytes(2**28, 26_843_546, 1, 1) == 12 * 26_843_546 + 4 * 26_843_546 + 4 * 2**28
+    """Row 12b's scratch: each chunk's count of each group and partition, their
+    totals and first entries, the group list (a 32-bit bucket and a float32 value
+    a pair) where the sort takes two levels, and each pair's entry (a 16-bit
+    bucket, a float32 value); the sums, exponents and counts live in shared
+    memory. The pair list (4 B a pair) lies beside it."""
+    def a16(b):
+        return -(-b // 16) * 16
+
+    def counts(rows, width, parts):
+        return a16(4 * rows * width) + a16(4 * parts) + a16(4 * (parts + 1))
+
+    D = 2**28
+    plan = tcuda.plan_sjlt_long(D, 26_843_546, 1, 1)
+    assert plan.groups > 0
+    assert tcuda.sjlt_long_scratch_bytes(D, 26_843_546, 1, 1) == (
+        counts(plan.chunks, plan.groups, plan.groups) + 8 * D
+        + counts(plan.groups * plan.sub, plan.group_parts, plan.parts) + 6 * D)
+    D = 2**20 + 2**16
+    tiny = tcuda.plan_sjlt_long(D, 1, 1, 1)
+    assert tiny.parts == 1 and tiny.groups == 0
+    assert tcuda.sjlt_long_scratch_bytes(D, 1, 1, 1) == counts(tiny.chunks, 1, 1) + 6 * D
