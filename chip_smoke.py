@@ -76,7 +76,18 @@ memory; in both, decompress's adjoint over the pair list the compress kept
 beside the adjoint that draws the pairs again, bitwise (row 12b's device time by
 pass: ``tools/sjlt_long_profile.py``); and
 ``train.solvers.fit_head`` at whisper-small's width (262,144 × 768 features, 16
-outputs, q = 16, 12 arriving) through rows 2 and 11, on Theorem 1. After the
+outputs, q = 16, 12 arriving) through rows 2 and 11, on Theorem 1. Then the
+dense decoder LM at granite-3-8b's full published size (40 layers, d_model
+4,096, bfloat16, the reference's weights for key 0 drawn on the card): the
+forward against the batched prefill and one decode step at 1,024 tokens, and
+the token-by-token prefill against the batched one, within ``LM_LOGIT_BOUND``
+and with the top-1 token equal wherever the top-2 margin exceeds twice it;
+``serve.Engine`` on 8 prompts of 1,536-2,048 tokens (greedy and sampled reruns
+bitwise, two prompts batched and alone; prefill tokens/s against its bf16
+flops bound, the decode's ms a step against its bytes floor, one decode traced);
+``fit_head`` on the model's own features (``extract_features``, 32,768 × 4,096)
+through rows 2 and 11, on Theorem 1; and, with the model freed,
+``python -m repro_torch.launch.serve --arch granite-3-8b``. After the
 serverless phases, Algorithm 1 across processes: FIG3A in worker mode at q = 8
 with each worker sketching only its own 62,500 rows of A and b
 (``row_sharded=True``; Gaussian, SRHT and SJLT, one fused single-key Gram a
@@ -105,7 +116,8 @@ path are held, at the edges of their worker chunks, against single-key calls
 check exits non-zero. The second-to-last line is the kernels summary; the last
 line is ``{"ok": true, "device": {...}}``.
 
-Float32 matrix products run in true float32 (TF32 off) throughout.
+Float32 matrix products run in true float32 (TF32 off) throughout, and bfloat16
+products reduce in float32 (``allow_bf16_reduced_precision_reduction`` off).
 It imports nothing of JAX or of the JAX package, and exits non-zero when CUDA is
 unavailable or when run outside a checkout of the repository.
 """
@@ -2630,6 +2642,368 @@ def phase_fit_head(rows: dict) -> None:
     del H, W, Y
     torch.cuda.empty_cache()
 
+
+# ------------------------------------------ the dense decoder LM at granite-3-8b's full width
+
+LM_ARCH = "granite-3-8b"  # 40 layers, d_model 4,096, 32 heads, 8 kv heads, d_ff 12,800, vocab 49,155 (49,408 padded)
+LM_CONSISTENCY = {"batch": 4, "seq": 1025, "prefill": 1024, "cache_len": 1088, "token_prefill": 64}
+# Bound on |Δlogit| between two bfloat16 runs of the same model that differ only in
+# the shapes of their products (M = 4·1025 against 4·1024 or 4 rows, one key chunk
+# against two, the decode's softmax against the online one): cuBLAS picks other
+# kernels and summation orders for other shapes, so an activation's bfloat16
+# rounding (2⁻⁹ relative) flips here and there, and such flips propagate through
+# the 40 residual layers. Logits are ~N(0, 1) (rms-normed h times W of scale
+# 1/√d), themselves bfloat16 (one ulp is 2⁻⁶ = 0.016 between 2 and 4). On the
+# H100 the decode and the token-by-token prefill differed from the forward and
+# the batched prefill by at most 0.086 and 0.10 (PERF.md §6): the bound is 2.5×
+# the larger.
+LM_LOGIT_BOUND = 0.25
+LM_ENGINE = {"prompts": 8, "min_len": 1536, "max_len": 2048, "new": 32, "temperature": 0.7}
+LM_HEAD = {"batch": 16, "seq": 2048, "k": 16, "q": 16, "m": 8192, "reg": 1e-4, "arrived": 12, "noise": 0.1}
+LM_HEAD_IDS = tuple(range(3, 3 + 16 * 3001, 3001))  # 16 fixed token ids of the re-fit lm-head
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet, 700 W)
+SERVE_LM_CLI = ("--arch", LM_ARCH)  # the reference launcher's defaults otherwise
+
+
+def top1_agreement(got, want, bound: float) -> dict:
+    """Rows whose top-2 margin in ``want`` exceeds 2·bound, and how many of them have
+    the same top-1 token in ``got``."""
+    import torch
+
+    top2 = torch.topk(want, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * bound
+    same = torch.argmax(got, dim=-1) == torch.argmax(want, dim=-1)
+    return {"rows": int(sure.numel()), "rows_past_margin": int(sure.sum()),
+            "top1_disagree_past_margin": int((sure & ~same).sum()), "top1_agree_all": int(same.sum())}
+
+
+def phase_lm(rows: dict) -> None:
+    """The dense decoder LM at granite-3-8b's full published size, bfloat16, with
+    the reference's weights for key 0 (``init_params``, drawn on the card): its
+    prefill/decode consistency, the Engine, the head-fitting path on its
+    features (rows 2 and 11), then, with the model freed, the launcher."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, lm
+    from repro_torch.utils import prng
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model, seconds = host_s(lambda: lm.init_params(cfg, prng.prng_key(0), device=DEVICE))
+    n_params = sum(p.numel() for p in model.parameters())
+    # The draw is the same on every device: the unembedding's first rows drawn on the CPU.
+    k_un = prng.split(prng.prng_key(0), 6)[3]
+    cpu_rows = layers.dense_init(k_un, (4, cfg.padded_vocab), cfg.d_model, lm.torch_dtype(cfg), "cpu")
+    same = torch.equal(model.unembed.w[:4].cpu(), cpu_rows)
+    emit({"phase": "lm_init", "arch": cfg.name, "card": nvidia_smi_line(), "params": n_params,
+          "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()), "seconds": seconds,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "cpu_draw_bitwise": same,
+          "bf16_reduced_precision_reduction": torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction})
+    check(same, "lm_init: the card's weights differ from the same draw on the CPU")
+    check(abs(n_params - 8.37e9) < 0.01e9, f"lm_init: {n_params} parameters")
+    phase_lm_consistency(cfg, model)
+    phase_lm_engine(cfg, model)
+    phase_fit_head_lm(cfg, model, rows)
+    del model
+    torch.cuda.empty_cache()
+    phase_lm_serve_cli()
+
+
+def phase_lm_consistency(cfg, model) -> None:
+    """forward_logits on B = 4 sequences of 1,025 tokens (lm_batch); batched_prefill
+    of the first 1,024 (cache 1,088) against the forward's position 1,023; one
+    decode_step at 1,024 against its position 1,024; the token-by-token prefill
+    of 64 tokens against batched_prefill of the same 64 (logits and cache)."""
+    import torch
+
+    from repro_torch.data import tokens
+    from repro_torch.models import lm
+
+    c = LM_CONSISTENCY
+    b = tokens.lm_batch(SEED + 40, 0, batch=c["batch"], seq=c["seq"], vocab=cfg.vocab_size, device=DEVICE)
+    toks = b["tokens"]
+    full, fwd_s = host_s(lambda: lm.forward_logits(model, cfg, b))
+    (lp, cache), pre_s = host_s(lambda: lm.batched_prefill(model, cfg, {"tokens": toks[:, : c["prefill"]]},
+                                                           cache_len=c["cache_len"]))
+    (ld, _), dec_s = host_s(lambda: lm.decode_step(model, cfg, toks[:, c["prefill"]], cache, c["prefill"]))
+    del cache
+    t = c["token_prefill"]
+    (ltt, ctt), tt_s = host_s(lambda: lm.prefill(model, cfg, {"tokens": toks[:, :t]},
+                                                 lm.init_cache(cfg, c["batch"], t, device=DEVICE)))
+    lb, cb = lm.batched_prefill(model, cfg, {"tokens": toks[:, :t]})
+    err = lambda a, w: float((a - w).abs().max())
+    want_pre, want_dec = full[:, c["prefill"] - 1], full[:, c["prefill"]]
+    report = {
+        "prefill_vs_forward": err(lp, want_pre), "decode_vs_forward": err(ld, want_dec),
+        "token_prefill_vs_batched": err(ltt, lb),
+        "token_prefill_cache_vs_batched": max(err(ctt[n].float(), cb[n].float()) for n in ("k", "v")),
+        "cache_rms": float(cb["k"].float().pow(2).mean().sqrt()),
+    }
+    agree = {"prefill": top1_agreement(lp, want_pre, LM_LOGIT_BOUND),
+             "decode": top1_agreement(ld, want_dec, LM_LOGIT_BOUND),
+             "token_prefill": top1_agreement(ltt, lb, LM_LOGIT_BOUND)}
+    finite = all(bool(torch.isfinite(x).all()) for x in (full, lp, ld, ltt))
+    emit({"phase": "lm_granite_consistency", **c, "bound": LM_LOGIT_BOUND, **report, "top1": agree,
+          "logit_rms": float(full.pow(2).mean().sqrt()), "finite": finite, "forward_s": fwd_s,
+          "batched_prefill_s": pre_s, "decode_step_s": dec_s, "token_prefill_s": tt_s,
+          "shapes": [list(full.shape), list(lp.shape), list(ld.shape)]})
+    check(finite and tuple(full.shape) == (c["batch"], c["seq"], cfg.padded_vocab), "lm_granite_consistency: bad logits")
+    for name in ("prefill_vs_forward", "decode_vs_forward", "token_prefill_vs_batched"):
+        check(report[name] <= LM_LOGIT_BOUND, f"lm_granite_consistency: {name} {report[name]} > {LM_LOGIT_BOUND}")
+    for name, a in agree.items():
+        check(a["top1_disagree_past_margin"] == 0, f"lm_granite_consistency: {name} top-1 differs past the margin: {a}")
+    del full
+
+
+class StepTimer:
+    """Wraps an Engine method: CUDA events around each call, and for decode the
+    top-2 margin of each step's (masked) logits, read after the run."""
+
+    def __init__(self, fn, margins: bool = False):
+        self.fn, self.margins, self.events, self.tops = fn, margins, [], []
+
+    def __call__(self, *args):
+        import torch
+
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args)
+        stop.record()
+        self.events.append((start, stop))
+        if self.margins:
+            top2 = torch.topk(out[1], 2, dim=-1).values
+            self.tops.append(top2[:, 0] - top2[:, 1])
+        return out
+
+    def ms(self) -> list:
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def first_divergence(a: list, b: list):
+    """(row, step) of the first token where two generations differ, or None."""
+    for r, (x, y) in enumerate(zip(a, b)):
+        for t, (u, v) in enumerate(zip(x, y)):
+            if u != v:
+                return r, t
+    return None
+
+
+def phase_lm_engine(cfg, model) -> None:
+    """``Engine.generate`` on 8 prompts of 1,536-2,048 tokens (lm_batch rows), 32 new
+    tokens, greedy, twice (bitwise equal tokens); two equal-length prompts batched
+    and alone; temperature 0.7 twice (bitwise equal). Prefill seconds and
+    tokens/s, the decode's ms a step (median of 31) beside its bytes floor, the
+    prefill beside its bf16 flops bound, peak memory, one traced decode step."""
+    import statistics
+
+    import torch
+
+    from repro_torch.data import tokens
+    from repro_torch.serve import Engine, ServeConfig
+
+    c = LM_ENGINE
+    src = tokens.lm_batch(SEED + 41, 0, batch=c["prompts"], seq=c["max_len"], vocab=cfg.vocab_size, device=DEVICE)
+    src = src["tokens"].cpu().tolist()
+    lens = [c["min_len"] + (i * (c["max_len"] - c["min_len"])) // (c["prompts"] - 1) for i in range(c["prompts"])]
+    prompts = [row[:n] for row, n in zip(src, lens)]
+    max_len = c["max_len"] + c["new"]
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(cfg, model, ServeConfig(max_batch=c["prompts"], max_len=max_len), device=DEVICE)
+    engine._prefill = prefill_t = StepTimer(engine._prefill)
+    engine._decode = decode_t = StepTimer(engine._decode, margins=True)
+    first, gen_s = host_s(lambda: engine.generate(prompts, max_new_tokens=c["new"]))
+    again, gen2_s = host_s(lambda: engine.generate(prompts, max_new_tokens=c["new"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = c["new"] - 1
+    pre_ms, dec_all = prefill_t.ms(), decode_t.ms()
+    dec_first, dec_ms = dec_all[:steps], dec_all[steps:]  # the second (warm) run's steps are reported
+    margins = torch.stack(decode_t.tops[:steps], dim=1)  # (B, 31)
+
+    # Two equal-length prompts, batched and alone.
+    pair = [src[0][: c["min_len"]], src[1][: c["min_len"]]]
+    decode_t.tops.clear()
+    both = engine.generate(pair, max_new_tokens=c["new"])
+    pair_margins = torch.stack(decode_t.tops, dim=1)
+    solo = [engine.generate([p], max_new_tokens=c["new"])[0] for p in pair]
+    split = first_divergence(both, solo)
+    split_margin = None if split is None or split[1] == 0 else float(pair_margins[split[0], split[1] - 1])
+
+    hot = Engine(cfg, model, ServeConfig(max_batch=c["prompts"], max_len=max_len, temperature=c["temperature"]),
+                 device=DEVICE)
+    t1 = hot.generate(prompts, max_new_tokens=c["new"])
+    t2 = hot.generate(prompts, max_new_tokens=c["new"])
+
+    # One decode step traced, at the median step's position, on a fresh prefill.
+    B, S = len(prompts), max(lens)
+    with torch.inference_mode():
+        toks = torch.zeros((B, S), dtype=torch.int64)
+        for r, p in enumerate(prompts):
+            toks[r, S - len(p):] = torch.tensor(p)
+        logits, cache = engine._prefill.fn(toks.to(DEVICE))
+        tok = torch.argmax(logits, dim=-1)
+        for pos in range(S, S + 15):
+            tok, _, cache = engine._decode.fn(tok, cache, pos, None)
+        _, traced_wall = phase_trace("lm_granite_decode_traced", lambda: engine._decode.fn(tok, cache, S + 15, None))
+        # The float32 copies of each layer's k and v cache that the decode's attention reads (the reference's upcast).
+        copy_ms, _ = cuda_ms(lambda: (cache["k"][0].to(torch.float32), cache["v"][0].to(torch.float32)), 20)
+        del cache
+
+    d, L, KV, hd = cfg.d_model, cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    weight_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters() if n != "embed.table")
+    pos_med = S + c["new"] // 2
+    kv_bytes = 2 * 2 * L * B * (pos_med + 1) * KV * hd  # k and v, bf16, the valid positions read once
+    floor_ms = (weight_bytes + kv_bytes) / PEAK_BYTES * 1e3
+    # Prefill flops: the layers' products at every position, causal attention (QKᵀ and PV
+    # over the keys at or before each query), the unembedding at the last position.
+    layer_params = sum(p.numel() for n, p in model.layers[0].named_parameters() if "norm" not in n)
+    tokens_in = B * S
+    flops = 2 * tokens_in * L * layer_params + 2 * 2 * L * B * cfg.num_heads * hd * S * (S + 1) // 2 \
+        + 2 * B * d * cfg.padded_vocab
+    dec_med = statistics.median(dec_ms)
+    report = {
+        "prompts": len(prompts), "prompt_lens": lens, "new": c["new"], "max_len": max_len,
+        "generate_s": [gen_s, gen2_s], "prefill_s": pre_ms[1] / 1e3, "prefill_s_first": pre_ms[0] / 1e3,
+        "prefill_tokens": sum(lens), "prefill_tokens_padded": tokens_in,
+        "prefill_tok_per_s": tokens_in / (pre_ms[1] / 1e3), "prefill_bound_share": None,
+        "prefill_flops": flops, "prefill_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
+        "decode_steps": len(dec_ms), "decode_ms_median": dec_med, "decode_ms_median_first_run": statistics.median(
+            dec_first), "decode_ms_min": min(dec_ms),
+        "decode_ms_max": max(dec_ms), "decode_tok_per_s": B / (dec_med / 1e3),
+        "decode_floor_ms": floor_ms, "decode_weight_bytes": weight_bytes, "decode_kv_bytes": kv_bytes,
+        "decode_floor_share": floor_ms / dec_med, "decode_f32_cache_copy_ms": copy_ms * cfg.num_layers,
+        "decode_f32_cache_copy_bytes": 3 * 2 * L * B * max_len * KV * hd * 2, "peak_gb": peak_gb, "traced_decode_wall_ms": traced_wall * 1e3,
+        "greedy_rerun_equal": first == again, "min_top2_margin": float(margins.min()),
+        "pair_batched_equals_single": split is None, "pair_first_divergence": split,
+        "pair_margin_at_divergence": split_margin, "temperature": c["temperature"], "sampled_rerun_equal": t1 == t2,
+        "sampled_differs_from_greedy": t1 != first, "first_tokens": [o[:8] for o in first[:2]],
+    }
+    report["prefill_bound_share"] = report["prefill_bound_ms"] / pre_ms[1]
+    emit({"phase": "lm_granite_engine", "card": nvidia_smi_line(), **report})
+    ok = all(len(o) == c["new"] and all(0 <= t < cfg.vocab_size for t in o) for o in first + t1)
+    check(ok, "lm_granite_engine: bad generations")
+    check(report["greedy_rerun_equal"], "lm_granite_engine: greedy generations differ run to run")
+    check(report["sampled_rerun_equal"], "lm_granite_engine: sampled generations differ run to run")
+    # Batched and alone, the products have other shapes (M = 2 against 1), so the two
+    # runs agree to the logit bound, not bitwise: their tokens may part only where the
+    # batched run's top-2 margin was inside 2·bound.
+    check(split is None or (split_margin is not None and split_margin <= 2 * LM_LOGIT_BOUND),
+          f"lm_granite_engine: batched and single generations part at {split}, margin {split_margin}")
+
+
+def check_chunk_slices(family: str, keys, X, m: int) -> dict:
+    """One multi-key launch on the first ``cuda.worker_chunk`` of the keys a main-path
+    call takes: its first and last slices held against the plain version (within
+    GRAM_TOL) and bitwise against single-key launches. Returns the errors."""
+    import torch
+
+    from repro_torch.kernels import cuda
+
+    n, dx = X.shape
+    chunk = cuda.worker_chunk(n, m, dx, keys.shape[0], family=family, s=SJLT_S)
+    calls = Calls(family, keys[:chunk], n, m)
+    G = calls.multi(X)
+    out = {"workers_per_call": chunk, "entry_rel_err": {}, "max_abs_err": {}, "slices_bitwise_equal_single": {}}
+    for w in sorted({0, chunk - 1}):
+        want = calls.plain_single(w, X)
+        out["entry_rel_err"][str(w)] = gram_err(G[w], want)
+        out["max_abs_err"][str(w)] = float((G[w] - want).abs().max())
+        out["slices_bitwise_equal_single"][str(w)] = torch.equal(G[w], calls.single(w, X))
+        del want
+    del G
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fit_head_lm(cfg, model, rows: dict) -> None:
+    """Algorithm 1 on granite-3-8b's own features: H = extract_features on
+    lm_batch(16 × 2,048), 32,768 × 4,096 float32; Y = H·U[:, ids] + 0.1·N(0, 1),
+    U the model's unembedding at 16 fixed ids (a 16-token lm-head re-fit);
+    fit_head at q = 16, m = 8,192, 12 arriving, reg 1e-4, the Gaussian through
+    row 2 and the SJLT (s = 20) through row 11; the gates of phase_fit_head, and
+    H's condition number. Beside the fit, the first call's worth of keys through
+    each multi-key wrapper on the same [H | Y], held against the plain version:
+    no earlier kernel check ran rows 2 and 11 this wide."""
+    import torch
+
+    from repro_torch.core import privacy, sketches as sk, theory
+    from repro_torch.data import tokens
+    from repro_torch.kernels import cuda
+    from repro_torch.train import solvers
+    from repro_torch.utils import prng
+
+    c = LM_HEAD
+    b = tokens.lm_batch(SEED + 42, 0, batch=c["batch"], seq=c["seq"], vocab=cfg.vocab_size, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    H, feat_s = host_s(lambda: solvers.extract_features(model, cfg, b))
+    feat_peak = torch.cuda.max_memory_allocated() / 1e9
+    n, d = H.shape
+    check((n, d) == (c["batch"] * c["seq"], cfg.d_model) and H.dtype == torch.float32
+          and bool(torch.isfinite(H).all()), f"fit_head_granite_features: bad H {tuple(H.shape)} {H.dtype}")
+    U = model.unembed_w()[:, list(LM_HEAD_IDS)].to(torch.float32)
+    Y = H @ U + c["noise"] * prng.normal(prng.prng_key(SEED + 43), (n, c["k"]), device=DEVICE)
+    eig = torch.linalg.eigvalsh(H.double().T @ H.double())
+    cond = float((eig[-1] / eig[0]).sqrt()) if float(eig[0]) > 0 else float("inf")
+    mask = torch.zeros(c["q"])
+    mask[torch.randperm(c["q"], generator=torch.Generator().manual_seed(SEED + 44))[: c["arrived"]]] = 1.0
+    pred = theory.gaussian_averaged_error(c["m"], d, c["arrived"])
+    key = prng.prng_key(SEED + 45)
+    dx = d + c["k"]
+    for family in ("gaussian", "sjlt"):
+        spec = sk.SketchSpec(family, c["m"], s=SJLT_S, use_kernel=True)
+        multi = FAMILY_ROUTES[family][1]
+        calls = -(-c["q"] // cuda.worker_chunk(n, c["m"], dx, c["q"], family=family, s=SJLT_S))
+        acc = privacy.PrivacyAccountant()
+        reset_counts()
+        Wh, seconds = host_s(lambda: solvers.fit_head(key, H, Y, spec, q=c["q"], reg=c["reg"], straggler_mask=mask,
+                                                      accountant=acc, device=DEVICE))
+        counts = read_counts()
+        quality = solvers.head_fit_quality(H, Y, Wh)
+        label = f"fit_head_granite_features_{family}"
+        emit({"phase": label, "card": nvidia_smi_line(), "n": n, "d": d, **c, "features_s": feat_s,
+              "features_peak_gb": feat_peak, "h_cond": cond, "h_eig_min": float(eig[0]), "h_eig_max": float(eig[-1]),
+              "seconds": seconds, "launches": counts, **quality, "theory": pred, "ratio": quality["rel_err"] / pred,
+              "ratio_band": [1 / THEORY_FACTOR, THEORY_FACTOR], "disclosures": len(acc.disclosures),
+              "gamma": acc.disclosures[0].gamma, "calls_expected": calls})
+        check(tuple(Wh.shape) == (d, c["k"]) and bool(torch.isfinite(Wh).all()), f"{label}: bad W")
+        check_counts(label, counts, {multi: calls})
+        check(pred / THEORY_FACTOR <= quality["rel_err"] <= THEORY_FACTOR * pred,
+              f"{label}: rel_err {quality['rel_err']} outside 3× Theorem 1's {pred}")
+        check(len(acc.disclosures) == c["q"], f"{label}: {len(acc.disclosures)} disclosures")
+        rows[multi].setdefault("launches_by_path", {})[label] = counts.get(multi, 0)
+        # Outside the counted run: the kernel against its plain version at this width.
+        slices = check_chunk_slices(family, prng.worker_keys(key, c["q"]), torch.cat([H, Y], 1), c["m"])
+        emit({"phase": f"{label}_kernel_check", "name": multi, "n": n, "d": dx, "m": c["m"], **slices,
+              "tol": GRAM_TOL})
+        check(all(e <= GRAM_TOL for e in slices["entry_rel_err"].values()),
+              f"{label}: {multi} off its plain version by {slices['entry_rel_err']}")
+        check(all(slices["slices_bitwise_equal_single"].values()),
+              f"{label}: {multi} slices {slices['slices_bitwise_equal_single']} not bitwise single-key launches")
+    del H, Y, U
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve_cli() -> None:
+    """``python -m repro_torch.launch.serve --arch granite-3-8b`` as a user runs it,
+    with the reference launcher's defaults: exit 0 and its ``arch=`` line."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *SERVE_LM_CLI], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    arch = [line for line in lines if line.startswith(f"arch={LM_ARCH} ")]
+    emit({"phase": "lm_serve_cli", "args": list(SERVE_LM_CLI), "returncode": out.returncode, "seconds": seconds,
+          "lines": lines, "stderr_tail": out.stderr[-2000:] if out.returncode else ""})
+    check(out.returncode == 0 and len(arch) == 1, "lm_serve_cli: the launcher failed")
+
+
+
 def phase_trace(label: str, solve) -> None:
     """One more run of a path under ``torch.profiler``: device time by kernel and the
     device's busy share of the run's wall time (kernels on one stream, so their
@@ -2680,6 +3054,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from repro_torch.configs.paper_lsq import FIG3A
     from repro_torch.data import regression
 
@@ -2707,6 +3082,7 @@ def main() -> int:
         phase_least_norm(rows)
         phase_gradcomp(rows)
         phase_fit_head(rows)
+        phase_lm(rows)
         phase_serverless(rows)
         phase_row_sharded_and_groups(rows)
         for name, row in rows.items():

@@ -1,15 +1,20 @@
-"""Serving launcher: sketch-solve job admission on the GPU.
+"""Serving launcher: LM generation and sketch-solve job admission on the GPU.
 
+    python -m repro_torch.launch.serve --arch granite-3-8b [--reduced]
     python -m repro_torch.launch.serve --solve --q 16 --backend process --adaptive
 
-boots a :class:`repro_torch.serve.SolveServer`, admits ``--jobs`` synthetic
-regression jobs through the asynchronous runtime engine on the chosen executor
-backend, and prints per-job and aggregate telemetry (retries, timeouts, drops,
-effective q′, simulated makespan, relative error against the exact solve). It
-has the reference launcher's flags (``python -m repro.launch.serve --solve``) and
-draws the same data (``prng.normal``, jax's normals), plus ``--device`` (default
-CUDA, an error without it; ``cpu`` for the CPU). The reference's other mode, LM
-serving, is not ported: without ``--solve`` the launcher exits with an error.
+LM mode (``--arch``) builds the architecture's model with the reference's
+weights for key 0 (``models.lm.init_params``), serves ``--requests`` synthetic
+prompts through :class:`repro_torch.serve.Engine` and prints the ``arch=`` line
+(requests, new tokens, wall time, tokens/s) and the first requests' tokens.
+Solve mode (``--solve``) boots a :class:`repro_torch.serve.SolveServer`, admits
+``--jobs`` synthetic regression jobs through the asynchronous runtime engine on
+the chosen executor backend, and prints per-job and aggregate telemetry
+(retries, timeouts, drops, effective q′, simulated makespan, relative error
+against the exact solve). The flags are the reference launcher's
+(``python -m repro.launch.serve``), and the data are drawn as the reference
+draws them (``prng``, jax's draws), plus ``--device`` (default CUDA, an error
+without it; ``cpu`` for the CPU).
 """
 from __future__ import annotations
 
@@ -85,8 +90,42 @@ def solve_main(args) -> int:
     return 0
 
 
+def lm_main(args) -> int:
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.utils import prng
+    from repro_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = lm.init_params(cfg, prng.prng_key(0), device=dev)
+    sc = ServeConfig(max_batch=4, max_len=args.prompt_len + args.max_new + 8, temperature=args.temperature)
+    engine = Engine(cfg, params, sc, device=dev)
+    prompts = [
+        list(range(3 + (i % 5), 3 + (i % 5) + args.prompt_len - (i % 4))) for i in range(args.requests)
+    ]
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=args.max_new)
+    dt = time.perf_counter() - t0  # generate returns host lists: the device is done
+    toks = sum(len(o) for o in outs)
+    print(f"arch={cfg.name} requests={len(prompts)} new_tokens={toks} wall={dt:.2f}s ({toks / dt:.1f} tok/s) "
+          f"device={dev}", flush=True)
+    for i, o in enumerate(outs[:4]):
+        print(f"  req{i}: prompt={prompts[i][:6]}... -> {o[:12]}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None, help="LM mode: architecture id")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--solve", action="store_true", help="admit sketch-solve jobs")
     ap.add_argument("--n", type=int, default=4096)
     ap.add_argument("--d", type=int, default=32)
@@ -103,12 +142,14 @@ def main(argv=None) -> int:
     ap.add_argument("--adaptive", action="store_true", help="rolling-p95 deadlines")
     ap.add_argument("--target-error", type=float, default=None)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None, help="where the jobs run (default: cuda; cpu for the CPU)")
+    ap.add_argument("--device", default=None, help="where the model or jobs run (default: cuda; cpu for the CPU)")
     args = ap.parse_args(argv)
 
-    if not args.solve:
-        ap.error("LM serving is not ported to repro_torch yet (only the sketch-solve mode is); pass --solve")
-    return solve_main(args)
+    if args.solve:
+        return solve_main(args)
+    if args.arch is None:
+        ap.error("pass --arch <id> (LM serving) or --solve (sketch-solve serving)")
+    return lm_main(args)
 
 
 if __name__ == "__main__":

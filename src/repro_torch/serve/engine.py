@@ -1,25 +1,126 @@
-"""Sketch-solve job admission: Algorithm 1 as a service, on the GPU.
+"""Serving engines of the port: batched LM decode and sketch-solve job admission.
 
-Port of ``repro.serve.engine``'s :class:`SolveJob` and :class:`SolveServer`, the
-*sketch-least-squares* front end: a job-admission API
-(:meth:`SolveServer.submit_solve`) that routes regression jobs through the
-asynchronous :class:`~repro_torch.runtime.engine.ServerlessEngine` (streaming
-Welford averages, deadline→backoff→retry, adaptive deadlines optional, early
-stop, and a per-job telemetry summary) on any executor backend
-(``inline``/``thread``/``process``). The reference module's batched LM engine
-waits for the port's LM scaffolding.
+Port of ``repro.serve.engine``. Two serving surfaces share this module:
+
+  * :class:`Engine`, the batched LM engine: a flash prefill of the left-padded
+    prompts, then step-synchronized batched decode against a KV cache allocated
+    once at ``max_len`` and written in place; EOS is mask-based (finished rows
+    keep decoding into a dead slot, outputs are trimmed on the host). Sampling
+    is greedy, or jax's categorical at temperature T > 0 (argmax of logits/T plus
+    gumbel noise under the reference's key schedule), bitwise the reference's on
+    the same logits.
+  * :class:`SolveServer`, the *sketch-least-squares* front end: a job-admission
+    API (:meth:`SolveServer.submit_solve`) that routes regression jobs through
+    the asynchronous :class:`~repro_torch.runtime.engine.ServerlessEngine`
+    (streaming Welford averages, deadline→backoff→retry, adaptive deadlines
+    optional, early stop, and a per-job telemetry summary) on any executor
+    backend (``inline``/``thread``/``process``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lm
 from repro_torch.runtime import tasks as rt_tasks
 from repro_torch.runtime.engine import RuntimeConfig, RuntimeResult, ServerlessEngine
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
+
+
+def sample_token(key: torch.Tensor, logits: torch.Tensor, temperature: float = 0.0) -> torch.Tensor:
+    """(B, V) float32 logits -> (B,) int64 token ids. temperature <= 0 is greedy;
+    else ``jax.random.categorical(key, logits / T)``: argmax of jax's gumbel
+    noise (B, V) under ``key`` plus logits / T, drawn on the logits' device."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    g = prng.gumbel(key, tuple(logits.shape), device=logits.device)
+    return torch.argmax(g + logits / temperature, dim=-1)
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 8
+    max_len: int = 256          # prompt + generation budget (cache allocation)
+    temperature: float = 0.0
+    eos_id: int = -1            # -1: never stop early
+    seed: int = 0
+
+
+class Engine:
+    """Batched generation with an :class:`~repro_torch.models.lm.LM` on ``device``
+    (``None`` means CUDA, raising when absent; ``"cpu"`` for the CPU). The model
+    must already be there: it is used as given, never moved (``ValueError``)."""
+
+    def __init__(self, cfg: ArchConfig, params: lm.LM, sc: ServeConfig, *, device=None):
+        self.device = resolve_device(device)
+        held = next(params.parameters()).device
+        if held.type != self.device.type or self.device.index not in (None, held.index):
+            raise ValueError(f"the model is on {held}, the engine on {self.device}: build the model there")
+        self.cfg = cfg
+        self.params = params
+        self.sc = sc
+
+    def _mask_pad(self, logits: torch.Tensor) -> torch.Tensor:
+        """Padded-vocab ids (the table's padding to a multiple of 256) are never sampled."""
+        logits[..., self.cfg.vocab_size :] = -1e30
+        return logits
+
+    def _prefill(self, tokens: torch.Tensor):
+        logits, cache = lm.batched_prefill(self.params, self.cfg, {"tokens": tokens}, cache_len=self.sc.max_len)
+        return self._mask_pad(logits), cache
+
+    def _decode(self, tok: torch.Tensor, cache, pos: int, key: Optional[torch.Tensor]):
+        logits, cache = lm.decode_step(self.params, self.cfg, tok, cache, pos)
+        logits = self._mask_pad(logits)
+        return sample_token(key, logits, self.sc.temperature), logits, cache
+
+    # ------------------------------------------------------------------ API
+    @torch.inference_mode()
+    def generate(self, prompts: Sequence[Sequence[int]], *, max_new_tokens: int = 32) -> List[List[int]]:
+        """Generate continuations, ``max_batch`` prompts at a time (step-synchronized)."""
+        out: List[List[int]] = []
+        for i in range(0, len(prompts), self.sc.max_batch):
+            out.extend(self._generate_batch(prompts[i : i + self.sc.max_batch], max_new_tokens))
+        return out
+
+    def _generate_batch(self, prompts, max_new_tokens: int) -> List[List[int]]:
+        B = len(prompts)
+        S = max(len(p) for p in prompts)
+        if S + max_new_tokens > self.sc.max_len:
+            raise ValueError(f"prompt {S} + {max_new_tokens} new tokens exceed ServeConfig.max_len "
+                             f"{self.sc.max_len}")
+        # Left-pad to a rectangle with token 0: the padded prefix is ordinary
+        # tokens, masked out of nothing (the fixed-shape serving trade-off).
+        toks = np.zeros((B, S), np.int64)
+        for r, p in enumerate(prompts):
+            toks[r, S - len(p) :] = np.asarray(p, np.int64)
+        logits, cache = self._prefill(torch.from_numpy(toks).to(self.device))
+        greedy = self.sc.temperature <= 0.0
+        key = prng.prng_key(self.sc.seed)
+        tok = sample_token(key, logits, self.sc.temperature)
+        generated = [tok]
+        for t in range(1, max_new_tokens):
+            sub = None
+            if not greedy:  # greedy draws nothing: the key schedule matters only when sampling
+                key, sub = prng.split(key)
+            tok, _, cache = self._decode(tok, cache, S + t - 1, sub)
+            generated.append(tok)
+        gen = torch.stack(generated, dim=1).cpu().numpy()  # (B, T)
+        outs: List[List[int]] = []
+        for r in range(B):
+            row = gen[r].tolist()
+            if self.sc.eos_id >= 0 and self.sc.eos_id in row:
+                row = row[: row.index(self.sc.eos_id) + 1]
+            outs.append(row)
+        return outs
+
+
+# ===================================================================== solve serving
 
 
 @dataclasses.dataclass

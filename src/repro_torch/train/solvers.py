@@ -4,8 +4,8 @@ Port of ``repro.train.solvers.fit_head`` and ``head_fit_quality``. A linear map
 fit onto frozen backbone features (a probe, a value head, an lm-head re-fit) is
 the paper's least squares with the feature matrix H (tokens × d_model) as A
 (n ≫ d), so it is fit with the master-sketch mode of Algorithm 1: its
-straggler resilience and its privacy accounting come along. ``extract_features``
-waits for the port of the LM (``models/lm``).
+straggler resilience and its privacy accounting come along.
+``extract_features`` gives such features from the port's LM (``models.lm``).
 """
 from __future__ import annotations
 
@@ -17,6 +17,17 @@ from repro_torch.core import averaging, operators, privacy, sketches as sk, solv
 from repro_torch.kernels import common
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
+
+
+def extract_features(params, cfg, batch, *, plan=None) -> torch.Tensor:
+    """Frozen-backbone features: the LM's final-norm hidden states over
+    ``batch["tokens"]``, flattened to (B·S, d_model) float32, on the model's device."""
+    from repro_torch.models import lm
+
+    with torch.inference_mode():
+        x, _ = lm.embed_inputs(params, cfg, batch)
+        h = lm.trunk(params, cfg, x, plan=plan or lm.ExecPlan())
+        return h.reshape(-1, cfg.d_model).to(torch.float32)
 
 
 def fit_head(key: torch.Tensor, H: torch.Tensor, Y: torch.Tensor, spec: sk.SketchSpec, *, q: int = 16,

@@ -27,9 +27,9 @@ The float draws (``uniform``, ``bernoulli``, ``gumbel``, ``categorical``) are
 bitwise those of jax on the CPU, the platform the reference's tests run on:
 ``xla_log`` repeats XLA's CPU float32 logarithm operation for operation, since
 ``torch.log`` differs from it by an ulp on about one input in seven. ``normal``
-(√2·erfinv(u), ``xla_erfinv``) is bitwise jax's except in its far tails, where
-XLA's CPU square root is a reciprocal-square-root estimate refined by one
-Newton step (see :func:`xla_erfinv`); ``lognormal`` takes ``torch.exp`` of it.
+(√2·erfinv(u), ``xla_erfinv``) is bitwise jax's over every uniform it can draw,
+on the CPU and on the card (see :func:`xla_erfinv`); ``lognormal`` takes
+``torch.exp`` of it.
 """
 from __future__ import annotations
 
@@ -258,15 +258,14 @@ def xla_erfinv(x: torch.Tensor) -> torch.Tensor:
     """erfinv of float32 x in (−1, 1) as XLA's CPU backend computes
     ``lax.erf_inv``: w = −log1p(−x²) (``_xla_log1p``), then Giles' degree-8
     polynomial in w − 2.5 (w < 5) or in √w − 3, its Horner steps fused, times x;
-    ±1 gives ±inf. Bitwise XLA's for w < 5, that is |erfinv(x)| below about 2;
-    for w >= 5 XLA takes √w from the CPU's reciprocal-square-root estimate and
-    one Newton step, which is not the correctly rounded root ``torch.sqrt``
-    gives, so there the two differ by an ulp or two of the result (on 137 of
-    the 2**23 inputs ``normal`` draws)."""
+    ±1 gives ±inf. Bitwise XLA's over all 2**23 inputs ``normal`` draws. XLA's
+    √w is correctly rounded; torch's float32 ``sqrt`` is not, on the CPU (one
+    ulp off on ~0.6% of inputs) nor on CUDA (~0.7%), so the root is taken in
+    float64 and rounded once, which is the correctly rounded float32 root."""
     x = x.to(torch.float32)
     lg = _xla_log1p(x * (-x))
     lt = lg > -5.0
-    wv = torch.where(lt, -2.5 - lg, torch.sqrt(-lg) - 3.0)
+    wv = torch.where(lt, -2.5 - lg, torch.sqrt(-lg.double()).float() - 3.0)
     p = None
     for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
         c = torch.where(lt, torch.tensor(a, device=x.device), torch.tensor(b, device=x.device))
@@ -329,11 +328,12 @@ def xla_ndtri(p: torch.Tensor) -> torch.Tensor:
     return torch.where(p == 0, -math.inf, torch.where(p == 1, math.inf, x))
 
 
-def normal(key: torch.Tensor, shape: tuple, *, device=None) -> torch.Tensor:
+def normal(key: torch.Tensor, shape: tuple, *, offset: int = 0, device=None) -> torch.Tensor:
     """float32 ``jax.random.normal(key, shape)``: √2·erfinv(u) with u uniform in
-    (nextafter(−1, 0), 1) (:func:`xla_erfinv`)."""
+    (nextafter(−1, 0), 1) (:func:`xla_erfinv`). ``offset`` shifts the flat
+    indices, as for :func:`uniform`: a large draw can be made in pieces."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    return (xla_erfinv(uniform(key, tuple(shape), lo, 1.0, device=device))) * _SQRT2_F32
+    return (xla_erfinv(uniform(key, tuple(shape), lo, 1.0, offset=offset, device=device))) * _SQRT2_F32
 
 
 def lognormal(key: torch.Tensor, shape: tuple, *, device=None) -> torch.Tensor:

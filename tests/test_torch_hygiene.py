@@ -4,7 +4,9 @@
   ``tools/`` imports JAX or the JAX package ``repro`` (an AST scan, so a lazy
   import inside a function counts).
 * Every module imports on CPU-only PyTorch without building anything.
-* The entry points run on CUDA by default and raise when it is absent.
+* The entry points run on CUDA by default and raise when it is absent (the LM's
+  ``init_params``, ``init_cache``, ``lm_batch``, ``Engine`` and the launcher's
+  LM mode too).
 * ``chip_smoke.py`` exits non-zero, printing no result, without CUDA and outside
   a checkout.
 """
@@ -105,6 +107,38 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, spec, me
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         regression.gaussian_regression(0, 16, 2)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokens
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.utils import prng
+
+    cfg = get_config("granite-3-8b").reduced()
+    model = lm.init_params(cfg, prng.prng_key(0), device="cpu")
+    _no_cuda(monkeypatch)
+    calls = (
+        lambda: lm.init_params(cfg, prng.prng_key(0)),
+        lambda: lm.init_cache(cfg, 1, 8),
+        lambda: lm.params_from_reference(cfg, {}),
+        lambda: tokens.lm_batch(0, 0, batch=1, seq=4, vocab=cfg.vocab_size),
+        lambda: tokens.lm_eval_batch(0, 0, batch=1, seq=4, vocab=cfg.vocab_size),
+        lambda: Engine(cfg, model, ServeConfig()),
+        lambda: launch_serve.main(["--arch", "granite-3-8b", "--reduced"]),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert Engine(cfg, model, ServeConfig(), device="cpu").generate([[1, 2]], max_new_tokens=2)
+
+
+def test_lm_modules_are_scanned():
+    scanned = {str(p.relative_to(PORT)) for p in PORT_FILES if PORT in p.parents}
+    assert {"models/layers.py", "models/attention.py", "models/lm.py", "data/tokens.py", "configs/base.py",
+            "configs/granite_3_8b.py", "configs/chatglm3_6b.py", "serve/engine.py", "launch/serve.py"} <= scanned
 
 
 def _run_smoke(cwd: pathlib.Path, script: pathlib.Path):

@@ -1,0 +1,351 @@
+"""The port's dense decoder LM against the JAX reference (CPU, reduced configs).
+
+Configs: every field of granite-3-8b and chatglm3-6b, full and ``reduced()``, and
+the shape specs, equal the reference's. Layers (float32): ``rmsnorm``,
+``rope_angles``, ``apply_rope`` (fraction 1.0 and 0.5), ``swiglu``, ``embed``,
+``cross_entropy_loss`` and ``chunked_attention`` (S not a multiple of the chunk,
+causal or not, windowed, G = 1 and 2) within ``LAYER_TOL`` of the reference's,
+relative to the largest reference value: float32 sums of at most 64 products in
+other orders, and torch's exp/cos/sin against XLA's, a few ulps each.
+
+``init_params``: bitwise the reference's (``prng.normal`` is jax's normal bit for
+bit), float32 and bfloat16, at two keys.
+
+The model (parameters converted from the reference's tree, so the parity does
+not rest on the init): ``forward_logits``, ``batched_prefill`` (logits and
+cache), the token-by-token ``prefill`` and decode continuations, granite and
+chatglm in float32 within ``MODEL_TOL`` of the largest reference logit (float32
+through two layers, sums in other orders); one bfloat16 forward within
+``BF16_TOL``: an activation's bfloat16 rounding (2⁻⁹ relative) flips where the
+two float32 values before it differ by an ulp, and the two layers carry such
+flips to the logits. The port's own forward = batched prefill = token prefill =
+decode, as ``tests/test_decode_consistency.py`` holds the reference.
+Tokens (``lm_batch``, ``lm_eval_batch``) are bitwise the reference's; other
+families' configs raise ``NotImplementedError``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase, get_config as jget
+from repro.data import tokens as jtok
+from repro.models import attention as jattn, layers as jlayers, lm as jlm
+from repro_torch.configs import base as tbase, get_config as tget
+from repro_torch.data import tokens as ttok
+from repro_torch.models import attention as tattn, layers as tlayers, lm as tlm
+from repro_torch.utils import prng
+
+ARCHS = ["granite-3-8b", "chatglm3-6b"]
+LAYER_TOL = 2e-6
+MODEL_TOL = 1e-5
+BF16_TOL = 3e-2
+CPU = "cpu"
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _rs(seed):
+    return np.random.default_rng(seed)
+
+
+# ------------------------------------------------------------------ configs
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_and_reduced_match_the_reference(arch):
+    for j, t in ((jget(arch), tget(arch)), (jget(arch).reduced(), tget(arch).reduced())):
+        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert (j.padded_vocab, j.resolved_head_dim, j.param_count()) == (t.padded_vocab, t.resolved_head_dim,
+                                                                          t.param_count())
+    assert arch in tbase.list_archs()
+
+
+def test_shapes_and_applicability_match_the_reference():
+    assert {k: dataclasses.asdict(v) for k, v in tbase.SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
+    for arch in ARCHS:
+        for name in jbase.SHAPES:
+            assert tbase.shape_applicable(tget(arch), tbase.SHAPES[name]) == jbase.shape_applicable(
+                jget(arch), jbase.SHAPES[name])
+    with pytest.raises(KeyError, match="unknown arch"):
+        tget("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_shapes_match_the_reference_at_full_size(arch):
+    want = jlm.param_shapes(jget(arch))
+    got = tlm.param_shapes(tget(arch))
+    assert tuple(got["embed.table"]) == want["embed"]["table"].shape
+    assert tuple(got["unembed.w"]) == want["unembed"]["w"].shape
+    for name in ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "ffn.w_gate", "ffn.w_up", "ffn.w_down", "norm1.scale"):
+        mod, w = name.split(".")
+        assert tuple(got[f"layers.0.{name}"]) == want["layers"][mod][w].shape[1:]
+    assert len([k for k in got if k.endswith("attn.wq")]) == jget(arch).num_layers
+
+
+# ------------------------------------------------------------------ layers
+
+
+def test_rmsnorm_matches():
+    rs = _rs(0)
+    x, scale = rs.standard_normal((3, 5, 64)).astype(np.float32), rs.standard_normal(64).astype(np.float32)
+    want = jlayers.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x), 1e-6)
+    assert _rel(tlayers.rmsnorm(_t(scale), _t(x), 1e-6), want) <= LAYER_TOL
+
+
+def test_rope_angles_match():
+    pos = np.arange(0, 3000, 7)
+    for dim, theta in ((16, 1e4), (8, 5e5)):
+        jc, js = jlayers.rope_angles(jnp.asarray(pos), dim, theta)
+        tc, ts = tlayers.rope_angles(_t(pos), dim, theta)
+        # angles up to 3,000 rad: one float32 ulp of the angle is ~2e-4 of its cos
+        assert _rel(tc, jc) <= 5e-4 and _rel(ts, js) <= 5e-4
+
+
+@pytest.mark.parametrize("fraction", [1.0, 0.5])
+def test_apply_rope_matches(fraction):
+    rs = _rs(1)
+    x = rs.standard_normal((2, 9, 4, 16)).astype(np.float32)
+    rot = int(16 * fraction) & ~1
+    jc, js = jlayers.rope_angles(jnp.arange(9), rot, 1e4)
+    want = jlayers.apply_rope(jnp.asarray(x), jc[None], js[None], fraction)
+    got = tlayers.apply_rope(_t(x), _t(jc)[None], _t(js)[None], fraction)
+    assert _rel(got, want) <= LAYER_TOL
+    if fraction < 1.0:
+        assert torch.equal(got[..., rot:], _t(x)[..., rot:])  # the second half passes through
+
+
+def test_swiglu_embed_unembed_match():
+    rs = _rs(2)
+    x = rs.standard_normal((2, 7, 64)).astype(np.float32)
+    w = {n: (rs.standard_normal(s) / 8).astype(np.float32) for n, s in
+         (("w_gate", (64, 128)), ("w_up", (64, 128)), ("w_down", (128, 64)))}
+    want = jlayers.swiglu({k: jnp.asarray(v) for k, v in w.items()}, jnp.asarray(x))
+    assert _rel(tlayers.swiglu(_t(w["w_gate"]), _t(w["w_up"]), _t(w["w_down"]), _t(x)), want) <= LAYER_TOL
+    table = rs.standard_normal((50, 64)).astype(np.float32)
+    toks = rs.integers(0, 50, (3, 11))
+    assert np.array_equal(tlayers.embed(_t(table), _t(toks)).numpy(),
+                          np.asarray(jlayers.embed({"table": jnp.asarray(table)}, jnp.asarray(toks))))
+    assert _rel(tlayers.unembed(_t(w["w_gate"]), _t(x)), jlayers.unembed({"w": jnp.asarray(w["w_gate"])},
+                                                                          jnp.asarray(x))) <= LAYER_TOL
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cross_entropy_loss_matches(masked):
+    rs = _rs(3)
+    logits = (3 * rs.standard_normal((4, 9, 37))).astype(np.float32)
+    labels = rs.integers(0, 37, (4, 9))
+    mask = (rs.random((4, 9)) < 0.6).astype(np.float32) if masked else None
+    want = jlayers.cross_entropy_loss(jnp.asarray(logits), jnp.asarray(labels),
+                                      None if mask is None else jnp.asarray(mask))
+    got = tlayers.cross_entropy_loss(_t(logits), _t(labels), None if mask is None else _t(mask))
+    assert abs(float(got) - float(want)) <= LAYER_TOL * abs(float(want))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("heads,kv", [(4, 4), (4, 2)])
+def test_chunked_attention_matches(causal, window, heads, kv):
+    rs = _rs(4 + heads + kv + window)
+    B, S, hd, chunk = 2, 37, 16, 16  # 37 keys: three chunks, the last one padded
+    q = rs.standard_normal((B, S, heads, hd)).astype(np.float32)
+    k = rs.standard_normal((B, S, kv, hd)).astype(np.float32)
+    v = rs.standard_normal((B, S, kv, hd)).astype(np.float32)
+    want = jattn.chunked_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, window=window,
+                                   chunk=chunk)
+    got = tattn.chunked_attention(_t(q), _t(k), _t(v), causal=causal, window=window, chunk=chunk)
+    assert _rel(got, want) <= LAYER_TOL
+
+
+def test_gqa_forward_and_decode_match():
+    rs = _rs(5)
+    d, H, KV, hd, S = 32, 4, 2, 8, 11
+    w = {n: (rs.standard_normal(s) / 6).astype(np.float32) for n, s in
+         (("wq", (d, H * hd)), ("wk", (d, KV * hd)), ("wv", (d, KV * hd)), ("wo", (H * hd, d)))}
+    jp, tp = {k: jnp.asarray(v) for k, v in w.items()}, tattn.GQA(*(_t(w[n]) for n in ("wq", "wk", "wv", "wo")))
+    x = rs.standard_normal((2, S, d)).astype(np.float32)
+    args = dict(heads=H, kv_heads=KV, head_dim=hd, rope_fraction=0.5)
+    jo, (jk, jv) = jattn.gqa_forward(jp, jnp.asarray(x), rope_theta=1e4, chunk=4, return_kv=True, **args)
+    to, (tk, tv) = tattn.gqa_forward(tp, _t(x), rope_theta=1e4, chunk=4, return_kv=True, **args)
+    assert max(_rel(to, jo), _rel(tk, jk), _rel(tv, jv)) <= LAYER_TOL
+    # one decode step at position S against caches of S + 3 entries holding the prefix
+    ck, cv = np.zeros((2, S + 3, KV, hd), np.float32), np.zeros((2, S + 3, KV, hd), np.float32)
+    ck[:, :S], cv[:, :S] = np.asarray(jk), np.asarray(jv)
+    xd = rs.standard_normal((2, 1, d)).astype(np.float32)
+    jo, jck, _ = jattn.gqa_decode(jp, jnp.asarray(xd), jnp.asarray(ck), jnp.asarray(cv), jnp.int32(S),
+                                  rope_theta=1e4, **args)
+    tck, tcv = _t(ck.copy()), _t(cv.copy())
+    tables = tattn.decode_tables(S, S + 3, int(hd * 0.5) & ~1, 1e4, torch.device(CPU))
+    to = tattn.gqa_decode(tp, _t(xd), tck, tcv, tables, **args)
+    assert _rel(to, jo) <= LAYER_TOL and _rel(tck, jck) <= LAYER_TOL
+
+
+@pytest.mark.parametrize("pos", [3, 9, 14])
+def test_ring_rule_matches_the_reference(pos):
+    """Slot and valid entries of a ring of 6 (positions past it wrap)."""
+    jslot, jvalid = jlm._ring_update_and_scores_mask(jnp.int32(pos), 6)
+    _, _, slot, valid = tattn.decode_tables(pos, 6, 8, 1e4, torch.device(CPU))
+    assert slot == int(jslot) and valid.tolist() == np.asarray(jvalid).tolist()
+
+
+# ------------------------------------------------------------------ init
+
+
+def _reference_leaves(jp, cfg):
+    """(name, numpy array) for each port state-dict leaf of the reference tree."""
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
+        names = [p.key for p in path]
+        a = np.asarray(leaf.astype(jnp.float32))
+        if names[0] == "layers":
+            for l in range(cfg.num_layers):
+                yield f"layers.{l}." + ".".join(names[1:]), a[l]
+        else:
+            yield ".".join(names), a
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_is_the_reference_init(arch, dtype, seed):
+    jc = dataclasses.replace(jget(arch).reduced(), dtype=dtype)
+    tc = dataclasses.replace(tget(arch).reduced(), dtype=dtype)
+    jp = jlm.init_params(jc, jax.random.PRNGKey(seed))
+    sd = tlm.init_params(tc, prng.prng_key(seed), device=CPU).state_dict()
+    seen = set()
+    for name, want in _reference_leaves(jp, jc):
+        seen.add(name)
+        assert sd[name].dtype == tlm.torch_dtype(tc)
+        assert np.array_equal(sd[name].to(torch.float32).numpy(), want), name
+    assert seen == set(sd)
+
+
+# ------------------------------------------------------------------ the model
+
+
+def _models(arch, dtype="float32", seed=0):
+    jc = dataclasses.replace(jget(arch).reduced(), dtype=dtype)
+    tc = dataclasses.replace(tget(arch).reduced(), dtype=dtype)
+    jp = jlm.init_params(jc, jax.random.PRNGKey(seed))
+    tp = tlm.params_from_reference(tc, jax.tree_util.tree_map(np.asarray, jp), device=CPU)
+    return jc, tc, jp, tp
+
+
+def _batch(vocab, B, S, seed):
+    toks = _rs(seed).integers(0, vocab, (B, S)).astype(np.int32)
+    return {"tokens": jnp.asarray(toks)}, {"tokens": _t(toks).long()}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_prefill_decode_match_the_reference(arch):
+    jc, tc, jp, tp = _models(arch)
+    B, S = 2, 21
+    jb, tb = _batch(jc.vocab_size, B, S, 11)
+    assert _rel(tlm.forward_logits(tp, tc, tb), jlm.forward_logits(jp, jc, jb)) <= MODEL_TOL
+    jl, jcache = jlm.batched_prefill(jp, jc, jb, cache_len=S + 4)
+    tl, tcache = tlm.batched_prefill(tp, tc, tb, cache_len=S + 4)
+    assert _rel(tl, jl) <= MODEL_TOL
+    for n in ("k", "v"):
+        assert tuple(tcache[n].shape) == jcache[n].shape
+        assert _rel(tcache[n], jcache[n]) <= MODEL_TOL
+    jl2, jc2 = jlm.prefill(jp, jc, jb, jlm.init_cache(jc, B, S + 4))
+    tl2, tc2 = tlm.prefill(tp, tc, tb, tlm.init_cache(tc, B, S + 4, device=CPU))
+    assert _rel(tl2, jl2) <= MODEL_TOL and _rel(tc2["k"], jc2["k"]) <= MODEL_TOL
+    # three decode steps continuing the batched prefill's cache, the same tokens fed to both
+    for step in range(3):
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+        jl, jcache = jlm.decode_step(jp, jc, jnp.asarray(tok), jcache, jnp.int32(S + step))
+        tl, tcache = tlm.decode_step(tp, tc, _t(tok).long(), tcache, S + step)
+        assert _rel(tl, jl) <= MODEL_TOL
+    assert _rel(tcache["v"], jcache["v"]) <= MODEL_TOL
+
+
+def test_bfloat16_forward_matches_the_reference():
+    jc, tc, jp, tp = _models("granite-3-8b", "bfloat16", seed=1)
+    jb, tb = _batch(jc.vocab_size, 2, 16, 12)
+    assert tp.embed.table.dtype == torch.bfloat16
+    assert _rel(tlm.forward_logits(tp, tc, tb), jlm.forward_logits(jp, jc, jb)) <= BF16_TOL
+
+
+def test_prefill_cache_longer_than_its_length_keeps_the_last_positions():
+    jc, tc, jp, tp = _models("granite-3-8b")
+    jb, tb = _batch(jc.vocab_size, 1, 12, 13)
+    _, jcache = jlm.batched_prefill(jp, jc, jb, cache_len=8)
+    _, tcache = tlm.batched_prefill(tp, tc, tb, cache_len=8)
+    assert _rel(tcache["k"], jcache["k"]) <= MODEL_TOL
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_forward_equals_prefills_and_decode(arch):
+    """The port alone: forward == batched prefill == token prefill == decode."""
+    _, tc, _, tp = _models(arch, seed=2)
+    B, S = 2, 24
+    _, tb = _batch(tc.vocab_size, B, S + 1, 14)
+    full = tlm.forward_logits(tp, tc, tb)
+    head = {"tokens": tb["tokens"][:, :S]}
+    lb, cb = tlm.batched_prefill(tp, tc, head, cache_len=S + 4)
+    lt, ct = tlm.prefill(tp, tc, head, tlm.init_cache(tc, B, S + 4, device=CPU))
+    assert _rel(lb, full[:, S - 1]) <= MODEL_TOL and _rel(lt, full[:, S - 1]) <= MODEL_TOL
+    l1, _ = tlm.decode_step(tp, tc, tb["tokens"][:, S], cb, S)
+    l2, _ = tlm.decode_step(tp, tc, tb["tokens"][:, S], ct, S)
+    assert _rel(l1, full[:, S]) <= MODEL_TOL and _rel(l2, l1) <= MODEL_TOL
+
+
+# ------------------------------------------------------------------ tokens
+
+
+@pytest.mark.parametrize("vocab,seq,batch,offset", [(256, 40, 3, 0), (49155, 64, 2, 5), (65024, 33, 2, 0),
+                                                   (262144, 48, 2, 0)])
+def test_lm_batch_is_bitwise_the_reference(vocab, seq, batch, offset):
+    """Vocabularies past 68,530 make a·tok overflow int32 (262,144: gemma3's), which
+    the reference's recurrence wraps."""
+    want = jtok.lm_batch(5, 3, batch=batch, seq=seq, vocab=vocab, row_offset=offset)
+    got = ttok.lm_batch(5, 3, batch=batch, seq=seq, vocab=vocab, row_offset=offset, device=CPU)
+    assert np.array_equal(got["tokens"].numpy(), np.asarray(want["tokens"]))
+    assert np.array_equal(got["labels"].numpy(), np.asarray(want["labels"]))
+    assert np.array_equal(got["loss_mask"].numpy(), np.asarray(want["loss_mask"]))
+
+
+def test_lm_eval_batch_is_bitwise_the_reference():
+    want = jtok.lm_eval_batch(1, 0, batch=2, seq=30, vocab=49155)
+    got = ttok.lm_eval_batch(1, 0, batch=2, seq=30, vocab=49155, device=CPU)
+    assert np.array_equal(got["tokens"].numpy(), np.asarray(want["tokens"]))
+
+
+def test_lm_batch_p_pattern_is_the_reference():
+    want = jtok.lm_batch(2, 1, batch=2, seq=50, vocab=97, p_pattern=0.3)
+    got = ttok.lm_batch(2, 1, batch=2, seq=50, vocab=97, p_pattern=0.3, device=CPU)
+    assert np.array_equal(got["tokens"].numpy(), np.asarray(want["tokens"]))
+
+
+# ------------------------------------------------------------------ refusals
+
+
+@pytest.mark.parametrize("seq", [1, 7, 4096, 40_000])
+@pytest.mark.parametrize("arch", jbase.list_archs())
+def test_layer_windows_and_cache_lengths_match_the_reference(arch, seq):
+    """Every reference config, the windowed families too: the port refuses those
+    before it reads their windows (item 9b), but the helpers are held all the same."""
+    cfg = tbase.ArchConfig(**{f.name: getattr(jget(arch), f.name) for f in dataclasses.fields(tbase.ArchConfig)})
+    assert np.array_equal(tlm.layer_windows(cfg).numpy(), np.asarray(jlm.layer_windows(jget(arch))))
+    assert np.array_equal(tlm.cache_lengths(cfg, seq).numpy(), np.asarray(jlm.cache_lengths(jget(arch), seq)))
+
+
+@pytest.mark.parametrize("arch,item", [("mixtral-8x7b", "9b"), ("gemma3-12b", "9b"), ("minicpm3-4b", "9c"),
+                                       ("falcon-mamba-7b", "9d"), ("whisper-small", "9e")])
+def test_other_families_are_refused(arch, item):
+    cfg = tbase.ArchConfig(**dataclasses.asdict(jget(arch).reduced()))
+    for call in (lambda: tlm.init_params(cfg, prng.prng_key(0), device=CPU),
+                 lambda: tlm.init_cache(cfg, 1, 8, device=CPU), lambda: tlm.param_shapes(cfg)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            call()

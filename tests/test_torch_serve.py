@@ -164,9 +164,11 @@ def test_launcher_job_lines_equal_the_reference_launchers(extra, monkeypatch, ca
 
 
 def test_launcher_refuses_the_lm_mode(capsys):
+    """Without ``--arch`` (LM mode, ported since) or ``--solve`` the launcher exits
+    with the reference launcher's usage error."""
     from repro_torch.launch import serve as tlaunch
 
     with pytest.raises(SystemExit) as exc:
         tlaunch.main(["--n", "64"])
     assert exc.value.code == 2
-    assert "LM serving is not ported" in capsys.readouterr().err
+    assert "pass --arch <id> (LM serving) or --solve (sketch-solve serving)" in capsys.readouterr().err

@@ -6,10 +6,9 @@ reference on the CPU.
 ``jnp.quantile``. The mask depends only on the order of the lognormal runtimes,
 and the port's normal (√2·erfinv(u), XLA's CPU float32 polynomial ported
 operation for operation) is bitwise jax's wherever erfinv's first branch runs
-(w = −log1p(−u²) < 5). In the second branch XLA's CPU square root is a
-reciprocal-square-root estimate refined by one Newton step, which depends on
-the CPU's estimate table, so there (|z| above about 2.8; 137 of the 2**23
-possible u) the values are held to 1e-3 absolute. The lognormal is exp of it:
+(w = −log1p(−u²) < 5). In the second branch (|z| above about 2.8) the values
+are held to 1e-3 absolute; since the port takes erfinv's square root correctly
+rounded, as XLA does, they are bitwise there too. The lognormal is exp of it:
 held to 4.8e-7 relative (four float32 ulps; ``torch.exp`` is not XLA's exp)
 where the normal is bitwise, and to 1.1e-3 relative in the tails.
 """
