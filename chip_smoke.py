@@ -124,6 +124,7 @@ unavailable or when run outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3003,6 +3004,329 @@ def phase_lm_serve_cli() -> None:
     check(out.returncode == 0 and len(arch) == 1, "lm_serve_cli: the launcher failed")
 
 
+# ------------------------------------------ training: the sketch-DP step on the dense decoder LM
+
+TRAIN_LAYERS = 4  # granite-3-8b's full width at a cut depth: D ≈ 1.20e9 parameters
+TRAIN = {"batch": 4, "seq": 2048, "steps": 3, "ratio": 0.1, "lr": 3e-4, "warmup": 1}
+TRAIN_LATENCY = {"mean_s": 1.0, "sigma": 0.35, "q": 8, "deadline_s": 1.5}
+# Row 12b at the step's D against the library's index_add_: the library adds in
+# float32 with atomics (its rounding ≤ L·2⁻²⁴ of Σ|terms|, L ≈ 1/ratio pairs a
+# bucket), as in gradcomp_large.
+TRAIN_LIB_TOL = 1e-5
+TRAIN_SMALL = {"batch": 4, "seq": 64, "steps": 2, "lr": 1e-3, "eps": 1e-4}
+TRAIN_SMALL_KINDS = {"countsketch": 0.1, "gaussian": 0.002}  # the Gaussian's CPU S: m·D = 2.3e7 draws
+# Card against CPU after 2 steps, max |Δp| / max |p| per leaf: float32 products
+# (TF32 off) in other orders on the two devices; AdamW's eps is 1e-4 here, so
+# the update is Lipschitz in the gradient (1/eps) and a near-zero gradient's
+# sign cannot flip the update.
+TRAIN_CPU_TOL = 1e-4
+TRAIN_CLI = ("--arch", LM_ARCH, "--reduced", "--steps", "4", "--ckpt-every", "2")
+
+
+def _train_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(LM_ARCH), num_layers=TRAIN_LAYERS)
+
+
+def _host_state(state) -> dict:
+    """A host copy of every tensor of a train state, by its checkpoint path."""
+    from repro_torch.train import state as tstate
+    from repro_torch.utils import tree as tu
+
+    out = {}
+    for path, leaf in tu.tree_flatten_with_path(tstate.checkpoint_tree(state))[0]:
+        parts = leaf.parts if isinstance(leaf, tu.Stacked) else (leaf,)
+        for i, t in enumerate(parts):
+            out[f"{tu.path_str(path)}/{i}"] = t.detach().to("cpu", copy=True)
+    return out
+
+
+def _sketch_dp_trainer(cfg, opt, comp, *, batch: int, seq: int, steps: int, clock=None, ckpt_dir=None,
+                       fail_at_step=None, ckpt_every: int = 50, device=None):
+    """A Trainer around the sketch-DP step (remat full, linear_warmup_cosine),
+    the step's key folded from the step, a seeded lognormal straggler mask,
+    each step timed (ended by a synchronize on the card)."""
+    import torch
+
+    from repro_torch import runtime as rt
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import Trainer, TrainerConfig, sketch_dp
+    from repro_torch.utils import prng
+
+    device = device or DEVICE
+    step = sketch_dp.make_sketch_dp_step(cfg, opt, comp=comp, remat="full", clock=clock,
+                                         schedule=linear_warmup_cosine(TRAIN["warmup"], steps))
+    base = prng.fold_in(prng.prng_key(SEED), 26)
+    seconds = []
+
+    def step_fn(state, batch_, mask):
+        sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        out = step(state, batch_, prng.fold_in(base, int(state["step"])), mask)
+        sync()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    lat = rt.LognormalLatency(seed=SEED, mean_s=TRAIN_LATENCY["mean_s"], sigma=TRAIN_LATENCY["sigma"])
+    tc = TrainerConfig(seed=0, batch=batch, seq=seq, log_every=1, remat="full", latency=lat,
+                       straggler_q=TRAIN_LATENCY["q"], deadline_s=TRAIN_LATENCY["deadline_s"], ckpt_dir=ckpt_dir,
+                       ckpt_every=ckpt_every, fail_at_step=fail_at_step)
+    return Trainer(cfg, opt, tc, step_fn=step_fn, device=device), seconds
+
+
+def phase_train(rows: dict) -> None:
+    """Training on the card with the sketch-DP step, under
+    ``torch.use_deterministic_algorithms`` (restored after)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        phase_train_granite_sketch_dp(rows)
+        phase_train_small_card_vs_cpu(rows)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_train_granite_sketch_dp(rows: dict) -> None:
+    """granite-3-8b's full width (d 4,096, 32/8 heads, d_ff 12,800, padded vocab
+    49,408, bf16) cut to TRAIN_LAYERS layers, the reference's weights for key 0:
+    ``Trainer`` with ``make_sketch_dp_step`` (CountSketch at 0.1·D through row
+    12b, its adjoint over the kept pairs; remat full; a seeded lognormal
+    straggler mask; ``linear_warmup_cosine``), 3 steps of 4 × 2,048 tokens from
+    ``lm_batch``, with each step split by the step's clock; then the whole run
+    again without the clock, bitwise. Then, on one more gradient of the
+    trained model, row 12b at this D against the library's ``index_add_`` and
+    its compression error² against (D − 1)/m."""
+    import math
+
+    import torch
+
+    from repro_torch.core import gradcomp
+    from repro_torch.optim import AdamWConfig
+
+    cfg = _train_cfg()
+    opt = AdamWConfig(lr=TRAIN["lr"])
+    comp = gradcomp.GradCompressionConfig(enabled=True, ratio=TRAIN["ratio"], kind="countsketch")
+    card = nvidia_smi_line()
+    splits: list = []
+
+    def clock(name: str) -> None:
+        torch.cuda.synchronize()
+        splits[-1][name] = time.perf_counter()
+
+    runs = []
+    for label, clk in (("split", clock), ("rerun", None)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        trainer, seconds = _sketch_dp_trainer(cfg, opt, comp, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                                              steps=TRAIN["steps"], clock=clk)
+        state, init_s = host_s(trainer.init_or_restore)
+        if clk is not None:
+            inner = trainer.step_fn
+
+            def timed(st, b, mask, inner=inner):
+                torch.cuda.synchronize()
+                splits.append({"start": time.perf_counter()})
+                return inner(st, b, mask)
+
+            trainer.step_fn = timed
+        reset_counts()
+        state = trainer.run(TRAIN["steps"], state=state)
+        counts = read_counts()
+        runs.append({"label": label, "init_seconds": init_s, "step_seconds": seconds, "history": trainer.history,
+                     "launches": counts, "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                     "report": trainer.straggler_report(), "host": _host_state(state)})
+        params = state["params"]
+        del state, trainer
+    D = sum(p.numel() for p in params.parameters())
+    m = max(1, math.ceil(TRAIN["ratio"] * D))
+    first, second = runs
+    bitwise = first["host"].keys() == second["host"].keys() and all(
+        torch.equal(first["host"][k], second["host"][k]) for k in first["host"])
+    names = ("forward_backward", "compress", "all_reduce", "decompress", "adamw")
+    split = []
+    for sp in splits:
+        t, row = sp["start"], {}
+        for n in names:
+            row[n] = sp[n] - t
+            t = sp[n]
+        split.append(row)
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    flops = 6 * D * tokens + 12 * cfg.num_layers * cfg.d_model * TRAIN["seq"] * tokens
+    bound_s = flops / PEAK_BF16_FLOPS
+    p_bytes = 2 * D
+    reckon = {"params_bf16": p_bytes, "grads_bf16": p_bytes, "moments_f32": 8 * D, "grad_vector_f32": 4 * D,
+              "row12b_22B_a_pair": 22 * D, "decompressed_f32": 4 * D}
+    mean_split = {n: sum(r[n] for r in split[1:]) / max(1, len(split) - 1) for n in names}
+    steady_s = sum(second["step_seconds"][1:]) / max(1, len(second["step_seconds"]) - 1)
+    report = {
+        "phase": "train_granite_sketch_dp", "card": card, "arch": cfg.name,
+        "depth": f"{cfg.num_layers} of 40 layers (full width)", "D": D, "m": m, "batch": TRAIN["batch"],
+        "seq": TRAIN["seq"], "steps": TRAIN["steps"], "tokens_per_step": tokens,
+        "launches": first["launches"], "rerun_launches": second["launches"], "rerun_bitwise": bitwise,
+        "history": first["history"], "rerun_history": second["history"], "straggler_report": first["report"],
+        "init_seconds": [r["init_seconds"] for r in runs], "step_seconds": first["step_seconds"],
+        "rerun_step_seconds": second["step_seconds"], "split_seconds": split,
+        "steady_split_mean_seconds": mean_split,
+        "grad_mean_share": (mean_split["compress"] + mean_split["all_reduce"] + mean_split["decompress"])
+        / sum(mean_split.values()),
+        "tokens_per_s": tokens / steady_s, "flops_per_step": flops, "bf16_bound_s": bound_s,
+        "bound_share": bound_s / steady_s, "peak_bytes": [r["peak_bytes"] for r in runs],
+        "reckoning_bytes": reckon, "reckoning_total_bytes": sum(reckon.values())}
+    emit(report)
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in first["history"]),
+          f"train_granite_sketch_dp: loss or grad norm not finite: {first['history']}")
+    check(bitwise and first["history"] == second["history"], "train_granite_sketch_dp: the rerun is not bitwise")
+    check_counts("train_granite_sketch_dp", first["launches"], {"sjlt_apply_long": TRAIN["steps"]})
+    check_counts("train_granite_sketch_dp rerun", second["launches"], {"sjlt_apply_long": TRAIN["steps"]})
+    row = rows["sjlt_apply_long"]
+    row.setdefault("launches_by_path", {})["train_granite_sketch_dp"] = first["launches"].get("sjlt_apply_long", 0)
+    del first["host"], second["host"]
+    # One more gradient of the trained model: row 12b at this D beside the
+    # library, whose index_add_ is the ordinary (atomic) one.
+    torch.use_deterministic_algorithms(False)
+    try:
+        row["train"] = train_row12b(cfg, params, comp, D, m, card)
+    finally:
+        torch.use_deterministic_algorithms(True)
+
+
+def _dist2(a, b=None, piece: int = 1 << 26) -> float:
+    """Σ (a − b)² (or Σ a²) in float64, in pieces."""
+    tot = 0.0
+    for i in range(0, a.shape[0], piece):
+        x = a[i : i + piece].double()
+        if b is not None:
+            x = x - b[i : i + piece].double()
+        tot += float((x * x).sum())
+    return tot
+
+
+def train_row12b(cfg, params, comp, D: int, m: int, card: str) -> dict:
+    """Row 12b on one gradient of the trained model (batch ``TRAIN["steps"]``):
+    its event ms against its bound and the library's ``index_add_`` over the
+    same pairs (per bucket, TRAIN_LIB_TOL), a bitwise rerun, and the
+    compress + decompress error² · m/(D − 1)."""
+    import torch
+
+    from repro_torch.core import gradcomp
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.kernels.sjlt import ops as sops
+    from repro_torch.models import lm
+    from repro_torch.train import sketch_dp
+    from repro_torch.utils import prng
+
+    torch.cuda.empty_cache()
+    batch = lm_batch(0, TRAIN["steps"], batch=TRAIN["batch"], seq=TRAIN["seq"], vocab=cfg.vocab_size, device=DEVICE)
+    loss, _ = lm.lm_loss(params, cfg, batch, plan=lm.ExecPlan(remat="full"))
+    loss.backward()
+    del loss
+    vec, _ = sketch_dp.flatten_grads(params)
+    params.requires_grad_(False)
+    X = vec[:, None]
+    key = prng.fold_in(prng.prng_key(SEED), 27)
+    ms, payload = cuda_ms(lambda: sops.sjlt_apply(key, X, m, 1), 3)
+    rerun = torch.equal(sops.sjlt_apply(key, X, m, 1)[:, 0], payload[:, 0])
+    payload2, adjoint = gradcomp.compress_vector(comp, key, vec)
+    rec = adjoint(payload2)
+    del adjoint, payload2
+    err = (_dist2(rec, vec) / _dist2(vec)) ** 0.5
+    del rec
+    torch.cuda.empty_cache()
+    library = long_library(key, X, m, 1)
+    lib_ms, lib_out = cuda_ms(library, 3)
+    del library
+    lib_err = long_bucket_err(key, X, m, 1, payload, lib_out)
+    max_abs = float((payload - lib_out).abs().max())
+    del lib_out, X, vec, payload
+    torch.cuda.empty_cache()
+    bound, by = bound_ms("sjlt", D, 1, m, 1, s=1, apply=True)
+    out = {"ms": ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms, "library_per_bucket_rel_diff": lib_err,
+           "tol": TRAIN_LIB_TOL, "max_abs_diff": max_abs, "rerun_bitwise": rerun, "rel_err": err,
+           "err2_m_over_D_minus_1": err ** 2 * m / (D - 1)}
+    emit({"phase": "train_granite_row12b", "card": card, "D": D, "m": m, **out})
+    check(lib_err <= TRAIN_LIB_TOL and rerun, f"train_granite_row12b: off the library by {lib_err}, rerun {rerun}")
+    check(0.9 <= out["err2_m_over_D_minus_1"] <= 1.1,
+          f"train_granite_row12b: compression error² · m/(D − 1) = {out['err2_m_over_D_minus_1']}")
+    return {"D": D, "m": m, **{k: out[k] for k in ("ms", "bound_ms", "bound_by", "library_ms")}}
+
+
+def phase_train_small_card_vs_cpu(rows: dict) -> None:
+    """granite-3-8b ``.reduced()`` (float32), 2 sketch-DP steps on the card
+    (row 12b for the CountSketch; rows 6 and 5b for the Gaussian) and on the
+    CPU (their plain versions), parameters held within TRAIN_CPU_TOL; the
+    Trainer's ``fail_at_step`` replay with an ``AsyncCheckpointer`` bitwise the
+    run that never crashed; the training launcher as a subprocess."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import gradcomp
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_config(LM_ARCH).reduced()
+    opt = AdamWConfig(lr=TRAIN_SMALL["lr"], eps=TRAIN_SMALL["eps"])
+    report = {"phase": "train_small_card_vs_cpu", "card": nvidia_smi_line(), "arch": cfg.name + " (reduced)",
+              "tol": TRAIN_CPU_TOL, "kinds": {}}
+    for kind, ratio in TRAIN_SMALL_KINDS.items():
+        comp = gradcomp.GradCompressionConfig(enabled=True, ratio=ratio, kind=kind)
+        ends = {}
+        for dev in (DEVICE, "cpu"):
+            trainer, seconds = _sketch_dp_trainer(cfg, opt, comp, batch=TRAIN_SMALL["batch"],
+                                                  seq=TRAIN_SMALL["seq"], steps=TRAIN_SMALL["steps"], device=dev)
+            reset_counts()
+            state = trainer.run(TRAIN_SMALL["steps"])
+            counts = {k: v for k, v in read_counts().items() if v}
+            ends[dev] = ({n: p.detach().cpu() for n, p in state["params"].named_parameters()}, counts, seconds,
+                         trainer.history)
+        card, cpu = ends[DEVICE], ends["cpu"]
+        err = max(float((card[0][n] - cpu[0][n]).abs().max() / cpu[0][n].abs().max().clamp_min(1e-30))
+                  for n in cpu[0])
+        report["kinds"][kind] = {"ratio": ratio, "max_rel_param_diff": err, "launches": card[1],
+                                 "cpu_launches": cpu[1], "card_step_seconds": card[2], "cpu_step_seconds": cpu[2],
+                                 "loss": [h["loss"] for h in card[3]], "cpu_loss": [h["loss"] for h in cpu[3]]}
+        steps = TRAIN_SMALL["steps"]
+        expect = {"countsketch": {"sjlt_apply_long": steps},
+                  "gaussian": {"gaussian_sketch": steps, "gaussian_adjoint": steps}}[kind]
+        check_counts(f"train_small_card_vs_cpu {kind}", card[1], expect)
+        check(not cpu[1], f"train_small_card_vs_cpu {kind}: the CPU run launched {cpu[1]}")
+        check(err <= TRAIN_CPU_TOL, f"train_small_card_vs_cpu {kind}: card against CPU {err}")
+        for name, c in card[1].items():
+            rows[name].setdefault("launches_by_path", {})[f"train_small_{kind}"] = c
+    # fail_at_step replay through an AsyncCheckpointer, on the card
+    comp = gradcomp.GradCompressionConfig(enabled=True, ratio=TRAIN_SMALL_KINDS["countsketch"])
+    with tempfile.TemporaryDirectory() as tmp:
+        finals = {}
+        for name, fail in (("clean", None), ("crash", 3)):
+            trainer, _ = _sketch_dp_trainer(cfg, opt, comp, batch=TRAIN_SMALL["batch"], seq=TRAIN_SMALL["seq"],
+                                            steps=5, ckpt_dir=os.path.join(tmp, name), ckpt_every=2,
+                                            fail_at_step=fail)
+            finals[name] = _host_state(trainer.run(5))
+        replay = all(torch.equal(finals["clean"][k], finals["crash"][k]) for k in finals["clean"])
+        report["fail_at_step_replay_bitwise"] = replay
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT / "src"),
+                                                                         os.environ.get("PYTHONPATH")])))
+        args = [*TRAIN_CLI, "--ckpt-dir", os.path.join(tmp, "cli")]
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=600)
+        report["cli"] = {"args": list(TRAIN_CLI) + ["--ckpt-dir", "<tmp>"], "returncode": out.returncode,
+                         "seconds": time.perf_counter() - t0, "lines": out.stdout.strip().splitlines(),
+                         "checkpoints": sorted(os.listdir(os.path.join(tmp, "cli")))
+                         if os.path.isdir(os.path.join(tmp, "cli")) else [],
+                         "stderr_tail": out.stderr[-2000:] if out.returncode else ""}
+    emit(report)
+    check(replay, "train_small_card_vs_cpu: the fail_at_step replay is not bitwise the clean run")
+    check(out.returncode == 0 and report["cli"]["checkpoints"] == ["step_00000002", "step_00000004"],
+          "train_small_card_vs_cpu: the training launcher failed")
+
+
 
 def phase_trace(label: str, solve) -> None:
     """One more run of a path under ``torch.profiler``: device time by kernel and the
@@ -3052,6 +3376,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the GPU only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # cuBLAS reads this when it makes its handle: a fixed workspace, which the
+    # training phases' deterministic mode asks for (their bitwise rerun).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -3083,6 +3410,7 @@ def main() -> int:
         phase_gradcomp(rows)
         phase_fit_head(rows)
         phase_lm(rows)
+        phase_train(rows)
         phase_serverless(rows)
         phase_row_sharded_and_groups(rows)
         for name, row in rows.items():

@@ -76,15 +76,21 @@ def compress(cfg: GradCompressionConfig, key: torch.Tensor, grads):
     vector; the CountSketch's comes from ``apply_with_adjoint``, so on the card
     its adjoint reads the pair list its S·A kept."""
     vec, vz = tu.tree_flatten_to_vector(grads)
+    payload, adjoint = compress_vector(cfg, key, vec)
+    return payload, (adjoint, vz)
+
+
+def compress_vector(cfg: GradCompressionConfig, key: torch.Tensor, vec: torch.Tensor):
+    """:func:`compress` of a gradient already flattened in the reference's leaf
+    order: (payload (m,) float32, the adjoint), m = ⌈ratio·D⌉. The adjoint
+    (m,) → (D,) holds no reference to ``vec``."""
     D = vec.shape[0]
     m = max(1, int(math.ceil(cfg.ratio * D)))
     spec = _sketch_spec(cfg, m, use_kernel=vec.device.type == "cuda")
     op = operators.make_operator(spec, key, D, device=vec.device)
     if cfg.kind == "countsketch":
-        payload, adjoint = op.apply_with_adjoint(vec)
-    else:
-        payload, adjoint = op.apply(vec), op.adjoint
-    return payload, (adjoint, vz)
+        return op.apply_with_adjoint(vec)
+    return op.apply(vec), op.adjoint
 
 
 def decompress(cfg: GradCompressionConfig, payload: torch.Tensor, ctx):

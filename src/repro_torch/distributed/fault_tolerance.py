@@ -1,7 +1,10 @@
 """Straggler policies and worker heartbeats: the systems contract behind the paper's claims.
 
 Port of ``repro.distributed.fault_tolerance``'s ``StragglerPolicy`` and
-``HeartbeatMonitor`` (its ``elastic_restore`` waits for the port's checkpoints).
+``HeartbeatMonitor``. Its ``elastic_restore`` takes the reference's
+``PartitionSpec``s and waits for the port of ``distributed/sharding.py``
+(ROADMAP Queue 1 item 9g); ``checkpoint.restore_checkpoint`` restores onto one
+device.
 
   * ``StragglerPolicy``  — deadline-based masks for any averaged quantity. The
     mask is drawn from the key ``fold_in(prng_key(seed), step)``, bitwise the

@@ -8,6 +8,14 @@ Weights keep the reference's (in, out) orientation; the functions mirror the
 reference's (``forward_logits(params, cfg, batch)`` and so on) with ``params``
 the module. Inference runs under ``torch.inference_mode()``.
 
+Training (``lm_loss``) differentiates the same forward: ``trunk`` wraps each
+layer in ``torch.utils.checkpoint`` by ``ExecPlan.remat`` (``full``: only the
+layer's input is kept; ``dots``: the outputs of the weight products are kept,
+the rest recomputed; the reference's ``jax.checkpoint`` policies), and the
+next-token loss is chunked over the sequence with each chunk's logits
+recomputed in the backward pass, so (B, S, V) logits never exist. The MoE
+auxiliary loss is 0 until the MoE slice (ROADMAP item 9b).
+
 The KV cache is a dict of two (L, B, max_len, KV, hd) tensors allocated once and
 written in place; a full-attention cache is the reference's ring with one slot a
 position. Configs of other families (MoE, MLA, SSM, hybrid, enc-dec, VLM,
@@ -60,6 +68,8 @@ class ExecPlan:
     """Execution knobs, orthogonal to the architecture config."""
 
     attn_chunk: int = 1024      # flash key-chunk: attention's memory is O(S·attn_chunk)
+    loss_chunk: int = 512       # CE vocab-matmul sequence chunk
+    remat: str = "full"         # none | full | dots (applies where autograd records)
 
 
 # ===================================================================== layer windows
@@ -203,13 +213,23 @@ def _assemble(cfg: ArchConfig, leaf) -> LM:
               None if cfg.tie_embeddings else layers.Unembed(leaf("unembed.w", None)))
 
 
-def param_shapes(cfg: ArchConfig) -> Dict[str, torch.Size]:
-    """Every parameter's shape by state-dict name, without allocating (the model
-    assembled from meta tensors)."""
+def meta_params(cfg: ArchConfig) -> LM:
+    """The model assembled from ``meta`` tensors: every shape and dtype, nothing
+    allocated."""
     check_supported(cfg)
     shapes, dtype = _leaf_shapes(cfg), torch_dtype(cfg)
-    shaped = _assemble(cfg, lambda name, l: torch.empty(shapes[name], dtype=dtype, device="meta"))
-    return {name: p.shape for name, p in shaped.state_dict().items()}
+    return _assemble(cfg, lambda name, l: torch.empty(shapes[name], dtype=dtype, device="meta"))
+
+
+def param_shapes(cfg: ArchConfig) -> Dict[str, torch.Size]:
+    """Every parameter's shape by state-dict name, without allocating."""
+    return {name: p.shape for name, p in meta_params(cfg).state_dict().items()}
+
+
+def params_from_named(cfg: ArchConfig, named: Dict[str, torch.Tensor]) -> LM:
+    """The model holding ``named``'s tensors (by state-dict name) as they are."""
+    check_supported(cfg)
+    return _assemble(cfg, lambda name, l: named[name if l is None else f"layers.{l}.{name}"])
 
 
 @torch.no_grad()
@@ -244,11 +264,37 @@ def embed_inputs(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) ->
     return x, mask
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of weight products (the reference's
+    ``checkpoint_dots_with_no_batch_dims``: attention's batched products and
+    everything else are recomputed)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str, *args):
+    """``fn(*args)`` under the plan's rematerialization when autograd records."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils import checkpoint as ckpt
+
+    if remat == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=lambda: ckpt.create_selective_checkpoint_contexts(_dots_policy))
+    raise ValueError(f"remat must be none, full or dots, not {remat!r}")
+
+
 def trunk(params: LM, cfg: ArchConfig, x: torch.Tensor, *, plan: ExecPlan = ExecPlan()) -> torch.Tensor:
-    """The layers over x: (B, S, d). Returns the final-norm hidden states (the
-    reference's MoE aux loss comes with the MoE slice)."""
+    """The layers over x: (B, S, d), each under ``plan.remat``. Returns the
+    final-norm hidden states (the reference's MoE aux loss comes with the MoE
+    slice)."""
     for layer, window in zip(params.layers, layer_windows(cfg).tolist()):
-        x = layer(x, cfg, window, plan)
+        x = _remat(lambda x, layer=layer, window=window: layer(x, cfg, window, plan), plan.remat, x)
     return params.final_norm(x, cfg.norm_eps)
 
 
@@ -258,6 +304,53 @@ def forward_logits(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], 
     """Full (B, S, V_pad) float32 logits (no chunking over the sequence)."""
     x, _ = embed_inputs(params, cfg, batch)
     return layers.unembed(params.unembed_w(), trunk(params, cfg, x, plan=plan)).to(torch.float32)
+
+
+# ===================================================================== loss
+
+
+def _ce_chunk(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+    """(Σ masked nll, Σ mask) of one chunk: logits in h's dtype, then float32."""
+    logits = (h @ w).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def chunked_ce_loss(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, *,
+                    chunk: int = 512) -> torch.Tensor:
+    """Masked mean next-token CE of hidden states h (B, S, d) against the (d, V)
+    unembedding w, without (B, S, V) logits: the sequence in chunks of
+    ``chunk``, each chunk's logits made, reduced to two float32 sums and
+    dropped (checkpointed, so the backward pass makes them again). The last
+    chunk is shorter where the reference pads with masked zeros."""
+    S = h.shape[1]
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    mask = mask.to(torch.float32)
+    for j in range(0, S, chunk):
+        args = (h[:, j : j + chunk], w, labels[:, j : j + chunk], mask[:, j : j + chunk])
+        if torch.is_grad_enabled():
+            from torch.utils import checkpoint as ckpt
+
+            nll, m = ckpt.checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            nll, m = _ce_chunk(*args)
+        tot, cnt = tot + nll, cnt + m
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def lm_loss(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+            plan: ExecPlan = ExecPlan()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token CE (position t predicts token t + 1) + the MoE aux loss,
+    and {"ce", "moe_aux"}: the single entry point of training."""
+    x, mask = embed_inputs(params, cfg, batch)
+    h = trunk(params, cfg, x, plan=plan)
+    labels = batch["labels"].to(h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    ce = chunked_ce_loss(h[:, :-1], params.unembed_w(), labels[:, 1:], mask[:, 1:].to(h.device),
+                         chunk=plan.loss_chunk)
+    return ce + cfg.router_aux_coef * aux, {"ce": ce, "moe_aux": aux}
 
 
 # ===================================================================== KV cache

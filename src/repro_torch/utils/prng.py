@@ -306,11 +306,10 @@ def xla_ndtri(p: torch.Tensor) -> torch.Tensor:
     """float32 ``jax.scipy.special.ndtri`` (the inverse normal CDF) of p in (0, 1), as
     jax computes it on the CPU: Cephes' rational form in w = p − 1/2 for
     exp(−2) < p < 1 − exp(−2), else in 1/z with z = √(−2·log p′), p′ = min(p, 1 − p)
-    (one of two forms by z < 8), with ``xla_log`` and fused Horner steps. Bitwise
-    jax's at the quantiles 0.01, 0.02, …, 0.99 and 0.001, 0.995, 0.999, 0.9999; on
-    a dense grid of (0, 1) about one value in 500 is off, by at most 5 ulp, in the
-    tails, where XLA's CPU square root is an estimate refined by a Newton step
-    (see :func:`xla_erfinv`)."""
+    (one of two forms by z < 8), with ``xla_log`` and fused Horner steps. XLA's
+    root is correctly rounded and torch's float32 ``sqrt`` is not (see
+    :func:`xla_erfinv`), so z is taken in float64 and rounded once; the result
+    is then bitwise jax's over a dense grid of (0, 1)."""
     p = p.to(torch.float32)
     f32 = np.float32
     mcp = torch.where(p > float(f32(-np.expm1(-2.0))), 1.0 - p, p)
@@ -319,7 +318,7 @@ def xla_ndtri(p: torch.Tensor) -> torch.Tensor:
     ww = w * w
     big = (w + w * ww * (_polyval_fused(_NDTRI_P0, ww) / _polyval_fused(_NDTRI_Q0, ww))) * float(
         -f32(np.sqrt(2.0 * np.pi)))
-    z = torch.sqrt(-2.0 * xla_log(mcp))
+    z = torch.sqrt((-2.0 * xla_log(mcp)).double()).float()
     first, iz = z - xla_log(z) / z, 1.0 / z
     tiny = first - _polyval_fused(_NDTRI_P2, iz) / _polyval_fused(_NDTRI_Q2, iz) / z
     small = first - _polyval_fused(_NDTRI_P1, iz) / _polyval_fused(_NDTRI_Q1, iz) / z

@@ -1,5 +1,5 @@
-"""Trees of tensors (nested dicts, lists and tuples): sizes, norms, and one flat
-float32 vector with its inverse.
+"""Trees of tensors (nested dicts, lists and tuples): sizes, norms, paths, one flat
+float32 vector with its inverse, and the reference's stacked layer leaves.
 
 Port of ``repro.utils.tree``. The leaf order is the reference's: a dict's values
 in the order of its sorted keys, a list's or tuple's in their own order, depth
@@ -141,3 +141,88 @@ class TreeVectorizer:
             leaves.append(vec[off : off + size].reshape(shape).to(dtype))
             off += size
         return tree_unflatten(self.spec, leaves)
+
+
+def tree_flatten_with_path(tree: Tree) -> tuple[list, TreeDef]:
+    """``((path, leaf), …)`` in leaf order, and the structure: a path is the tuple
+    of dict keys and list or tuple indices from the root to the leaf, as
+    ``jax.tree_util.tree_flatten_with_path`` gives it."""
+    leaves, spec = tree_flatten(tree)
+    paths: list = []
+
+    def walk(s: TreeDef, prefix: tuple):
+        if s.kind == "leaf":
+            paths.append(prefix)
+            return
+        labels = s.keys if s.kind == "dict" else range(len(s.children))
+        for label, child in zip(labels, s.children):
+            walk(child, prefix + (label,))
+
+    walk(spec, ())
+    return list(zip(paths, leaves)), spec
+
+
+def path_str(path) -> str:
+    """A path as the reference's checkpoint manifest and AdamW write it
+    (``repro.checkpoint.store._path_str``): its keys and indices joined by "/"."""
+    return "/".join(str(p) for p in path)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stacked:
+    """One leaf of the reference's layer stack held as its L per-layer tensors:
+    the reference stacks every layer leaf on a leading L axis, the port keeps
+    one tensor a layer. ``shape`` is (L, …) and the flat order is layer 0's
+    elements, then layer 1's, …, the stacked array's row-major order."""
+
+    parts: tuple
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self.parts),) + tuple(self.parts[0].shape)
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+
+def stacked_tree(named: dict, prefix: str = "layers") -> dict:
+    """The reference's nested tree of a module's named tensors (``"embed.table"``,
+    ``"layers.3.attn.wq"``, …): dotted names become nested dict keys, and the
+    tensors of ``<prefix>.<l>.<rest>`` for l = 0…L−1 become one
+    :class:`Stacked` leaf at ``<prefix>/<rest>``. Its leaf order
+    (:func:`tree_flatten`) is then the reference's."""
+    tree: dict = {}
+    stacks: dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == prefix and len(parts) > 2 and parts[1].isdigit():
+            stacks.setdefault(tuple([prefix] + parts[2:]), {})[int(parts[1])] = t
+            continue
+        _put(tree, parts, t)
+    for path, by_layer in stacks.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"layers of {'/'.join(path)} are not 0…{len(by_layer) - 1}: {sorted(by_layer)}")
+        _put(tree, list(path), Stacked(tuple(by_layer[l] for l in range(len(by_layer)))))
+    return tree
+
+
+def _put(tree: dict, parts: list, leaf) -> None:
+    node = tree
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = leaf
+
+
+def unstack_tree(tree: dict, prefix: str = "layers") -> dict:
+    """The inverse of :func:`stacked_tree`: dotted names → tensors."""
+    out: dict = {}
+    for path, leaf in tree_flatten_with_path(tree)[0]:
+        name = ".".join(str(p) for p in path)
+        if isinstance(leaf, Stacked):
+            head, rest = path[0], ".".join(str(p) for p in path[1:])
+            for l, t in enumerate(leaf.parts):
+                out[f"{head}.{l}.{rest}"] = t
+        else:
+            out[name] = leaf
+    return out

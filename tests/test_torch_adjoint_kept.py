@@ -24,6 +24,10 @@ from repro_torch.kernels import cuda as tcuda
 from repro_torch.kernels.gaussian import ops as gops, ref as gref
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 REL_TOL = 1e-5
 SOLVE_TOL = 1e-4
 N_OP, M, M_PRIME = 1001, 40, 150

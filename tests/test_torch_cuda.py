@@ -27,6 +27,10 @@ from repro_torch.kernels.rademacher import ops as rops, ref as rref
 from repro_torch.kernels.sjlt import ops as sops, ref as sref
 from repro_torch.utils import prng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.gpu
 REL_TOL = 1e-5
 SJLT_S = 20
@@ -1365,3 +1369,39 @@ def test_engine_on_the_card_gives_the_cpus_tokens(cuda, temperature):
     want = cpu.generate(prompts, max_new_tokens=10)
     assert min(margins) > 10 * 1e-5 * 4
     assert card.generate(prompts, max_new_tokens=10) == want
+
+
+@pytest.mark.parametrize("kind,ratio", [("countsketch", 0.1), ("gaussian", 0.002), ("off", 0.0)])
+def test_sketch_dp_step_on_the_card_against_the_cpu(cuda, kind, ratio):
+    """Two sketch-DP steps of the reduced granite (float32) on the card and on the
+    CPU, the same key and mask: the card's compressor runs row 12b (CountSketch)
+    or rows 6 and 5b (Gaussian), the CPU's their plain versions; the parameters
+    agree within 1e-4 of each leaf's largest entry (AdamW eps 1e-4: the update
+    is Lipschitz in the gradient), and every step launches its kernels once."""
+    from repro_torch.core import gradcomp
+    from repro_torch.data import tokens
+    from repro_torch.kernels.gaussian import ops as gops
+    from repro_torch.kernels.sjlt import ops as sops
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, sketch_dp
+
+    cfg, opt = _lm_cfg(), AdamWConfig(lr=1e-3, eps=1e-4)
+    comp = gradcomp.GradCompressionConfig(enabled=kind != "off", ratio=ratio or 0.1,
+                                          kind="countsketch" if kind == "off" else kind)
+    ends = {}
+    for dev in (cuda, torch.device("cpu")):
+        st = init_train_state(cfg, opt, prng.prng_key(0), device=dev)
+        step = sketch_dp.make_sketch_dp_step(cfg, opt, comp=comp, remat="full")
+        sops.LAUNCHES.clear()
+        gops.LAUNCHES.clear()
+        for s in range(2):
+            batch = tokens.lm_batch(0, s, batch=2, seq=16, vocab=cfg.vocab_size, device=dev)
+            st, m = step(st, batch, prng.fold_in(prng.prng_key(3), s), torch.ones(4))
+            assert torch.isfinite(m["loss"]) and m["loss"].device.type == dev.type
+        launches = {k: v for k, v in {**sops.LAUNCHES, **gops.LAUNCHES}.items() if v}
+        ends[dev.type] = ({n: p.detach().cpu() for n, p in st["params"].named_parameters()}, launches)
+    want = {"countsketch": {"sjlt_apply_long": 2}, "gaussian": {"gaussian_sketch": 2, "gaussian_adjoint": 2},
+            "off": {}}[kind]
+    assert ends["cuda"][1] == want and ends["cpu"][1] == {}
+    for n, p in ends["cpu"][0].items():
+        assert (ends["cuda"][0][n] - p).abs().max() <= 1e-4 * p.abs().max(), n

@@ -25,6 +25,10 @@ from repro_torch.configs import paper_lsq as tcfg
 from repro_torch.core import privacy as tpriv, theory as tth
 from repro_torch.data import regression as tdata
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 FLOAT_TOL = 1e-12
 
 

@@ -34,6 +34,10 @@ from repro_torch.core import averaging as tavg, distributed as tdist, sketches a
 from repro_torch.data import regression as tdata
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 N, D, M, Q = 777, 6, 36, 4
 FAMILIES = ["gaussian", "rademacher", "srht", "sjlt"]
 # The sampling kinds: "uniform_norep" without replacement, "hybrid_K" the hybrid

@@ -28,6 +28,10 @@ from repro_torch.kernels import common as tc, cuda as tcuda
 from repro_torch.kernels.fwht import ops as fops, ref as fref
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 # (n, k, m): n_pad = 2^0 to 2^12, n a power of two and ragged, m > n_pad (every
 # row sampled, most more than once) and m < n_pad.
 CASES = [(1, 1, 3), (2, 5, 7), (5, 1, 40), (64, 5, 40), (100, 5, 300), (1024, 1, 40), (1500, 5, 200),

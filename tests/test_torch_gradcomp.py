@@ -33,6 +33,10 @@ from repro_torch.kernels.sjlt import ref as sref
 from repro_torch.train import sketch_dp as tdp
 from repro_torch.utils import prng as tprng, tree as ttree
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 TOL = 1e-6
 KINDS = ["countsketch", "gaussian"]
 

@@ -21,6 +21,10 @@ from repro_torch.core import privacy as tpriv, sketches as tsk
 from repro_torch.train import solvers as tsolvers
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 N, D, Q = 2048, 12, 8
 TOL = 1e-5
 MASK = np.array([1, 1, 0, 1, 0, 1, 1, 1], np.float32)

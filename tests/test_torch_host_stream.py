@@ -19,6 +19,10 @@ from repro.core import operators as jops, sketches as jsk
 from repro_torch.core import operators as tops, sketches as tsk
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 N, D, M = 901, 6, 24
 TOL = 1e-5
 KINDS = ["gaussian", "rademacher", "sjlt", "srht", "uniform", "uniform_norep", "hybrid_sjlt", "hybrid_gaussian"]

@@ -6,7 +6,7 @@
 * Every module imports on CPU-only PyTorch without building anything.
 * The entry points run on CUDA by default and raise when it is absent (the LM's
   ``init_params``, ``init_cache``, ``lm_batch``, ``Engine`` and the launcher's
-  LM mode too).
+  LM mode too; the training state, ``Trainer`` and the training launcher).
 * ``chip_smoke.py`` exits non-zero, printing no result, without CUDA and outside
   a checkout.
 """
@@ -21,6 +21,10 @@ import sys
 import numpy as np
 import pytest
 import torch
+
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -139,6 +143,35 @@ def test_lm_modules_are_scanned():
     scanned = {str(p.relative_to(PORT)) for p in PORT_FILES if PORT in p.parents}
     assert {"models/layers.py", "models/attention.py", "models/lm.py", "data/tokens.py", "configs/base.py",
             "configs/granite_3_8b.py", "configs/chatglm3_6b.py", "serve/engine.py", "launch/serve.py"} <= scanned
+
+
+def test_training_modules_are_scanned():
+    scanned = {str(p.relative_to(PORT)) for p in PORT_FILES if PORT in p.parents}
+    assert {"optim/__init__.py", "optim/adamw.py", "optim/schedules.py", "train/state.py", "train/step.py",
+            "train/sketch_dp.py", "train/trainer.py", "checkpoint/__init__.py", "checkpoint/store.py",
+            "launch/train.py", "utils/tree.py"} <= scanned
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, init_train_state, state
+    from repro_torch.utils import prng
+
+    cfg = get_config("granite-3-8b").reduced()
+    tree = state.checkpoint_tree(init_train_state(cfg, AdamWConfig(), prng.prng_key(0), device="cpu"))
+    _no_cuda(monkeypatch)
+    calls = (
+        lambda: init_train_state(cfg, AdamWConfig(), torch.zeros(2, dtype=torch.int64)),
+        lambda: state.state_from_tree(cfg, tree),
+        lambda: Trainer(cfg, AdamWConfig(), TrainerConfig()),
+        lambda: launch_train.main(["--arch", "granite-3-8b", "--reduced", "--steps", "1"]),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert Trainer(cfg, AdamWConfig(), TrainerConfig(batch=1, seq=4), device="cpu").run(1)["step"] == 1
 
 
 def _run_smoke(cwd: pathlib.Path, script: pathlib.Path):

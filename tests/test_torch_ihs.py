@@ -19,6 +19,10 @@ from repro.core import ihs as jihs, sketches as jsk
 from repro_torch.core import ihs as tihs, operators as tops, sketches as tsk
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 N, D, M = 2000, 8, 64
 TOL = 1e-4
 KINDS = ["gaussian", "rademacher", "srht", "sjlt", "uniform"]

@@ -33,6 +33,10 @@ from repro_torch.kernels.gaussian import ops as gops, ref as gref
 from repro_torch.kernels.sjlt import ref as tsref
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 REL_TOL = 1e-5
 SOLVE_TOL = 1e-4
 # The operator's n is the data's d (a right sketch); 1001 is a multiple of no block.

@@ -39,6 +39,10 @@ from repro_torch.data import tokens as ttok
 from repro_torch.models import attention as tattn, layers as tlayers, lm as tlm
 from repro_torch.utils import prng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 ARCHS = ["granite-3-8b", "chatglm3-6b"]
 LAYER_TOL = 2e-6
 MODEL_TOL = 1e-5

@@ -31,6 +31,10 @@ from repro_torch.models import lm as tlm
 from repro_torch.train import solvers as tsolvers
 from repro_torch.utils import prng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 FEATURE_TOL = 1e-5
 FIT_TOL = 1e-5
 Q, M, K = 8, 384, 4

@@ -23,6 +23,10 @@ from repro.utils import prng as jprng
 from repro_torch.core import averaging as tavg, distributed as tdist, sketches as tsk
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 N, D, M = 600, 5, 30
 TOL = 1e-4
 KINDS = ["gaussian", "rademacher", "srht", "sjlt", "uniform", "hybrid_sjlt"]

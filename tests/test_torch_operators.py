@@ -31,6 +31,10 @@ from repro_torch.kernels.rademacher import ops as rops, ref as rref
 from repro_torch.kernels.sjlt import ops as sops, ref as sref
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 REL_TOL = 1e-5
 # Odd n with block_rows not dividing it: a ragged last tile on both paths.
 N, D, M, Q, BLOCK = 1001, 7, 40, 3, 300

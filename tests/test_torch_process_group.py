@@ -43,6 +43,10 @@ from repro_torch.core import averaging as tavg, distributed as tdist, sketches a
 from repro_torch.launch import mesh as tmesh
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPAWN_TIMEOUT_S = 120
 GROUP_TOL = 1e-6

@@ -16,6 +16,10 @@ from repro_torch.kernels import common as tc
 from repro_torch.utils import env as tenv
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 # |Δz| bound for counter normals: measured ≤ 4.8e-7 over 1e5 draws (|z| ≤ 4.3); 2e-6
 # is a few float32 ulps at the largest |z| a 32-bit uniform can give (6.7).
 NORMAL_ATOL = 2e-6

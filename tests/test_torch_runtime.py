@@ -41,6 +41,10 @@ from repro_torch.distributed import fault_tolerance as tft
 from repro_torch.kernels import cuda as tcuda
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 N, D, M, Q = 2048, 16, 128, 8
 XBAR_TOL = 1e-5
 
@@ -82,16 +86,14 @@ def test_lognormal_quantile_is_bitwise_the_reference(mean_s, sigma):
     assert [got.quantile(p) for p in QUANTILES] == [want.quantile(p) for p in QUANTILES]
 
 
-def test_ndtri_stays_within_a_few_ulp_of_jax_on_a_dense_grid():
-    """On 400,001 float32 points of (0, 1) the port's ndtri is jax's in all but
-    the tails' square-root rounding: at most 5 ulp, on fewer than 1 in 250."""
+def test_ndtri_is_bitwise_jax_on_a_dense_grid():
+    """On 400,001 float32 points of (0, 1) the port's ndtri is jax's bit for bit."""
     from jax.scipy.special import ndtri
 
     ps = np.linspace(1e-6, 1 - 1e-6, 400_001).astype(np.float32)
     want = np.asarray(ndtri(jnp.asarray(ps)))
     got = tprng.xla_ndtri(torch.from_numpy(ps)).numpy()
-    ulp = np.abs(want.view(np.int32).astype(np.int64) - got.view(np.int32).astype(np.int64))
-    assert ulp.max() <= 5 and (ulp > 0).mean() < 1 / 250
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 # ------------------------------------------------------------------ engine core

@@ -23,6 +23,10 @@ from repro_torch.core import distributed as tdist, sketches as tsk
 from repro_torch.serve import SolveServer as TServer
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 N, D, M = 1024, 16, 128
 TOL = 1e-5
 

@@ -33,6 +33,10 @@ from repro_torch.models import lm as tlm
 from repro_torch.serve import Engine, ServeConfig, sample_token
 from repro_torch.utils import prng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOGIT_TOL = 2e-5  # 10× the largest difference seen on this config (1.9e-6)
 SMALL = dict(num_layers=2, d_model=32, d_ff=64, num_heads=2, num_kv_heads=1, head_dim=16, vocab_size=97)

@@ -26,6 +26,10 @@ from repro_torch.kernels import common, cuda as tcuda
 from repro_torch.kernels.sjlt import ops as sops, ref as sref
 from repro_torch.utils import prng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 GRAD_N = 2**20 + 2**16  # gradcomp_bench's vector
 
 

@@ -20,6 +20,10 @@ from repro.kernels import common as jcommon
 from repro_torch.kernels import cuda as tcuda
 from repro_torch.kernels.sjlt import ref as sref
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 # (n, m, d'): FIG3A's full n and m′ rows, FIG4A's Aᵀ and the hybrid's m′ rows of
 # it, m past one m-tile (2,500 to 12,000 rows), d′ not a multiple of the 32-column
 # tile, n not a multiple of a chunk, n below one.

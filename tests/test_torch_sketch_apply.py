@@ -28,6 +28,10 @@ from repro_torch.kernels.gaussian import ref as gref
 from repro_torch.kernels.rademacher import ref as rref
 from repro_torch.utils import prng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 FIG4A_SHAPES = [(1000, 200, 50), (500, 200, 50)]  # X = Aᵀ and the hybrid's m′ rows: (n, m, d)
 SHAPES = FIG4A_SHAPES + [(11_556, 4000, 2000), (8000, 4000, 2000), (25_000, 2500, 251),
                          (500_000, 2500, 251), (2000, 130, 2049), (1000, 4224, 2048), (33, 1, 1),

@@ -21,6 +21,10 @@ from repro.core import averaging as javg, sketches as jsk, solve as jsolve
 from repro_torch.core import averaging as tavg, sketches as tsk, solve as tsolve
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 D = 5
 BAD = {"singular": np.diag([1.0, 1.0, 1.0, 1.0, 0.0]), "indefinite": np.diag([1.0, 1.0, 1.0, 1.0, -1.0])}
 

@@ -22,6 +22,10 @@ from repro.core import averaging as javg
 from repro_torch.core import averaging as tavg
 from repro_torch.utils import prng as tprng
 
+# The suite runs in several worker processes at once; one torch thread each keeps
+# them from oversubscribing the cores (each op's thread team waits on the others).
+torch.set_num_threads(1)
+
 BRANCH_Z = 2.8  # |normal| below this: erfinv's first branch (w < 5), bitwise
 
 
