@@ -87,7 +87,19 @@ bitwise, two prompts batched and alone; prefill tokens/s against its bf16
 flops bound, the decode's ms a step against its bytes floor, one decode traced);
 ``fit_head`` on the model's own features (``extract_features``, 32,768 × 4,096)
 through rows 2 and 11, on Theorem 1; and, with the model freed,
-``python -m repro_torch.launch.serve --arch granite-3-8b``. After the
+``python -m repro_torch.launch.serve --arch granite-3-8b``. After the training
+phases, the other decoder families, bfloat16 with the reference's weights for
+key 0, each model freed before the next: chatglm3-6b whole (RoPE on half of
+each head; the same consistency checks); mixtral-8x7b at full width cut to 8
+of 32 layers (8 experts, top-2, sliding window 4,096: the consistency dropless
+over 4,609 tokens, so the batched prefill's ring wraps; the Engine at the
+config's capacity 1.25 on 8 prompts of 4,352-6,144 tokens, with the dropped
+share of MoE assignments at the prefill and at decode and one decode traced);
+gemma3-12b whole (48 layers, 40 of them local with a window of 1,024: the
+consistency over 2,049 tokens, the Engine on 8 prompts of 2,048-3,072 tokens,
+``fit_head`` on its features through rows 2 and 11 at 3,856 columns, and its
+launcher as a subprocess); grok-1-314b at full width cut to 2 of 64 layers
+(the consistency dropless, one forward at the config's capacity). After the
 serverless phases, Algorithm 1 across processes: FIG3A in worker mode at q = 8
 with each worker sketching only its own 62,500 rows of A and b
 (``row_sharded=True``; Gaussian, SRHT and SJLT, one fused single-key Gram a
@@ -104,6 +116,11 @@ The SJLT rows carry their plan (splits, m-tiles, column tiles, blocks,
 workers a call) and the scatter's shared-memory floor beside the bound; the SJLT
 S·A at each shape also its device time under ``torch.profiler``, which splits
 the event time into kernel time and launch path.
+
+The FWHT (row 13b) is timed beside one ``torch.matmul`` by a pre-built Hadamard
+matrix up to 2^15 rows (at 2^19 rows H would be 1.1 TB), and the fused SRHT
+forward (row 13a) beside one ``torch.matmul`` by the pre-built m sampled rows of
+(1/√m)·H·D, each interleaved with its kernel.
 
 The row-offset S·A calls are timed beside the library on the same tile (one
 ``torch.matmul`` over the pre-drawn S tile, one ``index_add_`` of the signed rows).
@@ -875,21 +892,57 @@ def phase_fwht(X, m: int, m_prime: int, rows: dict) -> None:
         kd, ids = operators.srht_params(prng.worker_key(prng.prng_key(SEED + 11), rows_in), m, n_pad)
         f = srht_forward_check(kd, ids, X[:rows_in], n_pad)
         for name, rep in (("fwht", r), ("srht_forward", f)):
-            keys = ("ms", "plain_ms", "bound_ms", "composed_ms", "plan_floor_ms")
+            keys = ("ms", "plain_ms", "bound_ms", "composed_ms", "plan_floor_ms", "library_ms", "library_vs_kernel")
             shape = {"n_pad": n_pad, "d": dx, **{key: rep[key] for key in keys if key in rep}}
             if name not in rows:
                 rows[name] = {
                     "name": name, "route": "cuda", "source": "src/repro_torch/csrc/fwht.cu",
                     "replaces": FWHT_REPLACES, "launches": 0, "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
                     "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-                    "library_ms": None,
+                    "library_ms": rep["library_ms"],
                 }
             rows[name][label] = shape
 
 
+# Rows of the largest Hadamard matrix the FWHT's library yardstick builds: 2^15 × 2^15
+# float32 is 4.3 GB; at 2^19 rows H would be 1.1 TB, so there is no library call there.
+LIBRARY_H_ROWS = 1 << 15
+# Columns of S = (1/√m)·H[ids]·D built at a time for the SRHT forward's yardstick
+# (the int64 parities of one block: m × 2^16 × 8 B, 1.3 GB at m = 2,500).
+LIBRARY_S_BLOCK = 1 << 16
+# A yardstick must compute the kernel's function: its float32 sums in another
+# order, relative to the largest output.
+LIBRARY_TOL = 1e-4
+
+
+def interleaved_ms(fns: dict, reps: int = 5, rounds: int = 3) -> dict:
+    """Each function's median over ``rounds`` of its mean device ms over ``reps``
+    runs, the functions alternating round by round (CUDA events; one warm-up
+    run each first)."""
+    import statistics
+
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(fn, reps, warmup=r == 0)[0])
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def hadamard(n: int, device) -> "torch.Tensor":
+    """The (n, n) float32 Sylvester Hadamard matrix, H[i, j] = (−1)^popcount(i & j)."""
+    import torch
+
+    h = torch.ones((1, 1), dtype=torch.float32, device=device)
+    while h.shape[0] < n:
+        h = torch.cat([torch.cat([h, h], 1), torch.cat([h, -h], 1)], 0)
+    return h
+
+
 def fwht_check(x) -> dict:
     """The FWHT kernel on x (2^p, k) against its plain version and a rerun, both
-    bitwise; its card and plain ms and its bound. Emits one ``fwht`` line."""
+    bitwise; its card and plain ms and its bound. Up to 2^15 rows also one
+    ``torch.matmul`` by a pre-built H (the library yardstick), timed interleaved
+    with the kernel. Emits one ``fwht`` line."""
     import torch
 
     from repro_torch.kernels import cuda
@@ -902,10 +955,21 @@ def fwht_check(x) -> dict:
     abs_err = float((y - plain).abs().max())
     del plain
     rerun = torch.equal(ops.fwht(x), y)
-    ms, _ = cuda_ms(lambda: ops.fwht(x), 5)
+    library = {"library_ms": None, "library_note": f"H at {n_pad} rows is {4 * n_pad * n_pad / 1e9:.1f} GB"}
+    if n_pad <= LIBRARY_H_ROWS:
+        H = hadamard(n_pad, x.device)
+        t = interleaved_ms({"ms": lambda: ops.fwht(x), "library_ms": lambda: torch.matmul(H, x)})
+        lib_err = float((torch.matmul(H, x) - y).abs().max() / y.abs().max())
+        del H
+        check(lib_err <= LIBRARY_TOL, f"fwht's library yardstick on ({n_pad}, {k}) is {lib_err} off the kernel")
+        library = {"library_ms": t["library_ms"], "library_vs_kernel": t["library_ms"] / t["ms"],
+                   "library_rel_err": lib_err}
+        ms = t["ms"]
+    else:
+        ms, _ = cuda_ms(lambda: ops.fwht(x), 5)
     b_ms, b_by = fwht_bound_ms(n_pad, k)
     report = {"n_pad": n_pad, "k": k, "passes": list(cuda.plan_fwht(n_pad)), "ms": ms,
-              "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by, "bitwise_equal_plain": bitwise,
+              "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by, **library, "bitwise_equal_plain": bitwise,
               "max_abs_err": abs_err, "rerun_bitwise": rerun}
     emit({"phase": "fwht", **report})
     check(bitwise, f"fwht on ({n_pad}, {k}) is not bitwise equal to its plain version")
@@ -944,11 +1008,21 @@ def srht_forward_check(kd, ids, A, n_pad: int) -> dict:
     del plain
     rerun = torch.equal(fwd(), y)
     composed_bitwise = torch.equal(composed(), y)
-    ms, _ = cuda_ms(fwd, 5)
+    # The library yardstick: the m sampled rows of (1/√m)·H·D over A's n rows, pre-built.
+    S = torch.empty((m, n), dtype=torch.float32, device=A.device)
+    for j0 in range(0, n, LIBRARY_S_BLOCK):
+        blk = min(LIBRARY_S_BLOCK, n - j0)
+        S[:, j0 : j0 + blk] = ref.columns(kd0, kd1, ids, j0, blk, A.device)
+    t = interleaved_ms({"ms": fwd, "library_ms": lambda: torch.matmul(S, A)})
+    lib_err = float((torch.matmul(S, A) - y).abs().max() / y.abs().max())
+    del S
+    check(lib_err <= LIBRARY_TOL, f"srht_forward's library yardstick on ({n}, {k}) is {lib_err} off the kernel")
+    ms, library_ms = t["ms"], t["library_ms"]
     composed_ms, _ = cuda_ms(composed, 5)
     b_ms, b_by = srht_forward_bound_ms(n, k, m, n_pad)
     report = {"n": n, "k": k, "m": m, "n_pad": n_pad, "passes": list(cuda.plan_fwht(n_pad)), "ms": ms,
               "composed_ms": composed_ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": library_ms, "library_vs_kernel": library_ms / ms, "library_rel_err": lib_err,
               "plan_floor_ms": srht_forward_floor_ms(n, k, m, n_pad), "bitwise_equal_plain": bitwise,
               "max_abs_err": abs_err, "rerun_bitwise": rerun, "composed_bitwise": composed_bitwise}
     emit({"phase": "srht_forward", **report})
@@ -2708,52 +2782,72 @@ def phase_lm(rows: dict) -> None:
     phase_fit_head_lm(cfg, model, rows)
     del model
     torch.cuda.empty_cache()
-    phase_lm_serve_cli()
+    phase_lm_serve_cli("lm_serve_cli", SERVE_LM_CLI)
 
 
-def phase_lm_consistency(cfg, model) -> None:
-    """forward_logits on B = 4 sequences of 1,025 tokens (lm_batch); batched_prefill
-    of the first 1,024 (cache 1,088) against the forward's position 1,023; one
-    decode_step at 1,024 against its position 1,024; the token-by-token prefill
-    of 64 tokens against batched_prefill of the same 64 (logits and cache)."""
+def cache_leaves(cache: dict) -> dict:
+    """A decode cache's tensors by name ("k", or "local.k" for gemma3's split)."""
+    out = {}
+    for a, t in cache.items():
+        out.update({f"{a}.{b}": u for b, u in t.items()} if isinstance(t, dict) else {a: t})
+    return out
+
+
+def phase_lm_consistency(cfg, model, label: str = "lm_granite_consistency", c: dict = LM_CONSISTENCY) -> None:
+    """forward_logits on B sequences of ``seq`` tokens (lm_batch, B = 4 × 1,025 for
+    granite); batched_prefill of the first ``prefill`` (cache ``cache_len``)
+    against the forward's position prefill − 1; one decode_step at ``prefill``
+    against its position; the token-by-token prefill of 64 tokens against
+    batched_prefill of the same 64 (logits and every cache leaf). An MoE's
+    dropped assignments are counted (0 at the dropless capacity the caller sets)."""
     import torch
 
     from repro_torch.data import tokens
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
 
-    c = LM_CONSISTENCY
     b = tokens.lm_batch(SEED + 40, 0, batch=c["batch"], seq=c["seq"], vocab=cfg.vocab_size, device=DEVICE)
     toks = b["tokens"]
-    full, fwd_s = host_s(lambda: lm.forward_logits(model, cfg, b))
-    (lp, cache), pre_s = host_s(lambda: lm.batched_prefill(model, cfg, {"tokens": toks[:, : c["prefill"]]},
-                                                           cache_len=c["cache_len"]))
-    (ld, _), dec_s = host_s(lambda: lm.decode_step(model, cfg, toks[:, c["prefill"]], cache, c["prefill"]))
-    del cache
-    t = c["token_prefill"]
-    (ltt, ctt), tt_s = host_s(lambda: lm.prefill(model, cfg, {"tokens": toks[:, :t]},
-                                                 lm.init_cache(cfg, c["batch"], t, device=DEVICE)))
-    lb, cb = lm.batched_prefill(model, cfg, {"tokens": toks[:, :t]})
+    with moe.count_drops() as drops:
+        full, fwd_s = host_s(lambda: lm.forward_logits(model, cfg, b))
+        (lp, cache), pre_s = host_s(lambda: lm.batched_prefill(model, cfg, {"tokens": toks[:, : c["prefill"]]},
+                                                               cache_len=c["cache_len"]))
+        cache_shapes = {n: list(t.shape) for n, t in cache_leaves(cache).items()}
+        (ld, _), dec_s = host_s(lambda: lm.decode_step(model, cfg, toks[:, c["prefill"]], cache, c["prefill"]))
+        del cache
+        t = c["token_prefill"]
+        (ltt, ctt), tt_s = host_s(lambda: lm.prefill(model, cfg, {"tokens": toks[:, :t]},
+                                                     lm.init_cache(cfg, c["batch"], t, device=DEVICE)))
+        lb, cb = lm.batched_prefill(model, cfg, {"tokens": toks[:, :t]})
     err = lambda a, w: float((a - w).abs().max())
     want_pre, want_dec = full[:, c["prefill"] - 1], full[:, c["prefill"]]
+    ctt, cb = cache_leaves(ctt), cache_leaves(cb)
+    # Where the two caches part, by layer entry (an MoE's expert flip at a near-tie
+    # shows as a jump from one layer on).
+    by_entry = [max(err(ctt[n][i].float(), cb[n][i].float()) for n in cb if cb[n].shape[0] > i)
+                for i in range(max(t.shape[0] for t in cb.values()))]
     report = {
         "prefill_vs_forward": err(lp, want_pre), "decode_vs_forward": err(ld, want_dec),
         "token_prefill_vs_batched": err(ltt, lb),
-        "token_prefill_cache_vs_batched": max(err(ctt[n].float(), cb[n].float()) for n in ("k", "v")),
-        "cache_rms": float(cb["k"].float().pow(2).mean().sqrt()),
+        "token_prefill_cache_vs_batched": max(by_entry), "token_prefill_cache_vs_batched_by_entry": by_entry,
+        "cache_rms": max(float(cb[n].float().pow(2).mean().sqrt()) for n in cb),
     }
     agree = {"prefill": top1_agreement(lp, want_pre, LM_LOGIT_BOUND),
              "decode": top1_agreement(ld, want_dec, LM_LOGIT_BOUND),
              "token_prefill": top1_agreement(ltt, lb, LM_LOGIT_BOUND)}
     finite = all(bool(torch.isfinite(x).all()) for x in (full, lp, ld, ltt))
-    emit({"phase": "lm_granite_consistency", **c, "bound": LM_LOGIT_BOUND, **report, "top1": agree,
-          "logit_rms": float(full.pow(2).mean().sqrt()), "finite": finite, "forward_s": fwd_s,
+    emit({"phase": label, "arch": cfg.name, "layers": cfg.num_layers, "card": nvidia_smi_line(), **c,
+          "window": cfg.window, "capacity_factor": cfg.capacity_factor if cfg.moe else None,
+          "cache_shapes": cache_shapes, "moe_assignments": drops.assigned,
+          "moe_dropped": int(drops.dropped) if drops.calls else None, "bound": LM_LOGIT_BOUND, **report,
+          "top1": agree, "logit_rms": float(full.pow(2).mean().sqrt()), "finite": finite, "forward_s": fwd_s,
           "batched_prefill_s": pre_s, "decode_step_s": dec_s, "token_prefill_s": tt_s,
           "shapes": [list(full.shape), list(lp.shape), list(ld.shape)]})
-    check(finite and tuple(full.shape) == (c["batch"], c["seq"], cfg.padded_vocab), "lm_granite_consistency: bad logits")
+    check(finite and tuple(full.shape) == (c["batch"], c["seq"], cfg.padded_vocab), f"{label}: bad logits")
     for name in ("prefill_vs_forward", "decode_vs_forward", "token_prefill_vs_batched"):
-        check(report[name] <= LM_LOGIT_BOUND, f"lm_granite_consistency: {name} {report[name]} > {LM_LOGIT_BOUND}")
+        check(report[name] <= LM_LOGIT_BOUND, f"{label}: {name} {report[name]} > {LM_LOGIT_BOUND}")
     for name, a in agree.items():
-        check(a["top1_disagree_past_margin"] == 0, f"lm_granite_consistency: {name} top-1 differs past the margin: {a}")
+        check(a["top1_disagree_past_margin"] == 0, f"{label}: {name} top-1 differs past the margin: {a}")
+    check(not drops.calls or int(drops.dropped) == 0, f"{label}: the dropless MoE dropped assignments")
     del full
 
 
@@ -2793,39 +2887,139 @@ def first_divergence(a: list, b: list):
     return None
 
 
-def phase_lm_engine(cfg, model) -> None:
-    """``Engine.generate`` on 8 prompts of 1,536-2,048 tokens (lm_batch rows), 32 new
-    tokens, greedy, twice (bitwise equal tokens); two equal-length prompts batched
-    and alone; temperature 0.7 twice (bitwise equal). Prefill seconds and
-    tokens/s, the decode's ms a step (median of 31) beside its bytes floor, the
-    prefill beside its bf16 flops bound, peak memory, one traced decode step."""
+def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = False) -> tuple:
+    """``Engine.generate`` (greedy) on c["prompts"] lm_batch prompts of
+    c["min_len"]…c["max_len"] tokens, c["new"] new, twice. Reports the prefill's
+    seconds and tokens/s beside its bf16 flops bound (the layers' products over
+    the MoE assignments kept, the attention each query's window asks for, the
+    unembedding at the last position), the decode's ms a step (median of the
+    second run's) beside its bytes floor (the weights but the embedding, the
+    valid cache entries), the dropped share of MoE assignments at the prefill
+    and at decode, peak memory, and one decode step traced at the median
+    step's position (``lm_<tag>_decode_traced``) with the float32 copies of the
+    cache its attention makes. Returns (engine, prompts, the first run's
+    tokens, report, the decode's StepTimer)."""
     import statistics
 
     import torch
 
     from repro_torch.data import tokens
+    from repro_torch.models import lm, moe
     from repro_torch.serve import Engine, ServeConfig
 
-    c = LM_ENGINE
     src = tokens.lm_batch(SEED + 41, 0, batch=c["prompts"], seq=c["max_len"], vocab=cfg.vocab_size, device=DEVICE)
     src = src["tokens"].cpu().tolist()
     lens = [c["min_len"] + (i * (c["max_len"] - c["min_len"])) // (c["prompts"] - 1) for i in range(c["prompts"])]
     prompts = [row[:n] for row, n in zip(src, lens)]
     max_len = c["max_len"] + c["new"]
     torch.cuda.reset_peak_memory_stats()
-    engine = Engine(cfg, model, ServeConfig(max_batch=c["prompts"], max_len=max_len), device=DEVICE)
-    engine._prefill = prefill_t = StepTimer(engine._prefill)
-    engine._decode = decode_t = StepTimer(engine._decode, margins=True)
+    engine = Engine(cfg, model, ServeConfig(max_batch=c["prompts"], max_len=max_len), device=DEVICE, plan=plan)
+    counted = {"prefill": [], "decode": []}
+    plain = {"prefill": engine._prefill, "decode": engine._decode}
+
+    def counting(kind):
+        def call(*args):
+            with moe.count_drops() as dc:
+                out = plain[kind](*args)
+            counted[kind].append(dc)
+            return out
+
+        return call
+
+    engine._prefill = prefill_t = StepTimer(counting("prefill"))
+    engine._decode = decode_t = StepTimer(counting("decode"), margins=margins)
     first, gen_s = host_s(lambda: engine.generate(prompts, max_new_tokens=c["new"]))
     again, gen2_s = host_s(lambda: engine.generate(prompts, max_new_tokens=c["new"]))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = c["new"] - 1
     pre_ms, dec_all = prefill_t.ms(), decode_t.ms()
-    dec_first, dec_ms = dec_all[:steps], dec_all[steps:]  # the second (warm) run's steps are reported
+    dec_ms = dec_all[steps:]  # the second (warm) run's steps are reported
+
+    def drops(calls):
+        assigned = sum(x.assigned for x in calls)
+        if not assigned:
+            return {"assigned": 0, "dropped": 0, "share": None}
+        dropped = sum(int(x.dropped) for x in calls)
+        load = sum(x.load.cpu() for x in calls)
+        return {"assigned": assigned, "dropped": dropped, "share": dropped / assigned,
+                "load_by_expert": load.tolist(), "busiest_expert_share": float(load.max()) / assigned}
+
+    drop = {"prefill": drops(counted["prefill"][:1]), "decode": drops(counted["decode"][:steps])}
+
+    B, S = len(prompts), max(lens)
+    d, L, H, KV, hd = cfg.d_model, cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    windows = lm.layer_windows(cfg).tolist()
+    tokens_in = B * S
+    attn_params = d * H * hd + 2 * d * KV * hd + H * hd * d
+    if cfg.moe:
+        kept = drop["prefill"]["assigned"] - drop["prefill"]["dropped"]
+        ffn_flops = 2 * kept * 3 * d * cfg.d_ff + 2 * tokens_in * L * d * cfg.num_experts
+    else:
+        ffn_flops = 2 * tokens_in * L * 3 * d * cfg.d_ff
+    keys = sum(sum(min(q + 1, w) if w > 0 else q + 1 for q in range(S)) for w in windows)  # a row, all layers
+    flops = 2 * tokens_in * L * attn_params + ffn_flops + 2 * 2 * B * H * hd * keys + 2 * B * d * cfg.padded_vocab
+    weight_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters() if n != "embed.table")
+    pos_med = S + c["new"] // 2
+    kv_bytes = 2 * 2 * B * KV * hd * sum(min(pos_med + 1, w) if w > 0 else pos_med + 1 for w in windows)
+    floor_ms = (weight_bytes + kv_bytes) / PEAK_BYTES * 1e3
+    dec_med = statistics.median(dec_ms)
+
+    # One decode step traced, at the median step's position, on a fresh prefill.
+    with torch.inference_mode():
+        toks = torch.zeros((B, S), dtype=torch.int64)
+        for r, p in enumerate(prompts):
+            toks[r, S - len(p):] = torch.tensor(p)
+        logits, cache = plain["prefill"](toks.to(DEVICE))
+        tok = torch.argmax(logits, dim=-1)
+        for pos in range(S, pos_med):
+            tok, _, cache = plain["decode"](tok, cache, pos, None)
+        _, traced_wall = phase_trace(f"lm_{tag}_decode_traced", lambda: plain["decode"](tok, cache, pos_med, None))
+        # The float32 copies of every layer's k and v cache that the decode's attention reads (the reference's upcast).
+        pieces = [t for kv in lm.layer_caches(cfg, cache) for t in kv]
+        copy_ms, _ = cuda_ms(lambda: [t.to(torch.float32) for t in pieces], 5)
+        copy_bytes = sum(t.numel() * (t.element_size() + 4) for t in pieces)
+        cache_shapes = {n: list(t.shape) for n, t in cache_leaves(cache).items()}
+        del cache, pieces
+
+    report = {
+        "arch": cfg.name, "layers": L, "prompts": B, "prompt_lens": lens, "new": c["new"], "max_len": max_len,
+        "window": cfg.window, "capacity_factor": cfg.capacity_factor if cfg.moe else None,
+        "attn_chunk": engine.plan.attn_chunk, "cache_shapes": cache_shapes, "generate_s": [gen_s, gen2_s],
+        "prefill_s": pre_ms[1] / 1e3, "prefill_s_first": pre_ms[0] / 1e3, "prefill_tokens": sum(lens),
+        "prefill_tokens_padded": tokens_in, "prefill_tok_per_s": tokens_in / (pre_ms[1] / 1e3),
+        "prefill_flops": flops, "prefill_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
+        "prefill_bound_share": flops / PEAK_BF16_FLOPS * 1e3 / pre_ms[1], "decode_steps": len(dec_ms),
+        "decode_ms_median": dec_med, "decode_ms_median_first_run": statistics.median(dec_all[:steps]),
+        "decode_ms_min": min(dec_ms), "decode_ms_max": max(dec_ms), "decode_tok_per_s": B / (dec_med / 1e3),
+        "decode_floor_ms": floor_ms, "decode_weight_bytes": weight_bytes, "decode_kv_bytes": kv_bytes,
+        "decode_floor_share": floor_ms / dec_med, "decode_f32_cache_copy_ms": copy_ms,
+        "decode_f32_cache_copy_bytes": copy_bytes, "traced_decode_wall_ms": traced_wall * 1e3, "drops": drop,
+        "peak_gb": peak_gb, "greedy_rerun_equal": first == again, "first_tokens": [o[:8] for o in first[:2]],
+    }
+    return engine, prompts, first, report, decode_t
+
+
+def check_engine(label: str, cfg, c: dict, first: list, report: dict) -> None:
+    ok = all(len(o) == c["new"] and all(0 <= t < cfg.vocab_size for t in o) for o in first)
+    check(ok, f"{label}: bad generations")
+    check(report["greedy_rerun_equal"], f"{label}: greedy generations differ run to run")
+
+
+def phase_lm_engine(cfg, model) -> None:
+    """``run_engine`` on 8 prompts of 1,536-2,048 tokens, 32 new tokens, the
+    decode's top-2 margins kept; then two equal-length prompts batched and alone,
+    and temperature 0.7 twice (bitwise equal)."""
+    import torch
+
+    from repro_torch.serve import Engine, ServeConfig
+
+    c = LM_ENGINE
+    engine, prompts, first, report, decode_t = run_engine("granite", cfg, model, c, margins=True)
+    steps = c["new"] - 1
     margins = torch.stack(decode_t.tops[:steps], dim=1)  # (B, 31)
 
     # Two equal-length prompts, batched and alone.
-    pair = [src[0][: c["min_len"]], src[1][: c["min_len"]]]
+    pair = [prompts[0][: c["min_len"]], prompts[1][: c["min_len"]]]
     decode_t.tops.clear()
     both = engine.generate(pair, max_new_tokens=c["new"])
     pair_margins = torch.stack(decode_t.tops, dim=1)
@@ -2833,60 +3027,17 @@ def phase_lm_engine(cfg, model) -> None:
     split = first_divergence(both, solo)
     split_margin = None if split is None or split[1] == 0 else float(pair_margins[split[0], split[1] - 1])
 
-    hot = Engine(cfg, model, ServeConfig(max_batch=c["prompts"], max_len=max_len, temperature=c["temperature"]),
-                 device=DEVICE)
+    hot = Engine(cfg, model, ServeConfig(max_batch=c["prompts"], max_len=report["max_len"],
+                                         temperature=c["temperature"]), device=DEVICE)
     t1 = hot.generate(prompts, max_new_tokens=c["new"])
     t2 = hot.generate(prompts, max_new_tokens=c["new"])
-
-    # One decode step traced, at the median step's position, on a fresh prefill.
-    B, S = len(prompts), max(lens)
-    with torch.inference_mode():
-        toks = torch.zeros((B, S), dtype=torch.int64)
-        for r, p in enumerate(prompts):
-            toks[r, S - len(p):] = torch.tensor(p)
-        logits, cache = engine._prefill.fn(toks.to(DEVICE))
-        tok = torch.argmax(logits, dim=-1)
-        for pos in range(S, S + 15):
-            tok, _, cache = engine._decode.fn(tok, cache, pos, None)
-        _, traced_wall = phase_trace("lm_granite_decode_traced", lambda: engine._decode.fn(tok, cache, S + 15, None))
-        # The float32 copies of each layer's k and v cache that the decode's attention reads (the reference's upcast).
-        copy_ms, _ = cuda_ms(lambda: (cache["k"][0].to(torch.float32), cache["v"][0].to(torch.float32)), 20)
-        del cache
-
-    d, L, KV, hd = cfg.d_model, cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-    weight_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters() if n != "embed.table")
-    pos_med = S + c["new"] // 2
-    kv_bytes = 2 * 2 * L * B * (pos_med + 1) * KV * hd  # k and v, bf16, the valid positions read once
-    floor_ms = (weight_bytes + kv_bytes) / PEAK_BYTES * 1e3
-    # Prefill flops: the layers' products at every position, causal attention (QKᵀ and PV
-    # over the keys at or before each query), the unembedding at the last position.
-    layer_params = sum(p.numel() for n, p in model.layers[0].named_parameters() if "norm" not in n)
-    tokens_in = B * S
-    flops = 2 * tokens_in * L * layer_params + 2 * 2 * L * B * cfg.num_heads * hd * S * (S + 1) // 2 \
-        + 2 * B * d * cfg.padded_vocab
-    dec_med = statistics.median(dec_ms)
-    report = {
-        "prompts": len(prompts), "prompt_lens": lens, "new": c["new"], "max_len": max_len,
-        "generate_s": [gen_s, gen2_s], "prefill_s": pre_ms[1] / 1e3, "prefill_s_first": pre_ms[0] / 1e3,
-        "prefill_tokens": sum(lens), "prefill_tokens_padded": tokens_in,
-        "prefill_tok_per_s": tokens_in / (pre_ms[1] / 1e3), "prefill_bound_share": None,
-        "prefill_flops": flops, "prefill_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
-        "decode_steps": len(dec_ms), "decode_ms_median": dec_med, "decode_ms_median_first_run": statistics.median(
-            dec_first), "decode_ms_min": min(dec_ms),
-        "decode_ms_max": max(dec_ms), "decode_tok_per_s": B / (dec_med / 1e3),
-        "decode_floor_ms": floor_ms, "decode_weight_bytes": weight_bytes, "decode_kv_bytes": kv_bytes,
-        "decode_floor_share": floor_ms / dec_med, "decode_f32_cache_copy_ms": copy_ms * cfg.num_layers,
-        "decode_f32_cache_copy_bytes": 3 * 2 * L * B * max_len * KV * hd * 2, "peak_gb": peak_gb, "traced_decode_wall_ms": traced_wall * 1e3,
-        "greedy_rerun_equal": first == again, "min_top2_margin": float(margins.min()),
-        "pair_batched_equals_single": split is None, "pair_first_divergence": split,
-        "pair_margin_at_divergence": split_margin, "temperature": c["temperature"], "sampled_rerun_equal": t1 == t2,
-        "sampled_differs_from_greedy": t1 != first, "first_tokens": [o[:8] for o in first[:2]],
-    }
-    report["prefill_bound_share"] = report["prefill_bound_ms"] / pre_ms[1]
+    report.update({
+        "min_top2_margin": float(margins.min()), "pair_batched_equals_single": split is None,
+        "pair_first_divergence": split, "pair_margin_at_divergence": split_margin, "temperature": c["temperature"],
+        "sampled_rerun_equal": t1 == t2, "sampled_differs_from_greedy": t1 != first,
+    })
     emit({"phase": "lm_granite_engine", "card": nvidia_smi_line(), **report})
-    ok = all(len(o) == c["new"] and all(0 <= t < cfg.vocab_size for t in o) for o in first + t1)
-    check(ok, "lm_granite_engine: bad generations")
-    check(report["greedy_rerun_equal"], "lm_granite_engine: greedy generations differ run to run")
+    check_engine("lm_granite_engine", cfg, c, first + t1, report)
     check(report["sampled_rerun_equal"], "lm_granite_engine: sampled generations differ run to run")
     # Batched and alone, the products have other shapes (M = 2 against 1), so the two
     # runs agree to the logit bound, not bitwise: their tokens may part only where the
@@ -2919,9 +3070,10 @@ def check_chunk_slices(family: str, keys, X, m: int) -> dict:
     return out
 
 
-def phase_fit_head_lm(cfg, model, rows: dict) -> None:
-    """Algorithm 1 on granite-3-8b's own features: H = extract_features on
-    lm_batch(16 × 2,048), 32,768 × 4,096 float32; Y = H·U[:, ids] + 0.1·N(0, 1),
+def phase_fit_head_lm(cfg, model, rows: dict, tag: str = "granite") -> None:
+    """Algorithm 1 on the LM's own features (granite-3-8b's; gemma3-12b's with
+    ``tag="gemma3"``): H = extract_features on lm_batch(16 × 2,048), 32,768 ×
+    d_model float32; Y = H·U[:, ids] + 0.1·N(0, 1),
     U the model's unembedding at 16 fixed ids (a 16-token lm-head re-fit);
     fit_head at q = 16, m = 8,192, 12 arriving, reg 1e-4, the Gaussian through
     row 2 and the SJLT (s = 20) through row 11; the gates of phase_fit_head, and
@@ -2943,7 +3095,7 @@ def phase_fit_head_lm(cfg, model, rows: dict) -> None:
     feat_peak = torch.cuda.max_memory_allocated() / 1e9
     n, d = H.shape
     check((n, d) == (c["batch"] * c["seq"], cfg.d_model) and H.dtype == torch.float32
-          and bool(torch.isfinite(H).all()), f"fit_head_granite_features: bad H {tuple(H.shape)} {H.dtype}")
+          and bool(torch.isfinite(H).all()), f"fit_head_{tag}_features: bad H {tuple(H.shape)} {H.dtype}")
     U = model.unembed_w()[:, list(LM_HEAD_IDS)].to(torch.float32)
     Y = H @ U + c["noise"] * prng.normal(prng.prng_key(SEED + 43), (n, c["k"]), device=DEVICE)
     eig = torch.linalg.eigvalsh(H.double().T @ H.double())
@@ -2963,7 +3115,7 @@ def phase_fit_head_lm(cfg, model, rows: dict) -> None:
                                                       accountant=acc, device=DEVICE))
         counts = read_counts()
         quality = solvers.head_fit_quality(H, Y, Wh)
-        label = f"fit_head_granite_features_{family}"
+        label = f"fit_head_{tag}_features_{family}"
         emit({"phase": label, "card": nvidia_smi_line(), "n": n, "d": d, **c, "features_s": feat_s,
               "features_peak_gb": feat_peak, "h_cond": cond, "h_eig_min": float(eig[0]), "h_eig_max": float(eig[-1]),
               "seconds": seconds, "launches": counts, **quality, "theory": pred, "ratio": quality["rel_err"] / pred,
@@ -2987,21 +3139,22 @@ def phase_fit_head_lm(cfg, model, rows: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_lm_serve_cli() -> None:
-    """``python -m repro_torch.launch.serve --arch granite-3-8b`` as a user runs it,
-    with the reference launcher's defaults: exit 0 and its ``arch=`` line."""
+def phase_lm_serve_cli(label: str, args: tuple) -> None:
+    """``python -m repro_torch.launch.serve <args>`` (``--arch granite-3-8b``,
+    ``--arch gemma3-12b``) as a user runs it, with the reference launcher's
+    defaults: exit 0 and its ``arch=`` line."""
     import os
 
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")])))
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *SERVE_LM_CLI], cwd=ROOT, env=env,
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
     lines = out.stdout.strip().splitlines()
-    arch = [line for line in lines if line.startswith(f"arch={LM_ARCH} ")]
-    emit({"phase": "lm_serve_cli", "args": list(SERVE_LM_CLI), "returncode": out.returncode, "seconds": seconds,
+    arch = [line for line in lines if line.startswith(f"arch={args[args.index('--arch') + 1]} ")]
+    emit({"phase": label, "args": list(args), "returncode": out.returncode, "seconds": seconds,
           "lines": lines, "stderr_tail": out.stderr[-2000:] if out.returncode else ""})
-    check(out.returncode == 0 and len(arch) == 1, "lm_serve_cli: the launcher failed")
+    check(out.returncode == 0 and len(arch) == 1, f"{label}: the launcher failed")
 
 
 # ------------------------------------------ training: the sketch-DP step on the dense decoder LM
@@ -3328,6 +3481,165 @@ def phase_train_small_card_vs_cpu(rows: dict) -> None:
 
 
 
+# ------------------------------------------ MoE, sliding-window and local:global decoders; chatglm3-6b on the card
+
+CHATGLM_ARCH = "chatglm3-6b"  # 28 layers, d_model 4,096, 32/2 heads, RoPE on half of each head, 6.24e9 parameters
+MIXTRAL_LAYERS = 8  # of 32: the whole model's 93.4 GB of bf16 weights do not fit one card; 8 layers are 23.7 GB
+MIXTRAL_CONSISTENCY = {"batch": 2, "seq": 4609, "prefill": 4608, "cache_len": 4672, "token_prefill": 64}
+MIXTRAL_ENGINE = {"prompts": 8, "min_len": 4352, "max_len": 6144, "new": 32}
+# The prefill's float32 score and probability chunks are B·S·H·chunk·4 bytes: 1.6 GB
+# each at 8 × 6,144 tokens and 32 heads (6.4 GB at the default chunk of 1,024; at
+# 512 the prefill's peak was 16.6 GB above the weights and cache).
+MIXTRAL_ATTN_CHUNK = 256
+GEMMA_ARCH = "gemma3-12b"  # 48 layers (40 local, window 1,024; 8 global), d_model 3,840, head_dim 240, vocab 262,144
+GEMMA_CONSISTENCY = {"batch": 2, "seq": 2049, "prefill": 2048, "cache_len": 2112, "token_prefill": 64}
+GEMMA_ENGINE = {"prompts": 8, "min_len": 2048, "max_len": 3072, "new": 32}
+SERVE_GEMMA_CLI = ("--arch", GEMMA_ARCH)
+GROK_LAYERS = 2  # of 64: the whole model's 316.5e9 parameters do not fit one card; 2 layers are 11.45e9 (22.9 GB)
+GROK_CONSISTENCY = {"batch": 2, "seq": 1025, "prefill": 1024, "cache_len": 1088, "token_prefill": 64}
+
+
+def leaf_draw(cfg, name: str):
+    """(key, scale) of a weight leaf's draw under the reference's key tree for key 0:
+    ``embed.table``, ``unembed.w`` or ``layers.<l>.moe.w_gate``."""
+    import math
+
+    from repro_torch.utils import prng
+
+    k_emb, k_layers, _, k_un, _, _ = prng.split(prng.prng_key(0), 6)
+    if name == "embed.table":
+        return k_emb, 0.02
+    if name == "unembed.w":
+        return k_un, 1.0 / math.sqrt(cfg.d_model)
+    l = int(name.split(".")[1])
+    ks = prng.split(prng.split(k_layers, cfg.num_layers)[l], 8)[3]
+    return prng.split(ks, 4)[1], 1.0 / math.sqrt(cfg.d_model)
+
+
+def lm_build(label: str, cfg, leaf: str):
+    """``init_params`` on the card (the reference's weights for key 0): seconds,
+    parameters (the meta model's, within 0.1% of the config's count), bytes,
+    peak, and the first and last two rows of ``leaf`` held bitwise against the
+    same draw on the CPU. Returns the model."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.utils import prng
+
+    torch.cuda.reset_peak_memory_stats()
+    model, seconds = host_s(lambda: lm.init_params(cfg, prng.prng_key(0), device=DEVICE))
+    n_params = sum(p.numel() for p in model.parameters())
+    want = sum(s.numel() for s in lm.param_shapes(cfg).values())
+    key, scale = leaf_draw(cfg, leaf)
+    t = model.state_dict()[leaf]
+    flat = t.reshape(-1, t.shape[-1])
+    cols = flat.shape[1]
+    same = all(torch.equal(flat[r0 : r0 + 2].cpu(),
+                           (prng.normal(key, (2, cols), offset=r0 * cols, device="cpu") * scale).to(t.dtype))
+               for r0 in (0, flat.shape[0] - 2))
+    emit({"phase": label, "arch": cfg.name, "layers": cfg.num_layers, "card": nvidia_smi_line(), "params": n_params,
+          "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()), "seconds": seconds,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "leaf": leaf, "leaf_shape": list(t.shape),
+          "leaf_rows_cpu_draw_bitwise": same})
+    check(same, f"{label}: the card's {leaf} differs from the same draw on the CPU")
+    check(n_params == want and abs(n_params - cfg.param_count()) <= 1e-3 * cfg.param_count(),
+          f"{label}: {n_params} parameters, the config's {cfg.param_count()}")
+    return model
+
+
+def phase_lm_engine_family(tag: str, cfg, model, c: dict, plan=None) -> None:
+    """``run_engine`` for an MoE or windowed decoder at its config's capacity, with
+    prompts past its window (the rings wrap in the prefill)."""
+    label = f"lm_{tag}_engine"
+    _, prompts, first, report, _ = run_engine(tag, cfg, model, c, plan=plan)
+    emit({"phase": label, "card": nvidia_smi_line(), **report})
+    check_engine(label, cfg, c, first, report)
+    check(min(len(p) for p in prompts) > cfg.window, f"{label}: the prompts do not pass the window {cfg.window}")
+    drop = report["drops"]["prefill"]
+    check(not cfg.moe or 0.0 <= drop["share"] < 1.0, f"{label}: prefill drops {drop}")
+
+
+def phase_lm_grok_capacity(cfg, model) -> None:
+    """One forward_logits at the config's capacity (1.25: assignments dropped) on
+    2 × 1,025 lm_batch tokens: finite logits of the right shape, its drop share."""
+    import torch
+
+    from repro_torch.data import tokens
+    from repro_torch.models import lm, moe
+
+    c = GROK_CONSISTENCY
+    b = tokens.lm_batch(SEED + 46, 0, batch=c["batch"], seq=c["seq"], vocab=cfg.vocab_size, device=DEVICE)
+    with moe.count_drops() as dc:
+        logits, seconds = host_s(lambda: lm.forward_logits(model, cfg, b))
+    finite = bool(torch.isfinite(logits).all())
+    emit({"phase": "lm_grok_forward_capacity", "card": nvidia_smi_line(), "arch": cfg.name, "layers": cfg.num_layers,
+          "capacity_factor": cfg.capacity_factor, "batch": c["batch"], "seq": c["seq"], "seconds": seconds,
+          "moe_assignments": dc.assigned, "moe_dropped": int(dc.dropped), "drop_share": dc.share,
+          "load_by_expert": dc.load.tolist(), "busiest_expert_share": float(dc.load.max()) / dc.assigned,
+          "finite": finite, "logit_rms": float(logits.pow(2).mean().sqrt())})
+    check(finite and tuple(logits.shape) == (c["batch"], c["seq"], cfg.padded_vocab),
+          "lm_grok_forward_capacity: bad logits")
+
+
+def free_card() -> None:
+    """Collect what the finished phase left (an Engine whose timers wrap its own
+    methods is a reference cycle that holds its model) and return the card's
+    cached blocks, so the next model is built on an empty card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_families(rows: dict) -> None:
+    """chatglm3-6b's first run on the card (RoPE on half of each head), then the
+    MoE, sliding-window and local:global decoders at full width, bfloat16, the
+    reference's weights for key 0: mixtral-8x7b at MIXTRAL_LAYERS layers (the
+    consistency dropless over 4,609 tokens, past its window of 4,096; the
+    Engine at the config's capacity), gemma3-12b whole (consistency, Engine,
+    head fitting on its features through rows 2 and 11, the launcher), and
+    grok-1-314b at GROK_LAYERS layers. Each model is freed before the next is
+    built."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    free_card()
+    cfg = get_config(CHATGLM_ARCH)
+    model = lm_build("lm_chatglm3_init", cfg, "unembed.w")
+    phase_lm_consistency(cfg, model, "lm_chatglm3_consistency", LM_CONSISTENCY)
+    del model
+    free_card()
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS)
+    model = lm_build("lm_mixtral_init", cfg, f"layers.{MIXTRAL_LAYERS - 1}.moe.w_gate")
+    dropless = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    phase_lm_consistency(dropless, model, "lm_mixtral_consistency", MIXTRAL_CONSISTENCY)
+    phase_lm_engine_family("mixtral", cfg, model, MIXTRAL_ENGINE, lm.ExecPlan(attn_chunk=MIXTRAL_ATTN_CHUNK))
+    del model
+    free_card()
+
+    cfg = get_config(GEMMA_ARCH)
+    model = lm_build("lm_gemma3_init", cfg, "embed.table")
+    phase_lm_consistency(cfg, model, "lm_gemma3_consistency", GEMMA_CONSISTENCY)
+    phase_lm_engine_family("gemma3", cfg, model, GEMMA_ENGINE)
+    phase_fit_head_lm(cfg, model, rows, tag="gemma3")
+    del model
+    free_card()
+    phase_lm_serve_cli("lm_gemma3_serve_cli", SERVE_GEMMA_CLI)
+
+    cfg = dataclasses.replace(get_config("grok-1-314b"), num_layers=GROK_LAYERS)
+    model = lm_build("lm_grok_init", cfg, f"layers.{GROK_LAYERS - 1}.moe.w_gate")
+    phase_lm_consistency(dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts)), model,
+                         "lm_grok_consistency", GROK_CONSISTENCY)
+    phase_lm_grok_capacity(cfg, model)
+    del model
+    free_card()
+
+
 def phase_trace(label: str, solve) -> None:
     """One more run of a path under ``torch.profiler``: device time by kernel and the
     device's busy share of the run's wall time (kernels on one stream, so their
@@ -3411,6 +3723,7 @@ def main() -> int:
         phase_fit_head(rows)
         phase_lm(rows)
         phase_train(rows)
+        phase_lm_families(rows)
         phase_serverless(rows)
         phase_row_sharded_and_groups(rows)
         for name, row in rows.items():

@@ -1,9 +1,12 @@
 """The decoder LM of the port: parameters, forward, KV cache, decode and prefill.
 
-Port of ``repro.models.lm`` for the dense decoder family (full attention, GQA,
-SwiGLU, RMSNorm, RoPE at any ``rope_fraction``: granite-3-8b, chatglm3-6b). A
-model is an :class:`LM` module: the embedding, an ``nn.ModuleList`` of
-:class:`DecoderLayer` looped in Python, the final norm and the unembedding.
+Port of ``repro.models.lm`` for the decoder families with GQA attention:
+dense (SwiGLU; RoPE at any ``rope_fraction``: granite-3-8b, chatglm3-6b), MoE
+(``models.moe``: mixtral-8x7b, grok-1-314b), sliding-window attention
+(mixtral's ``window``) and gemma3's local:global pattern (``local_global_ratio``
+windowed layers, then one global). A model is an :class:`LM` module: the
+embedding, an ``nn.ModuleList`` of :class:`DecoderLayer` looped in Python, the
+final norm and the unembedding.
 Weights keep the reference's (in, out) orientation; the functions mirror the
 reference's (``forward_logits(params, cfg, batch)`` and so on) with ``params``
 the module. Inference runs under ``torch.inference_mode()``.
@@ -13,14 +16,19 @@ layer in ``torch.utils.checkpoint`` by ``ExecPlan.remat`` (``full``: only the
 layer's input is kept; ``dots``: the outputs of the weight products are kept,
 the rest recomputed; the reference's ``jax.checkpoint`` policies), and the
 next-token loss is chunked over the sequence with each chunk's logits
-recomputed in the backward pass, so (B, S, V) logits never exist. The MoE
-auxiliary loss is 0 until the MoE slice (ROADMAP item 9b).
+recomputed in the backward pass, so (B, S, V) logits never exist. ``trunk``
+also returns the MoE auxiliary loss summed over the layers in float32 (0 for a
+dense model), which ``lm_loss`` adds at ``router_aux_coef``.
 
-The KV cache is a dict of two (L, B, max_len, KV, hd) tensors allocated once and
-written in place; a full-attention cache is the reference's ring with one slot a
-position. Configs of other families (MoE, MLA, SSM, hybrid, enc-dec, VLM,
-sliding-window and local:global attention) raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+The KV cache keeps the reference's keys and leaf shapes, allocated once and
+written in place: {"k", "v"} of (L, B, S_c, KV, hd), where S_c is max_len, or
+``min(window, max_len)`` for sliding-window attention (a ring); for the
+local:global pattern {"local": {"k", "v"}, "global": {"k", "v"}}, the G·R
+windowed layers' rings and the G global layers' full caches (layer l of group
+g = l // (R + 1) is local entry g·R + r or global entry g). Every cache is the
+reference's ring, slot p mod S_c for position p. Configs of other families
+(MLA, SSM, hybrid, enc-dec, VLM) raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -32,16 +40,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe as moe_lib
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
 # Features of the reference's other families, each with the ROADMAP Queue 1 slice
 # of item 9 that ports it.
 _UNPORTED = (
-    (lambda c: c.moe, "MoE (models/moe.py)", "9b"),
-    (lambda c: c.attn_kind == "swa", "sliding-window attention", "9b"),
-    (lambda c: c.attn_kind == "local_global", "local:global attention", "9b"),
     (lambda c: c.mla, "MLA", "9c"),
     (lambda c: c.family == "ssm", "the SSM family (models/ssm.py)", "9d"),
     (lambda c: c.hybrid or c.family == "hybrid", "the hybrid family", "9d"),
@@ -51,12 +56,12 @@ _UNPORTED = (
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the ported dense family."""
+    """Raise ``NotImplementedError`` for a config outside the ported decoder families."""
     missing = [(what, item) for test, what, item in _UNPORTED if test(cfg)]
     if missing:
         parts = ", ".join(f"{what} (ROADMAP Queue 1 item {item})" for what, item in missing)
         raise NotImplementedError(f"{cfg.name} ({cfg.family}): {parts} is not ported to repro_torch yet; "
-                                  "only the dense decoder family is")
+                                  "only the dense and MoE decoders with GQA attention are")
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -77,10 +82,7 @@ class ExecPlan:
 
 def layer_windows(cfg: ArchConfig) -> torch.Tensor:
     """Per-layer attention window (int32 on the CPU, 0 = global/full): the gemma3
-    pattern, mixtral's uniform SWA, or all zeros for full attention. Only the
-    last is reachable in the port until ROADMAP Queue 1 item 9b ports those
-    families (``check_supported`` refuses them first); the other two branches
-    are held against the reference's by the tests."""
+    pattern, mixtral's uniform SWA, or all zeros for full attention."""
     if cfg.attn_kind == "local_global" and cfg.local_global_ratio > 0:
         idx = torch.arange(cfg.num_layers)
         return torch.where(idx % (cfg.local_global_ratio + 1) < cfg.local_global_ratio, cfg.window, 0).to(torch.int32)
@@ -90,9 +92,8 @@ def layer_windows(cfg: ArchConfig) -> torch.Tensor:
 
 
 def cache_lengths(cfg: ArchConfig, seq_len: int) -> torch.Tensor:
-    """Per-layer KV cache length: SWA layers keep a rolling ``window`` buffer. No
-    path of the port calls it until item 9b (the dense family's caches are all
-    ``seq_len``); the tests hold it against the reference's."""
+    """Per-layer KV cache length: SWA layers keep a rolling ``window`` buffer (the
+    lengths ``init_cache`` gives each layer's ring)."""
     w = layer_windows(cfg)
     return torch.where(w > 0, torch.clamp_max(w, seq_len), seq_len)
 
@@ -101,40 +102,54 @@ def cache_lengths(cfg: ArchConfig, seq_len: int) -> torch.Tensor:
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm decoder layer: x + attn(norm1(x)), then + swiglu(norm2(·))."""
+    """One pre-norm decoder layer: x + attn(norm1(x)), then + ffn(norm2(·)), the
+    FFN a SwiGLU (``ffn``) or a mixture of experts (``moe``)."""
 
-    def __init__(self, norm1: layers.RMSNorm, attn: attention.GQA, norm2: layers.RMSNorm, ffn: layers.SwiGLU):
+    def __init__(self, norm1: layers.RMSNorm, attn: attention.GQA, norm2: layers.RMSNorm, ffn: nn.Module):
         super().__init__()
-        self.norm1, self.attn, self.norm2, self.ffn = norm1, attn, norm2, ffn
+        self.norm1, self.attn, self.norm2 = norm1, attn, norm2
+        if isinstance(ffn, moe_lib.MoE):
+            self.moe = ffn
+        else:
+            self.ffn = ffn
+
+    def _ffn(self, h: torch.Tensor, cfg: ArchConfig):
+        """(G, T, d) -> (out, MoE aux loss or None); an MoE groups by the first axis."""
+        if cfg.moe:
+            return self.moe(h, num_experts=cfg.num_experts, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        return self.ffn(h), None
 
     def _attn_args(self, cfg: ArchConfig) -> dict:
         return dict(heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
                     rope_fraction=cfg.rope_fraction)
 
     def forward(self, x: torch.Tensor, cfg: ArchConfig, window: int, plan: ExecPlan, *, return_kv: bool = False):
-        """(B, S, d) -> (B, S, d); with ``return_kv`` also this layer's post-RoPE (k, v)."""
+        """(B, S, d) -> (x (B, S, d), MoE aux or None, each sequence an MoE group);
+        with ``return_kv`` also this layer's post-RoPE (k, v)."""
         a = attention.gqa_forward(self.attn, self.norm1(x, cfg.norm_eps), rope_theta=cfg.rope_theta, window=window,
                                   chunk=plan.attn_chunk, return_kv=return_kv, **self._attn_args(cfg))
         kv = None
         if return_kv:
             a, kv = a
         x = x + a
-        x = x + self.ffn(self.norm2(x, cfg.norm_eps))
-        return (x, kv) if return_kv else x
+        f, aux = self._ffn(self.norm2(x, cfg.norm_eps), cfg)
+        return (x + f, aux, kv) if return_kv else (x + f, aux)
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, tables, cfg: ArchConfig):
         """One token (B, 1, d) against this layer's cache (B, Sc, KV, hd), written in place."""
         x = x + attention.gqa_decode(self.attn, self.norm1(x, cfg.norm_eps), cache_k, cache_v, tables,
                                      **self._attn_args(cfg))
-        return x + self.ffn(self.norm2(x, cfg.norm_eps))
+        B, d = x.shape[0], x.shape[2]
+        f, _ = self._ffn(self.norm2(x, cfg.norm_eps).reshape(1, B, d), cfg)  # the batch is the MoE group
+        return x + f.reshape(B, 1, d)
 
 
 class LM(nn.Module):
-    """A dense decoder LM: ``embed``, ``layers`` (an ``nn.ModuleList``),
-    ``final_norm`` and ``unembed`` (None when the embedding is tied). Its state
-    dict's names follow the reference's tree: ``embed.table``,
-    ``layers.<l>.attn.wq``, ``layers.<l>.ffn.w_gate``, ``final_norm.scale``,
-    ``unembed.w``."""
+    """A decoder LM: ``embed``, ``layers`` (an ``nn.ModuleList``), ``final_norm``
+    and ``unembed`` (None when the embedding is tied). Its state dict's names
+    follow the reference's tree: ``embed.table``, ``layers.<l>.attn.wq``,
+    ``layers.<l>.ffn.w_gate`` (or ``layers.<l>.moe.router``, ``.moe.w_gate``),
+    ``final_norm.scale``, ``unembed.w``."""
 
     def __init__(self, cfg: ArchConfig, embed: layers.Embedding, decoder_layers, final_norm: layers.RMSNorm,
                  unembed: Optional[layers.Unembed]):
@@ -155,13 +170,17 @@ class LM(nn.Module):
 
 
 def _init_layer(key: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype, device) -> DecoderLayer:
-    ks = prng.split(key, 8)  # the reference's per-layer split: attn ks[0], ffn ks[3]
+    ks = prng.split(key, 8)  # the reference's per-layer split: attn ks[0], ffn or moe ks[3]
     d = cfg.d_model
+    if cfg.moe:
+        ffn = moe_lib.init_moe(ks[3], d, cfg.d_ff, cfg.num_experts, dtype, device)
+    else:
+        ffn = layers.init_swiglu(ks[3], d, cfg.d_ff, dtype, device)
     return DecoderLayer(
         layers.init_rmsnorm(d, dtype, device),
         attention.init_gqa(ks[0], d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, dtype, device),
         layers.init_rmsnorm(d, dtype, device),
-        layers.init_swiglu(ks[3], d, cfg.d_ff, dtype, device),
+        ffn,
     )
 
 
@@ -191,8 +210,13 @@ def _leaf_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     d, f, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     qd, kvd = cfg.num_heads * cfg.resolved_head_dim, cfg.num_kv_heads * cfg.resolved_head_dim
     shapes = {"embed.table": (V, d), "norm1.scale": (d,), "attn.wq": (d, qd), "attn.wk": (d, kvd),
-              "attn.wv": (d, kvd), "attn.wo": (qd, d), "norm2.scale": (d,), "ffn.w_gate": (d, f),
-              "ffn.w_up": (d, f), "ffn.w_down": (f, d), "final_norm.scale": (d,)}
+              "attn.wv": (d, kvd), "attn.wo": (qd, d), "norm2.scale": (d,), "final_norm.scale": (d,)}
+    if cfg.moe:
+        E = cfg.num_experts
+        shapes.update({"moe.router": (d, E), "moe.w_gate": (E, d, f), "moe.w_up": (E, d, f),
+                       "moe.w_down": (E, f, d)})
+    else:
+        shapes.update({"ffn.w_gate": (d, f), "ffn.w_up": (d, f), "ffn.w_down": (f, d)})
     if not cfg.tie_embeddings:
         shapes["unembed.w"] = (d, V)
     return shapes
@@ -203,10 +227,13 @@ def _assemble(cfg: ArchConfig, leaf) -> LM:
     None outside the layers)."""
     def layer(l):
         g = lambda n: leaf(n, l)
+        if cfg.moe:
+            ffn = moe_lib.MoE(g("moe.router"), g("moe.w_gate"), g("moe.w_up"), g("moe.w_down"))
+        else:
+            ffn = layers.SwiGLU(g("ffn.w_gate"), g("ffn.w_up"), g("ffn.w_down"))
         return DecoderLayer(layers.RMSNorm(g("norm1.scale")),
                             attention.GQA(g("attn.wq"), g("attn.wk"), g("attn.wv"), g("attn.wo")),
-                            layers.RMSNorm(g("norm2.scale")),
-                            layers.SwiGLU(g("ffn.w_gate"), g("ffn.w_up"), g("ffn.w_down")))
+                            layers.RMSNorm(g("norm2.scale")), ffn)
 
     return LM(cfg, layers.Embedding(leaf("embed.table", None)), [layer(l) for l in range(cfg.num_layers)],
               layers.RMSNorm(leaf("final_norm.scale", None)),
@@ -289,13 +316,17 @@ def _remat(fn, remat: str, *args):
     raise ValueError(f"remat must be none, full or dots, not {remat!r}")
 
 
-def trunk(params: LM, cfg: ArchConfig, x: torch.Tensor, *, plan: ExecPlan = ExecPlan()) -> torch.Tensor:
-    """The layers over x: (B, S, d), each under ``plan.remat``. Returns the
-    final-norm hidden states (the reference's MoE aux loss comes with the MoE
-    slice)."""
+def trunk(params: LM, cfg: ArchConfig, x: torch.Tensor, *,
+          plan: ExecPlan = ExecPlan()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layers over x: (B, S, d), each under ``plan.remat``. Returns (the
+    final-norm hidden states, the MoE aux loss summed over the layers in
+    float32; 0 for a dense model)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, window in zip(params.layers, layer_windows(cfg).tolist()):
-        x = _remat(lambda x, layer=layer, window=window: layer(x, cfg, window, plan), plan.remat, x)
-    return params.final_norm(x, cfg.norm_eps)
+        x, a = _remat(lambda x, layer=layer, window=window: layer(x, cfg, window, plan), plan.remat, x)
+        if a is not None:
+            aux = aux + a
+    return params.final_norm(x, cfg.norm_eps), aux
 
 
 @torch.inference_mode()
@@ -303,7 +334,7 @@ def forward_logits(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], 
                    plan: ExecPlan = ExecPlan()) -> torch.Tensor:
     """Full (B, S, V_pad) float32 logits (no chunking over the sequence)."""
     x, _ = embed_inputs(params, cfg, batch)
-    return layers.unembed(params.unembed_w(), trunk(params, cfg, x, plan=plan)).to(torch.float32)
+    return layers.unembed(params.unembed_w(), trunk(params, cfg, x, plan=plan)[0]).to(torch.float32)
 
 
 # ===================================================================== loss
@@ -345,9 +376,8 @@ def lm_loss(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     """Mean next-token CE (position t predicts token t + 1) + the MoE aux loss,
     and {"ce", "moe_aux"}: the single entry point of training."""
     x, mask = embed_inputs(params, cfg, batch)
-    h = trunk(params, cfg, x, plan=plan)
+    h, aux = trunk(params, cfg, x, plan=plan)
     labels = batch["labels"].to(h.device)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ce = chunked_ce_loss(h[:, :-1], params.unembed_w(), labels[:, 1:], mask[:, 1:].to(h.device),
                          chunk=plan.loss_chunk)
     return ce + cfg.router_aux_coef * aux, {"ce": ce, "moe_aux": aux}
@@ -356,31 +386,67 @@ def lm_loss(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
 # ===================================================================== KV cache
 
 
+def _local_global(cfg: ArchConfig) -> bool:
+    return cfg.attn_kind == "local_global" and cfg.local_global_ratio > 0
+
+
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, dtype: Optional[torch.dtype] = None,
-               device=None) -> Dict[str, torch.Tensor]:
-    """Decode cache for ``seq_len`` positions: {"k", "v"}, each (L, batch, seq_len,
-    KV, hd) zeros in the config's dtype on ``device`` (default CUDA)."""
+               device=None) -> dict:
+    """Decode cache for ``seq_len`` positions, zeros in the config's dtype on
+    ``device`` (default CUDA): {"k", "v"}, each (L, batch, S_c, KV, hd) with S_c
+    = seq_len, or min(window, seq_len) for sliding-window attention; for the
+    local:global pattern {"local": {"k", "v"}} of G·R rings of min(window,
+    seq_len) and {"global": {"k", "v"}} of G caches of seq_len (G = L // (R + 1))."""
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, seq_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     dtype = dtype or torch_dtype(cfg)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    def kv(n: int, s: int) -> Dict[str, torch.Tensor]:
+        shape = (n, batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    if _local_global(cfg):
+        R = cfg.local_global_ratio
+        groups = cfg.num_layers // (R + 1)
+        return {"local": kv(groups * R, min(cfg.window, seq_len)), "global": kv(groups, seq_len)}
+    swa = cfg.attn_kind == "swa" and cfg.window > 0
+    return kv(cfg.num_layers, min(cfg.window, seq_len) if swa else seq_len)
+
+
+def layer_caches(cfg: ArchConfig, cache: dict) -> list:
+    """Each decoded layer's (k, v) cache views, (B, S_c, KV, hd) each. With the
+    local:global split, layer l = g·(R + 1) + r reads local entry g·R + r (r < R)
+    or global entry g; the reference's grouped decode covers the G whole
+    groups, so the list has G·(R + 1) entries."""
+    if not _local_global(cfg):
+        return [(cache["k"][l], cache["v"][l]) for l in range(cache["k"].shape[0])]
+    R = cfg.local_global_ratio
+    out = []
+    for l in range(cache["global"]["k"].shape[0] * (R + 1)):
+        g, r = divmod(l, R + 1)
+        part, i = (cache["local"], g * R + r) if r < R else (cache["global"], g)
+        out.append((part["k"][i], part["v"][i]))
+    return out
 
 
 # ===================================================================== decode
 
 
 @torch.inference_mode()
-def decode_step(params: LM, cfg: ArchConfig, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int, *,
-                x_embed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def decode_step(params: LM, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, pos: int, *,
+                x_embed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
     """One-token decode at position ``pos`` (an int). tokens: (B,) ids, or
     ``x_embed`` (B, d) pre-embedded inputs in their place. Writes each layer's
-    k, v into ``cache`` in place. Returns (logits (B, V_pad) float32, cache)."""
+    k, v into its ring of ``cache`` in place (``layer_caches``). Returns
+    (logits (B, V_pad) float32, cache)."""
     x = params.embed(tokens[:, None]) if x_embed is None else x_embed[:, None, :]
     rot = int(cfg.resolved_head_dim * cfg.rope_fraction) & ~1
-    tables = attention.decode_tables(int(pos), cache["k"].shape[2], rot, cfg.rope_theta, x.device)
-    for l, layer in enumerate(params.layers):
-        x = layer.decode(x, cache["k"][l], cache["v"][l], tables, cfg)
+    tables = {}  # by ring length: the local rings and the global caches of gemma3
+    for layer, (ck, cv) in zip(params.layers, layer_caches(cfg, cache)):
+        s_cache = ck.shape[1]
+        if s_cache not in tables:
+            tables[s_cache] = attention.decode_tables(int(pos), s_cache, rot, cfg.rope_theta, x.device)
+        x = layer.decode(x, ck, cv, tables[s_cache], cfg)
     h = params.final_norm(x, cfg.norm_eps)
     return layers.unembed(params.unembed_w(), h)[:, 0].to(torch.float32), cache
 
@@ -399,27 +465,40 @@ def _pad_seq(dst: torch.Tensor, src: torch.Tensor) -> None:
         dst[:, :S] = src
 
 
+def _ring_place(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Write the last min(S_c, S) positions of (B, S, ...) ``src`` into the ring
+    (B, S_c, ...) ``dst`` at slots p mod S_c (the reference's ``_ring_place``;
+    the other slots stay zero)."""
+    S, s_cache = src.shape[1], dst.shape[1]
+    take = min(s_cache, S)
+    slots = torch.arange(S - take, S, device=dst.device) % s_cache
+    dst[:, slots] = src[:, S - take :]
+
+
 @torch.inference_mode()
 def batched_prefill(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *, cache_len: Optional[int] = None,
-                    plan: ExecPlan = ExecPlan()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                    plan: ExecPlan = ExecPlan()) -> Tuple[torch.Tensor, dict]:
     """Flash prefill: one batched pass over the prompt. Returns (last-token logits
     (B, V_pad) float32, a decode cache of ``cache_len`` positions (default S)
-    positioned at pos = S)."""
+    positioned at pos = S). A windowed layer's k, v go to its ring at slots
+    p mod S_c (``_ring_place``), a full layer's to slots 0…S−1 (``_pad_seq``)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x, _ = embed_inputs(params, cfg, batch)
     cache = init_cache(cfg, B, cache_len or S, device=x.device)
+    slots = layer_caches(cfg, cache)
     for l, (layer, window) in enumerate(zip(params.layers, layer_windows(cfg).tolist())):
-        x, (k, v) = layer(x, cfg, window, plan, return_kv=True)
-        _pad_seq(cache["k"][l], k)
-        _pad_seq(cache["v"][l], v)
+        x, _, (k, v) = layer(x, cfg, window, plan, return_kv=True)
+        if l < len(slots):
+            place = _ring_place if window > 0 else _pad_seq
+            place(slots[l][0], k)
+            place(slots[l][1], v)
     h = params.final_norm(x[:, -1:], cfg.norm_eps)
     return layers.unembed(params.unembed_w(), h)[:, 0].to(torch.float32), cache
 
 
 @torch.inference_mode()
-def prefill(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
-            cache: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def prefill(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cache: dict) -> Tuple[torch.Tensor, dict]:
     """Fill the cache from a prompt by stepping ``decode_step`` over its positions
     (one code path for the cache's semantics). Returns (the last position's
     logits (B, V_pad) float32, cache)."""

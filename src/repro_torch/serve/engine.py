@@ -54,9 +54,13 @@ class ServeConfig:
 class Engine:
     """Batched generation with an :class:`~repro_torch.models.lm.LM` on ``device``
     (``None`` means CUDA, raising when absent; ``"cpu"`` for the CPU). The model
-    must already be there: it is used as given, never moved (``ValueError``)."""
+    must already be there: it is used as given, never moved (``ValueError``).
+    ``plan`` sets the prefill's attention key chunk: its float32 score tiles
+    hold B·S·H·chunk entries, and another chunk changes only the order of the
+    online softmax's float32 sums."""
 
-    def __init__(self, cfg: ArchConfig, params: lm.LM, sc: ServeConfig, *, device=None):
+    def __init__(self, cfg: ArchConfig, params: lm.LM, sc: ServeConfig, *, device=None,
+                 plan: Optional[lm.ExecPlan] = None):
         self.device = resolve_device(device)
         held = next(params.parameters()).device
         if held.type != self.device.type or self.device.index not in (None, held.index):
@@ -64,6 +68,7 @@ class Engine:
         self.cfg = cfg
         self.params = params
         self.sc = sc
+        self.plan = plan or lm.ExecPlan()
 
     def _mask_pad(self, logits: torch.Tensor) -> torch.Tensor:
         """Padded-vocab ids (the table's padding to a multiple of 256) are never sampled."""
@@ -71,7 +76,8 @@ class Engine:
         return logits
 
     def _prefill(self, tokens: torch.Tensor):
-        logits, cache = lm.batched_prefill(self.params, self.cfg, {"tokens": tokens}, cache_len=self.sc.max_len)
+        logits, cache = lm.batched_prefill(self.params, self.cfg, {"tokens": tokens}, cache_len=self.sc.max_len,
+                                           plan=self.plan)
         return self._mask_pad(logits), cache
 
     def _decode(self, tok: torch.Tensor, cache, pos: int, key: Optional[torch.Tensor]):

@@ -26,7 +26,7 @@ def extract_features(params, cfg, batch, *, plan=None) -> torch.Tensor:
 
     with torch.inference_mode():
         x, _ = lm.embed_inputs(params, cfg, batch)
-        h = lm.trunk(params, cfg, x, plan=plan or lm.ExecPlan())
+        h, _ = lm.trunk(params, cfg, x, plan=plan or lm.ExecPlan())
         return h.reshape(-1, cfg.d_model).to(torch.float32)
 
 

@@ -10,7 +10,9 @@ plain version, per column: max_i |ΔSX_ij| / rms_i(SX_ij) ≤ 1e-5. The FWHT ker
 is bitwise its plain version. Slices of a multi-key launch are bitwise equal to
 single-key launches. The dense decoder LM (reduced configs, float32, TF32 off)
 gives the CPU's weights and tokens bitwise, its logits within 1e-5 of the
-largest, and the Engine the CPU's tokens.
+largest, and the Engine the CPU's tokens; the MoE layer the CPU's expert ids
+and drops, and the MoE, sliding-window and local:global models the CPU's
+logits and ring caches within 1e-5.
 """
 import dataclasses
 
@@ -1405,3 +1407,70 @@ def test_sketch_dp_step_on_the_card_against_the_cpu(cuda, kind, ratio):
     assert ends["cuda"][1] == want and ends["cpu"][1] == {}
     for n, p in ends["cpu"][0].items():
         assert (ends["cuda"][0][n] - p).abs().max() <= 1e-4 * p.abs().max(), n
+
+
+# ------------------------------------------------------------------ MoE, sliding-window and local:global
+
+
+def _flat_cache(cache: dict) -> dict:
+    out = {}
+    for a, t in cache.items():
+        out.update({f"{a}.{b}": u for b, u in t.items()} if isinstance(t, dict) else {a: t})
+    return out
+
+
+@pytest.mark.parametrize("cf", [1.25, 4.0])
+@pytest.mark.parametrize("G,T", [(3, 40), (1, 8)])
+def test_moe_layer_on_the_card_against_the_cpu(cuda, G, T, cf):
+    """The reduced mixtral's first MoE layer (float32, 4 experts, top-2), each
+    sequence a group and the decode's batch a group: the card's expert ids and
+    drop count are the CPU's, its output within 1e-5 of the largest, and a rerun
+    on the card bitwise."""
+    from repro_torch.models import lm, moe
+
+    cfg = _lm_cfg("mixtral-8x7b")
+    cpu_moe = lm.init_params(cfg, prng.prng_key(9), device="cpu").layers[0].moe
+    card_moe = lm.init_params(cfg, prng.prng_key(9), device=cuda).layers[0].moe
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal((G, T, cfg.d_model)).astype(np.float32))
+    args = dict(num_experts=cfg.num_experts, top_k=cfg.top_k, capacity_factor=cf)
+    with moe.count_drops() as cw:
+        want, want_aux = moe.moe_forward(cpu_moe, x, **args)
+    with moe.count_drops() as cc:
+        got, aux = moe.moe_forward(card_moe, x.to(cuda), **args)
+    again, _ = moe.moe_forward(card_moe, x.to(cuda), **args)
+    assert torch.equal(moe.route(card_moe, x.to(cuda), cfg.num_experts, cfg.top_k)[1].cpu(),
+                       moe.route(cpu_moe, x, cfg.num_experts, cfg.top_k)[1])
+    assert int(cc.dropped) == int(cw.dropped)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * abs(float(want_aux))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "gemma3-12b", "grok-1-314b"])
+def test_ring_and_moe_lm_on_the_card_against_the_cpu(cuda, arch):
+    """forward, batched prefill of 39 tokens (past the window of 8: the rings wrap)
+    and three decode steps, card against CPU, float32 with TF32 off: logits and
+    every cache leaf within 1e-5 of the largest."""
+    from repro_torch.models import lm
+
+    cfg = _lm_cfg(arch)
+    cpu_model = lm.init_params(cfg, prng.prng_key(5), device="cpu")
+    card_model = lm.init_params(cfg, prng.prng_key(5), device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 42)))
+
+    def rel(got, want):
+        return float((got.cpu() - want).abs().max() / want.abs().max())
+
+    assert rel(lm.forward_logits(card_model, cfg, {"tokens": toks.to(cuda)}),
+               lm.forward_logits(cpu_model, cfg, {"tokens": toks})) <= 1e-5
+    lc, cc = lm.batched_prefill(card_model, cfg, {"tokens": toks[:, :39].to(cuda)}, cache_len=48)
+    lw, cw = lm.batched_prefill(cpu_model, cfg, {"tokens": toks[:, :39]}, cache_len=48)
+    assert rel(lc, lw) <= 1e-5
+    for pos in range(39, 42):
+        lc, cc = lm.decode_step(card_model, cfg, toks[:, pos].to(cuda), cc, pos)
+        lw, cw = lm.decode_step(cpu_model, cfg, toks[:, pos], cw, pos)
+        assert rel(lc, lw) <= 1e-5
+    fc, fw = _flat_cache(cc), _flat_cache(cw)
+    assert set(fc) == set(fw)
+    for name, t in fw.items():
+        assert fc[name].device.type == "cuda" and rel(fc[name], t) <= 1e-5, name

@@ -6,7 +6,8 @@
 * Every module imports on CPU-only PyTorch without building anything.
 * The entry points run on CUDA by default and raise when it is absent (the LM's
   ``init_params``, ``init_cache``, ``lm_batch``, ``Engine`` and the launcher's
-  LM mode too; the training state, ``Trainer`` and the training launcher).
+  LM mode too, for the MoE and windowed configs as well; the training state,
+  ``Trainer`` and the training launcher).
 * ``chip_smoke.py`` exits non-zero, printing no result, without CUDA and outside
   a checkout.
 """
@@ -143,6 +144,29 @@ def test_lm_modules_are_scanned():
     scanned = {str(p.relative_to(PORT)) for p in PORT_FILES if PORT in p.parents}
     assert {"models/layers.py", "models/attention.py", "models/lm.py", "data/tokens.py", "configs/base.py",
             "configs/granite_3_8b.py", "configs/chatglm3_6b.py", "serve/engine.py", "launch/serve.py"} <= scanned
+
+
+def test_moe_and_windowed_modules_are_scanned():
+    scanned = {str(p.relative_to(PORT)) for p in PORT_FILES if PORT in p.parents}
+    assert {"models/moe.py", "configs/mixtral_8x7b.py", "configs/gemma3_12b.py", "configs/grok_1_314b.py"} <= scanned
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "gemma3-12b", "grok-1-314b"])
+def test_moe_and_windowed_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.utils import prng
+
+    cfg = get_config(arch).reduced()
+    model = lm.init_params(cfg, prng.prng_key(0), device="cpu")
+    _no_cuda(monkeypatch)
+    for call in (lambda: lm.init_params(cfg, prng.prng_key(0)), lambda: lm.init_cache(cfg, 1, 8),
+                 lambda: Engine(cfg, model, ServeConfig()), lambda: launch_serve.main(["--arch", arch, "--reduced"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert Engine(cfg, model, ServeConfig(), device="cpu").generate([list(range(1, 12))], max_new_tokens=2)
 
 
 def test_training_modules_are_scanned():

@@ -1,7 +1,9 @@
-"""The port's dense decoder LM against the JAX reference (CPU, reduced configs).
+"""The port's decoder LM against the JAX reference (CPU, reduced configs).
 
-Configs: every field of granite-3-8b and chatglm3-6b, full and ``reduced()``, and
-the shape specs, equal the reference's. Layers (float32): ``rmsnorm``,
+Configs: every field of granite-3-8b, chatglm3-6b, mixtral-8x7b, gemma3-12b and
+grok-1-314b, full and ``reduced()``, and the shape specs, equal the
+reference's (reduced: mixtral 2 layers and 4 experts, gemma3 6 layers, one full
+local:global period, grok 2 layers, windows 8). Layers (float32): ``rmsnorm``,
 ``rope_angles``, ``apply_rope`` (fraction 1.0 and 0.5), ``swiglu``, ``embed``,
 ``cross_entropy_loss`` and ``chunked_attention`` (S not a multiple of the chunk,
 causal or not, windowed, G = 1 and 2) within ``LAYER_TOL`` of the reference's,
@@ -13,15 +15,22 @@ bit), float32 and bfloat16, at two keys.
 
 The model (parameters converted from the reference's tree, so the parity does
 not rest on the init): ``forward_logits``, ``batched_prefill`` (logits and
-cache), the token-by-token ``prefill`` and decode continuations, granite and
-chatglm in float32 within ``MODEL_TOL`` of the largest reference logit (float32
-through two layers, sums in other orders); one bfloat16 forward within
-``BF16_TOL``: an activation's bfloat16 rounding (2⁻⁹ relative) flips where the
-two float32 values before it differ by an ulp, and the two layers carry such
-flips to the logits. The port's own forward = batched prefill = token prefill =
-decode, as ``tests/test_decode_consistency.py`` holds the reference.
-Tokens (``lm_batch``, ``lm_eval_batch``) are bitwise the reference's; other
-families' configs raise ``NotImplementedError``.
+cache), the token-by-token ``prefill`` and decode continuations, every arch in
+float32 within ``MODEL_TOL`` of the largest reference logit (float32 through
+two to six layers, sums in other orders), the MoE archs at their config's
+capacity (assignments dropped), the caches leaf by leaf (the SWA ring, gemma3's
+local rings and global caches; prompts past the window, so the rings wrap, and
+caches shorter than the window); ``lm_loss`` with its MoE aux loss. bfloat16
+forwards within ``BF16_TOL``: an activation's bfloat16 rounding (2⁻⁹ relative)
+flips where the two float32 values before it differ by an ulp, and the layers
+carry such flips to the logits. The bfloat16 MoE layer: where the reference's
+router margin p_k − p_(k+1) exceeds 2 bfloat16 ulps of p_k the expert ids are
+equal and those tokens' outputs within ``BF16_TOL``; the tokens under the margin
+are counted and bounded. The port's own forward = batched prefill = token
+prefill = decode (MoE at dropless capacity, as ``tests/test_decode_consistency.py``
+holds the reference). Tokens (``lm_batch``, ``lm_eval_batch``) are bitwise the
+reference's; the families still unported (MLA, SSM, hybrid, enc-dec, VLM) raise
+``NotImplementedError``.
 """
 import dataclasses
 
@@ -43,7 +52,8 @@ from repro_torch.utils import prng
 # them from oversubscribing the cores (each op's thread team waits on the others).
 torch.set_num_threads(1)
 
-ARCHS = ["granite-3-8b", "chatglm3-6b"]
+ARCHS = ["granite-3-8b", "chatglm3-6b", "mixtral-8x7b", "gemma3-12b", "grok-1-314b"]
+WINDOWED = ["mixtral-8x7b", "gemma3-12b"]
 LAYER_TOL = 2e-6
 MODEL_TOL = 1e-5
 BF16_TOL = 3e-2
@@ -92,10 +102,13 @@ def test_param_shapes_match_the_reference_at_full_size(arch):
     got = tlm.param_shapes(tget(arch))
     assert tuple(got["embed.table"]) == want["embed"]["table"].shape
     assert tuple(got["unembed.w"]) == want["unembed"]["w"].shape
-    for name in ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "ffn.w_gate", "ffn.w_up", "ffn.w_down", "norm1.scale"):
+    ffn = ("moe.router", "moe.w_gate", "moe.w_up", "moe.w_down") if jget(arch).moe else (
+        "ffn.w_gate", "ffn.w_up", "ffn.w_down")
+    for name in ("attn.wq", "attn.wk", "attn.wv", "attn.wo", *ffn, "norm1.scale"):
         mod, w = name.split(".")
         assert tuple(got[f"layers.0.{name}"]) == want["layers"][mod][w].shape[1:]
     assert len([k for k in got if k.endswith("attn.wq")]) == jget(arch).num_layers
+    assert sum(s.numel() for s in got.values()) == sum(np.prod(a.shape) for a in jax.tree_util.tree_leaves(want))
 
 
 # ------------------------------------------------------------------ layers
@@ -237,9 +250,9 @@ def test_init_params_is_the_reference_init(arch, dtype, seed):
 # ------------------------------------------------------------------ the model
 
 
-def _models(arch, dtype="float32", seed=0):
-    jc = dataclasses.replace(jget(arch).reduced(), dtype=dtype)
-    tc = dataclasses.replace(tget(arch).reduced(), dtype=dtype)
+def _models(arch, dtype="float32", seed=0, **changes):
+    jc = dataclasses.replace(jget(arch).reduced(), dtype=dtype, **changes)
+    tc = dataclasses.replace(tget(arch).reduced(), dtype=dtype, **changes)
     jp = jlm.init_params(jc, jax.random.PRNGKey(seed))
     tp = tlm.params_from_reference(tc, jax.tree_util.tree_map(np.asarray, jp), device=CPU)
     return jc, tc, jp, tp
@@ -250,28 +263,97 @@ def _batch(vocab, B, S, seed):
     return {"tokens": jnp.asarray(toks)}, {"tokens": _t(toks).long()}
 
 
+def _assert_caches_match(got: dict, want) -> None:
+    """The port's cache leaf by leaf against the reference's: the same keys and
+    shapes (the local/global split included), values within MODEL_TOL."""
+    leaves = jax.tree_util.tree_flatten_with_path(want)[0]
+    names = {".".join(p.key for p in path) for path, _ in leaves}
+    flat = {f"{a}.{b}": t for a, sub in got.items() if isinstance(sub, dict) for b, t in sub.items()}
+    flat.update({a: t for a, t in got.items() if not isinstance(t, dict)})
+    assert set(flat) == names
+    for path, leaf in leaves:
+        t = flat[".".join(p.key for p in path)]
+        assert tuple(t.shape) == leaf.shape and t.dtype == torch.float32
+        assert _rel(t, leaf) <= MODEL_TOL, path
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_prefill_decode_match_the_reference(arch):
     jc, tc, jp, tp = _models(arch)
-    B, S = 2, 21
+    B, S = 2, 21  # past the reduced window of 8: the rings wrap
     jb, tb = _batch(jc.vocab_size, B, S, 11)
     assert _rel(tlm.forward_logits(tp, tc, tb), jlm.forward_logits(jp, jc, jb)) <= MODEL_TOL
     jl, jcache = jlm.batched_prefill(jp, jc, jb, cache_len=S + 4)
     tl, tcache = tlm.batched_prefill(tp, tc, tb, cache_len=S + 4)
     assert _rel(tl, jl) <= MODEL_TOL
-    for n in ("k", "v"):
-        assert tuple(tcache[n].shape) == jcache[n].shape
-        assert _rel(tcache[n], jcache[n]) <= MODEL_TOL
+    _assert_caches_match(tcache, jcache)
     jl2, jc2 = jlm.prefill(jp, jc, jb, jlm.init_cache(jc, B, S + 4))
     tl2, tc2 = tlm.prefill(tp, tc, tb, tlm.init_cache(tc, B, S + 4, device=CPU))
-    assert _rel(tl2, jl2) <= MODEL_TOL and _rel(tc2["k"], jc2["k"]) <= MODEL_TOL
+    assert _rel(tl2, jl2) <= MODEL_TOL
+    _assert_caches_match(tc2, jc2)
     # three decode steps continuing the batched prefill's cache, the same tokens fed to both
     for step in range(3):
         tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
         jl, jcache = jlm.decode_step(jp, jc, jnp.asarray(tok), jcache, jnp.int32(S + step))
         tl, tcache = tlm.decode_step(tp, tc, _t(tok).long(), tcache, S + step)
         assert _rel(tl, jl) <= MODEL_TOL
-    assert _rel(tcache["v"], jcache["v"]) <= MODEL_TOL
+    _assert_caches_match(tcache, jcache)
+
+
+@pytest.mark.parametrize("S,cache_len", [(5, 6), (8, 12), (12, 8), (19, 24)])
+@pytest.mark.parametrize("arch", WINDOWED)
+def test_ring_caches_match_the_reference(arch, S, cache_len):
+    """Batched prefill into rings of min(8, cache_len): prompts shorter than the
+    ring (and a ring shorter than the window), as long as the window, longer
+    than the cache, and past twice the window; then decode steps while the
+    cache lasts."""
+    jc, tc, jp, tp = _models(arch, seed=3)
+    jb, tb = _batch(jc.vocab_size, 2, S, 15)
+    jl, jcache = jlm.batched_prefill(jp, jc, jb, cache_len=cache_len)
+    tl, tcache = tlm.batched_prefill(tp, tc, tb, cache_len=cache_len)
+    assert _rel(tl, jl) <= MODEL_TOL
+    _assert_caches_match(tcache, jcache)
+    for pos in range(S, min(S + 2, cache_len)):
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+        jl, jcache = jlm.decode_step(jp, jc, jnp.asarray(tok), jcache, jnp.int32(pos))
+        tl, tcache = tlm.decode_step(tp, tc, _t(tok).long(), tcache, pos)
+        assert _rel(tl, jl) <= MODEL_TOL
+    _assert_caches_match(tcache, jcache)
+
+
+@pytest.mark.parametrize("S", [3, 8, 13, 30])
+@pytest.mark.parametrize("s_cache", [4, 8])
+def test_ring_place_is_the_reference(S, s_cache):
+    src = _rs(S + s_cache).standard_normal((2, 3, S, 2, 4)).astype(np.float32)  # (L, B, S, KV, hd)
+    want = np.asarray(jlm._ring_place(jnp.asarray(src), s_cache))
+    got = torch.zeros((2, 3, s_cache, 2, 4))
+    for l in range(2):
+        tlm._ring_place(got[l], _t(src[l]))
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seq", [1, 7, 30])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_cache_is_the_reference_layout(arch, seq):
+    want = jlm.init_cache(jget(arch).reduced(), 2, seq)
+    got = tlm.init_cache(tget(arch).reduced(), 2, seq, device=CPU)
+    _assert_caches_match(got, want)
+    layers_read = len(tlm.layer_caches(tget(arch).reduced(), got))
+    assert layers_read == tget(arch).reduced().num_layers
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_loss_with_aux_matches_the_reference(arch):
+    jc, tc, jp, tp = _models(arch, seed=4)
+    toks = _rs(16).integers(0, jc.vocab_size, (2, 19)).astype(np.int32)
+    mask = (_rs(17).random((2, 19)) < 0.8).astype(np.float32)
+    jloss, jm = jlm.lm_loss(jp, jc, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks),
+                                     "loss_mask": jnp.asarray(mask)})
+    tloss, tm = tlm.lm_loss(tp, tc, {"tokens": _t(toks).long(), "labels": _t(toks).long(), "loss_mask": _t(mask)},
+                            plan=tlm.ExecPlan(loss_chunk=8))
+    assert (float(jm["moe_aux"]) > 0) == tc.moe
+    for got, want in ((tloss, jloss), (tm["ce"], jm["ce"]), (tm["moe_aux"], jm["moe_aux"])):
+        assert abs(float(got) - float(want)) <= MODEL_TOL * max(abs(float(want)), 1.0)
 
 
 def test_bfloat16_forward_matches_the_reference():
@@ -279,6 +361,57 @@ def test_bfloat16_forward_matches_the_reference():
     jb, tb = _batch(jc.vocab_size, 2, 16, 12)
     assert tp.embed.table.dtype == torch.bfloat16
     assert _rel(tlm.forward_logits(tp, tc, tb), jlm.forward_logits(jp, jc, jb)) <= BF16_TOL
+
+
+def test_bfloat16_local_global_forward_matches_the_reference():
+    jc, tc, jp, tp = _models("gemma3-12b", "bfloat16", seed=1)
+    jb, tb = _batch(jc.vocab_size, 2, 20, 12)
+    assert _rel(tlm.forward_logits(tp, tc, tb), jlm.forward_logits(jp, jc, jb)) <= BF16_TOL
+
+
+# Share of tokens whose reference router margin is under 2 bfloat16 ulps, at most:
+# the reduced configs' 4-expert softmax puts p_2 and p_3 near 1/4, and one ulp
+# there is 2⁻⁹ (the run below has 7 of 512 tokens, 0.014, for each arch; the
+# bound leaves room for other draws).
+BF16_UNDER_MARGIN_MAX = 0.1
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "grok-1-314b"])
+def test_bfloat16_moe_layer_matches_the_reference_past_the_router_margin(arch):
+    """Each layer's MoE of the bfloat16 reduced model on the same bfloat16 input
+    (4 groups of 64 tokens), at the config's capacity for the ids and dropless
+    for the outputs (a flipped expert moves the capacity windows of the
+    group's later tokens): the ids equal wherever the reference's margin p_k −
+    p_(k+1) exceeds 2 ulps of p_k in bfloat16, those tokens' outputs within
+    BF16_TOL of the largest, and the tokens under the margin counted and bounded."""
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe as tmoe
+
+    jc, tc, jp, tp = _models(arch, "bfloat16", seed=5)
+    E, k = tc.num_experts, tc.top_k
+    x = _rs(18).standard_normal((4, 64, tc.d_model)).astype(np.float32)
+    jx, tx = jnp.asarray(x, jnp.bfloat16), _t(x).to(torch.bfloat16)
+    under = 0
+    for l in range(tc.num_layers):
+        jmp = jax.tree_util.tree_map(lambda a: a[l], jp["layers"]["moe"])
+        tmp = tp.layers[l].moe
+        logits = np.asarray(jnp.einsum("gtd,de->gte", jx, jmp["router"]).astype(jnp.float32))
+        probs = np.asarray(jax.nn.softmax(jnp.asarray(logits), axis=-1))
+        top = -np.sort(-probs, axis=-1)
+        ulp = 2.0 ** (np.floor(np.log2(top[..., k - 1])) - 7)
+        sure = (top[..., k - 1] - top[..., k]) > 2 * ulp  # (G, T)
+        under += int((~sure).sum())
+        _, want_ids, _ = jmoe._route(jmp, jx, E, k)
+        _, ids, _ = tmoe.route(tmp, tx, E, k)
+        assert np.array_equal(ids.numpy()[sure], np.asarray(want_ids)[sure])
+        want, _ = jmoe.moe_forward(jmp, jx, num_experts=E, top_k=k, capacity_factor=float(E))
+        got, _ = tmoe.moe_forward(tmp, tx, num_experts=E, top_k=k, capacity_factor=float(E))
+        assert got.dtype == torch.bfloat16
+        want = np.asarray(want.astype(jnp.float32))
+        assert _rel(got.to(torch.float32).numpy()[sure], want[sure]) <= BF16_TOL
+    share = under / (tc.num_layers * x.shape[0] * x.shape[1])
+    print(f"{arch}: {under} tokens under the bfloat16 router margin ({share:.3f})")
+    assert share <= BF16_UNDER_MARGIN_MAX
 
 
 def test_prefill_cache_longer_than_its_length_keeps_the_last_positions():
@@ -291,8 +424,11 @@ def test_prefill_cache_longer_than_its_length_keeps_the_last_positions():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_port_forward_equals_prefills_and_decode(arch):
-    """The port alone: forward == batched prefill == token prefill == decode."""
-    _, tc, _, tp = _models(arch, seed=2)
+    """The port alone: forward == batched prefill == token prefill == decode (an
+    MoE at dropless capacity: the groups are sequences in the forward, the batch
+    in decode)."""
+    cf = {"capacity_factor": float(jget(arch).reduced().num_experts)} if jget(arch).moe else {}
+    _, tc, _, tp = _models(arch, seed=2, **cf)
     B, S = 2, 24
     _, tb = _batch(tc.vocab_size, B, S + 1, 14)
     full = tlm.forward_logits(tp, tc, tb)
@@ -338,14 +474,13 @@ def test_lm_batch_p_pattern_is_the_reference():
 @pytest.mark.parametrize("seq", [1, 7, 4096, 40_000])
 @pytest.mark.parametrize("arch", jbase.list_archs())
 def test_layer_windows_and_cache_lengths_match_the_reference(arch, seq):
-    """Every reference config, the windowed families too: the port refuses those
-    before it reads their windows (item 9b), but the helpers are held all the same."""
+    """Every reference config, also those of the families the port still refuses."""
     cfg = tbase.ArchConfig(**{f.name: getattr(jget(arch), f.name) for f in dataclasses.fields(tbase.ArchConfig)})
     assert np.array_equal(tlm.layer_windows(cfg).numpy(), np.asarray(jlm.layer_windows(jget(arch))))
     assert np.array_equal(tlm.cache_lengths(cfg, seq).numpy(), np.asarray(jlm.cache_lengths(jget(arch), seq)))
 
 
-@pytest.mark.parametrize("arch,item", [("mixtral-8x7b", "9b"), ("gemma3-12b", "9b"), ("minicpm3-4b", "9c"),
+@pytest.mark.parametrize("arch,item", [("hymba-1.5b", "9d"), ("pixtral-12b", "9e"), ("minicpm3-4b", "9c"),
                                        ("falcon-mamba-7b", "9d"), ("whisper-small", "9e")])
 def test_other_families_are_refused(arch, item):
     cfg = tbase.ArchConfig(**dataclasses.asdict(jget(arch).reduced()))

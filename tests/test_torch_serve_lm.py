@@ -9,9 +9,13 @@ where every step's logits agree within ``LOGIT_TOL`` (float32 through two layers
 1.9e-6 at most here, sums in other orders) and the reference's smallest
 top-2 margin along the run (of the sampled scores g + logits/T when sampling)
 exceeds 10·LOGIT_TOL, so equal tokens are what the logits' agreement implies.
-The port's own determinism, batched = single, several engine batches and EOS
-trimming are the reference's tests repeated; the launcher's LM mode prints the
-reference launcher's tokens.
+The same on the reduced mixtral-8x7b (MoE at its config's capacity 1.25, so
+the decode's batch-wide groups drop assignments; sliding window 8) and
+gemma3-12b (local:global, window 8) with prompts past the window, so the rings
+wrap in the prefill and again in decode. The port's own determinism, batched =
+single, several engine batches and EOS trimming are the reference's tests
+repeated; the launcher's LM mode prints the reference launcher's tokens, also
+for mixtral and gemma3.
 """
 import dataclasses
 import os
@@ -117,6 +121,37 @@ def test_generate_matches_the_reference(temperature):
     assert got == want
 
 
+NEW_ARCHS = ["mixtral-8x7b", "gemma3-12b"]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_generate_matches_the_reference_on_moe_and_windowed_archs(arch, temperature):
+    jc, tc = jget(arch).reduced(), tget(arch).reduced()
+    jp = jlm.init_params(jc, jax.random.PRNGKey(1))
+    tp = tlm.params_from_reference(tc, jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    kw = dict(max_batch=4, max_len=40, temperature=temperature, seed=4)
+    jeng, teng = JEngine(jc, jp, JServeConfig(**kw)), Engine(tc, tp, ServeConfig(**kw), device="cpu")
+    prompts = [list(range(3, 17)), [9, 4, 200, 31, 7, 7, 18, 90, 2, 11, 5], list(range(250, 238, -1))]
+    new = 12  # decode positions 14…25: past the window of 8 again
+    want = jeng.generate(prompts, max_new_tokens=new)
+    steps, margin = _reference_path(jeng, prompts, new)
+    assert margin > 10 * LOGIT_TOL, f"the reference's top-2 margin {margin} is too small to decide"
+    got = teng.generate(prompts, max_new_tokens=new)
+    S = max(len(p) for p in prompts)
+    toks = torch.zeros((3, S), dtype=torch.int64)
+    for r, p in enumerate(prompts):
+        toks[r, S - len(p):] = torch.tensor(p)
+    with torch.inference_mode():
+        logits, cache = teng._prefill(toks)
+        assert np.abs(logits.numpy() - steps[0]).max() <= LOGIT_TOL
+        for t in range(1, new):
+            tok = torch.tensor([o[t - 1] for o in got])
+            _, logits, cache = teng._decode(tok, cache, S + t - 1, prng.prng_key(0))
+            assert np.abs(logits.numpy() - steps[t]).max() <= LOGIT_TOL
+    assert got == want
+
+
 def test_generate_shapes_and_determinism():
     _, engine = _setup()
     prompts = [[1, 2, 3, 4], [5, 6, 7, 8]]
@@ -189,4 +224,15 @@ def test_launcher_lm_mode_prints_the_reference_tokens():
     assert want.returncode == 0, want.stderr[-2000:]
     lines = got.stdout.strip().splitlines()
     assert lines[0].startswith("arch=granite-3-8b requests=6 new_tokens=96 ")
+    assert [l for l in lines if l.startswith("  req")] == [l for l in want.stdout.splitlines() if l.startswith("  req")]
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_launcher_lm_mode_prints_the_reference_tokens_for_moe_and_windowed_archs(arch):
+    got = _launch("repro_torch.launch.serve", "--arch", arch, "--reduced", "--device", "cpu")
+    want = _launch("repro.launch.serve", "--arch", arch, "--reduced")
+    assert got.returncode == 0, got.stderr[-2000:]
+    assert want.returncode == 0, want.stderr[-2000:]
+    lines = got.stdout.strip().splitlines()
+    assert lines[0].startswith(f"arch={arch} requests=6 new_tokens=96 ")
     assert [l for l in lines if l.startswith("  req")] == [l for l in want.stdout.splitlines() if l.startswith("  req")]
