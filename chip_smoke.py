@@ -90,15 +90,16 @@ through rows 2 and 11, on Theorem 1; and, with the model freed,
 ``python -m repro_torch.launch.serve --arch granite-3-8b``. After the training
 phases, the other decoder families, bfloat16 with the reference's weights for
 key 0, each model freed before the next: chatglm3-6b whole (RoPE on half of
-each head; the same consistency checks); mixtral-8x7b at full width cut to 8
+each head; the same consistency checks); mixtral-8x7b at full width cut to 4
 of 32 layers (8 experts, top-2, sliding window 4,096: the consistency dropless
 over 4,609 tokens, so the batched prefill's ring wraps; the Engine at the
 config's capacity 1.25 on 8 prompts of 4,352-6,144 tokens, with the dropped
 share of MoE assignments at the prefill and at decode and one decode traced);
-gemma3-12b whole (48 layers, 40 of them local with a window of 1,024: the
-consistency over 2,049 tokens, the Engine on 8 prompts of 2,048-3,072 tokens,
-``fit_head`` on its features through rows 2 and 11 at 3,856 columns, and its
-launcher as a subprocess); grok-1-314b at full width cut to 2 of 64 layers
+gemma3-12b at full width cut to 24 of 48 layers (20 of them local with a
+window of 1,024: the consistency over 2,049 tokens, the Engine on 8 prompts of
+2,048-3,072 tokens, ``fit_head`` on its features through rows 2 and 11 at
+3,856 columns), and whole through its launcher as a subprocess; grok-1-314b at
+full width cut to 1 of 64 layers
 (the consistency dropless, one forward at the config's capacity). After the
 serverless phases, Algorithm 1 across processes: FIG3A in worker mode at q = 8
 with each worker sketching only its own 62,500 rows of A and b
@@ -110,7 +111,15 @@ ratios); worker, master and least-norm solves and the masked gradient mean
 each result bitwise the one without a group; and two spawned ranks in a gloo group,
 both on the card, running the replicated and row-sharded worker mode (4
 workers a rank) and the masked, compressed gradient mean, each within 1e-6 of
-the one-process result and bitwise on a rerun.
+the one-process result and bitwise on a rerun. Last, two more decoder
+families whole, the same way: minicpm3-4b (MLA: the absorbed decode over a
+latent cache of 288 values a position and layer; consistency at 4 × 1,025
+tokens, the Engine on 8 prompts of 1,536-2,048) and hymba-1.5b (GQA with a
+window of 1,024 beside Mamba in every layer: consistency over 2 × 2,049
+tokens, the Engine on 8 prompts of 2,048-3,072 with its decode state a
+sequence, ``fit_head`` on its features through rows 2 and 11 at 1,616
+columns). Each phase of ``main``, and each model of the decoder families'
+phases, prints its wall seconds (``{"phase": "seconds", ...}``).
 
 The SJLT rows carry their plan (splits, m-tiles, column tiles, blocks,
 workers a call) and the scatter's shared-memory floor beside the bound; the SJLT
@@ -140,6 +149,7 @@ unavailable or when run outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -147,7 +157,7 @@ import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Optional
 
 ROOT = Path(__file__).resolve().parent
 SEED = 20260
@@ -438,6 +448,20 @@ def gram_err(G, want) -> float:
     G, want = G.double().reshape(-1, *G.shape[-2:]), want.double().reshape(-1, *want.shape[-2:])
     diag = torch.diagonal(want, dim1=-2, dim2=-1).clamp_min(0)
     return float(((G - want).abs() / (diag[:, :, None] * diag[:, None, :]).sqrt()).max())
+
+
+@contextlib.contextmanager
+def clock(name: str):
+    """Prints the wall seconds of the block it wraps, ``{"phase": "seconds", "of": name}``."""
+    t0 = time.perf_counter()
+    yield
+    emit({"phase": "seconds", "of": name, "seconds": time.perf_counter() - t0})
+
+
+def timed(fn, *args):
+    """``fn(*args)`` under ``clock(fn.__name__)``."""
+    with clock(fn.__name__):
+        return fn(*args)
 
 
 def host_s(fn):
@@ -2887,6 +2911,48 @@ def first_divergence(a: list, b: list):
     return None
 
 
+ATTENTION_CACHE = ("k", "v", "ckv", "krope")  # the cache leaves the decode's attention reads as float32 copies
+
+
+def mixer_matrix_params(cfg) -> int:
+    """Weights of a layer's token-mixing products (GQA or MLA, and a hybrid
+    layer's Mamba projections): 2 flops a token each."""
+    d, H = cfg.d_model, cfg.num_heads
+    if cfg.mla:
+        nope, rope_d, v, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+        n = (d * cfg.q_lora_rank + cfg.q_lora_rank * H * (nope + rope_d) + d * (r + rope_d) + r * H * (nope + v)
+             + H * v * d)
+    else:
+        hd = cfg.resolved_head_dim
+        n = d * H * hd + 2 * d * cfg.num_kv_heads * hd + H * hd * d
+    if cfg.hybrid:
+        C, r, N = cfg.d_inner, cfg.resolved_dt_rank, cfg.ssm_state
+        n += d * 2 * C + C * (r + 2 * N) + r * C + C * d
+    return n
+
+
+def score_width(cfg) -> int:
+    """Flops / 2 of one query against one key over all heads: q·k and p·v."""
+    if cfg.mla:
+        return cfg.num_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim)
+    return 2 * cfg.num_heads * cfg.resolved_head_dim
+
+
+def cache_bytes_a_token(cfg) -> int:
+    """Attention-cache bytes a position and sequence over all layers (bf16)."""
+    if cfg.mla:
+        return 2 * (cfg.kv_lora_rank + cfg.qk_rope_dim)  # a layer: the latent and k_rope; × L through `windows`
+    return 2 * 2 * cfg.num_kv_heads * cfg.resolved_head_dim
+
+
+def state_bytes_a_sequence(cfg) -> int:
+    """A sequence's Mamba decode state over all layers, whatever its length: the
+    float32 h (C × N) and the bf16 conv tail (K − 1 × C) a layer."""
+    if not cfg.hybrid:
+        return 0
+    return cfg.num_layers * (cfg.d_inner * cfg.ssm_state * 4 + (cfg.d_conv - 1) * cfg.d_inner * 2)
+
+
 def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = False) -> tuple:
     """``Engine.generate`` (greedy) on c["prompts"] lm_batch prompts of
     c["min_len"]…c["max_len"] tokens, c["new"] new, twice. Reports the prefill's
@@ -2947,21 +3013,22 @@ def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = Fals
     drop = {"prefill": drops(counted["prefill"][:1]), "decode": drops(counted["decode"][:steps])}
 
     B, S = len(prompts), max(lens)
-    d, L, H, KV, hd = cfg.d_model, cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    d, L, H = cfg.d_model, cfg.num_layers, cfg.num_heads
     windows = lm.layer_windows(cfg).tolist()
     tokens_in = B * S
-    attn_params = d * H * hd + 2 * d * KV * hd + H * hd * d
     if cfg.moe:
         kept = drop["prefill"]["assigned"] - drop["prefill"]["dropped"]
         ffn_flops = 2 * kept * 3 * d * cfg.d_ff + 2 * tokens_in * L * d * cfg.num_experts
     else:
         ffn_flops = 2 * tokens_in * L * 3 * d * cfg.d_ff
     keys = sum(sum(min(q + 1, w) if w > 0 else q + 1 for q in range(S)) for w in windows)  # a row, all layers
-    flops = 2 * tokens_in * L * attn_params + ffn_flops + 2 * 2 * B * H * hd * keys + 2 * B * d * cfg.padded_vocab
+    flops = (2 * tokens_in * L * mixer_matrix_params(cfg) + ffn_flops + 2 * B * score_width(cfg) * keys
+             + 2 * B * d * cfg.padded_vocab)
     weight_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters() if n != "embed.table")
     pos_med = S + c["new"] // 2
-    kv_bytes = 2 * 2 * B * KV * hd * sum(min(pos_med + 1, w) if w > 0 else pos_med + 1 for w in windows)
-    floor_ms = (weight_bytes + kv_bytes) / PEAK_BYTES * 1e3
+    kv_bytes = B * cache_bytes_a_token(cfg) * sum(min(pos_med + 1, w) if w > 0 else pos_med + 1 for w in windows)
+    state_bytes = 2 * B * state_bytes_a_sequence(cfg)  # the Mamba states, read and written a step
+    floor_ms = (weight_bytes + kv_bytes + state_bytes) / PEAK_BYTES * 1e3
     dec_med = statistics.median(dec_ms)
 
     # One decode step traced, at the median step's position, on a fresh prefill.
@@ -2974,8 +3041,8 @@ def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = Fals
         for pos in range(S, pos_med):
             tok, _, cache = plain["decode"](tok, cache, pos, None)
         _, traced_wall = phase_trace(f"lm_{tag}_decode_traced", lambda: plain["decode"](tok, cache, pos_med, None))
-        # The float32 copies of every layer's k and v cache that the decode's attention reads (the reference's upcast).
-        pieces = [t for kv in lm.layer_caches(cfg, cache) for t in kv]
+        # The float32 copies of every layer's attention cache that the decode reads (the reference's upcast).
+        pieces = [t for lc in lm.layer_caches(cfg, cache) for n, t in lc.items() if n in ATTENTION_CACHE]
         copy_ms, _ = cuda_ms(lambda: [t.to(torch.float32) for t in pieces], 5)
         copy_bytes = sum(t.numel() * (t.element_size() + 4) for t in pieces)
         cache_shapes = {n: list(t.shape) for n, t in cache_leaves(cache).items()}
@@ -2992,6 +3059,7 @@ def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = Fals
         "decode_ms_median": dec_med, "decode_ms_median_first_run": statistics.median(dec_all[:steps]),
         "decode_ms_min": min(dec_ms), "decode_ms_max": max(dec_ms), "decode_tok_per_s": B / (dec_med / 1e3),
         "decode_floor_ms": floor_ms, "decode_weight_bytes": weight_bytes, "decode_kv_bytes": kv_bytes,
+        "decode_state_bytes": state_bytes,
         "decode_floor_share": floor_ms / dec_med, "decode_f32_cache_copy_ms": copy_ms,
         "decode_f32_cache_copy_bytes": copy_bytes, "traced_decode_wall_ms": traced_wall * 1e3, "drops": drop,
         "peak_gb": peak_gb, "greedy_rerun_equal": first == again, "first_tokens": [o[:8] for o in first[:2]],
@@ -3049,7 +3117,8 @@ def phase_lm_engine(cfg, model) -> None:
 def check_chunk_slices(family: str, keys, X, m: int) -> dict:
     """One multi-key launch on the first ``cuda.worker_chunk`` of the keys a main-path
     call takes: its first and last slices held against the plain version (within
-    GRAM_TOL) and bitwise against single-key launches. Returns the errors."""
+    GRAM_TOL) and bitwise against single-key launches; the launch's ms (CUDA
+    events, mean of 3 after a warm-up) beside its bound. Returns the errors and times."""
     import torch
 
     from repro_torch.kernels import cuda
@@ -3057,8 +3126,10 @@ def check_chunk_slices(family: str, keys, X, m: int) -> dict:
     n, dx = X.shape
     chunk = cuda.worker_chunk(n, m, dx, keys.shape[0], family=family, s=SJLT_S)
     calls = Calls(family, keys[:chunk], n, m)
-    G = calls.multi(X)
-    out = {"workers_per_call": chunk, "entry_rel_err": {}, "max_abs_err": {}, "slices_bitwise_equal_single": {}}
+    ms, G = cuda_ms(lambda: calls.multi(X), 3)
+    bound = gram_bound(family, n, dx, m, chunk)
+    out = {"workers_per_call": chunk, "ms": ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+           "entry_rel_err": {}, "max_abs_err": {}, "slices_bitwise_equal_single": {}}
     for w in sorted({0, chunk - 1}):
         want = calls.plain_single(w, X)
         out["entry_rel_err"][str(w)] = gram_err(G[w], want)
@@ -3070,10 +3141,10 @@ def check_chunk_slices(family: str, keys, X, m: int) -> dict:
     return out
 
 
-def phase_fit_head_lm(cfg, model, rows: dict, tag: str = "granite") -> None:
-    """Algorithm 1 on the LM's own features (granite-3-8b's; gemma3-12b's with
-    ``tag="gemma3"``): H = extract_features on lm_batch(16 × 2,048), 32,768 ×
-    d_model float32; Y = H·U[:, ids] + 0.1·N(0, 1),
+def phase_fit_head_lm(cfg, model, rows: dict, tag: str = "granite", ids: tuple = LM_HEAD_IDS) -> None:
+    """Algorithm 1 on the LM's own features (granite-3-8b's; gemma3-12b's and
+    hymba-1.5b's with ``tag``): H = extract_features on lm_batch(16 × 2,048),
+    32,768 × d_model float32; Y = H·U[:, ids] + 0.1·N(0, 1),
     U the model's unembedding at 16 fixed ids (a 16-token lm-head re-fit);
     fit_head at q = 16, m = 8,192, 12 arriving, reg 1e-4, the Gaussian through
     row 2 and the SJLT (s = 20) through row 11; the gates of phase_fit_head, and
@@ -3096,7 +3167,7 @@ def phase_fit_head_lm(cfg, model, rows: dict, tag: str = "granite") -> None:
     n, d = H.shape
     check((n, d) == (c["batch"] * c["seq"], cfg.d_model) and H.dtype == torch.float32
           and bool(torch.isfinite(H).all()), f"fit_head_{tag}_features: bad H {tuple(H.shape)} {H.dtype}")
-    U = model.unembed_w()[:, list(LM_HEAD_IDS)].to(torch.float32)
+    U = model.unembed_w()[:, list(ids)].to(torch.float32)
     Y = H @ U + c["noise"] * prng.normal(prng.prng_key(SEED + 43), (n, c["k"]), device=DEVICE)
     eig = torch.linalg.eigvalsh(H.double().T @ H.double())
     cond = float((eig[-1] / eig[0]).sqrt()) if float(eig[0]) > 0 else float("inf")
@@ -3484,7 +3555,11 @@ def phase_train_small_card_vs_cpu(rows: dict) -> None:
 # ------------------------------------------ MoE, sliding-window and local:global decoders; chatglm3-6b on the card
 
 CHATGLM_ARCH = "chatglm3-6b"  # 28 layers, d_model 4,096, 32/2 heads, RoPE on half of each head, 6.24e9 parameters
-MIXTRAL_LAYERS = 8  # of 32: the whole model's 93.4 GB of bf16 weights do not fit one card; 8 layers are 23.7 GB
+# Depth cuts (full width): mixtral's and grok's whole models do not fit one card; the
+# smoke also keeps under 900 s with the MLA and hybrid phase, so mixtral runs 4
+# of its 32 layers (12.1 GB), gemma3 24 of its 48 in-process (its launcher builds it
+# whole) and grok 1 of its 64 (6.53e9 parameters, 13.1 GB).
+MIXTRAL_LAYERS = 4
 MIXTRAL_CONSISTENCY = {"batch": 2, "seq": 4609, "prefill": 4608, "cache_len": 4672, "token_prefill": 64}
 MIXTRAL_ENGINE = {"prompts": 8, "min_len": 4352, "max_len": 6144, "new": 32}
 # The prefill's float32 score and probability chunks are B·S·H·chunk·4 bytes: 1.6 GB
@@ -3492,10 +3567,11 @@ MIXTRAL_ENGINE = {"prompts": 8, "min_len": 4352, "max_len": 6144, "new": 32}
 # 512 the prefill's peak was 16.6 GB above the weights and cache).
 MIXTRAL_ATTN_CHUNK = 256
 GEMMA_ARCH = "gemma3-12b"  # 48 layers (40 local, window 1,024; 8 global), d_model 3,840, head_dim 240, vocab 262,144
+GEMMA_LAYERS = 24  # four whole local:global periods of 5 + 1
 GEMMA_CONSISTENCY = {"batch": 2, "seq": 2049, "prefill": 2048, "cache_len": 2112, "token_prefill": 64}
 GEMMA_ENGINE = {"prompts": 8, "min_len": 2048, "max_len": 3072, "new": 32}
 SERVE_GEMMA_CLI = ("--arch", GEMMA_ARCH)
-GROK_LAYERS = 2  # of 64: the whole model's 316.5e9 parameters do not fit one card; 2 layers are 11.45e9 (22.9 GB)
+GROK_LAYERS = 1
 GROK_CONSISTENCY = {"batch": 2, "seq": 1025, "prefill": 1024, "cache_len": 1088, "token_prefill": 64}
 
 
@@ -3547,12 +3623,13 @@ def lm_build(label: str, cfg, leaf: str):
     return model
 
 
-def phase_lm_engine_family(tag: str, cfg, model, c: dict, plan=None) -> None:
-    """``run_engine`` for an MoE or windowed decoder at its config's capacity, with
-    prompts past its window (the rings wrap in the prefill)."""
+def phase_lm_engine_family(tag: str, cfg, model, c: dict, plan=None, extra: Optional[dict] = None) -> None:
+    """``run_engine`` for an MoE, windowed, MLA or SSM decoder at its config's
+    capacity, with prompts past its window (the rings wrap in the prefill);
+    ``extra`` joins the report."""
     label = f"lm_{tag}_engine"
     _, prompts, first, report, _ = run_engine(tag, cfg, model, c, plan=plan)
-    emit({"phase": label, "card": nvidia_smi_line(), **report})
+    emit({"phase": label, "card": nvidia_smi_line(), **report, **(extra or {})})
     check_engine(label, cfg, c, first, report)
     check(min(len(p) for p in prompts) > cfg.window, f"{label}: the prompts do not pass the window {cfg.window}")
     drop = report["drops"]["prefill"]
@@ -3598,46 +3675,100 @@ def phase_lm_families(rows: dict) -> None:
     MoE, sliding-window and local:global decoders at full width, bfloat16, the
     reference's weights for key 0: mixtral-8x7b at MIXTRAL_LAYERS layers (the
     consistency dropless over 4,609 tokens, past its window of 4,096; the
-    Engine at the config's capacity), gemma3-12b whole (consistency, Engine,
-    head fitting on its features through rows 2 and 11, the launcher), and
-    grok-1-314b at GROK_LAYERS layers. Each model is freed before the next is
-    built."""
+    Engine at the config's capacity), gemma3-12b at GEMMA_LAYERS layers
+    (consistency, Engine, head fitting on its features through rows 2 and 11)
+    and whole through its launcher, and grok-1-314b at GROK_LAYERS layers. Each
+    model is freed before the next is built."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
     free_card()
-    cfg = get_config(CHATGLM_ARCH)
-    model = lm_build("lm_chatglm3_init", cfg, "unembed.w")
-    phase_lm_consistency(cfg, model, "lm_chatglm3_consistency", LM_CONSISTENCY)
-    del model
-    free_card()
+    with clock("chatglm3"):
+        cfg = get_config(CHATGLM_ARCH)
+        model = lm_build("lm_chatglm3_init", cfg, "unembed.w")
+        phase_lm_consistency(cfg, model, "lm_chatglm3_consistency", LM_CONSISTENCY)
+        del model
+        free_card()
 
-    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS)
-    model = lm_build("lm_mixtral_init", cfg, f"layers.{MIXTRAL_LAYERS - 1}.moe.w_gate")
-    dropless = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
-    phase_lm_consistency(dropless, model, "lm_mixtral_consistency", MIXTRAL_CONSISTENCY)
-    phase_lm_engine_family("mixtral", cfg, model, MIXTRAL_ENGINE, lm.ExecPlan(attn_chunk=MIXTRAL_ATTN_CHUNK))
-    del model
-    free_card()
+    with clock("mixtral"):
+        cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS)
+        model = lm_build("lm_mixtral_init", cfg, f"layers.{MIXTRAL_LAYERS - 1}.moe.w_gate")
+        dropless = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+        phase_lm_consistency(dropless, model, "lm_mixtral_consistency", MIXTRAL_CONSISTENCY)
+        phase_lm_engine_family("mixtral", cfg, model, MIXTRAL_ENGINE, lm.ExecPlan(attn_chunk=MIXTRAL_ATTN_CHUNK))
+        del model
+        free_card()
 
-    cfg = get_config(GEMMA_ARCH)
-    model = lm_build("lm_gemma3_init", cfg, "embed.table")
-    phase_lm_consistency(cfg, model, "lm_gemma3_consistency", GEMMA_CONSISTENCY)
-    phase_lm_engine_family("gemma3", cfg, model, GEMMA_ENGINE)
-    phase_fit_head_lm(cfg, model, rows, tag="gemma3")
-    del model
-    free_card()
-    phase_lm_serve_cli("lm_gemma3_serve_cli", SERVE_GEMMA_CLI)
+    with clock("gemma3"):
+        cfg = dataclasses.replace(get_config(GEMMA_ARCH), num_layers=GEMMA_LAYERS)
+        model = lm_build("lm_gemma3_init", cfg, "embed.table")
+        phase_lm_consistency(cfg, model, "lm_gemma3_consistency", GEMMA_CONSISTENCY)
+        phase_lm_engine_family("gemma3", cfg, model, GEMMA_ENGINE)
+        phase_fit_head_lm(cfg, model, rows, tag="gemma3")
+        del model
+        free_card()
+    with clock("gemma3_serve_cli"):
+        phase_lm_serve_cli("lm_gemma3_serve_cli", SERVE_GEMMA_CLI)
 
-    cfg = dataclasses.replace(get_config("grok-1-314b"), num_layers=GROK_LAYERS)
-    model = lm_build("lm_grok_init", cfg, f"layers.{GROK_LAYERS - 1}.moe.w_gate")
-    phase_lm_consistency(dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts)), model,
-                         "lm_grok_consistency", GROK_CONSISTENCY)
-    phase_lm_grok_capacity(cfg, model)
-    del model
+    with clock("grok"):
+        cfg = dataclasses.replace(get_config("grok-1-314b"), num_layers=GROK_LAYERS)
+        model = lm_build("lm_grok_init", cfg, f"layers.{GROK_LAYERS - 1}.moe.w_gate")
+        phase_lm_consistency(dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts)), model,
+                             "lm_grok_consistency", GROK_CONSISTENCY)
+        phase_lm_grok_capacity(cfg, model)
+        del model
+        free_card()
+
+
+# ------------------------------------------ MLA and the hybrid attention+SSM layer
+
+MINICPM_ARCH = "minicpm3-4b"  # 62 layers, d_model 2,560, 40 heads, MLA: q_lora 768, kv_lora 256, nope 64, rope 32, v 64
+HYMBA_ARCH = "hymba-1.5b"  # 32 layers of GQA (25/5 heads, window 1,024) beside Mamba (d_inner 3,200), fused
+HYMBA_CONSISTENCY = {"batch": 2, "seq": 2049, "prefill": 2048, "cache_len": 2112, "token_prefill": 64}
+HYMBA_ENGINE = {"prompts": 8, "min_len": 2048, "max_len": 3072, "new": 32}
+HYMBA_HEAD_IDS = tuple(range(3, 3 + 16 * 1999, 1999))  # 16 fixed ids below hymba's vocabulary of 32,001
+
+
+def latent_cache_report(cfg) -> dict:
+    """MLA's cached bytes a token (all layers, bf16) against a per-head K and V cache."""
+    L, H = cfg.num_layers, cfg.num_heads
+    latent = L * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+    expanded = L * H * (cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim) * 2
+    return {"latent_cache_bytes_a_token": latent, "expanded_cache_bytes_a_token": expanded,
+            "latent_share": latent / expanded}
+
+
+def phase_lm_mla_hybrid(rows: dict) -> None:
+    """MLA (minicpm3-4b) and the hybrid GQA+Mamba layer (hymba-1.5b), each whole
+    at its published size, bfloat16, the reference's weights for key 0, the
+    first freed before the second is built: the consistency (forward, batched
+    prefill, decode, the token-by-token prefill against the batched one, every
+    cache leaf) and the Engine on each; minicpm3's latent cache bytes; hymba's
+    prompts past its window (the ring wraps while the SSM state carries on), its
+    decode state a sequence, and head fitting on its features (rows 2 and 11
+    at 1,616 columns)."""
+    from repro_torch.configs import get_config
+
     free_card()
+    with clock("minicpm3"):
+        cfg = get_config(MINICPM_ARCH)
+        model = lm_build("lm_minicpm3_init", cfg, "unembed.w")
+        phase_lm_consistency(cfg, model, "lm_minicpm3_consistency", LM_CONSISTENCY)
+        phase_lm_engine_family("minicpm3", cfg, model, LM_ENGINE, extra=latent_cache_report(cfg))
+        del model
+        free_card()
+
+    with clock("hymba"):
+        cfg = get_config(HYMBA_ARCH)
+        model = lm_build("lm_hymba_init", cfg, "unembed.w")
+        phase_lm_consistency(cfg, model, "lm_hymba_consistency", HYMBA_CONSISTENCY)
+        phase_lm_engine_family("hymba", cfg, model, HYMBA_ENGINE,
+                               extra={"decode_state_bytes_a_sequence": state_bytes_a_sequence(cfg)})
+        phase_fit_head_lm(cfg, model, rows, tag="hymba", ids=HYMBA_HEAD_IDS)
+        del model
+        free_card()
 
 
 def phase_trace(label: str, solve) -> None:
@@ -3700,32 +3831,27 @@ def main() -> int:
     smi = nvidia_smi_line()
     print(smi, flush=True)
     try:
-        phase_build()
-        phase_rng_probe()
-        phase_tensor_cores()
+        t0 = time.perf_counter()
+        timed(phase_build)
+        timed(phase_rng_probe)
+        timed(phase_tensor_cores)
         A, b, _ = regression.gaussian_regression(SEED + 2, FIG3A.n, FIG3A.d, device=DEVICE)
         rows: dict = {}
         X = torch.cat([A, b[:, None]], dim=1)
         del A, b
-        phase_kernels(X, FIG3A.m, rows)
-        phase_apply_kernels(X, FIG3A.m, FIG3A.m_prime, rows)
-        phase_fwht(X, FIG3A.m, FIG3A.m_prime, rows)
-        phase_row_offsets(X, FIG3A.m, rows)
+        timed(phase_kernels, X, FIG3A.m, rows)
+        timed(phase_apply_kernels, X, FIG3A.m, FIG3A.m_prime, rows)
+        timed(phase_fwht, X, FIG3A.m, FIG3A.m_prime, rows)
+        timed(phase_row_offsets, X, FIG3A.m, rows)
         del X
         torch.cuda.empty_cache()
-        phase_main_path(FIG3A, rows)
-        phase_fig3a_student_t(FIG3A, rows)
-        phase_fig2_emnist(rows)
-        phase_adjoint_kernel(rows)
-        phase_ln_apply(rows)
-        phase_least_norm(rows)
-        phase_gradcomp(rows)
-        phase_fit_head(rows)
-        phase_lm(rows)
-        phase_train(rows)
-        phase_lm_families(rows)
-        phase_serverless(rows)
-        phase_row_sharded_and_groups(rows)
+        timed(phase_main_path, FIG3A, rows)
+        timed(phase_fig3a_student_t, FIG3A, rows)
+        for phase in (phase_fig2_emnist, phase_adjoint_kernel, phase_ln_apply, phase_least_norm, phase_gradcomp,
+                      phase_fit_head, phase_lm, phase_train, phase_lm_families, phase_serverless,
+                      phase_row_sharded_and_groups, phase_lm_mla_hybrid):
+            timed(phase, rows)
+        emit({"phase": "seconds", "of": "main", "seconds": time.perf_counter() - t0})
         for name, row in rows.items():
             check(row["launches"] > 0, f"{name} was not launched on its path")
     except SmokeFailure as exc:

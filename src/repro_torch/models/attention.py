@@ -1,12 +1,18 @@
-"""Attention of the port: GQA with chunked online-softmax (flash-style) attention
-for training and prefill, and one-token decode against a KV cache.
+"""Attention of the port: GQA and MLA with chunked online-softmax (flash-style)
+attention for training and prefill, and one-token decode against a cache.
 
-Port of the GQA half of ``repro.models.attention`` (MLA and cross-attention decode
-come with their families). The algorithm is the reference's, in plain PyTorch:
+Port of ``repro.models.attention`` (cross-attention decode comes with the
+encoder-decoder family). The algorithm is the reference's, in plain PyTorch:
 ``chunked_attention`` walks the keys in chunks with a running (max, sum) pair, so
 its peak memory is O(S·chunk), and runs in float32 whatever the activations'
 dtype (q is scaled in its own dtype first, as the reference does). Heads are
 grouped kv-major: head h reads kv head h // (H / KV).
+
+MLA (multi-head latent attention, minicpm3) caches only the latent c_kv and the
+rotated shared key k_rope, (kv_lora + rope_d) values a position. Its prefill
+expands the latent to per-head keys and values for ``chunked_attention``; its
+decode is the absorbed form: W_uk folds into the query, the scores run against
+the latent cache, and the values stay latent until W_uv.
 """
 from __future__ import annotations
 
@@ -168,3 +174,93 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Te
     pr = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", pr, cache_v.to(torch.float32)).reshape(B, 1, heads * head_dim)
     return out.to(x.dtype) @ p.wo
+
+
+# ------------------------------------------------------------------ MLA
+
+
+class MLA(nn.Module):
+    """One MLA block's projections, (in, out) orientation: w_dq (d, q_lora), w_uq
+    (q_lora, H·(nope + rope_d)), w_dkv (d, kv_lora + rope_d), w_ukv (kv_lora,
+    H·(nope + v)), wo (H·v, d)."""
+
+    LEAVES = ("w_dq", "w_uq", "w_dkv", "w_ukv", "wo")
+
+    def __init__(self, **leaves: torch.Tensor):
+        super().__init__()
+        for name in self.LEAVES:
+            setattr(self, name, layers._param(leaves[name]))
+
+
+def init_mla(key: torch.Tensor, d: int, heads: int, *, q_lora: int, kv_lora: int, nope: int, rope_d: int,
+             v_dim: int, dtype: torch.dtype, device) -> MLA:
+    ks = prng.split(key, 6)
+    return MLA(
+        w_dq=layers.dense_init(ks[0], (d, q_lora), d, dtype, device),
+        w_uq=layers.dense_init(ks[1], (q_lora, heads * (nope + rope_d)), q_lora, dtype, device),
+        w_dkv=layers.dense_init(ks[2], (d, kv_lora + rope_d), d, dtype, device),
+        w_ukv=layers.dense_init(ks[3], (kv_lora, heads * (nope + v_dim)), kv_lora, dtype, device),
+        wo=layers.dense_init(ks[4], (heads * v_dim, d), heads * v_dim, dtype, device),
+    )
+
+
+def mla_forward(p: MLA, x: torch.Tensor, *, heads: int, kv_lora: int, nope: int, rope_d: int, v_dim: int,
+                rope_theta: float, chunk: int = 1024, return_kv: bool = False):
+    """Causal MLA over x: (B, S, d): the latent expanded to per-head K (nope, then
+    the one rotated k_rope every head shares) and V, then ``chunked_attention``
+    (q and k of nope + rope_d values, v of v_dim; scale 1/√(nope + rope_d)).
+
+    ``return_kv=True`` also returns (c_kv (B, S, kv_lora), k_rope (B, S,
+    rope_d)), k_rope after its rotation: the latent decode cache."""
+    B, S, _ = x.shape
+    q = ((x @ p.w_dq) @ p.w_uq).reshape(B, S, heads, nope + rope_d)
+    ckv_full = x @ p.w_dkv
+    ckv, k_rope = ckv_full[..., :kv_lora], ckv_full[..., kv_lora:]
+    kv = (ckv @ p.w_ukv).reshape(B, S, heads, nope + v_dim)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+
+    cos, sin = layers.rope_angles(torch.arange(S, device=x.device), rope_d, rope_theta)
+    q_rope = layers.apply_rope(q[..., nope:], cos[None], sin[None])
+    k_rope1 = layers.apply_rope(k_rope[:, :, None, :], cos[None], sin[None])  # (B, S, 1, rope_d)
+    q_full = torch.cat([q[..., :nope], q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope1.expand(B, S, heads, rope_d)], dim=-1)
+    out = chunked_attention(q_full, k_full, v, chunk=chunk)
+    out = out.reshape(B, S, heads * v_dim) @ p.wo
+    if return_kv:
+        return out, (ckv, k_rope1[:, :, 0, :])
+    return out
+
+
+def mla_decode(p: MLA, x: torch.Tensor, cache_ckv: torch.Tensor, cache_krope: torch.Tensor, tables, *, heads: int,
+               kv_lora: int, nope: int, rope_d: int, v_dim: int) -> torch.Tensor:
+    """Absorbed one-token MLA decode. x: (B, 1, d); cache_ckv (B, Sc, kv_lora) and
+    cache_krope (B, Sc, rope_d), written in place at the slot of ``tables``
+    (:func:`decode_tables` of the position, rot = rope_d). The query absorbs
+    W_uk (q_lat = q_nope·W_uk in the model dtype); scores q_lat·c_kv +
+    q_rope·k_rope, scaled by 1/√(nope + rope_d), and the softmax in float32
+    over float32 copies of the latent cache; the value sum stays latent (B, H,
+    kv_lora) until W_uv. The cache is never expanded to per-head K and V.
+    Returns out (B, 1, d)."""
+    cos, sin, slot, valid = tables
+    B = x.shape[0]
+    w = p.w_ukv.reshape(kv_lora, heads, nope + v_dim)
+    w_uk, w_uv = w[:, :, :nope], w[:, :, nope:]
+
+    q = ((x @ p.w_dq) @ p.w_uq).reshape(B, heads, nope + rope_d)
+    q_nope = q[..., :nope]
+    q_rope = layers.apply_rope(q[:, None, :, nope:], cos[None], sin[None])[:, 0]
+    ckv_full = (x @ p.w_dkv)[:, 0]
+    krope_new = layers.apply_rope(ckv_full[:, None, None, kv_lora:], cos[None], sin[None])[:, 0, 0]
+    cache_ckv[:, slot] = ckv_full[:, :kv_lora].to(cache_ckv.dtype)
+    cache_krope[:, slot] = krope_new.to(cache_krope.dtype)
+
+    ckv_f = cache_ckv.to(torch.float32)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, w_uk).to(torch.float32)
+    s = torch.einsum("bhr,bsr->bhs", q_lat, ckv_f)
+    s = s + torch.einsum("bhp,bsp->bhs", q_rope.to(torch.float32), cache_krope.to(torch.float32))
+    s = s * (1.0 / math.sqrt(nope + rope_d))
+    s = torch.where(valid[None, None, :], s, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", pr, ckv_f)  # (B, H, kv_lora)
+    out = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), w_uv).reshape(B, 1, heads * v_dim)
+    return out @ p.wo

@@ -1,12 +1,14 @@
 """The decoder LM of the port: parameters, forward, KV cache, decode and prefill.
 
-Port of ``repro.models.lm`` for the decoder families with GQA attention:
-dense (SwiGLU; RoPE at any ``rope_fraction``: granite-3-8b, chatglm3-6b), MoE
-(``models.moe``: mixtral-8x7b, grok-1-314b), sliding-window attention
-(mixtral's ``window``) and gemma3's local:global pattern (``local_global_ratio``
-windowed layers, then one global). A model is an :class:`LM` module: the
-embedding, an ``nn.ModuleList`` of :class:`DecoderLayer` looped in Python, the
-final norm and the unembedding.
+Port of ``repro.models.lm`` for the decoder families: dense (SwiGLU; RoPE at
+any ``rope_fraction``: granite-3-8b, chatglm3-6b), MoE (``models.moe``:
+mixtral-8x7b, grok-1-314b), sliding-window attention (mixtral's ``window``),
+gemma3's local:global pattern (``local_global_ratio`` windowed layers, then one
+global), MLA (``attention.mla_*``: minicpm3-4b) and the hybrid layer
+(hymba-1.5b: GQA with a window beside a Mamba branch of ``models.ssm``, both
+reading the same normed input, fused as rmsnorm(a)·β_a + rmsnorm(s)·β_s). A
+model is an :class:`LM` module: the embedding, an ``nn.ModuleList`` of
+:class:`DecoderLayer` looped in Python, the final norm and the unembedding.
 Weights keep the reference's (in, out) orientation; the functions mirror the
 reference's (``forward_logits(params, cfg, batch)`` and so on) with ``params``
 the module. Inference runs under ``torch.inference_mode()``.
@@ -20,36 +22,38 @@ recomputed in the backward pass, so (B, S, V) logits never exist. ``trunk``
 also returns the MoE auxiliary loss summed over the layers in float32 (0 for a
 dense model), which ``lm_loss`` adds at ``router_aux_coef``.
 
-The KV cache keeps the reference's keys and leaf shapes, allocated once and
+The decode cache keeps the reference's keys and leaf shapes, allocated once and
 written in place: {"k", "v"} of (L, B, S_c, KV, hd), where S_c is max_len, or
 ``min(window, max_len)`` for sliding-window attention (a ring); for the
 local:global pattern {"local": {"k", "v"}, "global": {"k", "v"}}, the G·R
 windowed layers' rings and the G global layers' full caches (layer l of group
-g = l // (R + 1) is local entry g·R + r or global entry g). Every cache is the
-reference's ring, slot p mod S_c for position p. Configs of other families
-(MLA, SSM, hybrid, enc-dec, VLM) raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+g = l // (R + 1) is local entry g·R + r or global entry g); for MLA the latent
+{"ckv" (L, B, S_c, kv_lora), "krope" (L, B, S_c, rope_d)}; for the hybrid's
+Mamba branch {"conv" (L, B, K − 1, C) in the model dtype, "ssm" (L, B, C, N)
+float32} beside its ring. Every attention cache is the reference's ring, slot p
+mod S_c for position p. Configs of the attention-free SSM family
+(falcon-mamba-7b), the encoder-decoder and the VLM families raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, layers, moe as moe_lib
+from repro_torch.models import attention, layers, moe as moe_lib, ssm as ssm_lib
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
 # Features of the reference's other families, each with the ROADMAP Queue 1 slice
 # of item 9 that ports it.
 _UNPORTED = (
-    (lambda c: c.mla, "MLA", "9c"),
-    (lambda c: c.family == "ssm", "the SSM family (models/ssm.py)", "9d"),
-    (lambda c: c.hybrid or c.family == "hybrid", "the hybrid family", "9d"),
+    (lambda c: c.family == "ssm", "the attention-free SSM family", "9d"),
     (lambda c: c.encdec or c.family == "encdec", "the encoder-decoder family", "9e"),
     (lambda c: c.vlm or c.family == "vlm", "the VLM family", "9e"),
 )
@@ -61,7 +65,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if missing:
         parts = ", ".join(f"{what} (ROADMAP Queue 1 item {item})" for what, item in missing)
         raise NotImplementedError(f"{cfg.name} ({cfg.family}): {parts} is not ported to repro_torch yet; "
-                                  "only the dense and MoE decoders with GQA attention are")
+                                  "only the decoder families with attention (dense, MoE, MLA and hybrid) are")
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -74,6 +78,7 @@ class ExecPlan:
 
     attn_chunk: int = 1024      # flash key-chunk: attention's memory is O(S·attn_chunk)
     loss_chunk: int = 512       # CE vocab-matmul sequence chunk
+    ssm_chunk: int = 128        # Mamba scan chunk: its float32 tiles are (B, ssm_chunk, C, N)
     remat: str = "full"         # none | full | dots (applies where autograd records)
 
 
@@ -101,13 +106,29 @@ def cache_lengths(cfg: ArchConfig, seq_len: int) -> torch.Tensor:
 # ===================================================================== modules
 
 
-class DecoderLayer(nn.Module):
-    """One pre-norm decoder layer: x + attn(norm1(x)), then + ffn(norm2(·)), the
-    FFN a SwiGLU (``ffn``) or a mixture of experts (``moe``)."""
+class Fuse(nn.Module):
+    """The hybrid layer's fuse of its attention output a and SSM output s:
+    rmsnorm(a)·β_a + rmsnorm(s)·β_s."""
 
-    def __init__(self, norm1: layers.RMSNorm, attn: attention.GQA, norm2: layers.RMSNorm, ffn: nn.Module):
+    def __init__(self, norm_a: layers.RMSNorm, norm_s: layers.RMSNorm, beta_a: torch.Tensor, beta_s: torch.Tensor):
         super().__init__()
-        self.norm1, self.attn, self.norm2 = norm1, attn, norm2
+        self.norm_a, self.norm_s = norm_a, norm_s
+        self.beta_a, self.beta_s = layers._param(beta_a), layers._param(beta_s)
+
+    def forward(self, a: torch.Tensor, s: torch.Tensor, eps: float) -> torch.Tensor:
+        return self.norm_a(a, eps) * self.beta_a + self.norm_s(s, eps) * self.beta_s
+
+
+class DecoderLayer(nn.Module):
+    """One pre-norm decoder layer, h = norm1(x): x + attn(h) (GQA or MLA), then +
+    ffn(norm2(·)), the FFN a SwiGLU (``ffn``) or a mixture of experts
+    (``moe``). A hybrid layer's mixer is ``fuse``(attn(h), mamba(h)); other
+    layers have no ``mamba`` and ``fuse`` (None)."""
+
+    def __init__(self, norm1: layers.RMSNorm, attn: nn.Module, norm2: layers.RMSNorm, ffn: nn.Module, *,
+                 mamba: Optional[ssm_lib.Mamba] = None, fuse: Optional[Fuse] = None):
+        super().__init__()
+        self.norm1, self.attn, self.mamba, self.fuse, self.norm2 = norm1, attn, mamba, fuse, norm2
         if isinstance(ffn, moe_lib.MoE):
             self.moe = ffn
         else:
@@ -120,25 +141,54 @@ class DecoderLayer(nn.Module):
         return self.ffn(h), None
 
     def _attn_args(self, cfg: ArchConfig) -> dict:
+        if cfg.mla:
+            return dict(heads=cfg.num_heads, kv_lora=cfg.kv_lora_rank, nope=cfg.qk_nope_dim, rope_d=cfg.qk_rope_dim,
+                        v_dim=cfg.v_head_dim)
         return dict(heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
                     rope_fraction=cfg.rope_fraction)
 
+    def _ssm_args(self, cfg: ArchConfig) -> dict:
+        return dict(state=cfg.ssm_state, dt_rank=cfg.resolved_dt_rank)
+
     def forward(self, x: torch.Tensor, cfg: ArchConfig, window: int, plan: ExecPlan, *, return_kv: bool = False):
         """(B, S, d) -> (x (B, S, d), MoE aux or None, each sequence an MoE group);
-        with ``return_kv`` also this layer's post-RoPE (k, v)."""
-        a = attention.gqa_forward(self.attn, self.norm1(x, cfg.norm_eps), rope_theta=cfg.rope_theta, window=window,
-                                  chunk=plan.attn_chunk, return_kv=return_kv, **self._attn_args(cfg))
-        kv = None
+        with ``return_kv`` also this layer's cache piece by the cache's names:
+        the post-RoPE "k", "v"; MLA's "ckv", "krope"; a Mamba branch's "conv"
+        (the last K − 1 pre-conv inputs) and "ssm" (h_T)."""
+        h = self.norm1(x, cfg.norm_eps)
+        piece = {}
+        fwd, names = (attention.mla_forward, ("ckv", "krope")) if cfg.mla else (
+            functools.partial(attention.gqa_forward, window=window), ("k", "v"))
+        a = fwd(self.attn, h, rope_theta=cfg.rope_theta, chunk=plan.attn_chunk, return_kv=return_kv,
+                **self._attn_args(cfg))
         if return_kv:
             a, kv = a
+            piece.update(zip(names, kv))
+        if self.mamba is not None:
+            s = ssm_lib.mamba_forward(self.mamba, h, chunk=plan.ssm_chunk, return_state=return_kv,
+                                      **self._ssm_args(cfg))
+            if return_kv:
+                s, (piece["conv"], piece["ssm"]) = s
+            a = self.fuse(a, s, cfg.norm_eps)
         x = x + a
         f, aux = self._ffn(self.norm2(x, cfg.norm_eps), cfg)
-        return (x + f, aux, kv) if return_kv else (x + f, aux)
+        return (x + f, aux, piece) if return_kv else (x + f, aux)
 
-    def decode(self, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, tables, cfg: ArchConfig):
-        """One token (B, 1, d) against this layer's cache (B, Sc, KV, hd), written in place."""
-        x = x + attention.gqa_decode(self.attn, self.norm1(x, cfg.norm_eps), cache_k, cache_v, tables,
-                                     **self._attn_args(cfg))
+    def decode(self, x: torch.Tensor, lc: Dict[str, torch.Tensor], tables, cfg: ArchConfig) -> torch.Tensor:
+        """One token (B, 1, d) against this layer's cache views ``lc``
+        (:func:`layer_caches`), written in place; ``tables`` is
+        ``attention.decode_tables`` of the position for the attention's cache."""
+        h = self.norm1(x, cfg.norm_eps)
+        if cfg.mla:
+            a = attention.mla_decode(self.attn, h, lc["ckv"], lc["krope"], tables, **self._attn_args(cfg))
+        else:
+            a = attention.gqa_decode(self.attn, h, lc["k"], lc["v"], tables, **self._attn_args(cfg))
+        if self.mamba is not None:
+            s, conv, state = ssm_lib.mamba_decode(self.mamba, h, lc["conv"], lc["ssm"], **self._ssm_args(cfg))
+            lc["conv"].copy_(conv)
+            lc["ssm"].copy_(state)
+            a = self.fuse(a, s, cfg.norm_eps)
+        x = x + a
         B, d = x.shape[0], x.shape[2]
         f, _ = self._ffn(self.norm2(x, cfg.norm_eps).reshape(1, B, d), cfg)  # the batch is the MoE group
         return x + f.reshape(B, 1, d)
@@ -147,9 +197,10 @@ class DecoderLayer(nn.Module):
 class LM(nn.Module):
     """A decoder LM: ``embed``, ``layers`` (an ``nn.ModuleList``), ``final_norm``
     and ``unembed`` (None when the embedding is tied). Its state dict's names
-    follow the reference's tree: ``embed.table``, ``layers.<l>.attn.wq``,
-    ``layers.<l>.ffn.w_gate`` (or ``layers.<l>.moe.router``, ``.moe.w_gate``),
-    ``final_norm.scale``, ``unembed.w``."""
+    follow the reference's tree: ``embed.table``, ``layers.<l>.attn.wq`` (MLA:
+    ``.attn.w_dkv`` and so on), ``layers.<l>.ffn.w_gate`` (or
+    ``layers.<l>.moe.router``, ``.moe.w_gate``), ``layers.<l>.mamba.in_proj``,
+    ``layers.<l>.fuse.norm_a.scale``, ``final_norm.scale``, ``unembed.w``."""
 
     def __init__(self, cfg: ArchConfig, embed: layers.Embedding, decoder_layers, final_norm: layers.RMSNorm,
                  unembed: Optional[layers.Unembed]):
@@ -170,18 +221,27 @@ class LM(nn.Module):
 
 
 def _init_layer(key: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype, device) -> DecoderLayer:
-    ks = prng.split(key, 8)  # the reference's per-layer split: attn ks[0], ffn or moe ks[3]
+    # The reference's per-layer split: attn ks[0], a hybrid's mamba ks[1], ffn or moe ks[3].
+    ks = prng.split(key, 8)
     d = cfg.d_model
+    if cfg.mla:
+        attn = attention.init_mla(ks[0], d, cfg.num_heads, q_lora=cfg.q_lora_rank, kv_lora=cfg.kv_lora_rank,
+                                  nope=cfg.qk_nope_dim, rope_d=cfg.qk_rope_dim, v_dim=cfg.v_head_dim, dtype=dtype,
+                                  device=device)
+    else:
+        attn = attention.init_gqa(ks[0], d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, dtype, device)
+    mamba = fuse = None
+    if cfg.hybrid:
+        mamba = ssm_lib.init_mamba(ks[1], d, d_inner=cfg.d_inner, state=cfg.ssm_state, d_conv=cfg.d_conv,
+                                   dt_rank=cfg.resolved_dt_rank, dtype=dtype, device=device)
+        half = lambda: torch.full((d,), 0.5, dtype=dtype, device=device)
+        fuse = Fuse(layers.init_rmsnorm(d, dtype, device), layers.init_rmsnorm(d, dtype, device), half(), half())
     if cfg.moe:
         ffn = moe_lib.init_moe(ks[3], d, cfg.d_ff, cfg.num_experts, dtype, device)
     else:
         ffn = layers.init_swiglu(ks[3], d, cfg.d_ff, dtype, device)
-    return DecoderLayer(
-        layers.init_rmsnorm(d, dtype, device),
-        attention.init_gqa(ks[0], d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, dtype, device),
-        layers.init_rmsnorm(d, dtype, device),
-        ffn,
-    )
+    return DecoderLayer(layers.init_rmsnorm(d, dtype, device), attn, layers.init_rmsnorm(d, dtype, device), ffn,
+                        mamba=mamba, fuse=fuse)
 
 
 @torch.no_grad()
@@ -208,18 +268,39 @@ def init_params(cfg: ArchConfig, key: torch.Tensor, *, device=None) -> LM:
 def _leaf_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     """Each state-dict leaf's shape; layer leaves without their ``layers.<l>.`` prefix."""
     d, f, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
-    qd, kvd = cfg.num_heads * cfg.resolved_head_dim, cfg.num_kv_heads * cfg.resolved_head_dim
-    shapes = {"embed.table": (V, d), "norm1.scale": (d,), "attn.wq": (d, qd), "attn.wk": (d, kvd),
-              "attn.wv": (d, kvd), "attn.wo": (qd, d), "norm2.scale": (d,), "final_norm.scale": (d,)}
+    shapes = {"embed.table": (V, d), "norm1.scale": (d,), "final_norm.scale": (d,)}
+    if not cfg.tie_embeddings:
+        shapes["unembed.w"] = (d, V)
+    if cfg.hybrid:
+        C, N, r, K = cfg.d_inner, cfg.ssm_state, cfg.resolved_dt_rank, cfg.d_conv
+        shapes.update({"mamba.in_proj": (d, 2 * C), "mamba.conv_w": (K, C), "mamba.conv_b": (C,),
+                       "mamba.x_proj": (C, r + 2 * N), "mamba.dt_proj_w": (r, C), "mamba.dt_proj_b": (C,),
+                       "mamba.A_log": (C, N), "mamba.D": (C,), "mamba.out_proj": (C, d)})
+    H = cfg.num_heads
+    if cfg.mla:
+        nope, rope_d, v = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        shapes.update({"attn.w_dq": (d, cfg.q_lora_rank), "attn.w_uq": (cfg.q_lora_rank, H * (nope + rope_d)),
+                       "attn.w_dkv": (d, cfg.kv_lora_rank + rope_d), "attn.w_ukv": (cfg.kv_lora_rank, H * (nope + v)),
+                       "attn.wo": (H * v, d)})
+    else:
+        qd, kvd = H * cfg.resolved_head_dim, cfg.num_kv_heads * cfg.resolved_head_dim
+        shapes.update({"attn.wq": (d, qd), "attn.wk": (d, kvd), "attn.wv": (d, kvd), "attn.wo": (qd, d)})
+    if cfg.hybrid:
+        shapes.update({"fuse.norm_a.scale": (d,), "fuse.norm_s.scale": (d,), "fuse.beta_a": (d,), "fuse.beta_s": (d,)})
+    shapes["norm2.scale"] = (d,)
     if cfg.moe:
         E = cfg.num_experts
         shapes.update({"moe.router": (d, E), "moe.w_gate": (E, d, f), "moe.w_up": (E, d, f),
                        "moe.w_down": (E, f, d)})
     else:
         shapes.update({"ffn.w_gate": (d, f), "ffn.w_up": (d, f), "ffn.w_down": (f, d)})
-    if not cfg.tie_embeddings:
-        shapes["unembed.w"] = (d, V)
     return shapes
+
+
+def leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    """A leaf's dtype in a model of ``dtype``: the config's, but a Mamba block's
+    ``A_log``, which is float32 in every model."""
+    return torch.float32 if name.endswith("A_log") else dtype
 
 
 def _assemble(cfg: ArchConfig, leaf) -> LM:
@@ -227,13 +308,21 @@ def _assemble(cfg: ArchConfig, leaf) -> LM:
     None outside the layers)."""
     def layer(l):
         g = lambda n: leaf(n, l)
+        if cfg.mla:
+            attn = attention.MLA(**{n: g(f"attn.{n}") for n in attention.MLA.LEAVES})
+        else:
+            attn = attention.GQA(g("attn.wq"), g("attn.wk"), g("attn.wv"), g("attn.wo"))
+        mamba = fuse = None
+        if cfg.hybrid:
+            mamba = ssm_lib.Mamba(**{n: g(f"mamba.{n}") for n in ssm_lib.Mamba.LEAVES})
+            fuse = Fuse(layers.RMSNorm(g("fuse.norm_a.scale")), layers.RMSNorm(g("fuse.norm_s.scale")),
+                        g("fuse.beta_a"), g("fuse.beta_s"))
         if cfg.moe:
             ffn = moe_lib.MoE(g("moe.router"), g("moe.w_gate"), g("moe.w_up"), g("moe.w_down"))
         else:
             ffn = layers.SwiGLU(g("ffn.w_gate"), g("ffn.w_up"), g("ffn.w_down"))
-        return DecoderLayer(layers.RMSNorm(g("norm1.scale")),
-                            attention.GQA(g("attn.wq"), g("attn.wk"), g("attn.wv"), g("attn.wo")),
-                            layers.RMSNorm(g("norm2.scale")), ffn)
+        return DecoderLayer(layers.RMSNorm(g("norm1.scale")), attn, layers.RMSNorm(g("norm2.scale")), ffn,
+                            mamba=mamba, fuse=fuse)
 
     return LM(cfg, layers.Embedding(leaf("embed.table", None)), [layer(l) for l in range(cfg.num_layers)],
               layers.RMSNorm(leaf("final_norm.scale", None)),
@@ -245,7 +334,7 @@ def meta_params(cfg: ArchConfig) -> LM:
     allocated."""
     check_supported(cfg)
     shapes, dtype = _leaf_shapes(cfg), torch_dtype(cfg)
-    return _assemble(cfg, lambda name, l: torch.empty(shapes[name], dtype=dtype, device="meta"))
+    return _assemble(cfg, lambda name, l: torch.empty(shapes[name], dtype=leaf_dtype(name, dtype), device="meta"))
 
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, torch.Size]:
@@ -263,17 +352,18 @@ def params_from_named(cfg: ArchConfig, named: Dict[str, torch.Tensor]) -> LM:
 def params_from_reference(cfg: ArchConfig, tree, *, device=None) -> LM:
     """The model holding the reference's parameter tree ``tree`` (numpy arrays or
     anything ``np.asarray`` takes; layer leaves stacked on a leading L axis, as
-    ``repro.models.lm.init_params`` makes them), in the config's dtype on
-    ``device`` (default CUDA). bfloat16 leaves convert exactly."""
+    ``repro.models.lm.init_params`` makes them), in the config's dtype (``A_log``
+    float32) on ``device`` (default CUDA). bfloat16 leaves convert exactly."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
 
     def leaf(name: str, l: Optional[int]):
-        mod, w = name.split(".")
-        a = tree["layers"][mod][w][l] if l is not None else tree[mod][w]
-        t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device=dev, dtype=dtype)
+        node = tree if l is None else tree["layers"]
+        for part in name.split("."):
+            node = node[part]
+        t = torch.from_numpy(np.array(node if l is None else node[l], dtype=np.float32))
+        return t.to(device=dev, dtype=leaf_dtype(name, dtype))
 
     return _assemble(cfg, leaf)
 
@@ -396,36 +486,50 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, dtype: Optional[tor
     ``device`` (default CUDA): {"k", "v"}, each (L, batch, S_c, KV, hd) with S_c
     = seq_len, or min(window, seq_len) for sliding-window attention; for the
     local:global pattern {"local": {"k", "v"}} of G·R rings of min(window,
-    seq_len) and {"global": {"k", "v"}} of G caches of seq_len (G = L // (R + 1))."""
+    seq_len) and {"global": {"k", "v"}} of G caches of seq_len (G = L // (R + 1));
+    for MLA {"ckv" (L, batch, seq_len, kv_lora), "krope" (…, rope_d)}; for the
+    hybrid's Mamba branch, beside its ring, "conv" (L, batch, K − 1, C) and
+    "ssm" (L, batch, C, N), the latter float32 always."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
+    L = cfg.num_layers
+    zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)
 
     def kv(n: int, s: int) -> Dict[str, torch.Tensor]:
         shape = (n, batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        return {"k": zeros(*shape), "v": zeros(*shape)}
 
-    if _local_global(cfg):
+    if cfg.mla:
+        cache = {"ckv": zeros(L, batch, seq_len, cfg.kv_lora_rank), "krope": zeros(L, batch, seq_len, cfg.qk_rope_dim)}
+    elif _local_global(cfg):
         R = cfg.local_global_ratio
-        groups = cfg.num_layers // (R + 1)
-        return {"local": kv(groups * R, min(cfg.window, seq_len)), "global": kv(groups, seq_len)}
-    swa = cfg.attn_kind == "swa" and cfg.window > 0
-    return kv(cfg.num_layers, min(cfg.window, seq_len) if swa else seq_len)
+        groups = L // (R + 1)
+        cache = {"local": kv(groups * R, min(cfg.window, seq_len)), "global": kv(groups, seq_len)}
+    else:
+        swa = cfg.attn_kind == "swa" and cfg.window > 0
+        cache = kv(L, min(cfg.window, seq_len) if swa else seq_len)
+    if cfg.hybrid:
+        cache.update(conv=zeros(L, batch, cfg.d_conv - 1, cfg.d_inner),
+                     ssm=zeros(L, batch, cfg.d_inner, cfg.ssm_state, dt=torch.float32))
+    return cache
 
 
-def layer_caches(cfg: ArchConfig, cache: dict) -> list:
-    """Each decoded layer's (k, v) cache views, (B, S_c, KV, hd) each. With the
-    local:global split, layer l = g·(R + 1) + r reads local entry g·R + r (r < R)
-    or global entry g; the reference's grouped decode covers the G whole
-    groups, so the list has G·(R + 1) entries."""
+def layer_caches(cfg: ArchConfig, cache: dict) -> List[Dict[str, torch.Tensor]]:
+    """Each decoded layer's cache views by name ("k", "v"; "ckv", "krope";
+    "conv", "ssm"), layer l's entry of each leaf. With the local:global split,
+    layer l = g·(R + 1) + r reads local entry g·R + r (r < R) or global entry
+    g; the reference's grouped decode covers the G whole groups, so the list
+    has G·(R + 1) entries."""
+    stacked = {n: t for n, t in cache.items() if not isinstance(t, dict)}
     if not _local_global(cfg):
-        return [(cache["k"][l], cache["v"][l]) for l in range(cache["k"].shape[0])]
+        return [{n: t[l] for n, t in stacked.items()} for l in range(next(iter(stacked.values())).shape[0])]
     R = cfg.local_global_ratio
     out = []
     for l in range(cache["global"]["k"].shape[0] * (R + 1)):
         g, r = divmod(l, R + 1)
         part, i = (cache["local"], g * R + r) if r < R else (cache["global"], g)
-        out.append((part["k"][i], part["v"][i]))
+        out.append({"k": part["k"][i], "v": part["v"][i], **{n: t[l] for n, t in stacked.items()}})
     return out
 
 
@@ -437,16 +541,18 @@ def decode_step(params: LM, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, 
                 x_embed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
     """One-token decode at position ``pos`` (an int). tokens: (B,) ids, or
     ``x_embed`` (B, d) pre-embedded inputs in their place. Writes each layer's
-    k, v into its ring of ``cache`` in place (``layer_caches``). Returns
-    (logits (B, V_pad) float32, cache)."""
+    k, v (MLA: c_kv, k_rope) into its ring of ``cache`` and its Mamba states
+    over theirs, in place (``layer_caches``). Returns (logits (B, V_pad)
+    float32, cache)."""
     x = params.embed(tokens[:, None]) if x_embed is None else x_embed[:, None, :]
-    rot = int(cfg.resolved_head_dim * cfg.rope_fraction) & ~1
+    rot = cfg.qk_rope_dim if cfg.mla else int(cfg.resolved_head_dim * cfg.rope_fraction) & ~1
+    seq_leaf = "ckv" if cfg.mla else "k"
     tables = {}  # by ring length: the local rings and the global caches of gemma3
-    for layer, (ck, cv) in zip(params.layers, layer_caches(cfg, cache)):
-        s_cache = ck.shape[1]
+    for layer, lc in zip(params.layers, layer_caches(cfg, cache)):
+        s_cache = lc[seq_leaf].shape[1]
         if s_cache not in tables:
             tables[s_cache] = attention.decode_tables(int(pos), s_cache, rot, cfg.rope_theta, x.device)
-        x = layer.decode(x, ck, cv, tables[s_cache], cfg)
+        x = layer.decode(x, lc, tables[s_cache], cfg)
     h = params.final_norm(x, cfg.norm_eps)
     return layers.unembed(params.unembed_w(), h)[:, 0].to(torch.float32), cache
 
@@ -481,18 +587,21 @@ def batched_prefill(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     """Flash prefill: one batched pass over the prompt. Returns (last-token logits
     (B, V_pad) float32, a decode cache of ``cache_len`` positions (default S)
     positioned at pos = S). A windowed layer's k, v go to its ring at slots
-    p mod S_c (``_ring_place``), a full layer's to slots 0…S−1 (``_pad_seq``)."""
+    p mod S_c (``_ring_place``), a full layer's (and MLA's latent) to slots
+    0…S−1 (``_pad_seq``); a Mamba branch's conv tail and h_T are its states."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x, _ = embed_inputs(params, cfg, batch)
     cache = init_cache(cfg, B, cache_len or S, device=x.device)
     slots = layer_caches(cfg, cache)
     for l, (layer, window) in enumerate(zip(params.layers, layer_windows(cfg).tolist())):
-        x, _, (k, v) = layer(x, cfg, window, plan, return_kv=True)
+        x, _, piece = layer(x, cfg, window, plan, return_kv=True)
         if l < len(slots):
-            place = _ring_place if window > 0 else _pad_seq
-            place(slots[l][0], k)
-            place(slots[l][1], v)
+            for name, t in piece.items():
+                if name in ("conv", "ssm"):
+                    slots[l][name].copy_(t)
+                else:
+                    (_ring_place if window > 0 else _pad_seq)(slots[l][name], t)
     h = params.final_norm(x[:, -1:], cfg.norm_eps)
     return layers.unembed(params.unembed_w(), h)[:, 0].to(torch.float32), cache
 

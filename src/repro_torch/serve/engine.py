@@ -57,7 +57,12 @@ class Engine:
     must already be there: it is used as given, never moved (``ValueError``).
     ``plan`` sets the prefill's attention key chunk: its float32 score tiles
     hold B·S·H·chunk entries, and another chunk changes only the order of the
-    online softmax's float32 sums."""
+    online softmax's float32 sums.
+
+    Prompts are left-padded with token 0 to the longest in the batch, and the
+    padding is not masked: it is attended to, and an SSM's recurrence (Mamba,
+    the hybrid's Mamba branch) runs through it as through ordinary tokens,
+    as in the reference."""
 
     def __init__(self, cfg: ArchConfig, params: lm.LM, sc: ServeConfig, *, device=None,
                  plan: Optional[lm.ExecPlan] = None):
@@ -101,7 +106,8 @@ class Engine:
             raise ValueError(f"prompt {S} + {max_new_tokens} new tokens exceed ServeConfig.max_len "
                              f"{self.sc.max_len}")
         # Left-pad to a rectangle with token 0: the padded prefix is ordinary
-        # tokens, masked out of nothing (the fixed-shape serving trade-off).
+        # tokens, masked out of nothing (the fixed-shape serving trade-off); an
+        # SSM's recurrence runs through them like any other tokens.
         toks = np.zeros((B, S), np.int64)
         for r, p in enumerate(prompts):
             toks[r, S - len(p) :] = np.asarray(p, np.int64)

@@ -7,7 +7,10 @@ KeyError and a wrong shape ValueError; ``AsyncCheckpointer`` snapshots before
 last ``keep`` steps. Across packages, on the tiny test model in bfloat16 after
 one AdamW step: the reference's checkpoint restored by the port, and the
 port's restored by the reference, bit for bit, and both write the same
-manifest.
+manifest. The reference's weights of the reduced hymba-1.5b (attention, Mamba
+and the fuse in every layer) in bfloat16, saved by the reference, restored by
+the port bit for bit with the Mamba ``A_log`` float32 beside the bfloat16
+leaves; the model built from them is ``params_from_reference``'s.
 """
 import dataclasses
 import json
@@ -146,3 +149,28 @@ def test_port_checkpoint_restores_in_the_reference_bitwise(tmp_path, bf16_states
     for e in manifests[0]["leaves"]:
         assert open(tmp_path / "ref" / "step_00000001" / e["file"], "rb").read() == \
             open(tmp_path / "port" / "step_00000001" / e["file"], "rb").read(), e["path"]
+
+
+def test_reference_hybrid_weights_restore_in_the_port_bitwise(tmp_path):
+    from repro.configs import get_config as jget
+    from repro.models import lm as jlm
+    from repro_torch.configs import get_config as tget
+    from repro_torch.models import lm as tlm
+
+    jc = dataclasses.replace(jget("hymba-1.5b").reduced(), dtype="bfloat16")
+    tc = dataclasses.replace(tget("hymba-1.5b").reduced(), dtype="bfloat16")
+    jp = jlm.init_params(jc, jax.random.PRNGKey(3))
+    jck.save_checkpoint(str(tmp_path), 2, jp)
+    back = tck.restore_checkpoint(str(tmp_path), 2, tu.stacked_tree(tlm.meta_params(tc).state_dict()))
+    got, want = _flat(back), _jflat(jp)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    dtypes = {tu.path_str(p): leaf.dtype for p, leaf in tu.tree_flatten_with_path(back)[0]}
+    assert dtypes.pop("layers/mamba/A_log") == torch.float32
+    assert set(dtypes.values()) == {torch.bfloat16}
+    model = tlm.params_from_named(tc, tu.unstack_tree(back)).state_dict()
+    ref = tlm.params_from_reference(tc, jax.tree_util.tree_map(np.asarray, jp), device="cpu").state_dict()
+    assert model.keys() == ref.keys()
+    for k, t in ref.items():
+        assert model[k].dtype == t.dtype and torch.equal(model[k], t), k

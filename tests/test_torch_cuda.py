@@ -1446,14 +1446,14 @@ def test_moe_layer_on_the_card_against_the_cpu(cuda, G, T, cf):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "gemma3-12b", "grok-1-314b"])
-def test_ring_and_moe_lm_on_the_card_against_the_cpu(cuda, arch):
-    """forward, batched prefill of 39 tokens (past the window of 8: the rings wrap)
-    and three decode steps, card against CPU, float32 with TF32 off: logits and
-    every cache leaf within 1e-5 of the largest."""
+def _lm_card_against_cpu(cuda, arch: str, plan=None) -> None:
+    """forward, batched prefill of 39 tokens and three decode steps, card against
+    CPU, float32 with TF32 off: logits and every cache leaf within 1e-5 of the
+    largest."""
     from repro_torch.models import lm
 
     cfg = _lm_cfg(arch)
+    plan = plan or lm.ExecPlan()
     cpu_model = lm.init_params(cfg, prng.prng_key(5), device="cpu")
     card_model = lm.init_params(cfg, prng.prng_key(5), device=cuda)
     toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 42)))
@@ -1461,10 +1461,10 @@ def test_ring_and_moe_lm_on_the_card_against_the_cpu(cuda, arch):
     def rel(got, want):
         return float((got.cpu() - want).abs().max() / want.abs().max())
 
-    assert rel(lm.forward_logits(card_model, cfg, {"tokens": toks.to(cuda)}),
-               lm.forward_logits(cpu_model, cfg, {"tokens": toks})) <= 1e-5
-    lc, cc = lm.batched_prefill(card_model, cfg, {"tokens": toks[:, :39].to(cuda)}, cache_len=48)
-    lw, cw = lm.batched_prefill(cpu_model, cfg, {"tokens": toks[:, :39]}, cache_len=48)
+    assert rel(lm.forward_logits(card_model, cfg, {"tokens": toks.to(cuda)}, plan=plan),
+               lm.forward_logits(cpu_model, cfg, {"tokens": toks}, plan=plan)) <= 1e-5
+    lc, cc = lm.batched_prefill(card_model, cfg, {"tokens": toks[:, :39].to(cuda)}, cache_len=48, plan=plan)
+    lw, cw = lm.batched_prefill(cpu_model, cfg, {"tokens": toks[:, :39]}, cache_len=48, plan=plan)
     assert rel(lc, lw) <= 1e-5
     for pos in range(39, 42):
         lc, cc = lm.decode_step(card_model, cfg, toks[:, pos].to(cuda), cc, pos)
@@ -1474,3 +1474,47 @@ def test_ring_and_moe_lm_on_the_card_against_the_cpu(cuda, arch):
     assert set(fc) == set(fw)
     for name, t in fw.items():
         assert fc[name].device.type == "cuda" and rel(fc[name], t) <= 1e-5, name
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "gemma3-12b", "grok-1-314b"])
+def test_ring_and_moe_lm_on_the_card_against_the_cpu(cuda, arch):
+    """``_lm_card_against_cpu``: the prompt of 39 tokens is past the window of 8,
+    so the rings wrap."""
+    _lm_card_against_cpu(cuda, arch)
+
+
+# ------------------------------------------------------------------ MLA and the hybrid attention+SSM layer
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "hymba-1.5b"])
+def test_mla_and_hybrid_lm_on_the_card_against_the_cpu(cuda, arch):
+    """``_lm_card_against_cpu`` at a scan chunk of 16: the prompt of 39 tokens
+    spans three chunks, the last padded; hymba's ring of 8 wraps; MLA's latent
+    cache and the Mamba conv and ssm states are held leaf by leaf."""
+    from repro_torch.models import lm
+
+    _lm_card_against_cpu(cuda, arch, lm.ExecPlan(ssm_chunk=16))
+
+
+@pytest.mark.parametrize("T", [128, 300])
+def test_fused_scan_on_the_card_against_the_chunked_scan(cuda, T):
+    """The fused scan on the card (chunk 128; at T = 300 the last chunk padded)
+    against the chunked scan on the CPU contracted with C, float32: y and h_T
+    within 1e-5 of the largest."""
+    from repro_torch.models import ssm
+
+    rs = np.random.default_rng(T)
+    B, C, N = 2, 256, 16
+    u = torch.from_numpy(rs.standard_normal((B, T, C)).astype(np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(rs.standard_normal((B, T, C)).astype(np.float32)) - 4.0)
+    Bm, Cm = (torch.from_numpy(rs.standard_normal((B, T, N)).astype(np.float32)) for _ in range(2))
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(C, N)
+    h0 = torch.zeros((B, C, N))
+    y, hT = ssm._ssm_scan_fused(*(t.to(cuda) for t in (u, dt, Bm, Cm, A, h0)), 128)
+    dA = torch.exp(dt[..., None] * A[None, None])
+    dBu = (dt * u)[..., None] * Bm[:, :, None, :]
+    hs, want_hT = ssm._ssm_scan_chunked(dA, dBu, h0, 128)
+    want_y = torch.einsum("btcn,btn->btc", hs, Cm)
+    assert y.device.type == "cuda" and tuple(y.shape) == (B, T, C)
+    assert float((y.cpu() - want_y).abs().max() / want_y.abs().max()) <= 1e-5
+    assert float((hT.cpu() - want_hT).abs().max() / want_hT.abs().max()) <= 1e-5

@@ -1,9 +1,11 @@
 """The port's decoder LM against the JAX reference (CPU, reduced configs).
 
-Configs: every field of granite-3-8b, chatglm3-6b, mixtral-8x7b, gemma3-12b and
-grok-1-314b, full and ``reduced()``, and the shape specs, equal the
-reference's (reduced: mixtral 2 layers and 4 experts, gemma3 6 layers, one full
-local:global period, grok 2 layers, windows 8). Layers (float32): ``rmsnorm``,
+Configs: every field of granite-3-8b, chatglm3-6b, mixtral-8x7b, gemma3-12b,
+grok-1-314b, minicpm3-4b and hymba-1.5b, full and ``reduced()``, and the shape
+specs, equal the reference's (reduced: mixtral 2 layers and 4 experts, gemma3 6
+layers, one full local:global period, grok 2 layers, windows 8; minicpm3's MLA
+at q_lora = kv_lora = 16, nope = rope = 8, v = 16; hymba's Mamba at d_inner
+128, state 8, dt_rank 8). Layers (float32): ``rmsnorm``,
 ``rope_angles``, ``apply_rope`` (fraction 1.0 and 0.5), ``swiglu``, ``embed``,
 ``cross_entropy_loss`` and ``chunked_attention`` (S not a multiple of the chunk,
 causal or not, windowed, G = 1 and 2) within ``LAYER_TOL`` of the reference's,
@@ -11,16 +13,21 @@ relative to the largest reference value: float32 sums of at most 64 products in
 other orders, and torch's exp/cos/sin against XLA's, a few ulps each.
 
 ``init_params``: bitwise the reference's (``prng.normal`` is jax's normal bit for
-bit), float32 and bfloat16, at two keys.
+bit), float32 and bfloat16 (a Mamba block's ``A_log`` float32 in both), at two
+keys.
 
 The model (parameters converted from the reference's tree, so the parity does
 not rest on the init): ``forward_logits``, ``batched_prefill`` (logits and
 cache), the token-by-token ``prefill`` and decode continuations, every arch in
 float32 within ``MODEL_TOL`` of the largest reference logit (float32 through
-two to six layers, sums in other orders), the MoE archs at their config's
+two to six layers, sums in other orders; the Mamba scan's doubling associates
+in another order than jax's ``associative_scan``), the MoE archs at their config's
 capacity (assignments dropped), the caches leaf by leaf (the SWA ring, gemma3's
-local rings and global caches; prompts past the window, so the rings wrap, and
-caches shorter than the window); ``lm_loss`` with its MoE aux loss. bfloat16
+local rings and global caches, MLA's latent ``ckv`` and ``krope``, the Mamba
+``conv`` and ``ssm`` states, hymba's ring beside them; prompts past the window,
+so the rings wrap, and caches shorter than the window); hymba also at a scan
+chunk of 8, so the prompts span several chunks and the last is padded;
+``lm_loss`` with its MoE aux loss. bfloat16
 forwards within ``BF16_TOL``: an activation's bfloat16 rounding (2⁻⁹ relative)
 flips where the two float32 values before it differ by an ulp, and the layers
 carry such flips to the logits. The bfloat16 MoE layer: where the reference's
@@ -29,8 +36,9 @@ equal and those tokens' outputs within ``BF16_TOL``; the tokens under the margin
 are counted and bounded. The port's own forward = batched prefill = token
 prefill = decode (MoE at dropless capacity, as ``tests/test_decode_consistency.py``
 holds the reference). Tokens (``lm_batch``, ``lm_eval_batch``) are bitwise the
-reference's; the families still unported (MLA, SSM, hybrid, enc-dec, VLM) raise
-``NotImplementedError``.
+reference's; the families still unported (the attention-free SSM stack,
+enc-dec, VLM) raise ``NotImplementedError``, the MLA and hybrid configs are
+accepted.
 """
 import dataclasses
 
@@ -52,8 +60,9 @@ from repro_torch.utils import prng
 # them from oversubscribing the cores (each op's thread team waits on the others).
 torch.set_num_threads(1)
 
-ARCHS = ["granite-3-8b", "chatglm3-6b", "mixtral-8x7b", "gemma3-12b", "grok-1-314b"]
-WINDOWED = ["mixtral-8x7b", "gemma3-12b"]
+ARCHS = ["granite-3-8b", "chatglm3-6b", "mixtral-8x7b", "gemma3-12b", "grok-1-314b", "minicpm3-4b", "hymba-1.5b"]
+WINDOWED = ["mixtral-8x7b", "gemma3-12b", "hymba-1.5b"]
+MLA_HYBRID = ["minicpm3-4b", "hymba-1.5b"]
 LAYER_TOL = 2e-6
 MODEL_TOL = 1e-5
 BF16_TOL = 3e-2
@@ -98,17 +107,25 @@ def test_shapes_and_applicability_match_the_reference():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_shapes_match_the_reference_at_full_size(arch):
+    """Every state-dict leaf against the reference's tree leaf of its path (a
+    layer leaf without its leading L), its dtype (``A_log`` float32 in a
+    bfloat16 model), the leaves a layer and the total."""
     want = jlm.param_shapes(jget(arch))
-    got = tlm.param_shapes(tget(arch))
-    assert tuple(got["embed.table"]) == want["embed"]["table"].shape
-    assert tuple(got["unembed.w"]) == want["unembed"]["w"].shape
-    ffn = ("moe.router", "moe.w_gate", "moe.w_up", "moe.w_down") if jget(arch).moe else (
-        "ffn.w_gate", "ffn.w_up", "ffn.w_down")
-    for name in ("attn.wq", "attn.wk", "attn.wv", "attn.wo", *ffn, "norm1.scale"):
-        mod, w = name.split(".")
-        assert tuple(got[f"layers.0.{name}"]) == want["layers"][mod][w].shape[1:]
-    assert len([k for k in got if k.endswith("attn.wq")]) == jget(arch).num_layers
-    assert sum(s.numel() for s in got.values()) == sum(np.prod(a.shape) for a in jax.tree_util.tree_leaves(want))
+    got = tlm.meta_params(tget(arch)).state_dict()
+    assert tlm.param_shapes(tget(arch)) == {k: t.shape for k, t in got.items()}
+    per_layer = 0
+    for name, t in got.items():
+        parts = name.split(".")
+        node = want
+        for p in parts[:1] + parts[2:] if parts[0] == "layers" else parts:
+            node = node[p]
+        shape = node.shape[1:] if parts[0] == "layers" else node.shape
+        assert tuple(t.shape) == shape, name
+        assert (t.dtype == torch.float32) == (node.dtype == jnp.float32), name
+        per_layer += parts[:2] == ["layers", "0"]
+    assert per_layer * jget(arch).num_layers == sum(1 for k in got if k.startswith("layers."))
+    assert per_layer == len([p for p in jax.tree_util.tree_leaves(want["layers"])])
+    assert sum(t.numel() for t in got.values()) == sum(np.prod(a.shape) for a in jax.tree_util.tree_leaves(want))
 
 
 # ------------------------------------------------------------------ layers
@@ -242,7 +259,7 @@ def test_init_params_is_the_reference_init(arch, dtype, seed):
     seen = set()
     for name, want in _reference_leaves(jp, jc):
         seen.add(name)
-        assert sd[name].dtype == tlm.torch_dtype(tc)
+        assert sd[name].dtype == tlm.leaf_dtype(name, tlm.torch_dtype(tc))
         assert np.array_equal(sd[name].to(torch.float32).numpy(), want), name
     assert seen == set(sd)
 
@@ -480,11 +497,50 @@ def test_layer_windows_and_cache_lengths_match_the_reference(arch, seq):
     assert np.array_equal(tlm.cache_lengths(cfg, seq).numpy(), np.asarray(jlm.cache_lengths(jget(arch), seq)))
 
 
-@pytest.mark.parametrize("arch,item", [("hymba-1.5b", "9d"), ("pixtral-12b", "9e"), ("minicpm3-4b", "9c"),
-                                       ("falcon-mamba-7b", "9d"), ("whisper-small", "9e")])
+@pytest.mark.parametrize("arch,item", [("pixtral-12b", "9e"), ("falcon-mamba-7b", "9d"), ("whisper-small", "9e")])
 def test_other_families_are_refused(arch, item):
     cfg = tbase.ArchConfig(**dataclasses.asdict(jget(arch).reduced()))
     for call in (lambda: tlm.init_params(cfg, prng.prng_key(0), device=CPU),
                  lambda: tlm.init_cache(cfg, 1, 8, device=CPU), lambda: tlm.param_shapes(cfg)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()
+
+
+@pytest.mark.parametrize("arch", MLA_HYBRID)
+def test_mla_and_hybrid_configs_are_accepted(arch):
+    """The reference's own config (its fields as they are) through the calls that
+    refuse the families not ported: each gives the reference's shapes."""
+    cfg = tbase.ArchConfig(**dataclasses.asdict(jget(arch).reduced()))
+    tlm.check_supported(cfg)
+    sd = tlm.init_params(cfg, prng.prng_key(0), device=CPU).state_dict()
+    assert {k: t.shape for k, t in sd.items()} == tlm.param_shapes(cfg)
+    _assert_caches_match(tlm.init_cache(cfg, 1, 8, device=CPU), jlm.init_cache(jget(arch).reduced(), 1, 8))
+
+
+@pytest.mark.parametrize("S", [16, 21])
+def test_hymba_across_scan_chunks_matches_the_reference(S):
+    """ssm_chunk 8 in both packages: the prompt spans two or three chunks, the
+    last one padded at S = 21; forward, batched prefill (logits and the conv
+    and ssm states beside the ring) and a decode step after it."""
+    jc, tc, jp, tp = _models("hymba-1.5b", seed=6)
+    jb, tb = _batch(jc.vocab_size, 2, S, 19)
+    jplan, tplan = jlm.ExecPlan(ssm_chunk=8), tlm.ExecPlan(ssm_chunk=8)
+    assert _rel(tlm.forward_logits(tp, tc, tb, plan=tplan), jlm.forward_logits(jp, jc, jb, plan=jplan)) <= MODEL_TOL
+    jl, jcache = jlm.batched_prefill(jp, jc, jb, cache_len=S + 2, plan=jplan)
+    tl, tcache = tlm.batched_prefill(tp, tc, tb, cache_len=S + 2, plan=tplan)
+    assert _rel(tl, jl) <= MODEL_TOL
+    _assert_caches_match(tcache, jcache)
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    jl, jcache = jlm.decode_step(jp, jc, jnp.asarray(tok), jcache, jnp.int32(S))
+    tl, tcache = tlm.decode_step(tp, tc, _t(tok).long(), tcache, S)
+    assert _rel(tl, jl) <= MODEL_TOL
+    _assert_caches_match(tcache, jcache)
+
+
+@pytest.mark.parametrize("arch", MLA_HYBRID)
+def test_bfloat16_mla_and_hybrid_forward_matches_the_reference(arch):
+    jc, tc, jp, tp = _models(arch, "bfloat16", seed=1)
+    jb, tb = _batch(jc.vocab_size, 2, 20, 12)
+    mamba = [p for n, p in tp.named_parameters() if n.endswith("A_log")]
+    assert all(p.dtype == torch.float32 for p in mamba) and len(mamba) == tc.num_layers * (arch != "minicpm3-4b")
+    assert _rel(tlm.forward_logits(tp, tc, tb), jlm.forward_logits(jp, jc, jb)) <= BF16_TOL

@@ -12,7 +12,9 @@ exceeds 10·LOGIT_TOL, so equal tokens are what the logits' agreement implies.
 The same on the reduced mixtral-8x7b (MoE at its config's capacity 1.25, so
 the decode's batch-wide groups drop assignments; sliding window 8) and
 gemma3-12b (local:global, window 8) with prompts past the window, so the rings
-wrap in the prefill and again in decode. The port's own determinism, batched =
+wrap in the prefill and again in decode, and on the reduced hymba-1.5b (GQA
+with window 8 beside Mamba: the left-padding runs through the SSM's recurrence
+as ordinary tokens, as in the reference). The port's own determinism, batched =
 single, several engine batches and EOS trimming are the reference's tests
 repeated; the launcher's LM mode prints the reference launcher's tokens, also
 for mixtral and gemma3.
@@ -125,7 +127,7 @@ NEW_ARCHS = ["mixtral-8x7b", "gemma3-12b"]
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + ["hymba-1.5b"])
 def test_generate_matches_the_reference_on_moe_and_windowed_archs(arch, temperature):
     jc, tc = jget(arch).reduced(), tget(arch).reduced()
     jp = jlm.init_params(jc, jax.random.PRNGKey(1))

@@ -3,17 +3,21 @@
 
 Run from the root of a checkout, on a machine with one CUDA card and ``nvcc``:
 
-    python3 tools/lm_phases.py
+    python3 tools/lm_phases.py [--phases families,mla_hybrid]
 
-Builds the kernels (``phase_build``: head fitting on gemma3-12b's features runs
-rows 2 and 11), then runs ``phase_lm_families`` (chatglm3-6b; mixtral-8x7b at 8
-layers; gemma3-12b whole with its head fitting and launcher; grok-1-314b at 2
-layers) with the smoke's settings: TF32 off, bf16 products reduced in float32.
-Prints the card's name and power limit, the phases' JSON lines, and exits
-non-zero when a check fails (about 4 minutes on an H100).
+Builds the kernels (``phase_build``: head fitting on gemma3-12b's and
+hymba-1.5b's features runs rows 2 and 11), then runs the phases named, by
+default both: ``families`` is ``phase_lm_families`` (chatglm3-6b; mixtral-8x7b
+at 4 layers; gemma3-12b at 24 layers with its head fitting, and whole through
+its launcher; grok-1-314b at 1 layer), ``mla_hybrid`` is
+``phase_lm_mla_hybrid`` (minicpm3-4b, and hymba-1.5b with its head fitting,
+each whole), with the smoke's settings: TF32 off, bf16 products
+reduced in float32. Prints the card's name and power limit, the phases' JSON
+lines, and exits non-zero when a check fails.
 """
 from __future__ import annotations
 
+import argparse
 import sys
 from pathlib import Path
 
@@ -27,6 +31,13 @@ def main() -> int:
 
     import chip_smoke as cs
 
+    phases = {"families": cs.phase_lm_families, "mla_hybrid": cs.phase_lm_mla_hybrid}
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(phases), help="comma-separated, of: " + ", ".join(phases))
+    names = ap.parse_args().phases.split(",")
+    unknown = [n for n in names if n not in phases]
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
     if not torch.cuda.is_available():
         print("lm_phases: CUDA is not available; this script runs on the GPU only", file=sys.stderr)
         return 2
@@ -37,7 +48,8 @@ def main() -> int:
     cs.phase_build()
     rows = {"gaussian_gram_multi": {}, "sjlt_gram_multi": {}}
     try:
-        cs.phase_lm_families(rows)
+        for name in names:
+            phases[name](rows)
     except cs.SmokeFailure as exc:
         print(f"lm_phases: FAILED: {exc}", file=sys.stderr)
         return 1
