@@ -90,12 +90,12 @@ through rows 2 and 11, on Theorem 1; and, with the model freed,
 ``python -m repro_torch.launch.serve --arch granite-3-8b``. After the training
 phases, the other decoder families, bfloat16 with the reference's weights for
 key 0, each model freed before the next: chatglm3-6b whole (RoPE on half of
-each head; the same consistency checks); mixtral-8x7b at full width cut to 4
+each head; the same consistency checks); mixtral-8x7b at full width cut to 2
 of 32 layers (8 experts, top-2, sliding window 4,096: the consistency dropless
 over 4,609 tokens, so the batched prefill's ring wraps; the Engine at the
 config's capacity 1.25 on 8 prompts of 4,352-6,144 tokens, with the dropped
 share of MoE assignments at the prefill and at decode and one decode traced);
-gemma3-12b at full width cut to 24 of 48 layers (20 of them local with a
+gemma3-12b at full width cut to 12 of 48 layers (10 of them local with a
 window of 1,024: the consistency over 2,049 tokens, the Engine on 8 prompts of
 2,048-3,072 tokens, ``fit_head`` on its features through rows 2 and 11 at
 3,856 columns), and whole through its launcher as a subprocess; grok-1-314b at
@@ -118,6 +118,14 @@ tokens, the Engine on 8 prompts of 1,536-2,048) and hymba-1.5b (GQA with a
 window of 1,024 beside Mamba in every layer: consistency over 2 × 2,049
 tokens, the Engine on 8 prompts of 2,048-3,072 with its decode state a
 sequence, ``fit_head`` on its features through rows 2 and 11 at 1,616
+columns). Then the encoder-decoder and the VLM: whisper-small whole (12
+encoder and 12 decoder layers over frames of 1,500 × 768: consistency at 4 ×
+385 tokens with the cross caches leaf by leaf, the encoder alone beside its
+bound, the Engine on 8 prompts of 4-224 tokens with 224 new, and its launcher
+as a subprocess) and pixtral-12b at full width cut to 20 of 40 layers (256
+patches of 1,024 in the first positions: consistency over 2 × 1,025 tokens
+with the token-by-token prefill over 272 positions, the Engine on 8 prompts of
+1,536-2,048, ``fit_head`` on its features through rows 2 and 11 at 5,136
 columns). Each phase of ``main``, and each model of the decoder families'
 phases, prints its wall seconds (``{"phase": "seconds", ...}``).
 
@@ -2817,31 +2825,36 @@ def cache_leaves(cache: dict) -> dict:
     return out
 
 
-def phase_lm_consistency(cfg, model, label: str = "lm_granite_consistency", c: dict = LM_CONSISTENCY) -> None:
+def phase_lm_consistency(cfg, model, label: str = "lm_granite_consistency", c: dict = LM_CONSISTENCY,
+                         stubs: Optional[dict] = None) -> None:
     """forward_logits on B sequences of ``seq`` tokens (lm_batch, B = 4 × 1,025 for
     granite); batched_prefill of the first ``prefill`` (cache ``cache_len``)
     against the forward's position prefill − 1; one decode_step at ``prefill``
-    against its position; the token-by-token prefill of 64 tokens against
-    batched_prefill of the same 64 (logits and every cache leaf). An MoE's
-    dropped assignments are counted (0 at the dropless capacity the caller sets)."""
+    against its position; the token-by-token prefill of ``token_prefill`` tokens
+    against batched_prefill of the same (logits and every cache leaf, an
+    encoder-decoder's cross ``xk`` and ``xv`` included). ``stubs`` (an
+    encoder-decoder's frames, a VLM's patches, B rows) join every call's batch.
+    An MoE's dropped assignments are counted (0 at the dropless capacity the
+    caller sets)."""
     import torch
 
     from repro_torch.data import tokens
     from repro_torch.models import lm, moe
 
+    stubs = stubs or {}
     b = tokens.lm_batch(SEED + 40, 0, batch=c["batch"], seq=c["seq"], vocab=cfg.vocab_size, device=DEVICE)
     toks = b["tokens"]
     with moe.count_drops() as drops:
-        full, fwd_s = host_s(lambda: lm.forward_logits(model, cfg, b))
-        (lp, cache), pre_s = host_s(lambda: lm.batched_prefill(model, cfg, {"tokens": toks[:, : c["prefill"]]},
+        full, fwd_s = host_s(lambda: lm.forward_logits(model, cfg, dict(b, **stubs)))
+        (lp, cache), pre_s = host_s(lambda: lm.batched_prefill(model, cfg, {"tokens": toks[:, : c["prefill"]], **stubs},
                                                                cache_len=c["cache_len"]))
         cache_shapes = {n: list(t.shape) for n, t in cache_leaves(cache).items()}
         (ld, _), dec_s = host_s(lambda: lm.decode_step(model, cfg, toks[:, c["prefill"]], cache, c["prefill"]))
         del cache
         t = c["token_prefill"]
-        (ltt, ctt), tt_s = host_s(lambda: lm.prefill(model, cfg, {"tokens": toks[:, :t]},
+        (ltt, ctt), tt_s = host_s(lambda: lm.prefill(model, cfg, {"tokens": toks[:, :t], **stubs},
                                                      lm.init_cache(cfg, c["batch"], t, device=DEVICE)))
-        lb, cb = lm.batched_prefill(model, cfg, {"tokens": toks[:, :t]})
+        lb, cb = lm.batched_prefill(model, cfg, {"tokens": toks[:, :t], **stubs})
     err = lambda a, w: float((a - w).abs().max())
     want_pre, want_dec = full[:, c["prefill"] - 1], full[:, c["prefill"]]
     ctt, cb = cache_leaves(ctt), cache_leaves(cb)
@@ -2860,6 +2873,7 @@ def phase_lm_consistency(cfg, model, label: str = "lm_granite_consistency", c: d
              "token_prefill": top1_agreement(ltt, lb, LM_LOGIT_BOUND)}
     finite = all(bool(torch.isfinite(x).all()) for x in (full, lp, ld, ltt))
     emit({"phase": label, "arch": cfg.name, "layers": cfg.num_layers, "card": nvidia_smi_line(), **c,
+          "stubs": {n: list(t.shape) for n, t in stubs.items()},
           "window": cfg.window, "capacity_factor": cfg.capacity_factor if cfg.moe else None,
           "cache_shapes": cache_shapes, "moe_assignments": drops.assigned,
           "moe_dropped": int(drops.dropped) if drops.calls else None, "bound": LM_LOGIT_BOUND, **report,
@@ -2911,31 +2925,79 @@ def first_divergence(a: list, b: list):
     return None
 
 
-ATTENTION_CACHE = ("k", "v", "ckv", "krope")  # the cache leaves the decode's attention reads as float32 copies
+# The cache leaves the decode's attention reads as float32 copies (the cross "xk",
+# "xv" at every step too).
+ATTENTION_CACHE = ("k", "v", "ckv", "krope", "xk", "xv")
 
 
-def mixer_matrix_params(cfg) -> int:
-    """Weights of a layer's token-mixing products (GQA or MLA, and a hybrid
-    layer's Mamba projections): 2 flops a token each."""
+def mixer_matrix_params(cfg, *, encoder: bool = False) -> int:
+    """Weights of a layer's token-mixing products a token passes through (GQA or
+    MLA, a hybrid layer's Mamba projections, an encoder-decoder's cross q and o:
+    its k and v run over the frames, ``frontend_flops``): 2 flops a token each.
+    ``encoder``: an encoder layer's (its GQA)."""
     d, H = cfg.d_model, cfg.num_heads
+    hd = cfg.resolved_head_dim
+    gqa = d * H * hd + 2 * d * cfg.num_kv_heads * hd + H * hd * d
+    if encoder:
+        return gqa
     if cfg.mla:
         nope, rope_d, v, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
         n = (d * cfg.q_lora_rank + cfg.q_lora_rank * H * (nope + rope_d) + d * (r + rope_d) + r * H * (nope + v)
              + H * v * d)
     else:
-        hd = cfg.resolved_head_dim
-        n = d * H * hd + 2 * d * cfg.num_kv_heads * hd + H * hd * d
+        n = gqa
     if cfg.hybrid:
         C, r, N = cfg.d_inner, cfg.resolved_dt_rank, cfg.ssm_state
         n += d * 2 * C + C * (r + 2 * N) + r * C + C * d
+    if cfg.encdec:
+        n += 2 * d * H * hd
     return n
 
 
 def score_width(cfg) -> int:
-    """Flops / 2 of one query against one key over all heads: q·k and p·v."""
+    """Flops / 2 of one query against one key over all heads: q·k and p·v (the
+    same for self, bidirectional and cross GQA)."""
     if cfg.mla:
         return cfg.num_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim)
     return 2 * cfg.num_heads * cfg.resolved_head_dim
+
+
+def encoder_flops(cfg, B: int) -> int:
+    """The frame encoder over B × enc_seq frames: each layer's GQA and SwiGLU
+    products, and its bidirectional attention (every frame against every frame)."""
+    if not cfg.encdec:
+        return 0
+    E, d = cfg.enc_seq, cfg.d_model
+    products = 2 * B * E * cfg.enc_layers * (mixer_matrix_params(cfg, encoder=True) + 3 * d * cfg.d_ff)
+    return products + 2 * B * score_width(cfg) * cfg.enc_layers * E * E
+
+
+def frontend_flops(cfg, B: int, S: int) -> int:
+    """A prefill's work on the frontend stubs over B sequences of S tokens: the
+    encoder, every decoder layer's cross k and v over the frames and the cross
+    scores (S queries against enc_seq keys); a VLM's patch projection."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    flops = 0
+    if cfg.encdec:
+        E, L = cfg.enc_seq, cfg.num_layers
+        flops += encoder_flops(cfg, B) + 2 * B * E * L * 2 * d * cfg.num_kv_heads * hd
+        flops += 2 * B * score_width(cfg) * L * S * E
+    if cfg.vlm:
+        flops += 2 * B * cfg.num_image_tokens * cfg.vit_dim * d
+    return flops
+
+
+def cross_cache_bytes(cfg, B: int) -> int:
+    """The cross keys and values every decode step reads (bf16): B · L · enc_seq · KV · hd · 2 · 2."""
+    if not cfg.encdec:
+        return 0
+    return B * cfg.num_layers * cfg.enc_seq * cfg.num_kv_heads * cfg.resolved_head_dim * 2 * 2
+
+
+def decode_weight(name: str) -> bool:
+    """Whether a decode step reads the parameter: not the embedding table (one row
+    a token), the encoder or the patch projection (prefill only)."""
+    return not name.startswith(("embed.", "enc_layers.", "enc_norm.", "vit_proj."))
 
 
 def cache_bytes_a_token(cfg) -> int:
@@ -2953,18 +3015,21 @@ def state_bytes_a_sequence(cfg) -> int:
     return cfg.num_layers * (cfg.d_inner * cfg.ssm_state * 4 + (cfg.d_conv - 1) * cfg.d_inner * 2)
 
 
-def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = False) -> tuple:
+def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = False,
+               stubs: Optional[dict] = None) -> tuple:
     """``Engine.generate`` (greedy) on c["prompts"] lm_batch prompts of
-    c["min_len"]…c["max_len"] tokens, c["new"] new, twice. Reports the prefill's
-    seconds and tokens/s beside its bf16 flops bound (the layers' products over
-    the MoE assignments kept, the attention each query's window asks for, the
-    unembedding at the last position), the decode's ms a step (median of the
-    second run's) beside its bytes floor (the weights but the embedding, the
-    valid cache entries), the dropped share of MoE assignments at the prefill
-    and at decode, peak memory, and one decode step traced at the median
-    step's position (``lm_<tag>_decode_traced``) with the float32 copies of the
-    cache its attention makes. Returns (engine, prompts, the first run's
-    tokens, report, the decode's StepTimer)."""
+    c["min_len"]…c["max_len"] tokens, c["new"] new, twice, with ``stubs`` (an
+    encoder-decoder's frames, a VLM's patches, a row a prompt). Reports the
+    prefill's seconds and tokens/s beside its bf16 flops bound (the layers'
+    products over the MoE assignments kept, the attention each query's window
+    asks for, the frontend's work: ``frontend_flops``, the unembedding at the
+    last position), the decode's ms a step (median of the second run's) beside
+    its bytes floor (the weights a step reads, ``decode_weight``; the valid
+    cache entries; the cross cache), the dropped share of MoE assignments at
+    the prefill and at decode, peak memory, and one decode step traced at the
+    median step's position (``lm_<tag>_decode_traced``) with the float32
+    copies of the cache its attention makes. Returns (engine, prompts, the
+    first run's tokens, report, the decode's StepTimer)."""
     import statistics
 
     import torch
@@ -2992,10 +3057,11 @@ def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = Fals
 
         return call
 
+    stubs = stubs or {}
     engine._prefill = prefill_t = StepTimer(counting("prefill"))
     engine._decode = decode_t = StepTimer(counting("decode"), margins=margins)
-    first, gen_s = host_s(lambda: engine.generate(prompts, max_new_tokens=c["new"]))
-    again, gen2_s = host_s(lambda: engine.generate(prompts, max_new_tokens=c["new"]))
+    first, gen_s = host_s(lambda: engine.generate(prompts, max_new_tokens=c["new"], **stubs))
+    again, gen2_s = host_s(lambda: engine.generate(prompts, max_new_tokens=c["new"], **stubs))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = c["new"] - 1
     pre_ms, dec_all = prefill_t.ms(), decode_t.ms()
@@ -3023,10 +3089,11 @@ def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = Fals
         ffn_flops = 2 * tokens_in * L * 3 * d * cfg.d_ff
     keys = sum(sum(min(q + 1, w) if w > 0 else q + 1 for q in range(S)) for w in windows)  # a row, all layers
     flops = (2 * tokens_in * L * mixer_matrix_params(cfg) + ffn_flops + 2 * B * score_width(cfg) * keys
-             + 2 * B * d * cfg.padded_vocab)
-    weight_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters() if n != "embed.table")
+             + frontend_flops(cfg, B, S) + 2 * B * d * cfg.padded_vocab)
+    weight_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters() if decode_weight(n))
     pos_med = S + c["new"] // 2
     kv_bytes = B * cache_bytes_a_token(cfg) * sum(min(pos_med + 1, w) if w > 0 else pos_med + 1 for w in windows)
+    kv_bytes += cross_cache_bytes(cfg, B)
     state_bytes = 2 * B * state_bytes_a_sequence(cfg)  # the Mamba states, read and written a step
     floor_ms = (weight_bytes + kv_bytes + state_bytes) / PEAK_BYTES * 1e3
     dec_med = statistics.median(dec_ms)
@@ -3036,7 +3103,7 @@ def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = Fals
         toks = torch.zeros((B, S), dtype=torch.int64)
         for r, p in enumerate(prompts):
             toks[r, S - len(p):] = torch.tensor(p)
-        logits, cache = plain["prefill"](toks.to(DEVICE))
+        logits, cache = plain["prefill"](toks.to(DEVICE), *(stubs.get(n) for n in ("frames", "patches")))
         tok = torch.argmax(logits, dim=-1)
         for pos in range(S, pos_med):
             tok, _, cache = plain["decode"](tok, cache, pos, None)
@@ -3059,6 +3126,7 @@ def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = Fals
         "decode_ms_median": dec_med, "decode_ms_median_first_run": statistics.median(dec_all[:steps]),
         "decode_ms_min": min(dec_ms), "decode_ms_max": max(dec_ms), "decode_tok_per_s": B / (dec_med / 1e3),
         "decode_floor_ms": floor_ms, "decode_weight_bytes": weight_bytes, "decode_kv_bytes": kv_bytes,
+        "decode_cross_cache_bytes": cross_cache_bytes(cfg, B), "stubs": {n: list(t.shape) for n, t in stubs.items()},
         "decode_state_bytes": state_bytes,
         "decode_floor_share": floor_ms / dec_med, "decode_f32_cache_copy_ms": copy_ms,
         "decode_f32_cache_copy_bytes": copy_bytes, "traced_decode_wall_ms": traced_wall * 1e3, "drops": drop,
@@ -3114,11 +3182,14 @@ def phase_lm_engine(cfg, model) -> None:
           f"lm_granite_engine: batched and single generations part at {split}, margin {split_margin}")
 
 
-def check_chunk_slices(family: str, keys, X, m: int) -> dict:
+def check_chunk_slices(family: str, keys, X, m: int, yardsticks: bool = False) -> dict:
     """One multi-key launch on the first ``cuda.worker_chunk`` of the keys a main-path
     call takes: its first and last slices held against the plain version (within
     GRAM_TOL) and bitwise against single-key launches; the launch's ms (CUDA
-    events, mean of 3 after a warm-up) beside its bound. Returns the errors and times."""
+    events, mean of 3 after a warm-up) beside its bound. With ``yardsticks``
+    also one worker's plain version (host clock) and library call (CUDA
+    events, after a warm-up: ``dense_library``'s matmuls over a pre-drawn S,
+    ``sjlt_library``'s ``index_add_``) at this shape. Returns the errors and times."""
     import torch
 
     from repro_torch.kernels import cuda
@@ -3131,26 +3202,37 @@ def check_chunk_slices(family: str, keys, X, m: int) -> dict:
     out = {"workers_per_call": chunk, "ms": ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
            "entry_rel_err": {}, "max_abs_err": {}, "slices_bitwise_equal_single": {}}
     for w in sorted({0, chunk - 1}):
-        want = calls.plain_single(w, X)
+        want, plain_s = host_s(lambda: calls.plain_single(w, X))
+        if w == 0 and yardsticks:
+            out["plain_ms_one_worker"] = plain_s * 1e3
         out["entry_rel_err"][str(w)] = gram_err(G[w], want)
         out["max_abs_err"][str(w)] = float((G[w] - want).abs().max())
         out["slices_bitwise_equal_single"][str(w)] = torch.equal(G[w], calls.single(w, X))
         del want
     del G
     torch.cuda.empty_cache()
+    if yardsticks:
+        library = (sjlt_library if family == "sjlt" else dense_library)(calls, X, 1)
+        out["library_ms_one_worker"], _ = cuda_ms(lambda: library(1), 1)
+        out["ms_one_worker"] = ms / chunk
+        del library
+        torch.cuda.empty_cache()
     return out
 
 
-def phase_fit_head_lm(cfg, model, rows: dict, tag: str = "granite", ids: tuple = LM_HEAD_IDS) -> None:
-    """Algorithm 1 on the LM's own features (granite-3-8b's; gemma3-12b's and
-    hymba-1.5b's with ``tag``): H = extract_features on lm_batch(16 × 2,048),
+def phase_fit_head_lm(cfg, model, rows: dict, tag: str = "granite", ids: tuple = LM_HEAD_IDS,
+                      stubs: Optional[dict] = None, yardsticks: bool = False) -> None:
+    """Algorithm 1 on the LM's own features (granite-3-8b's; gemma3-12b's,
+    hymba-1.5b's and pixtral-12b's, with its ``stubs``, the patches, with
+    ``tag``): H = extract_features on lm_batch(16 × 2,048),
     32,768 × d_model float32; Y = H·U[:, ids] + 0.1·N(0, 1),
     U the model's unembedding at 16 fixed ids (a 16-token lm-head re-fit);
     fit_head at q = 16, m = 8,192, 12 arriving, reg 1e-4, the Gaussian through
     row 2 and the SJLT (s = 20) through row 11; the gates of phase_fit_head, and
     H's condition number. Beside the fit, the first call's worth of keys through
     each multi-key wrapper on the same [H | Y], held against the plain version:
-    no earlier kernel check ran rows 2 and 11 this wide."""
+    no earlier kernel check ran rows 2 and 11 this wide (with ``yardsticks``
+    one worker's plain and library times too, ``check_chunk_slices``)."""
     import torch
 
     from repro_torch.core import privacy, sketches as sk, theory
@@ -3161,6 +3243,7 @@ def phase_fit_head_lm(cfg, model, rows: dict, tag: str = "granite", ids: tuple =
 
     c = LM_HEAD
     b = tokens.lm_batch(SEED + 42, 0, batch=c["batch"], seq=c["seq"], vocab=cfg.vocab_size, device=DEVICE)
+    b.update(stubs or {})
     torch.cuda.reset_peak_memory_stats()
     H, feat_s = host_s(lambda: solvers.extract_features(model, cfg, b))
     feat_peak = torch.cuda.max_memory_allocated() / 1e9
@@ -3199,7 +3282,7 @@ def phase_fit_head_lm(cfg, model, rows: dict, tag: str = "granite", ids: tuple =
         check(len(acc.disclosures) == c["q"], f"{label}: {len(acc.disclosures)} disclosures")
         rows[multi].setdefault("launches_by_path", {})[label] = counts.get(multi, 0)
         # Outside the counted run: the kernel against its plain version at this width.
-        slices = check_chunk_slices(family, prng.worker_keys(key, c["q"]), torch.cat([H, Y], 1), c["m"])
+        slices = check_chunk_slices(family, prng.worker_keys(key, c["q"]), torch.cat([H, Y], 1), c["m"], yardsticks)
         emit({"phase": f"{label}_kernel_check", "name": multi, "n": n, "d": dx, "m": c["m"], **slices,
               "tol": GRAM_TOL})
         check(all(e <= GRAM_TOL for e in slices["entry_rel_err"].values()),
@@ -3556,10 +3639,11 @@ def phase_train_small_card_vs_cpu(rows: dict) -> None:
 
 CHATGLM_ARCH = "chatglm3-6b"  # 28 layers, d_model 4,096, 32/2 heads, RoPE on half of each head, 6.24e9 parameters
 # Depth cuts (full width): mixtral's and grok's whole models do not fit one card; the
-# smoke also keeps under 900 s with the MLA and hybrid phase, so mixtral runs 4
-# of its 32 layers (12.1 GB), gemma3 24 of its 48 in-process (its launcher builds it
-# whole) and grok 1 of its 64 (6.53e9 parameters, 13.1 GB).
-MIXTRAL_LAYERS = 4
+# smoke also keeps under 900 s with the MLA and hybrid phase and the encoder-decoder
+# and VLM phase after it, so mixtral runs 2 of its 32 layers, gemma3 12 of its 48
+# in-process (two whole local:global periods; its launcher builds it whole) and
+# grok 1 of its 64 (6.53e9 parameters, 13.1 GB).
+MIXTRAL_LAYERS = 2
 MIXTRAL_CONSISTENCY = {"batch": 2, "seq": 4609, "prefill": 4608, "cache_len": 4672, "token_prefill": 64}
 MIXTRAL_ENGINE = {"prompts": 8, "min_len": 4352, "max_len": 6144, "new": 32}
 # The prefill's float32 score and probability chunks are B·S·H·chunk·4 bytes: 1.6 GB
@@ -3567,7 +3651,7 @@ MIXTRAL_ENGINE = {"prompts": 8, "min_len": 4352, "max_len": 6144, "new": 32}
 # 512 the prefill's peak was 16.6 GB above the weights and cache).
 MIXTRAL_ATTN_CHUNK = 256
 GEMMA_ARCH = "gemma3-12b"  # 48 layers (40 local, window 1,024; 8 global), d_model 3,840, head_dim 240, vocab 262,144
-GEMMA_LAYERS = 24  # four whole local:global periods of 5 + 1
+GEMMA_LAYERS = 12  # two whole local:global periods of 5 + 1
 GEMMA_CONSISTENCY = {"batch": 2, "seq": 2049, "prefill": 2048, "cache_len": 2112, "token_prefill": 64}
 GEMMA_ENGINE = {"prompts": 8, "min_len": 2048, "max_len": 3072, "new": 32}
 SERVE_GEMMA_CLI = ("--arch", GEMMA_ARCH)
@@ -3576,20 +3660,23 @@ GROK_CONSISTENCY = {"batch": 2, "seq": 1025, "prefill": 1024, "cache_len": 1088,
 
 
 def leaf_draw(cfg, name: str):
-    """(key, scale) of a weight leaf's draw under the reference's key tree for key 0:
-    ``embed.table``, ``unembed.w`` or ``layers.<l>.moe.w_gate``."""
+    """(key, scale, divide) of a weight leaf's draw under the reference's key tree
+    for key 0: ``embed.table``, ``unembed.w``, ``layers.<l>.moe.w_gate`` (normal
+    · scale) or ``vit_proj.w`` (normal / √vit_dim: ``divide``)."""
     import math
 
     from repro_torch.utils import prng
 
-    k_emb, k_layers, _, k_un, _, _ = prng.split(prng.prng_key(0), 6)
+    k_emb, k_layers, _, k_un, _, k_vit = prng.split(prng.prng_key(0), 6)
     if name == "embed.table":
-        return k_emb, 0.02
+        return k_emb, 0.02, False
     if name == "unembed.w":
-        return k_un, 1.0 / math.sqrt(cfg.d_model)
+        return k_un, 1.0 / math.sqrt(cfg.d_model), False
+    if name == "vit_proj.w":
+        return k_vit, math.sqrt(cfg.vit_dim), True
     l = int(name.split(".")[1])
     ks = prng.split(prng.split(k_layers, cfg.num_layers)[l], 8)[3]
-    return prng.split(ks, 4)[1], 1.0 / math.sqrt(cfg.d_model)
+    return prng.split(ks, 4)[1], 1.0 / math.sqrt(cfg.d_model), False
 
 
 def lm_build(label: str, cfg, leaf: str):
@@ -3606,13 +3693,16 @@ def lm_build(label: str, cfg, leaf: str):
     model, seconds = host_s(lambda: lm.init_params(cfg, prng.prng_key(0), device=DEVICE))
     n_params = sum(p.numel() for p in model.parameters())
     want = sum(s.numel() for s in lm.param_shapes(cfg).values())
-    key, scale = leaf_draw(cfg, leaf)
+    key, scale, divide = leaf_draw(cfg, leaf)
     t = model.state_dict()[leaf]
     flat = t.reshape(-1, t.shape[-1])
     cols = flat.shape[1]
-    same = all(torch.equal(flat[r0 : r0 + 2].cpu(),
-                           (prng.normal(key, (2, cols), offset=r0 * cols, device="cpu") * scale).to(t.dtype))
-               for r0 in (0, flat.shape[0] - 2))
+
+    def cpu_rows(r0):
+        z = prng.normal(key, (2, cols), offset=r0 * cols, device="cpu")
+        return (z / torch.tensor(scale, dtype=torch.float32) if divide else z * scale).to(t.dtype)
+
+    same = all(torch.equal(flat[r0 : r0 + 2].cpu(), cpu_rows(r0)) for r0 in (0, flat.shape[0] - 2))
     emit({"phase": label, "arch": cfg.name, "layers": cfg.num_layers, "card": nvidia_smi_line(), "params": n_params,
           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()), "seconds": seconds,
           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "leaf": leaf, "leaf_shape": list(t.shape),
@@ -3623,12 +3713,13 @@ def lm_build(label: str, cfg, leaf: str):
     return model
 
 
-def phase_lm_engine_family(tag: str, cfg, model, c: dict, plan=None, extra: Optional[dict] = None) -> None:
-    """``run_engine`` for an MoE, windowed, MLA or SSM decoder at its config's
-    capacity, with prompts past its window (the rings wrap in the prefill);
-    ``extra`` joins the report."""
+def phase_lm_engine_family(tag: str, cfg, model, c: dict, plan=None, extra: Optional[dict] = None,
+                           stubs: Optional[dict] = None) -> None:
+    """``run_engine`` for an MoE, windowed, MLA, SSM, encoder-decoder or VLM
+    model at its config's capacity, with prompts past its window (the rings wrap
+    in the prefill) and ``stubs``; ``extra`` joins the report."""
     label = f"lm_{tag}_engine"
-    _, prompts, first, report, _ = run_engine(tag, cfg, model, c, plan=plan)
+    _, prompts, first, report, _ = run_engine(tag, cfg, model, c, plan=plan, stubs=stubs)
     emit({"phase": label, "card": nvidia_smi_line(), **report, **(extra or {})})
     check_engine(label, cfg, c, first, report)
     check(min(len(p) for p in prompts) > cfg.window, f"{label}: the prompts do not pass the window {cfg.window}")
@@ -3771,6 +3862,99 @@ def phase_lm_mla_hybrid(rows: dict) -> None:
         free_card()
 
 
+# ------------------------------------------ the encoder-decoder (whisper-small) and the VLM (pixtral-12b)
+
+WHISPER_ARCH = "whisper-small"  # 12 encoder + 12 decoder layers, d_model 768, 12 heads, 1,500 frames, vocab 51,865
+WHISPER_CONSISTENCY = {"batch": 4, "seq": 385, "prefill": 384, "cache_len": 448, "token_prefill": 64}
+# 448 is whisper's decoder context (its config's own long_context_note): prompts and new tokens within it.
+WHISPER_ENGINE = {"prompts": 8, "min_len": 4, "max_len": 224, "new": 224}
+SERVE_WHISPER_CLI = ("--arch", WHISPER_ARCH)  # the reference launcher's frames
+PIXTRAL_ARCH = "pixtral-12b"  # 40 layers, d_model 5,120, 32/8 heads of 160, vocab 131,072, 256 patches of 1,024
+# Full width at half depth (7.06e9 parameters, 14.1 GB): whole (40 layers, 25.6 GB) the
+# phase took 78.5 s of a smoke of 854 s on one host, which leaves no room on a slower
+# one. The patch prefix runs before layer 0, and its layers are the dense layer that
+# granite-3-8b runs whole.
+PIXTRAL_LAYERS = 20
+# The token-by-token prefill runs past the 256 patch slots into 16 text tokens.
+PIXTRAL_CONSISTENCY = {"batch": 2, "seq": 1025, "prefill": 1024, "cache_len": 1088, "token_prefill": 272}
+PIXTRAL_ENGINE = {"prompts": 8, "min_len": 1536, "max_len": 2048, "new": 32}
+
+
+def draw_stubs(cfg, B: int, seed: int) -> dict:
+    """The reference's frontend stubs for B sequences, N(0, 1) under ``seed`` on the
+    card: an encoder-decoder's frames (B, enc_seq, d_model), a VLM's patches
+    (B, num_image_tokens, vit_dim)."""
+    from repro_torch.utils import prng
+
+    if cfg.encdec:
+        return {"frames": prng.normal(prng.prng_key(seed), (B, cfg.enc_seq, cfg.d_model), device=DEVICE)}
+    return {"patches": prng.normal(prng.prng_key(seed), (B, cfg.num_image_tokens, cfg.vit_dim), device=DEVICE)}
+
+
+def encoder_report(cfg, model, frames) -> dict:
+    """``encoder_forward`` alone on ``frames`` (CUDA events, mean of 3 after a
+    warm-up) beside its bf16 bound (``encoder_flops``)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    with torch.inference_mode():
+        ms, out = cuda_ms(lambda: lm.encoder_forward(model, cfg, frames), 3)
+    flops = encoder_flops(cfg, frames.shape[0])
+    bound_ms = flops / PEAK_BF16_FLOPS * 1e3
+    check(tuple(out.shape) == tuple(frames.shape) and bool(torch.isfinite(out).all()),
+          "lm_whisper_encoder: bad encoder output")
+    return {"encoder_frames": list(frames.shape), "encoder_ms": ms, "encoder_flops": flops,
+            "encoder_bound_ms": bound_ms, "encoder_bound_share": bound_ms / ms}
+
+
+def phase_lm_encdec_vlm(rows: dict) -> None:
+    """The encoder-decoder and the VLM at full width, bfloat16, the reference's
+    weights for key 0, the first freed before the second is built.
+    whisper-small whole: the consistency over 4 × 385 decoder tokens with
+    frames (4, 1,500, 768), every cache leaf (the cross xk and xv included);
+    the encoder alone on the Engine's frames; the Engine on 8 prompts of
+    4–224 tokens, 224 new (whisper's decoder context of 448), frames (8,
+    1,500, 768); then, the model freed, ``--arch whisper-small`` through the
+    launcher (the reference launcher's frames). pixtral-12b at PIXTRAL_LAYERS
+    layers: the consistency over 2 × 1,025 tokens with patches (2, 256,
+    1,024), the token-by-token prefill over 272 positions (the 256 patch
+    slots and 16 text tokens) against the batched one; the Engine on 8 prompts
+    of 1,536–2,048 with patches (8, 256, 1,024); head fitting on its features
+    with patches (rows 2 and 11 at 5,136 columns, with one worker's plain and
+    library times)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    free_card()
+    with clock("whisper"):
+        cfg = get_config(WHISPER_ARCH)
+        model = lm_build("lm_whisper_init", cfg, "unembed.w")
+        phase_lm_consistency(cfg, model, "lm_whisper_consistency", WHISPER_CONSISTENCY,
+                             stubs=draw_stubs(cfg, WHISPER_CONSISTENCY["batch"], SEED + 47))
+        frames = draw_stubs(cfg, WHISPER_ENGINE["prompts"], SEED + 48)
+        enc = encoder_report(cfg, model, frames["frames"])
+        emit({"phase": "lm_whisper_encoder", "card": nvidia_smi_line(), **enc})
+        phase_lm_engine_family("whisper", cfg, model, WHISPER_ENGINE, stubs=frames, extra=enc)
+        del model, frames
+        free_card()
+    with clock("whisper_serve_cli"):
+        phase_lm_serve_cli("lm_whisper_serve_cli", SERVE_WHISPER_CLI)
+
+    with clock("pixtral"):
+        cfg = dataclasses.replace(get_config(PIXTRAL_ARCH), num_layers=PIXTRAL_LAYERS)
+        model = lm_build("lm_pixtral_init", cfg, "vit_proj.w")
+        phase_lm_consistency(cfg, model, "lm_pixtral_consistency", PIXTRAL_CONSISTENCY,
+                             stubs=draw_stubs(cfg, PIXTRAL_CONSISTENCY["batch"], SEED + 49))
+        phase_lm_engine_family("pixtral", cfg, model, PIXTRAL_ENGINE,
+                               stubs=draw_stubs(cfg, PIXTRAL_ENGINE["prompts"], SEED + 50))
+        phase_fit_head_lm(cfg, model, rows, tag="pixtral", stubs=draw_stubs(cfg, LM_HEAD["batch"], SEED + 51),
+                          yardsticks=True)
+        del model
+        free_card()
+
+
 def phase_trace(label: str, solve) -> None:
     """One more run of a path under ``torch.profiler``: device time by kernel and the
     device's busy share of the run's wall time (kernels on one stream, so their
@@ -3849,7 +4033,7 @@ def main() -> int:
         timed(phase_fig3a_student_t, FIG3A, rows)
         for phase in (phase_fig2_emnist, phase_adjoint_kernel, phase_ln_apply, phase_least_norm, phase_gradcomp,
                       phase_fit_head, phase_lm, phase_train, phase_lm_families, phase_serverless,
-                      phase_row_sharded_and_groups, phase_lm_mla_hybrid):
+                      phase_row_sharded_and_groups, phase_lm_mla_hybrid, phase_lm_encdec_vlm):
             timed(phase, rows)
         emit({"phase": "seconds", "of": "main", "seconds": time.perf_counter() - t0})
         for name, row in rows.items():

@@ -5,7 +5,9 @@
 
 LM mode (``--arch``) builds the architecture's model with the reference's
 weights for key 0 (``models.lm.init_params``), serves ``--requests`` synthetic
-prompts through :class:`repro_torch.serve.Engine` and prints the ``arch=`` line
+prompts through :class:`repro_torch.serve.Engine` (an encoder-decoder's with
+the reference launcher's frames, N(0, 1) under key 0; a VLM's without
+patches, as there) and prints the ``arch=`` line
 (requests, new tokens, wall time, tokens/s) and the first requests' tokens.
 Solve mode (``--solve``) boots a :class:`repro_torch.serve.SolveServer`, admits
 ``--jobs`` synthetic regression jobs through the asynchronous runtime engine on
@@ -107,8 +109,11 @@ def lm_main(args) -> int:
     prompts = [
         list(range(3 + (i % 5), 3 + (i % 5) + args.prompt_len - (i % 4))) for i in range(args.requests)
     ]
+    kwargs = {}
+    if cfg.encdec:  # the reference launcher's frames: N(0, 1) under the weights' key
+        kwargs["frames"] = prng.normal(prng.prng_key(0), (sc.max_batch, cfg.enc_seq, cfg.d_model), device=dev)
     t0 = time.perf_counter()
-    outs = engine.generate(prompts, max_new_tokens=args.max_new)
+    outs = engine.generate(prompts, max_new_tokens=args.max_new, **kwargs)
     dt = time.perf_counter() - t0  # generate returns host lists: the device is done
     toks = sum(len(o) for o in outs)
     print(f"arch={cfg.name} requests={len(prompts)} new_tokens={toks} wall={dt:.2f}s ({toks / dt:.1f} tok/s) "

@@ -1,8 +1,10 @@
 """Attention of the port: GQA and MLA with chunked online-softmax (flash-style)
 attention for training and prefill, and one-token decode against a cache.
 
-Port of ``repro.models.attention`` (cross-attention decode comes with the
-encoder-decoder family). The algorithm is the reference's, in plain PyTorch:
+Port of ``repro.models.attention``: GQA self attention (causal with RoPE, or
+bidirectional without it: the encoder's), cross attention to an encoder's
+output (``kv_source``; ``cross_decode`` against the cached encoder keys and
+values), MLA. The algorithm is the reference's, in plain PyTorch:
 ``chunked_attention`` walks the keys in chunks with a running (max, sum) pair, so
 its peak memory is O(S·chunk), and runs in float32 whatever the activations'
 dtype (q is scaled in its own dtype first, as the reference does). Heads are
@@ -117,19 +119,30 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, caus
 
 
 def gqa_forward(p: GQA, x: torch.Tensor, *, heads: int, kv_heads: int, head_dim: int, rope_theta: float,
-                rope_fraction: float = 1.0, window: int = 0, chunk: int = 1024, return_kv: bool = False):
-    """Causal self attention over x: (B, S, d), rotary at positions 0..S-1.
+                rope_fraction: float = 1.0, causal: bool = True, window: int = 0, chunk: int = 1024,
+                kv_source: torch.Tensor | None = None, return_kv: bool = False):
+    """Self attention over x: (B, S, d), or cross attention from x to
+    ``kv_source`` (B, Sk, d) (the keys and values its projections).
 
-    ``return_kv=True`` also returns the post-RoPE (k, v), (B, S, KV, hd) each:
-    exactly what a decode cache stores (the batched prefill's path)."""
+    Rotary at positions 0..S-1 only for causal self attention (``causal`` and
+    no ``kv_source``), as in the reference: the encoder's bidirectional self
+    attention (``causal=False``) and cross attention rotate nothing, and cross
+    attention masks nothing. ``return_kv=True`` also returns (k, v), (B, Sk,
+    KV, hd) each, post-RoPE where rotated: exactly what a decode cache stores
+    (the batched prefill's path)."""
     B, S, _ = x.shape
+    src = x if kv_source is None else kv_source
+    Sk = src.shape[1]
     q = (x @ p.wq).reshape(B, S, heads, head_dim)
-    k = (x @ p.wk).reshape(B, S, kv_heads, head_dim)
-    v = (x @ p.wv).reshape(B, S, kv_heads, head_dim)
-    cos, sin = layers.rope_angles(torch.arange(S, device=x.device), int(head_dim * rope_fraction) & ~1, rope_theta)
-    q = layers.apply_rope(q, cos[None], sin[None], rope_fraction)
-    k = layers.apply_rope(k, cos[None], sin[None], rope_fraction)
-    out = chunked_attention(q, k, v, window=window, chunk=chunk)
+    k = (src @ p.wk).reshape(B, Sk, kv_heads, head_dim)
+    v = (src @ p.wv).reshape(B, Sk, kv_heads, head_dim)
+    self_causal = causal and kv_source is None
+    if self_causal:
+        cos, sin = layers.rope_angles(torch.arange(S, device=x.device), int(head_dim * rope_fraction) & ~1,
+                                      rope_theta)
+        q = layers.apply_rope(q, cos[None], sin[None], rope_fraction)
+        k = layers.apply_rope(k, cos[None], sin[None], rope_fraction)
+    out = chunked_attention(q, k, v, causal=self_causal, window=window, chunk=chunk)
     out = out.reshape(B, S, heads * head_dim) @ p.wo
     if return_kv:
         return out, (k, v)
@@ -173,6 +186,28 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Te
     s = torch.where(valid[None, None, None, :], s, NEG_INF)
     pr = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", pr, cache_v.to(torch.float32)).reshape(B, 1, heads * head_dim)
+    return out.to(x.dtype) @ p.wo
+
+
+# ------------------------------------------------------------------ cross-attention decode
+
+
+def cross_decode(p: GQA, x: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor, *, heads: int, kv_heads: int,
+                 head_dim: int) -> torch.Tensor:
+    """One-token cross attention against the encoder's keys and values (the
+    whisper decode). x: (B, 1, d); xk, xv: (B, S_enc, KV, hd), computed once at
+    prefill from the encoder output and held in the decode cache, read here and
+    never written. q unrotated and scaled by 1/√hd, then scores, softmax and the
+    value sum in float32 over float32 copies of xk and xv, with no mask (every
+    frame is visible); the output cast to x's dtype before ``wo``. Returns out
+    (B, 1, d)."""
+    B = x.shape[0]
+    G = heads // kv_heads
+    q = (x @ p.wq).reshape(B, heads, head_dim)
+    qf = (q.to(torch.float32) / math.sqrt(head_dim)).reshape(B, kv_heads, G, head_dim)
+    s = torch.einsum("bkgh,bskh->bkgs", qf, xk.to(torch.float32))
+    pr = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", pr, xv.to(torch.float32)).reshape(B, 1, heads * head_dim)
     return out.to(x.dtype) @ p.wo
 
 

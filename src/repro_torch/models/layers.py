@@ -31,18 +31,26 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 @torch.no_grad()
-def draw_normal(key: torch.Tensor, shape: tuple, scale: float, dtype: torch.dtype, device) -> torch.Tensor:
+def draw_normal(key: torch.Tensor, shape: tuple, scale: float, dtype: torch.dtype, device, *,
+                divide: bool = False) -> torch.Tensor:
     """``(jax.random.normal(key, shape) * scale).astype(dtype)``, drawn in pieces of
     whole rows of the last axis (the flat indices of a piece are its offset in
-    the whole draw, so the pieces are the whole draw's values)."""
+    the whole draw, so the pieces are the whole draw's values). ``divide``:
+    ``normal / scale`` instead, a float32 division (not a product by the
+    rounded reciprocal, which differs by an ulp on many entries): the
+    reference's ``vit_proj``."""
     shape = tuple(shape)
     cols = shape[-1]
     flat_rows = math.prod(shape[:-1])
     out = torch.empty((flat_rows, cols), dtype=dtype, device=device)
+    # A divisor held as a tensor on the draw's device: CUDA's division by a host
+    # scalar multiplies by its reciprocal.
+    divisor = torch.tensor(scale, dtype=torch.float32, device=device) if divide else None
     step = max(1, DRAW_PIECE // cols)
     for r0 in range(0, flat_rows, step):
         r = min(step, flat_rows - r0)
-        out[r0 : r0 + r] = (prng.normal(key, (r, cols), offset=r0 * cols, device=device) * scale).to(dtype)
+        piece = prng.normal(key, (r, cols), offset=r0 * cols, device=device)
+        out[r0 : r0 + r] = (piece / divisor if divide else piece * scale).to(dtype)
     return out.reshape(shape)
 
 

@@ -6,9 +6,17 @@ mixtral-8x7b, grok-1-314b), sliding-window attention (mixtral's ``window``),
 gemma3's local:global pattern (``local_global_ratio`` windowed layers, then one
 global), MLA (``attention.mla_*``: minicpm3-4b) and the hybrid layer
 (hymba-1.5b: GQA with a window beside a Mamba branch of ``models.ssm``, both
-reading the same normed input, fused as rmsnorm(a)·β_a + rmsnorm(s)·β_s). A
-model is an :class:`LM` module: the embedding, an ``nn.ModuleList`` of
-:class:`DecoderLayer` looped in Python, the final norm and the unembedding.
+reading the same normed input, fused as rmsnorm(a)·β_a + rmsnorm(s)·β_s), the
+encoder-decoder (whisper-small: a bidirectional :class:`EncoderLayer` stack
+over precomputed frame embeddings, ``encoder_forward``, and in every decoder
+layer a cross-attention block, ``norm_x`` and ``xattn``, after the self
+attention) and the VLM (pixtral-12b: ``vit_proj`` projects precomputed patch
+embeddings into the first P positions, ``embed_inputs``). A model is an
+:class:`LM` module: the embedding, an ``nn.ModuleList`` of :class:`DecoderLayer`
+looped in Python, the final norm and the unembedding (and an encoder-decoder's
+``enc_layers`` and ``enc_norm``, a VLM's ``vit_proj``). As in the reference,
+RoPE rotates only the decoder's causal self attention: the encoder's self
+attention and cross attention have no positions (the frame stub carries none).
 Weights keep the reference's (in, out) orientation; the functions mirror the
 reference's (``forward_logits(params, cfg, batch)`` and so on) with ``params``
 the module. Inference runs under ``torch.inference_mode()``.
@@ -30,15 +38,18 @@ windowed layers' rings and the G global layers' full caches (layer l of group
 g = l // (R + 1) is local entry g·R + r or global entry g); for MLA the latent
 {"ckv" (L, B, S_c, kv_lora), "krope" (L, B, S_c, rope_d)}; for the hybrid's
 Mamba branch {"conv" (L, B, K − 1, C) in the model dtype, "ssm" (L, B, C, N)
-float32} beside its ring. Every attention cache is the reference's ring, slot p
-mod S_c for position p. Configs of the attention-free SSM family
-(falcon-mamba-7b), the encoder-decoder and the VLM families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+float32} beside its ring; for the encoder-decoder, beside "k" and "v", the
+cross keys and values {"xk", "xv"} of (L, B, enc_seq, KV, hd), written once
+by the prefill and only read by the decode. Every attention cache is the
+reference's ring, slot p mod S_c for position p. Configs of the
+attention-free SSM family (falcon-mamba-7b) raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -54,8 +65,6 @@ from repro_torch.utils.device import resolve_device
 # of item 9 that ports it.
 _UNPORTED = (
     (lambda c: c.family == "ssm", "the attention-free SSM family", "9d"),
-    (lambda c: c.encdec or c.family == "encdec", "the encoder-decoder family", "9e"),
-    (lambda c: c.vlm or c.family == "vlm", "the VLM family", "9e"),
 )
 
 
@@ -65,7 +74,8 @@ def check_supported(cfg: ArchConfig) -> None:
     if missing:
         parts = ", ".join(f"{what} (ROADMAP Queue 1 item {item})" for what, item in missing)
         raise NotImplementedError(f"{cfg.name} ({cfg.family}): {parts} is not ported to repro_torch yet; "
-                                  "only the decoder families with attention (dense, MoE, MLA and hybrid) are")
+                                  "only the families with attention (dense, MoE, MLA, hybrid, encoder-decoder and "
+                                  "VLM) are")
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -120,15 +130,19 @@ class Fuse(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm decoder layer, h = norm1(x): x + attn(h) (GQA or MLA), then +
+    """One pre-norm decoder layer, h = norm1(x): x + attn(h) (GQA or MLA), then
+    (encoder-decoder) + xattn(norm_x(·)) against the encoder output, then +
     ffn(norm2(·)), the FFN a SwiGLU (``ffn``) or a mixture of experts
     (``moe``). A hybrid layer's mixer is ``fuse``(attn(h), mamba(h)); other
-    layers have no ``mamba`` and ``fuse`` (None)."""
+    layers have no ``mamba`` and ``fuse``, and a decoder-only layer no
+    ``norm_x`` and ``xattn`` (None)."""
 
     def __init__(self, norm1: layers.RMSNorm, attn: nn.Module, norm2: layers.RMSNorm, ffn: nn.Module, *,
-                 mamba: Optional[ssm_lib.Mamba] = None, fuse: Optional[Fuse] = None):
+                 mamba: Optional[ssm_lib.Mamba] = None, fuse: Optional[Fuse] = None,
+                 norm_x: Optional[layers.RMSNorm] = None, xattn: Optional[attention.GQA] = None):
         super().__init__()
         self.norm1, self.attn, self.mamba, self.fuse, self.norm2 = norm1, attn, mamba, fuse, norm2
+        self.norm_x, self.xattn = norm_x, xattn
         if isinstance(ffn, moe_lib.MoE):
             self.moe = ffn
         else:
@@ -150,11 +164,15 @@ class DecoderLayer(nn.Module):
     def _ssm_args(self, cfg: ArchConfig) -> dict:
         return dict(state=cfg.ssm_state, dt_rank=cfg.resolved_dt_rank)
 
-    def forward(self, x: torch.Tensor, cfg: ArchConfig, window: int, plan: ExecPlan, *, return_kv: bool = False):
+    def forward(self, x: torch.Tensor, cfg: ArchConfig, window: int, plan: ExecPlan, *, return_kv: bool = False,
+                enc_out: Optional[torch.Tensor] = None):
         """(B, S, d) -> (x (B, S, d), MoE aux or None, each sequence an MoE group);
-        with ``return_kv`` also this layer's cache piece by the cache's names:
-        the post-RoPE "k", "v"; MLA's "ckv", "krope"; a Mamba branch's "conv"
-        (the last K − 1 pre-conv inputs) and "ssm" (h_T)."""
+        ``enc_out`` (B, enc_seq, d) is what the cross attention reads (without
+        it, as in the reference, the cross block attends over its own input,
+        bidirectionally). With ``return_kv`` also this layer's cache piece by
+        the cache's names: the post-RoPE "k", "v"; MLA's "ckv", "krope"; a Mamba
+        branch's "conv" (the last K − 1 pre-conv inputs) and "ssm" (h_T); the
+        cross attention's unrotated "xk", "xv"."""
         h = self.norm1(x, cfg.norm_eps)
         piece = {}
         fwd, names = (attention.mla_forward, ("ckv", "krope")) if cfg.mla else (
@@ -171,13 +189,22 @@ class DecoderLayer(nn.Module):
                 s, (piece["conv"], piece["ssm"]) = s
             a = self.fuse(a, s, cfg.norm_eps)
         x = x + a
+        if self.xattn is not None:
+            xa = attention.gqa_forward(self.xattn, self.norm_x(x, cfg.norm_eps), heads=cfg.num_heads,
+                                       kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+                                       rope_theta=cfg.rope_theta, causal=False, chunk=plan.attn_chunk,
+                                       kv_source=enc_out, return_kv=return_kv)
+            if return_kv:
+                xa, (piece["xk"], piece["xv"]) = xa
+            x = x + xa
         f, aux = self._ffn(self.norm2(x, cfg.norm_eps), cfg)
         return (x + f, aux, piece) if return_kv else (x + f, aux)
 
     def decode(self, x: torch.Tensor, lc: Dict[str, torch.Tensor], tables, cfg: ArchConfig) -> torch.Tensor:
         """One token (B, 1, d) against this layer's cache views ``lc``
-        (:func:`layer_caches`), written in place; ``tables`` is
-        ``attention.decode_tables`` of the position for the attention's cache."""
+        (:func:`layer_caches`), written in place (the cross "xk" and "xv" only
+        read); ``tables`` is ``attention.decode_tables`` of the position for the
+        attention's cache."""
         h = self.norm1(x, cfg.norm_eps)
         if cfg.mla:
             a = attention.mla_decode(self.attn, h, lc["ckv"], lc["krope"], tables, **self._attn_args(cfg))
@@ -189,21 +216,54 @@ class DecoderLayer(nn.Module):
             lc["ssm"].copy_(state)
             a = self.fuse(a, s, cfg.norm_eps)
         x = x + a
+        if self.xattn is not None:
+            x = x + attention.cross_decode(self.xattn, self.norm_x(x, cfg.norm_eps), lc["xk"], lc["xv"],
+                                           heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                                           head_dim=cfg.resolved_head_dim)
         B, d = x.shape[0], x.shape[2]
         f, _ = self._ffn(self.norm2(x, cfg.norm_eps).reshape(1, B, d), cfg)  # the batch is the MoE group
         return x + f.reshape(B, 1, d)
 
 
+class EncoderLayer(nn.Module):
+    """One pre-norm encoder layer (whisper's frame encoder): x + attn(norm1(x)),
+    bidirectional and without positions, then + ffn(norm2(·)), a SwiGLU."""
+
+    def __init__(self, norm1: layers.RMSNorm, attn: attention.GQA, norm2: layers.RMSNorm, ffn: layers.SwiGLU):
+        super().__init__()
+        self.norm1, self.attn, self.norm2, self.ffn = norm1, attn, norm2, ffn
+
+    def forward(self, x: torch.Tensor, cfg: ArchConfig, plan: ExecPlan) -> torch.Tensor:
+        h = self.norm1(x, cfg.norm_eps)
+        x = x + attention.gqa_forward(self.attn, h, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                                      head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, causal=False,
+                                      chunk=plan.attn_chunk)
+        return x + self.ffn(self.norm2(x, cfg.norm_eps))
+
+
+class VitProj(nn.Module):
+    """The VLM's projection of patch embeddings into the model: w (vit_dim, d)."""
+
+    def __init__(self, w: torch.Tensor):
+        super().__init__()
+        self.w = layers._param(w)
+
+
 class LM(nn.Module):
     """A decoder LM: ``embed``, ``layers`` (an ``nn.ModuleList``), ``final_norm``
-    and ``unembed`` (None when the embedding is tied). Its state dict's names
+    and ``unembed`` (None when the embedding is tied); an encoder-decoder's
+    ``enc_layers`` (an ``nn.ModuleList`` of :class:`EncoderLayer`) and
+    ``enc_norm``, a VLM's ``vit_proj`` (None elsewhere). Its state dict's names
     follow the reference's tree: ``embed.table``, ``layers.<l>.attn.wq`` (MLA:
     ``.attn.w_dkv`` and so on), ``layers.<l>.ffn.w_gate`` (or
     ``layers.<l>.moe.router``, ``.moe.w_gate``), ``layers.<l>.mamba.in_proj``,
-    ``layers.<l>.fuse.norm_a.scale``, ``final_norm.scale``, ``unembed.w``."""
+    ``layers.<l>.fuse.norm_a.scale``, ``layers.<l>.norm_x.scale``,
+    ``layers.<l>.xattn.wk``, ``final_norm.scale``, ``unembed.w``,
+    ``enc_layers.<l>.attn.wq``, ``enc_norm.scale``, ``vit_proj.w``."""
 
     def __init__(self, cfg: ArchConfig, embed: layers.Embedding, decoder_layers, final_norm: layers.RMSNorm,
-                 unembed: Optional[layers.Unembed]):
+                 unembed: Optional[layers.Unembed], *, enc_layers=None, enc_norm: Optional[layers.RMSNorm] = None,
+                 vit_proj: Optional[VitProj] = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -211,6 +271,9 @@ class LM(nn.Module):
         self.layers = nn.ModuleList(decoder_layers)
         self.final_norm = final_norm
         self.unembed = unembed
+        self.enc_layers = None if enc_layers is None else nn.ModuleList(enc_layers)
+        self.enc_norm = enc_norm
+        self.vit_proj = vit_proj
 
     def unembed_w(self) -> torch.Tensor:
         """The (d, V_pad) unembedding: the tied table's transpose or ``unembed.w``."""
@@ -221,7 +284,7 @@ class LM(nn.Module):
 
 
 def _init_layer(key: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype, device) -> DecoderLayer:
-    # The reference's per-layer split: attn ks[0], a hybrid's mamba ks[1], ffn or moe ks[3].
+    # The reference's per-layer split: attn ks[0], a hybrid's mamba ks[1], xattn ks[2], ffn or moe ks[3].
     ks = prng.split(key, 8)
     d = cfg.d_model
     if cfg.mla:
@@ -236,12 +299,28 @@ def _init_layer(key: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype, device) 
                                    dt_rank=cfg.resolved_dt_rank, dtype=dtype, device=device)
         half = lambda: torch.full((d,), 0.5, dtype=dtype, device=device)
         fuse = Fuse(layers.init_rmsnorm(d, dtype, device), layers.init_rmsnorm(d, dtype, device), half(), half())
+    norm_x = xattn = None
+    if cfg.encdec:
+        norm_x = layers.init_rmsnorm(d, dtype, device)
+        xattn = attention.init_gqa(ks[2], d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, dtype, device)
     if cfg.moe:
         ffn = moe_lib.init_moe(ks[3], d, cfg.d_ff, cfg.num_experts, dtype, device)
     else:
         ffn = layers.init_swiglu(ks[3], d, cfg.d_ff, dtype, device)
     return DecoderLayer(layers.init_rmsnorm(d, dtype, device), attn, layers.init_rmsnorm(d, dtype, device), ffn,
-                        mamba=mamba, fuse=fuse)
+                        mamba=mamba, fuse=fuse, norm_x=norm_x, xattn=xattn)
+
+
+def _init_enc_layer(key: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype, device) -> EncoderLayer:
+    # The reference's split: attn ks[0], ffn ks[1].
+    ks = prng.split(key, 2)
+    d = cfg.d_model
+    return EncoderLayer(
+        layers.init_rmsnorm(d, dtype, device),
+        attention.init_gqa(ks[0], d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, dtype, device),
+        layers.init_rmsnorm(d, dtype, device),
+        layers.init_swiglu(ks[1], d, cfg.d_ff, dtype, device),
+    )
 
 
 @torch.no_grad()
@@ -249,28 +328,48 @@ def init_params(cfg: ArchConfig, key: torch.Tensor, *, device=None) -> LM:
     """The model with the reference's weights for ``key``: every leaf is drawn from
     the reference's key tree (``split(key, 6)``; layer l from
     ``split(k_layers, L)[l]``, which is what the reference's vmap over layer keys
-    draws) by ``prng.normal``, scaled in float32 and rounded to the config's
-    dtype, leaf by leaf on ``device`` (default CUDA)."""
+    draws; encoder layer l from ``split(k_enc, enc_layers)[l]``) by
+    ``prng.normal``, scaled in float32 and rounded to the config's dtype, leaf
+    by leaf on ``device`` (default CUDA). ``vit_proj.w`` is the one leaf the
+    reference divides, normal(k_vit) / √vit_dim, and so is it here."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
-    k_emb, k_layers, _, k_un, _, _ = prng.split(key, 6)
+    d = cfg.d_model
+    k_emb, k_layers, _, k_un, k_enc, k_vit = prng.split(key, 6)
     layer_keys = prng.split(k_layers, cfg.num_layers)
+    enc = {}
+    if cfg.encdec:
+        enc_keys = prng.split(k_enc, cfg.enc_layers)
+        enc = {"enc_layers": [_init_enc_layer(enc_keys[l], cfg, dtype, dev) for l in range(cfg.enc_layers)],
+               "enc_norm": layers.init_rmsnorm(d, dtype, dev)}
+    if cfg.vlm:
+        enc["vit_proj"] = VitProj(layers.draw_normal(k_vit, (cfg.vit_dim, d), math.sqrt(cfg.vit_dim), dtype, dev,
+                                                     divide=True))
     return LM(
         cfg,
-        layers.init_embedding(k_emb, cfg.padded_vocab, cfg.d_model, dtype, dev),
+        layers.init_embedding(k_emb, cfg.padded_vocab, d, dtype, dev),
         [_init_layer(layer_keys[l], cfg, dtype, dev) for l in range(cfg.num_layers)],
-        layers.init_rmsnorm(cfg.d_model, dtype, dev),
-        None if cfg.tie_embeddings else layers.init_unembed(k_un, cfg.d_model, cfg.padded_vocab, dtype, dev),
+        layers.init_rmsnorm(d, dtype, dev),
+        None if cfg.tie_embeddings else layers.init_unembed(k_un, d, cfg.padded_vocab, dtype, dev),
+        **enc,
     )
 
 
-def _leaf_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
-    """Each state-dict leaf's shape; layer leaves without their ``layers.<l>.`` prefix."""
-    d, f, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
-    shapes = {"embed.table": (V, d), "norm1.scale": (d,), "final_norm.scale": (d,)}
-    if not cfg.tie_embeddings:
-        shapes["unembed.w"] = (d, V)
+def _gqa_shapes(cfg: ArchConfig, p: str) -> Dict[str, tuple]:
+    d, qd, kvd = cfg.d_model, cfg.num_heads * cfg.resolved_head_dim, cfg.num_kv_heads * cfg.resolved_head_dim
+    return {f"{p}.wq": (d, qd), f"{p}.wk": (d, kvd), f"{p}.wv": (d, kvd), f"{p}.wo": (qd, d)}
+
+
+def _swiglu_shapes(cfg: ArchConfig, p: str) -> Dict[str, tuple]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {f"{p}.w_gate": (d, f), f"{p}.w_up": (d, f), f"{p}.w_down": (f, d)}
+
+
+def _layer_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    """A decoder layer's leaves by their names in the layer."""
+    d, f = cfg.d_model, cfg.d_ff
+    shapes = {"norm1.scale": (d,)}
     if cfg.hybrid:
         C, N, r, K = cfg.d_inner, cfg.ssm_state, cfg.resolved_dt_rank, cfg.d_conv
         shapes.update({"mamba.in_proj": (d, 2 * C), "mamba.conv_w": (K, C), "mamba.conv_b": (C,),
@@ -283,17 +382,36 @@ def _leaf_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
                        "attn.w_dkv": (d, cfg.kv_lora_rank + rope_d), "attn.w_ukv": (cfg.kv_lora_rank, H * (nope + v)),
                        "attn.wo": (H * v, d)})
     else:
-        qd, kvd = H * cfg.resolved_head_dim, cfg.num_kv_heads * cfg.resolved_head_dim
-        shapes.update({"attn.wq": (d, qd), "attn.wk": (d, kvd), "attn.wv": (d, kvd), "attn.wo": (qd, d)})
+        shapes.update(_gqa_shapes(cfg, "attn"))
     if cfg.hybrid:
         shapes.update({"fuse.norm_a.scale": (d,), "fuse.norm_s.scale": (d,), "fuse.beta_a": (d,), "fuse.beta_s": (d,)})
+    if cfg.encdec:
+        shapes.update({"norm_x.scale": (d,), **_gqa_shapes(cfg, "xattn")})
     shapes["norm2.scale"] = (d,)
     if cfg.moe:
         E = cfg.num_experts
         shapes.update({"moe.router": (d, E), "moe.w_gate": (E, d, f), "moe.w_up": (E, d, f),
                        "moe.w_down": (E, f, d)})
     else:
-        shapes.update({"ffn.w_gate": (d, f), "ffn.w_up": (d, f), "ffn.w_down": (f, d)})
+        shapes.update(_swiglu_shapes(cfg, "ffn"))
+    return shapes
+
+
+def _leaf_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    """Each state-dict leaf's shape by name; a layer's leaves by their stack and
+    their name in the layer, without the layer's index (``layers.attn.wq``,
+    ``enc_layers.ffn.w_up``)."""
+    d, V = cfg.d_model, cfg.padded_vocab
+    shapes = {"embed.table": (V, d), "final_norm.scale": (d,)}
+    shapes.update({f"layers.{n}": s for n, s in _layer_shapes(cfg).items()})
+    if not cfg.tie_embeddings:
+        shapes["unembed.w"] = (d, V)
+    if cfg.encdec:
+        shapes.update({"enc_layers.norm1.scale": (d,), **_gqa_shapes(cfg, "enc_layers.attn"),
+                       "enc_layers.norm2.scale": (d,), **_swiglu_shapes(cfg, "enc_layers.ffn"),
+                       "enc_norm.scale": (d,)})
+    if cfg.vlm:
+        shapes["vit_proj.w"] = (cfg.vit_dim, d)
     return shapes
 
 
@@ -303,30 +421,50 @@ def leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if name.endswith("A_log") else dtype
 
 
+def _indexed(name: str, l: int) -> str:
+    """A stacked leaf's state-dict name: ``layers.attn.wq`` of layer 3 is ``layers.3.attn.wq``."""
+    stack, rest = name.split(".", 1)
+    return f"{stack}.{l}.{rest}"
+
+
 def _assemble(cfg: ArchConfig, leaf) -> LM:
-    """An LM from ``leaf(name, l)``: the tensor of leaf ``name`` (of layer l, or
-    None outside the layers)."""
+    """An LM from ``leaf(name, l)``: the tensor of leaf ``name`` (a
+    :func:`_leaf_shapes` name; ``l`` the layer's index in its stack, or None
+    outside the stacks)."""
+    def gqa(g, p):
+        return attention.GQA(g(f"{p}.wq"), g(f"{p}.wk"), g(f"{p}.wv"), g(f"{p}.wo"))
+
     def layer(l):
-        g = lambda n: leaf(n, l)
-        if cfg.mla:
-            attn = attention.MLA(**{n: g(f"attn.{n}") for n in attention.MLA.LEAVES})
-        else:
-            attn = attention.GQA(g("attn.wq"), g("attn.wk"), g("attn.wv"), g("attn.wo"))
-        mamba = fuse = None
+        g = lambda n: leaf(f"layers.{n}", l)
+        attn = attention.MLA(**{n: g(f"attn.{n}") for n in attention.MLA.LEAVES}) if cfg.mla else gqa(g, "attn")
+        mamba = fuse = norm_x = xattn = None
         if cfg.hybrid:
             mamba = ssm_lib.Mamba(**{n: g(f"mamba.{n}") for n in ssm_lib.Mamba.LEAVES})
             fuse = Fuse(layers.RMSNorm(g("fuse.norm_a.scale")), layers.RMSNorm(g("fuse.norm_s.scale")),
                         g("fuse.beta_a"), g("fuse.beta_s"))
+        if cfg.encdec:
+            norm_x, xattn = layers.RMSNorm(g("norm_x.scale")), gqa(g, "xattn")
         if cfg.moe:
             ffn = moe_lib.MoE(g("moe.router"), g("moe.w_gate"), g("moe.w_up"), g("moe.w_down"))
         else:
             ffn = layers.SwiGLU(g("ffn.w_gate"), g("ffn.w_up"), g("ffn.w_down"))
         return DecoderLayer(layers.RMSNorm(g("norm1.scale")), attn, layers.RMSNorm(g("norm2.scale")), ffn,
-                            mamba=mamba, fuse=fuse)
+                            mamba=mamba, fuse=fuse, norm_x=norm_x, xattn=xattn)
 
+    def enc_layer(l):
+        g = lambda n: leaf(f"enc_layers.{n}", l)
+        return EncoderLayer(layers.RMSNorm(g("norm1.scale")), gqa(g, "attn"), layers.RMSNorm(g("norm2.scale")),
+                            layers.SwiGLU(g("ffn.w_gate"), g("ffn.w_up"), g("ffn.w_down")))
+
+    extra = {}
+    if cfg.encdec:
+        extra = {"enc_layers": [enc_layer(l) for l in range(cfg.enc_layers)],
+                 "enc_norm": layers.RMSNorm(leaf("enc_norm.scale", None))}
+    if cfg.vlm:
+        extra["vit_proj"] = VitProj(leaf("vit_proj.w", None))
     return LM(cfg, layers.Embedding(leaf("embed.table", None)), [layer(l) for l in range(cfg.num_layers)],
               layers.RMSNorm(leaf("final_norm.scale", None)),
-              None if cfg.tie_embeddings else layers.Unembed(leaf("unembed.w", None)))
+              None if cfg.tie_embeddings else layers.Unembed(leaf("unembed.w", None)), **extra)
 
 
 def meta_params(cfg: ArchConfig) -> LM:
@@ -345,21 +483,22 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, torch.Size]:
 def params_from_named(cfg: ArchConfig, named: Dict[str, torch.Tensor]) -> LM:
     """The model holding ``named``'s tensors (by state-dict name) as they are."""
     check_supported(cfg)
-    return _assemble(cfg, lambda name, l: named[name if l is None else f"layers.{l}.{name}"])
+    return _assemble(cfg, lambda name, l: named[name if l is None else _indexed(name, l)])
 
 
 @torch.no_grad()
 def params_from_reference(cfg: ArchConfig, tree, *, device=None) -> LM:
     """The model holding the reference's parameter tree ``tree`` (numpy arrays or
-    anything ``np.asarray`` takes; layer leaves stacked on a leading L axis, as
-    ``repro.models.lm.init_params`` makes them), in the config's dtype (``A_log``
-    float32) on ``device`` (default CUDA). bfloat16 leaves convert exactly."""
+    anything ``np.asarray`` takes; the leaves of ``layers`` and ``enc_layers``
+    stacked on a leading L axis, as ``repro.models.lm.init_params`` makes them),
+    in the config's dtype (``A_log`` float32) on ``device`` (default CUDA).
+    bfloat16 leaves convert exactly."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
 
     def leaf(name: str, l: Optional[int]):
-        node = tree if l is None else tree["layers"]
+        node = tree
         for part in name.split("."):
             node = node[part]
         t = torch.from_numpy(np.array(node if l is None else node[l], dtype=np.float32))
@@ -371,14 +510,45 @@ def params_from_reference(cfg: ArchConfig, tree, *, device=None) -> LM:
 # ===================================================================== forward (prefill)
 
 
-def embed_inputs(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token embedding. Returns (x (B, S, d), loss_mask (B, S) float32)."""
+def embed_inputs(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+                 plan: ExecPlan = ExecPlan()) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Token embedding and the frontend stubs. Returns (x (B, S, d), loss_mask
+    (B, S) float32, enc_out (B, enc_seq, d) or None).
+
+    A VLM's ``batch["patches"]`` (B, P, vit_dim), cast to the model dtype and
+    projected by ``vit_proj``, take the place of the first P positions, whose
+    loss mask is zeroed. Where the prompt rectangle is shorter than the patches
+    (S < P) the reference's x would have P positions against S tokens: that is
+    refused (``ValueError``), a guard, not a feature. An encoder-decoder's
+    ``batch["frames"]`` (B, enc_seq, d) go through ``encoder_forward``."""
     tokens = batch["tokens"]
     x = params.embed(tokens)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.float32, device=x.device)
-    return x, mask
+    enc_out = None
+    if cfg.vlm and "patches" in batch:
+        proj = batch["patches"].to(device=x.device, dtype=x.dtype) @ params.vit_proj.w
+        B, P, S = x.shape[0], proj.shape[1], x.shape[1]
+        if S < P:
+            raise ValueError(f"{P} patches do not fit a prompt of {S} positions: the patches take the first "
+                             f"{P} positions of the token rectangle")
+        x = torch.cat([proj, x[:, P:]], dim=1)
+        mask = torch.cat([torch.zeros((B, P), dtype=torch.float32, device=x.device), mask.to(x.device)[:, P:]], dim=1)
+    if cfg.encdec and "frames" in batch:
+        enc_out = encoder_forward(params, cfg, batch["frames"].to(x.device), plan=plan)
+    return x, mask, enc_out
+
+
+def encoder_forward(params: LM, cfg: ArchConfig, frames: torch.Tensor, *, plan: ExecPlan = ExecPlan()) -> torch.Tensor:
+    """The bidirectional encoder over precomputed frame embeddings (whisper's
+    stub), cast to the model dtype first: ``enc_layers`` in order, each
+    rematerialized where autograd records (the reference checkpoints every
+    encoder layer), then ``enc_norm``. (B, enc_seq, d) -> (B, enc_seq, d)."""
+    x = frames.to(torch_dtype(cfg))
+    for layer in params.enc_layers:
+        x = _remat(lambda x, layer=layer: layer(x, cfg, plan), "full", x)
+    return params.enc_norm(x, cfg.norm_eps)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -406,14 +576,15 @@ def _remat(fn, remat: str, *args):
     raise ValueError(f"remat must be none, full or dots, not {remat!r}")
 
 
-def trunk(params: LM, cfg: ArchConfig, x: torch.Tensor, *,
+def trunk(params: LM, cfg: ArchConfig, x: torch.Tensor, *, enc_out: Optional[torch.Tensor] = None,
           plan: ExecPlan = ExecPlan()) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The layers over x: (B, S, d), each under ``plan.remat``. Returns (the
-    final-norm hidden states, the MoE aux loss summed over the layers in
-    float32; 0 for a dense model)."""
+    """The layers over x: (B, S, d), each under ``plan.remat``, the cross
+    attention reading ``enc_out``. Returns (the final-norm hidden states, the
+    MoE aux loss summed over the layers in float32; 0 for a dense model)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, window in zip(params.layers, layer_windows(cfg).tolist()):
-        x, a = _remat(lambda x, layer=layer, window=window: layer(x, cfg, window, plan), plan.remat, x)
+        x, a = _remat(lambda x, layer=layer, window=window: layer(x, cfg, window, plan, enc_out=enc_out), plan.remat,
+                      x)
         if a is not None:
             aux = aux + a
     return params.final_norm(x, cfg.norm_eps), aux
@@ -423,8 +594,8 @@ def trunk(params: LM, cfg: ArchConfig, x: torch.Tensor, *,
 def forward_logits(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
                    plan: ExecPlan = ExecPlan()) -> torch.Tensor:
     """Full (B, S, V_pad) float32 logits (no chunking over the sequence)."""
-    x, _ = embed_inputs(params, cfg, batch)
-    return layers.unembed(params.unembed_w(), trunk(params, cfg, x, plan=plan)[0]).to(torch.float32)
+    x, _, enc_out = embed_inputs(params, cfg, batch, plan=plan)
+    return layers.unembed(params.unembed_w(), trunk(params, cfg, x, enc_out=enc_out, plan=plan)[0]).to(torch.float32)
 
 
 # ===================================================================== loss
@@ -465,8 +636,8 @@ def lm_loss(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             plan: ExecPlan = ExecPlan()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token CE (position t predicts token t + 1) + the MoE aux loss,
     and {"ce", "moe_aux"}: the single entry point of training."""
-    x, mask = embed_inputs(params, cfg, batch)
-    h, aux = trunk(params, cfg, x, plan=plan)
+    x, mask, enc_out = embed_inputs(params, cfg, batch, plan=plan)
+    h, aux = trunk(params, cfg, x, enc_out=enc_out, plan=plan)
     labels = batch["labels"].to(h.device)
     ce = chunked_ce_loss(h[:, :-1], params.unembed_w(), labels[:, 1:], mask[:, 1:].to(h.device),
                          chunk=plan.loss_chunk)
@@ -489,7 +660,9 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, dtype: Optional[tor
     seq_len) and {"global": {"k", "v"}} of G caches of seq_len (G = L // (R + 1));
     for MLA {"ckv" (L, batch, seq_len, kv_lora), "krope" (…, rope_d)}; for the
     hybrid's Mamba branch, beside its ring, "conv" (L, batch, K − 1, C) and
-    "ssm" (L, batch, C, N), the latter float32 always."""
+    "ssm" (L, batch, C, N), the latter float32 always; for the
+    encoder-decoder, beside "k" and "v", "xk" and "xv" (L, batch, enc_seq, KV,
+    hd)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
@@ -512,12 +685,15 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, dtype: Optional[tor
     if cfg.hybrid:
         cache.update(conv=zeros(L, batch, cfg.d_conv - 1, cfg.d_inner),
                      ssm=zeros(L, batch, cfg.d_inner, cfg.ssm_state, dt=torch.float32))
+    if cfg.encdec:
+        cross = (L, batch, cfg.enc_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache.update(xk=zeros(*cross), xv=zeros(*cross))
     return cache
 
 
 def layer_caches(cfg: ArchConfig, cache: dict) -> List[Dict[str, torch.Tensor]]:
     """Each decoded layer's cache views by name ("k", "v"; "ckv", "krope";
-    "conv", "ssm"), layer l's entry of each leaf. With the local:global split,
+    "conv", "ssm"; "xk", "xv"), layer l's entry of each leaf. With the local:global split,
     layer l = g·(R + 1) + r reads local entry g·R + r (r < R) or global entry
     g; the reference's grouped decode covers the G whole groups, so the list
     has G·(R + 1) entries."""
@@ -588,17 +764,19 @@ def batched_prefill(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     (B, V_pad) float32, a decode cache of ``cache_len`` positions (default S)
     positioned at pos = S). A windowed layer's k, v go to its ring at slots
     p mod S_c (``_ring_place``), a full layer's (and MLA's latent) to slots
-    0…S−1 (``_pad_seq``); a Mamba branch's conv tail and h_T are its states."""
+    0…S−1 (``_pad_seq``); a Mamba branch's conv tail and h_T are its states, and
+    the cross keys and values over the encoder's output (``batch["frames"]``)
+    are copied whole: enc_seq entries, neither a ring nor padded."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x, _ = embed_inputs(params, cfg, batch)
+    x, _, enc_out = embed_inputs(params, cfg, batch, plan=plan)
     cache = init_cache(cfg, B, cache_len or S, device=x.device)
     slots = layer_caches(cfg, cache)
     for l, (layer, window) in enumerate(zip(params.layers, layer_windows(cfg).tolist())):
-        x, _, piece = layer(x, cfg, window, plan, return_kv=True)
+        x, _, piece = layer(x, cfg, window, plan, return_kv=True, enc_out=enc_out)
         if l < len(slots):
             for name, t in piece.items():
-                if name in ("conv", "ssm"):
+                if name in ("conv", "ssm", "xk", "xv"):
                     slots[l][name].copy_(t)
                 else:
                     (_ring_place if window > 0 else _pad_seq)(slots[l][name], t)
@@ -609,11 +787,21 @@ def batched_prefill(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 @torch.inference_mode()
 def prefill(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cache: dict) -> Tuple[torch.Tensor, dict]:
     """Fill the cache from a prompt by stepping ``decode_step`` over its positions
-    (one code path for the cache's semantics). Returns (the last position's
-    logits (B, V_pad) float32, cache)."""
+    (one code path for the cache's semantics). An encoder-decoder's frames go
+    through the encoder once, up front, and every layer's cross keys and values
+    are its ``xattn.wk`` and ``wv`` of that output, in the model dtype, written
+    to ``cache["xk"]`` and ``["xv"]``; a VLM's patches are embedded before the
+    loop, so position i's input is the batched path's. Returns (the last
+    position's logits (B, V_pad) float32, cache)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x_all, _ = embed_inputs(params, cfg, batch)
+    if cfg.encdec and "frames" in batch:
+        enc_out = encoder_forward(params, cfg, batch["frames"].to(cache["xk"].device))
+        shape = (B, cfg.enc_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+        for l, layer in enumerate(params.layers):
+            cache["xk"][l] = (enc_out @ layer.xattn.wk).reshape(shape).to(cache["xk"].dtype)
+            cache["xv"][l] = (enc_out @ layer.xattn.wv).reshape(shape).to(cache["xv"].dtype)
+    x_all, _, _ = embed_inputs(params, cfg, {k: v for k, v in batch.items() if k != "frames"})
     logits = torch.zeros((B, cfg.padded_vocab), dtype=torch.float32, device=x_all.device)
     for i in range(S):
         logits, cache = decode_step(params, cfg, tokens[:, i], cache, i, x_embed=x_all[:, i])

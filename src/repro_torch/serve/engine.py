@@ -62,7 +62,12 @@ class Engine:
     Prompts are left-padded with token 0 to the longest in the batch, and the
     padding is not masked: it is attended to, and an SSM's recurrence (Mamba,
     the hybrid's Mamba branch) runs through it as through ordinary tokens,
-    as in the reference."""
+    as in the reference. ``generate``'s ``frames`` (an encoder-decoder's, (N,
+    enc_seq, d)) and ``patches`` (a VLM's, (N, P, vit_dim)) are the prompts'
+    frontend stubs; each batch of ``max_batch`` prompts takes their first B
+    rows, as the reference does. The patches take the place of the first P
+    positions of the left-padded rectangle: for a prompt shorter than the
+    longest, those are its padding first, as in the reference."""
 
     def __init__(self, cfg: ArchConfig, params: lm.LM, sc: ServeConfig, *, device=None,
                  plan: Optional[lm.ExecPlan] = None):
@@ -80,9 +85,14 @@ class Engine:
         logits[..., self.cfg.vocab_size :] = -1e30
         return logits
 
-    def _prefill(self, tokens: torch.Tensor):
-        logits, cache = lm.batched_prefill(self.params, self.cfg, {"tokens": tokens}, cache_len=self.sc.max_len,
-                                           plan=self.plan)
+    def _prefill(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None,
+                 patches: Optional[torch.Tensor] = None):
+        batch = {"tokens": tokens}
+        if patches is not None:
+            batch["patches"] = patches
+        if frames is not None:
+            batch["frames"] = frames
+        logits, cache = lm.batched_prefill(self.params, self.cfg, batch, cache_len=self.sc.max_len, plan=self.plan)
         return self._mask_pad(logits), cache
 
     def _decode(self, tok: torch.Tensor, cache, pos: int, key: Optional[torch.Tensor]):
@@ -92,14 +102,16 @@ class Engine:
 
     # ------------------------------------------------------------------ API
     @torch.inference_mode()
-    def generate(self, prompts: Sequence[Sequence[int]], *, max_new_tokens: int = 32) -> List[List[int]]:
-        """Generate continuations, ``max_batch`` prompts at a time (step-synchronized)."""
+    def generate(self, prompts: Sequence[Sequence[int]], *, max_new_tokens: int = 32,
+                 frames: Optional[torch.Tensor] = None, patches: Optional[torch.Tensor] = None) -> List[List[int]]:
+        """Generate continuations, ``max_batch`` prompts at a time (step-synchronized);
+        ``frames`` and ``patches`` as in the class's notes."""
         out: List[List[int]] = []
         for i in range(0, len(prompts), self.sc.max_batch):
-            out.extend(self._generate_batch(prompts[i : i + self.sc.max_batch], max_new_tokens))
+            out.extend(self._generate_batch(prompts[i : i + self.sc.max_batch], max_new_tokens, frames, patches))
         return out
 
-    def _generate_batch(self, prompts, max_new_tokens: int) -> List[List[int]]:
+    def _generate_batch(self, prompts, max_new_tokens: int, frames=None, patches=None) -> List[List[int]]:
         B = len(prompts)
         S = max(len(p) for p in prompts)
         if S + max_new_tokens > self.sc.max_len:
@@ -111,7 +123,8 @@ class Engine:
         toks = np.zeros((B, S), np.int64)
         for r, p in enumerate(prompts):
             toks[r, S - len(p) :] = np.asarray(p, np.int64)
-        logits, cache = self._prefill(torch.from_numpy(toks).to(self.device))
+        stubs = [None if t is None else t[:B].to(self.device) for t in (frames, patches)]
+        logits, cache = self._prefill(torch.from_numpy(toks).to(self.device), *stubs)
         greedy = self.sc.temperature <= 0.0
         key = prng.prng_key(self.sc.seed)
         tok = sample_token(key, logits, self.sc.temperature)

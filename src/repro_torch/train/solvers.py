@@ -21,12 +21,15 @@ from repro_torch.utils.device import resolve_device
 
 def extract_features(params, cfg, batch, *, plan=None) -> torch.Tensor:
     """Frozen-backbone features: the LM's final-norm hidden states over
-    ``batch["tokens"]``, flattened to (B·S, d_model) float32, on the model's device."""
+    ``batch["tokens"]`` (with a VLM's ``"patches"`` or an encoder-decoder's
+    ``"frames"`` where the batch has them), flattened to (B·S, d_model)
+    float32, on the model's device."""
     from repro_torch.models import lm
 
+    plan = plan or lm.ExecPlan()
     with torch.inference_mode():
-        x, _ = lm.embed_inputs(params, cfg, batch)
-        h, _ = lm.trunk(params, cfg, x, plan=plan or lm.ExecPlan())
+        x, _, enc_out = lm.embed_inputs(params, cfg, batch, plan=plan)
+        h, _ = lm.trunk(params, cfg, x, enc_out=enc_out, plan=plan)
         return h.reshape(-1, cfg.d_model).to(torch.float32)
 
 

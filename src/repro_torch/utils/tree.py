@@ -186,18 +186,22 @@ class Stacked:
         return self.parts[0].dtype
 
 
-def stacked_tree(named: dict, prefix: str = "layers") -> dict:
+STACKS = ("layers", "enc_layers")  # the reference's stacked layer trees: the decoder's and the encoder's
+
+
+def stacked_tree(named: dict, prefixes: tuple = STACKS) -> dict:
     """The reference's nested tree of a module's named tensors (``"embed.table"``,
     ``"layers.3.attn.wq"``, …): dotted names become nested dict keys, and the
-    tensors of ``<prefix>.<l>.<rest>`` for l = 0…L−1 become one
+    tensors of ``<prefix>.<l>.<rest>`` for l = 0…L−1, for each stack prefix
+    (the decoder's ``layers``, an encoder-decoder's ``enc_layers``), become one
     :class:`Stacked` leaf at ``<prefix>/<rest>``. Its leaf order
     (:func:`tree_flatten`) is then the reference's."""
     tree: dict = {}
     stacks: dict = {}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == prefix and len(parts) > 2 and parts[1].isdigit():
-            stacks.setdefault(tuple([prefix] + parts[2:]), {})[int(parts[1])] = t
+        if parts[0] in prefixes and len(parts) > 2 and parts[1].isdigit():
+            stacks.setdefault(tuple([parts[0]] + parts[2:]), {})[int(parts[1])] = t
             continue
         _put(tree, parts, t)
     for path, by_layer in stacks.items():
@@ -214,8 +218,9 @@ def _put(tree: dict, parts: list, leaf) -> None:
     node[parts[-1]] = leaf
 
 
-def unstack_tree(tree: dict, prefix: str = "layers") -> dict:
-    """The inverse of :func:`stacked_tree`: dotted names → tensors."""
+def unstack_tree(tree: dict) -> dict:
+    """The inverse of :func:`stacked_tree`: dotted names → tensors (each
+    :class:`Stacked` leaf back to its layers' names)."""
     out: dict = {}
     for path, leaf in tree_flatten_with_path(tree)[0]:
         name = ".".join(str(p) for p in path)

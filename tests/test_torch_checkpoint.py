@@ -174,3 +174,37 @@ def test_reference_hybrid_weights_restore_in_the_port_bitwise(tmp_path):
     assert model.keys() == ref.keys()
     for k, t in ref.items():
         assert model[k].dtype == t.dtype and torch.equal(model[k], t), k
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "pixtral-12b"])
+def test_reference_encdec_and_vlm_weights_restore_in_the_port_bitwise(tmp_path, arch):
+    """A reference checkpoint of a reduced bf16 tree (whisper's encoder stacked
+    under ``enc_layers``, its cross blocks under ``layers``; pixtral's
+    ``vit_proj``) restores bitwise onto the port's stacked tree, at the
+    reference's paths in its leaf order, and gives the model
+    ``params_from_reference`` gives."""
+    from repro.configs import get_config as jget
+    from repro.models import lm as jlm
+    from repro_torch.configs import get_config as tget
+    from repro_torch.models import lm as tlm
+
+    jc = dataclasses.replace(jget(arch).reduced(), dtype="bfloat16")
+    tc = dataclasses.replace(tget(arch).reduced(), dtype="bfloat16")
+    jp = jlm.init_params(jc, jax.random.PRNGKey(3))
+    jck.save_checkpoint(str(tmp_path), 2, jp)
+    like = tu.stacked_tree(tlm.meta_params(tc).state_dict())
+    assert [tu.path_str(p) for p, _ in tu.tree_flatten_with_path(like)[0]] == \
+        ["/".join(str(k.key) for k in p) for p, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]
+    back = tck.restore_checkpoint(str(tmp_path), 2, like)
+    got, want = _flat(back), _jflat(jp)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    dtypes = {tu.path_str(p): leaf.dtype for p, leaf in tu.tree_flatten_with_path(back)[0]}
+    assert set(dtypes.values()) == {torch.bfloat16}
+    assert ("enc_layers/attn/wq" in dtypes, "vit_proj/w" in dtypes) == (tc.encdec, tc.vlm)
+    model = tlm.params_from_named(tc, tu.unstack_tree(back)).state_dict()
+    ref = tlm.params_from_reference(tc, jax.tree_util.tree_map(np.asarray, jp), device="cpu").state_dict()
+    assert model.keys() == ref.keys()
+    for k, t in ref.items():
+        assert model[k].dtype == t.dtype and torch.equal(model[k], t), k

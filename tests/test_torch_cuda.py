@@ -1518,3 +1518,84 @@ def test_fused_scan_on_the_card_against_the_chunked_scan(cuda, T):
     assert y.device.type == "cuda" and tuple(y.shape) == (B, T, C)
     assert float((y.cpu() - want_y).abs().max() / want_y.abs().max()) <= 1e-5
     assert float((hT.cpu() - want_hT).abs().max() / want_hT.abs().max()) <= 1e-5
+
+
+# ------------------------------------------------------------------ the encoder-decoder and the VLM
+
+
+def _stubs(cfg, B: int, seed: int) -> dict:
+    """An encoder-decoder's frames (B, enc_seq, d) or a VLM's patches (B, P, vit_dim), N(0, 1)."""
+    rs = np.random.default_rng(seed)
+    if cfg.encdec:
+        return {"frames": torch.from_numpy(rs.standard_normal((B, cfg.enc_seq, cfg.d_model)).astype(np.float32))}
+    return {"patches": torch.from_numpy(rs.standard_normal((B, cfg.num_image_tokens, cfg.vit_dim)).astype(np.float32))}
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "pixtral-12b"])
+def test_encdec_and_vlm_lm_on_the_card_against_the_cpu(cuda, arch):
+    """whisper-small fed frames and pixtral-12b fed patches, reduced, float32 with
+    TF32 off: forward, batched prefill of 39 tokens, the token-by-token prefill
+    of the same 39, three decode steps; logits and every cache leaf (the cross
+    ``xk`` and ``xv`` included) within 1e-5 of the largest CPU value."""
+    from repro_torch.models import lm
+
+    cfg = _lm_cfg(arch)
+    cpu_model = lm.init_params(cfg, prng.prng_key(5), device="cpu")
+    card_model = lm.init_params(cfg, prng.prng_key(5), device=cuda)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card_model.state_dict().values(),
+                                                          cpu_model.state_dict().values()))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 42)))
+    stubs = _stubs(cfg, 2, 7)
+    on_card = {k: t.to(cuda) for k, t in stubs.items()}
+
+    def rel(got, want):
+        return float((got.cpu() - want).abs().max() / want.abs().max())
+
+    assert rel(lm.forward_logits(card_model, cfg, {"tokens": toks.to(cuda), **on_card}),
+               lm.forward_logits(cpu_model, cfg, {"tokens": toks, **stubs})) <= 1e-5
+    head = toks[:, :39]
+    lc, cc = lm.batched_prefill(card_model, cfg, {"tokens": head.to(cuda), **on_card}, cache_len=48)
+    lw, cw = lm.batched_prefill(cpu_model, cfg, {"tokens": head, **stubs}, cache_len=48)
+    assert rel(lc, lw) <= 1e-5
+    tc, tcc = lm.prefill(card_model, cfg, {"tokens": head.to(cuda), **on_card},
+                         lm.init_cache(cfg, 2, 48, device=cuda))
+    tw, tcw = lm.prefill(cpu_model, cfg, {"tokens": head, **stubs}, lm.init_cache(cfg, 2, 48, device="cpu"))
+    assert rel(tc, tw) <= 1e-5
+    for pos in range(39, 42):
+        lc, cc = lm.decode_step(card_model, cfg, toks[:, pos].to(cuda), cc, pos)
+        lw, cw = lm.decode_step(cpu_model, cfg, toks[:, pos], cw, pos)
+        assert rel(lc, lw) <= 1e-5
+    for card, cpu in ((cc, cw), (tcc, tcw)):
+        fc, fw = _flat_cache(card), _flat_cache(cpu)
+        assert set(fc) == set(fw) and ("xk" in fw) == cfg.encdec
+        for name, t in fw.items():
+            assert fc[name].device.type == "cuda" and rel(fc[name], t) <= 1e-5, name
+
+
+def test_engine_with_frames_on_the_card_gives_the_cpus_tokens(cuda):
+    """Engine.generate on whisper-small reduced with 4 rows of frames (the batch
+    of 3 takes the first 3), greedy, on the card and on the CPU, where the CPU
+    run's smallest top-2 margin at a decode step exceeds 10× the logits'
+    agreement (1e-5 of logits below 4 in magnitude)."""
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = _lm_cfg("whisper-small")
+    sc = ServeConfig(max_batch=4, max_len=48, seed=2)
+    prompts = [[5, 9, 2, 33, 7], [100, 4, 8], [17] * 9]
+    frames = _stubs(cfg, 4, 9)["frames"]
+    cpu = Engine(cfg, lm.init_params(cfg, prng.prng_key(8), device="cpu"), sc, device="cpu")
+    card = Engine(cfg, lm.init_params(cfg, prng.prng_key(8), device=cuda), sc, device=cuda)
+    margins = []
+    decode = cpu._decode
+
+    def traced(tok, cache, pos, key):
+        out = decode(tok, cache, pos, key)
+        top2 = torch.topk(out[1], 2, dim=-1).values
+        margins.append(float((top2[:, 0] - top2[:, 1]).min()))
+        return out
+
+    cpu._decode = traced
+    want = cpu.generate(prompts, max_new_tokens=10, frames=frames)
+    assert min(margins) > 10 * 1e-5 * 4
+    assert card.generate(prompts, max_new_tokens=10, frames=frames.to(cuda)) == want

@@ -1,11 +1,13 @@
 """The port's decoder LM against the JAX reference (CPU, reduced configs).
 
 Configs: every field of granite-3-8b, chatglm3-6b, mixtral-8x7b, gemma3-12b,
-grok-1-314b, minicpm3-4b and hymba-1.5b, full and ``reduced()``, and the shape
-specs, equal the reference's (reduced: mixtral 2 layers and 4 experts, gemma3 6
-layers, one full local:global period, grok 2 layers, windows 8; minicpm3's MLA
-at q_lora = kv_lora = 16, nope = rope = 8, v = 16; hymba's Mamba at d_inner
-128, state 8, dt_rank 8). Layers (float32): ``rmsnorm``,
+grok-1-314b, minicpm3-4b, hymba-1.5b, whisper-small and pixtral-12b, full and
+``reduced()``, and the shape specs, equal the reference's (reduced: mixtral 2
+layers and 4 experts, gemma3 6 layers, one full local:global period, grok 2
+layers, windows 8; minicpm3's MLA at q_lora = kv_lora = 16, nope = rope = 8, v
+= 16; hymba's Mamba at d_inner 128, state 8, dt_rank 8; whisper 2 encoder and
+2 decoder layers over 16 frames, 4 heads on 2 kv heads; pixtral 4 patches of
+vit_dim 32). Layers (float32): ``rmsnorm``,
 ``rope_angles``, ``apply_rope`` (fraction 1.0 and 0.5), ``swiglu``, ``embed``,
 ``cross_entropy_loss`` and ``chunked_attention`` (S not a multiple of the chunk,
 causal or not, windowed, G = 1 and 2) within ``LAYER_TOL`` of the reference's,
@@ -13,8 +15,8 @@ relative to the largest reference value: float32 sums of at most 64 products in
 other orders, and torch's exp/cos/sin against XLA's, a few ulps each.
 
 ``init_params``: bitwise the reference's (``prng.normal`` is jax's normal bit for
-bit), float32 and bfloat16 (a Mamba block's ``A_log`` float32 in both), at two
-keys.
+bit), float32 and bfloat16 (a Mamba block's ``A_log`` float32 in both; the
+encoder's stack and pixtral's divided ``vit_proj`` included), at two keys.
 
 The model (parameters converted from the reference's tree, so the parity does
 not rest on the init): ``forward_logits``, ``batched_prefill`` (logits and
@@ -27,7 +29,9 @@ local rings and global caches, MLA's latent ``ckv`` and ``krope``, the Mamba
 ``conv`` and ``ssm`` states, hymba's ring beside them; prompts past the window,
 so the rings wrap, and caches shorter than the window); hymba also at a scan
 chunk of 8, so the prompts span several chunks and the last is padded;
-``lm_loss`` with its MoE aux loss. bfloat16
+``lm_loss`` with its MoE aux loss; whisper fed frames (the cross ``xk`` and
+``xv`` leaf by leaf) and pixtral patches (its prompts at least as long as the
+patches) throughout. bfloat16
 forwards within ``BF16_TOL``: an activation's bfloat16 rounding (2⁻⁹ relative)
 flips where the two float32 values before it differ by an ulp, and the layers
 carry such flips to the logits. The bfloat16 MoE layer: where the reference's
@@ -36,8 +40,8 @@ equal and those tokens' outputs within ``BF16_TOL``; the tokens under the margin
 are counted and bounded. The port's own forward = batched prefill = token
 prefill = decode (MoE at dropless capacity, as ``tests/test_decode_consistency.py``
 holds the reference). Tokens (``lm_batch``, ``lm_eval_batch``) are bitwise the
-reference's; the families still unported (the attention-free SSM stack,
-enc-dec, VLM) raise ``NotImplementedError``, the MLA and hybrid configs are
+reference's; the family still unported (the attention-free SSM stack) raises
+``NotImplementedError``, the MLA, hybrid, encoder-decoder and VLM configs are
 accepted.
 """
 import dataclasses
@@ -60,9 +64,12 @@ from repro_torch.utils import prng
 # them from oversubscribing the cores (each op's thread team waits on the others).
 torch.set_num_threads(1)
 
-ARCHS = ["granite-3-8b", "chatglm3-6b", "mixtral-8x7b", "gemma3-12b", "grok-1-314b", "minicpm3-4b", "hymba-1.5b"]
+ARCHS = ["granite-3-8b", "chatglm3-6b", "mixtral-8x7b", "gemma3-12b", "grok-1-314b", "minicpm3-4b", "hymba-1.5b",
+         "whisper-small", "pixtral-12b"]
 WINDOWED = ["mixtral-8x7b", "gemma3-12b", "hymba-1.5b"]
 MLA_HYBRID = ["minicpm3-4b", "hymba-1.5b"]
+ENCDEC_VLM = ["whisper-small", "pixtral-12b"]
+STACKS = ("layers", "enc_layers")
 LAYER_TOL = 2e-6
 MODEL_TOL = 1e-5
 BF16_TOL = 3e-2
@@ -117,9 +124,9 @@ def test_param_shapes_match_the_reference_at_full_size(arch):
     for name, t in got.items():
         parts = name.split(".")
         node = want
-        for p in parts[:1] + parts[2:] if parts[0] == "layers" else parts:
+        for p in parts[:1] + parts[2:] if parts[0] in STACKS else parts:
             node = node[p]
-        shape = node.shape[1:] if parts[0] == "layers" else node.shape
+        shape = node.shape[1:] if parts[0] in STACKS else node.shape
         assert tuple(t.shape) == shape, name
         assert (t.dtype == torch.float32) == (node.dtype == jnp.float32), name
         per_layer += parts[:2] == ["layers", "0"]
@@ -241,9 +248,9 @@ def _reference_leaves(jp, cfg):
     for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
         names = [p.key for p in path]
         a = np.asarray(leaf.astype(jnp.float32))
-        if names[0] == "layers":
-            for l in range(cfg.num_layers):
-                yield f"layers.{l}." + ".".join(names[1:]), a[l]
+        if names[0] in STACKS:
+            for l in range(cfg.num_layers if names[0] == "layers" else cfg.enc_layers):
+                yield f"{names[0]}.{l}." + ".".join(names[1:]), a[l]
         else:
             yield ".".join(names), a
 
@@ -275,9 +282,19 @@ def _models(arch, dtype="float32", seed=0, **changes):
     return jc, tc, jp, tp
 
 
-def _batch(vocab, B, S, seed):
-    toks = _rs(seed).integers(0, vocab, (B, S)).astype(np.int32)
-    return {"tokens": jnp.asarray(toks)}, {"tokens": _t(toks).long()}
+def _batch(vocab, B, S, seed, cfg=None):
+    """Tokens, and with an encoder-decoder ``cfg`` its frames (B, enc_seq, d), with
+    a VLM's its patches (B, P, vit_dim), N(0, 1) from the seed."""
+    rs = _rs(seed)
+    toks = rs.integers(0, vocab, (B, S)).astype(np.int32)
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": _t(toks).long()}
+    if cfg is not None and cfg.encdec:
+        frames = rs.standard_normal((B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        jb["frames"], tb["frames"] = jnp.asarray(frames), _t(frames)
+    if cfg is not None and cfg.vlm:
+        patches = rs.standard_normal((B, cfg.num_image_tokens, cfg.vit_dim)).astype(np.float32)
+        jb["patches"], tb["patches"] = jnp.asarray(patches), _t(patches)
+    return jb, tb
 
 
 def _assert_caches_match(got: dict, want) -> None:
@@ -298,7 +315,7 @@ def _assert_caches_match(got: dict, want) -> None:
 def test_forward_prefill_decode_match_the_reference(arch):
     jc, tc, jp, tp = _models(arch)
     B, S = 2, 21  # past the reduced window of 8: the rings wrap
-    jb, tb = _batch(jc.vocab_size, B, S, 11)
+    jb, tb = _batch(jc.vocab_size, B, S, 11, jc)
     assert _rel(tlm.forward_logits(tp, tc, tb), jlm.forward_logits(jp, jc, jb)) <= MODEL_TOL
     jl, jcache = jlm.batched_prefill(jp, jc, jb, cache_len=S + 4)
     tl, tcache = tlm.batched_prefill(tp, tc, tb, cache_len=S + 4)
@@ -362,11 +379,10 @@ def test_init_cache_is_the_reference_layout(arch, seq):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_lm_loss_with_aux_matches_the_reference(arch):
     jc, tc, jp, tp = _models(arch, seed=4)
-    toks = _rs(16).integers(0, jc.vocab_size, (2, 19)).astype(np.int32)
+    jb, tb = _batch(jc.vocab_size, 2, 19, 16, jc)
     mask = (_rs(17).random((2, 19)) < 0.8).astype(np.float32)
-    jloss, jm = jlm.lm_loss(jp, jc, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks),
-                                     "loss_mask": jnp.asarray(mask)})
-    tloss, tm = tlm.lm_loss(tp, tc, {"tokens": _t(toks).long(), "labels": _t(toks).long(), "loss_mask": _t(mask)},
+    jloss, jm = jlm.lm_loss(jp, jc, dict(jb, labels=jb["tokens"], loss_mask=jnp.asarray(mask)))
+    tloss, tm = tlm.lm_loss(tp, tc, dict(tb, labels=tb["tokens"], loss_mask=_t(mask)),
                             plan=tlm.ExecPlan(loss_chunk=8))
     assert (float(jm["moe_aux"]) > 0) == tc.moe
     for got, want in ((tloss, jloss), (tm["ce"], jm["ce"]), (tm["moe_aux"], jm["moe_aux"])):
@@ -447,9 +463,9 @@ def test_port_forward_equals_prefills_and_decode(arch):
     cf = {"capacity_factor": float(jget(arch).reduced().num_experts)} if jget(arch).moe else {}
     _, tc, _, tp = _models(arch, seed=2, **cf)
     B, S = 2, 24
-    _, tb = _batch(tc.vocab_size, B, S + 1, 14)
+    _, tb = _batch(tc.vocab_size, B, S + 1, 14, tc)
     full = tlm.forward_logits(tp, tc, tb)
-    head = {"tokens": tb["tokens"][:, :S]}
+    head = dict(tb, tokens=tb["tokens"][:, :S])
     lb, cb = tlm.batched_prefill(tp, tc, head, cache_len=S + 4)
     lt, ct = tlm.prefill(tp, tc, head, tlm.init_cache(tc, B, S + 4, device=CPU))
     assert _rel(lb, full[:, S - 1]) <= MODEL_TOL and _rel(lt, full[:, S - 1]) <= MODEL_TOL
@@ -497,7 +513,7 @@ def test_layer_windows_and_cache_lengths_match_the_reference(arch, seq):
     assert np.array_equal(tlm.cache_lengths(cfg, seq).numpy(), np.asarray(jlm.cache_lengths(jget(arch), seq)))
 
 
-@pytest.mark.parametrize("arch,item", [("pixtral-12b", "9e"), ("falcon-mamba-7b", "9d"), ("whisper-small", "9e")])
+@pytest.mark.parametrize("arch,item", [("falcon-mamba-7b", "9d")])
 def test_other_families_are_refused(arch, item):
     cfg = tbase.ArchConfig(**dataclasses.asdict(jget(arch).reduced()))
     for call in (lambda: tlm.init_params(cfg, prng.prng_key(0), device=CPU),
@@ -514,6 +530,18 @@ def test_mla_and_hybrid_configs_are_accepted(arch):
     tlm.check_supported(cfg)
     sd = tlm.init_params(cfg, prng.prng_key(0), device=CPU).state_dict()
     assert {k: t.shape for k, t in sd.items()} == tlm.param_shapes(cfg)
+    _assert_caches_match(tlm.init_cache(cfg, 1, 8, device=CPU), jlm.init_cache(jget(arch).reduced(), 1, 8))
+
+
+@pytest.mark.parametrize("arch", ENCDEC_VLM)
+def test_encdec_and_vlm_configs_are_accepted(arch):
+    """As for MLA and the hybrid: the reference's own config through the calls
+    that refuse the families not ported, the cross caches among the leaves."""
+    cfg = tbase.ArchConfig(**dataclasses.asdict(jget(arch).reduced()))
+    tlm.check_supported(cfg)
+    sd = tlm.init_params(cfg, prng.prng_key(0), device=CPU).state_dict()
+    assert {k: t.shape for k, t in sd.items()} == tlm.param_shapes(cfg)
+    assert ("enc_norm.scale" in sd, "vit_proj.w" in sd) == (cfg.encdec, cfg.vlm)
     _assert_caches_match(tlm.init_cache(cfg, 1, 8, device=CPU), jlm.init_cache(jget(arch).reduced(), 1, 8))
 
 

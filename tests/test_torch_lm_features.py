@@ -3,8 +3,9 @@
 ``train.solvers.extract_features`` (final-norm hidden states, (B·S, d) float32)
 within ``FEATURE_TOL`` of ``repro.train.solvers.extract_features`` on the same
 weights and ``lm_batch`` tokens, granite, chatglm, mixtral, gemma3, grok,
-minicpm3 and hymba reduced (float32 through two to six layers, sums in other orders: relative to the largest
-feature). Then the
+minicpm3, hymba, whisper (with frames) and pixtral (with patches) reduced
+(float32 through two to six layers, sums in other orders: relative to the
+largest feature). Then the
 smoke's head-fitting problem at a small size: Y = H·U[:, ids] + 0.1·noise with U
 the model's own unembedding, fit by ``fit_head`` with ``use_kernel=False``
 (Gaussian and SJLT, a straggler mask) within ``FIT_TOL`` of the reference's
@@ -53,13 +54,18 @@ def _features(arch, B=8, S=96):
     tp = tlm.params_from_reference(tc, jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     jb = jtok.lm_batch(4, 0, batch=B, seq=S, vocab=jc.vocab_size)
     tb = ttok.lm_batch(4, 0, batch=B, seq=S, vocab=tc.vocab_size, device="cpu")
+    if jc.encdec or jc.vlm:  # the frontend stub, N(0, 1)
+        stub = "frames" if jc.encdec else "patches"
+        shape = (B, jc.enc_seq, jc.d_model) if jc.encdec else (B, jc.num_image_tokens, jc.vit_dim)
+        a = np.random.default_rng(9).standard_normal(shape).astype(np.float32)
+        jb, tb = dict(jb, **{stub: jnp.asarray(a)}), dict(tb, **{stub: torch.from_numpy(a)})
     want = np.asarray(jsolvers.extract_features(jp, jc, jb))
     got = tsolvers.extract_features(tp, tc, tb)
     return tc, tp, got, want
 
 
 @pytest.mark.parametrize("arch", ["granite-3-8b", "chatglm3-6b", "mixtral-8x7b", "gemma3-12b", "grok-1-314b",
-                                  "minicpm3-4b", "hymba-1.5b"])
+                                  "minicpm3-4b", "hymba-1.5b", "whisper-small", "pixtral-12b"])
 def test_extract_features_matches_the_reference(arch):
     tc, _, got, want = _features(arch, B=2, S=24)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (48, tc.d_model)

@@ -14,10 +14,14 @@ the decode's batch-wide groups drop assignments; sliding window 8) and
 gemma3-12b (local:global, window 8) with prompts past the window, so the rings
 wrap in the prefill and again in decode, and on the reduced hymba-1.5b (GQA
 with window 8 beside Mamba: the left-padding runs through the SSM's recurrence
-as ordinary tokens, as in the reference). The port's own determinism, batched =
-single, several engine batches and EOS trimming are the reference's tests
-repeated; the launcher's LM mode prints the reference launcher's tokens, also
-for mixtral and gemma3.
+as ordinary tokens, as in the reference); and on the reduced whisper-small fed
+frames and pixtral-12b fed patches (more rows than the batch: each engine batch
+takes the first B, as in the reference; the patches take the first positions
+of the left-padded rectangle). The port's own determinism, batched = single,
+several engine batches and EOS trimming are the reference's tests repeated;
+the launcher's LM mode prints the reference launcher's tokens, also for
+mixtral, gemma3 and whisper-small (its frames drawn as the reference
+launcher's).
 """
 import dataclasses
 import os
@@ -72,16 +76,16 @@ def test_sample_token_is_bitwise_the_reference(temperature):
         assert np.array_equal(got, want)
 
 
-def _reference_path(jeng, prompts, new):
+def _reference_path(jeng, prompts, new, stubs=None):
     """The reference engine's generation with its logits at every step (its own
     prefill and decode, its key schedule), and the smallest top-2 margin of what
-    it took the argmax of."""
+    it took the argmax of. ``stubs``: the batch's frames or patches."""
     sc = jeng.sc
     S = max(len(p) for p in prompts)
     toks = np.zeros((len(prompts), S), np.int32)
     for r, p in enumerate(prompts):
         toks[r, S - len(p):] = p
-    logits, cache = jeng._prefill(jeng.params, {"tokens": jnp.asarray(toks)})
+    logits, cache = jeng._prefill(jeng.params, {"tokens": jnp.asarray(toks), **(stubs or {})})
     key = jax.random.PRNGKey(sc.seed)
     steps, keys = [np.asarray(logits)], [key]
     for t in range(1, new):
@@ -146,6 +150,44 @@ def test_generate_matches_the_reference_on_moe_and_windowed_archs(arch, temperat
         toks[r, S - len(p):] = torch.tensor(p)
     with torch.inference_mode():
         logits, cache = teng._prefill(toks)
+        assert np.abs(logits.numpy() - steps[0]).max() <= LOGIT_TOL
+        for t in range(1, new):
+            tok = torch.tensor([o[t - 1] for o in got])
+            _, logits, cache = teng._decode(tok, cache, S + t - 1, prng.prng_key(0))
+            assert np.abs(logits.numpy() - steps[t]).max() <= LOGIT_TOL
+    assert got == want
+
+
+ENCDEC_VLM = ["whisper-small", "pixtral-12b"]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("arch", ENCDEC_VLM)
+def test_generate_matches_the_reference_with_frames_or_patches(arch, temperature):
+    """Three prompts of 14, 11 and 12 tokens with 4 rows of frames or patches,
+    of which the batch takes the first 3; pixtral's 4 patches cover the shorter
+    prompts' 3 and 2 padding positions and then their first tokens, as in the
+    reference."""
+    jc, tc = jget(arch).reduced(), tget(arch).reduced()
+    jp = jlm.init_params(jc, jax.random.PRNGKey(1))
+    tp = tlm.params_from_reference(tc, jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    kw = dict(max_batch=4, max_len=40, temperature=temperature, seed=4)
+    jeng, teng = JEngine(jc, jp, JServeConfig(**kw)), Engine(tc, tp, ServeConfig(**kw), device="cpu")
+    stub = "frames" if jc.encdec else "patches"
+    shape = (4, jc.enc_seq, jc.d_model) if jc.encdec else (4, jc.num_image_tokens, jc.vit_dim)
+    rows = np.random.default_rng(7).standard_normal(shape).astype(np.float32)
+    prompts = [list(range(3, 17)), [9, 4, 200, 31, 7, 7, 18, 90, 2, 11, 5], list(range(250, 238, -1))]
+    new = 12
+    want = jeng.generate(prompts, max_new_tokens=new, **{stub: jnp.asarray(rows)})
+    steps, margin = _reference_path(jeng, prompts, new, {stub: jnp.asarray(rows[:3])})
+    assert margin > 10 * LOGIT_TOL, f"the reference's top-2 margin {margin} is too small to decide"
+    got = teng.generate(prompts, max_new_tokens=new, **{stub: torch.from_numpy(rows)})
+    S = max(len(p) for p in prompts)
+    toks = torch.zeros((3, S), dtype=torch.int64)
+    for r, p in enumerate(prompts):
+        toks[r, S - len(p):] = torch.tensor(p)
+    with torch.inference_mode():
+        logits, cache = teng._prefill(toks, **{stub: torch.from_numpy(rows[:3])})
         assert np.abs(logits.numpy() - steps[0]).max() <= LOGIT_TOL
         for t in range(1, new):
             tok = torch.tensor([o[t - 1] for o in got])
@@ -229,7 +271,7 @@ def test_launcher_lm_mode_prints_the_reference_tokens():
     assert [l for l in lines if l.startswith("  req")] == [l for l in want.stdout.splitlines() if l.startswith("  req")]
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + ["whisper-small"])
 def test_launcher_lm_mode_prints_the_reference_tokens_for_moe_and_windowed_archs(arch):
     got = _launch("repro_torch.launch.serve", "--arch", arch, "--reduced", "--device", "cpu")
     want = _launch("repro.launch.serve", "--arch", arch, "--reduced")
