@@ -77,8 +77,9 @@ beside the adjoint that draws the pairs again, bitwise (row 12b's device time by
 pass: ``tools/sjlt_long_profile.py``); and
 ``train.solvers.fit_head`` at whisper-small's width (262,144 × 768 features, 16
 outputs, q = 16, 12 arriving) through rows 2 and 11, on Theorem 1. Then the
-dense decoder LM at granite-3-8b's full published size (40 layers, d_model
-4,096, bfloat16, the reference's weights for key 0 drawn on the card): the
+dense decoder LM at granite-3-8b's full published width (d_model 4,096,
+bfloat16, the reference's weights for key 0 drawn on the card) cut to 5 of
+its 40 layers (its launcher builds it whole): the
 forward against the batched prefill and one decode step at 1,024 tokens, and
 the token-by-token prefill against the batched one, within ``LM_LOGIT_BOUND``
 and with the top-1 token equal wherever the top-2 margin exceeds twice it;
@@ -87,47 +88,57 @@ bitwise, two prompts batched and alone; prefill tokens/s against its bf16
 flops bound, the decode's ms a step against its bytes floor, one decode traced);
 ``fit_head`` on the model's own features (``extract_features``, 32,768 × 4,096)
 through rows 2 and 11, on Theorem 1; and, with the model freed,
-``python -m repro_torch.launch.serve --arch granite-3-8b``. After the training
-phases, the other decoder families, bfloat16 with the reference's weights for
-key 0, each model freed before the next: chatglm3-6b whole (RoPE on half of
-each head; the same consistency checks); mixtral-8x7b at full width cut to 2
-of 32 layers (8 experts, top-2, sliding window 4,096: the consistency dropless
-over 4,609 tokens, so the batched prefill's ring wraps; the Engine at the
-config's capacity 1.25 on 8 prompts of 4,352-6,144 tokens, with the dropped
-share of MoE assignments at the prefill and at decode and one decode traced);
-gemma3-12b at full width cut to 12 of 48 layers (10 of them local with a
-window of 1,024: the consistency over 2,049 tokens, the Engine on 8 prompts of
-2,048-3,072 tokens, ``fit_head`` on its features through rows 2 and 11 at
-3,856 columns), and whole through its launcher as a subprocess; grok-1-314b at
-full width cut to 1 of 64 layers
-(the consistency dropless, one forward at the config's capacity). After the
-serverless phases, Algorithm 1 across processes: FIG3A in worker mode at q = 8
-with each worker sketching only its own 62,500 rows of A and b
+``python -m repro_torch.launch.serve --arch granite-3-8b``. Then training with
+the sketch-DP step (``Trainer``, CountSketch at 0.1·D through row 12b, 3 steps
+of 4 × 2,048 tokens, a bitwise rerun, row 12b at that D beside the library):
+granite-3-8b's width at 4 layers, mixtral-8x7b's at 1 layer (D = 1.71e9, the
+MoE's dropped share and auxiliary loss), and the reduced config on the card
+against the CPU. After the training phases, the other decoder families, bfloat16
+with the reference's weights for key 0, each model freed before the next:
+chatglm3-6b at full width cut to 7 of 28 layers (RoPE on half of each head; the
+same consistency checks); mixtral-8x7b at full width cut to 1 of 32 layers (8
+experts, top-2, sliding window 4,096: the consistency dropless over 4,609
+tokens, so the batched prefill's ring wraps; the Engine at the config's capacity
+1.25 on 8 prompts of 4,352-6,144 tokens, with the dropped share of MoE
+assignments at the prefill and at decode and one decode traced); gemma3-12b at
+full width cut to 6 of 48 layers (5 of them local with a window of 1,024: the
+consistency over 2,049 tokens, the Engine on 8 prompts of 2,048-3,072 tokens,
+``fit_head`` on its features through rows 2 and 11 at 3,856 columns), and whole
+through its launcher as a subprocess; grok-1-314b at full width cut to 1 of 64
+layers (the consistency dropless, one forward at the config's capacity). After
+the serverless phases, Algorithm 1 across processes: FIG3A in worker mode at q =
+8 with each worker sketching only its own 62,500 rows of A and b
 (``row_sharded=True``; Gaussian, SRHT and SJLT, one fused single-key Gram a
-worker, twice, bitwise, gated on bands from the reference's local-block
-ratios); worker, master and least-norm solves and the masked gradient mean
-(compression off and on, a scalar mask) through
-``launch.mesh.init_worker_group``'s NCCL group of one rank in this process,
-each result bitwise the one without a group; and two spawned ranks in a gloo group,
-both on the card, running the replicated and row-sharded worker mode (4
-workers a rank) and the masked, compressed gradient mean, each within 1e-6 of
-the one-process result and bitwise on a rerun. Last, two more decoder
-families whole, the same way: minicpm3-4b (MLA: the absorbed decode over a
-latent cache of 288 values a position and layer; consistency at 4 × 1,025
-tokens, the Engine on 8 prompts of 1,536-2,048) and hymba-1.5b (GQA with a
-window of 1,024 beside Mamba in every layer: consistency over 2 × 2,049
-tokens, the Engine on 8 prompts of 2,048-3,072 with its decode state a
-sequence, ``fit_head`` on its features through rows 2 and 11 at 1,616
-columns). Then the encoder-decoder and the VLM: whisper-small whole (12
-encoder and 12 decoder layers over frames of 1,500 × 768: consistency at 4 ×
-385 tokens with the cross caches leaf by leaf, the encoder alone beside its
-bound, the Engine on 8 prompts of 4-224 tokens with 224 new, and its launcher
-as a subprocess) and pixtral-12b at full width cut to 20 of 40 layers (256
-patches of 1,024 in the first positions: consistency over 2 × 1,025 tokens
-with the token-by-token prefill over 272 positions, the Engine on 8 prompts of
-1,536-2,048, ``fit_head`` on its features through rows 2 and 11 at 5,136
-columns). Each phase of ``main``, and each model of the decoder families'
-phases, prints its wall seconds (``{"phase": "seconds", ...}``).
+worker, twice, bitwise, gated on bands from the reference's local-block ratios);
+worker, master and least-norm solves and the masked gradient mean (compression
+off and on, a scalar mask) through ``launch.mesh.init_worker_group``'s NCCL
+group of one rank in this process, each result bitwise the one without a group;
+and two spawned ranks in a gloo group, both on the card, running the replicated
+and row-sharded worker mode (4 workers a rank) and the masked, compressed
+gradient mean, each within 1e-6 of the one-process result and bitwise on a
+rerun. Then two more decoder families at full width, minicpm3-4b at 8 of 62
+layers and hymba-1.5b at 4 of 32, the same way: minicpm3-4b (MLA: the absorbed
+decode over a latent cache of 288 values a position and layer; consistency at 4
+× 1,025 tokens, the Engine on 8 prompts of 1,536-2,048) and hymba-1.5b (GQA with
+a window of 1,024 beside Mamba in every layer: consistency over 2 × 2,049
+tokens, the Engine on 8 prompts of 2,048-3,072 with its decode state a sequence,
+``fit_head`` on its features through rows 2 and 11 at 1,616 columns, with one
+worker's plain and library times). Then the encoder-decoder and the VLM:
+whisper-small at 6 of its 12 encoder and 6 of its 12 decoder layers (over frames
+of 1,500 × 768: consistency at 4 × 385 tokens with the cross caches leaf by
+leaf, the encoder alone beside its bound, the Engine on 8 prompts of 4-224
+tokens with 224 new; whole through its launcher as a subprocess) and pixtral-12b
+at full width cut to 5 of 40 layers (256 patches of 1,024 in the first
+positions: consistency over 2 × 1,025 tokens with the token-by-token prefill
+over 272 positions, the Engine on 8 prompts of 1,536-2,048, ``fit_head`` on its
+features through rows 2 and 11 at 5,136 columns). Last, the attention-free Mamba
+stack, falcon-mamba-7b whole (64 layers, d_model 4,096): the consistency at 2 ×
+1,025 tokens in bfloat16 (the forward and decode within ``LM_LOGIT_BOUND``; the
+token-by-token prefill's gaps reported) and, the same weights cast to float32 on
+the card, every gap within ``SSM_F32_BOUND``; the Engine on 8 prompts of 256-512
+tokens; its launcher as a subprocess. Each phase of ``main``, and each model of
+the decoder families' phases, prints its wall seconds (``{"phase": "seconds",
+...}``).
 
 The SJLT rows carry their plan (splits, m-tiles, column tiles, blocks,
 workers a call) and the scatter's shared-memory floor beside the bound; the SJLT
@@ -2753,6 +2764,10 @@ def phase_fit_head(rows: dict) -> None:
 # ------------------------------------------ the dense decoder LM at granite-3-8b's full width
 
 LM_ARCH = "granite-3-8b"  # 40 layers, d_model 4,096, 32 heads, 8 kv heads, d_ff 12,800, vocab 49,155 (49,408 padded)
+# Depth cut for the smoke's 900-s budget: the consistency, the Engine and the head
+# fit run granite-3-8b's full width at 5 of its 40 (identical) layers; its
+# launcher builds it whole.
+GRANITE_LAYERS = 5
 LM_CONSISTENCY = {"batch": 4, "seq": 1025, "prefill": 1024, "cache_len": 1088, "token_prefill": 64}
 # Bound on |Δlogit| between two bfloat16 runs of the same model that differ only in
 # the shapes of their products (M = 4·1025 against 4·1024 or 4 rows, one key chunk
@@ -2785,17 +2800,20 @@ def top1_agreement(got, want, bound: float) -> dict:
 
 
 def phase_lm(rows: dict) -> None:
-    """The dense decoder LM at granite-3-8b's full published size, bfloat16, with
-    the reference's weights for key 0 (``init_params``, drawn on the card): its
-    prefill/decode consistency, the Engine, the head-fitting path on its
-    features (rows 2 and 11), then, with the model freed, the launcher."""
+    """The dense decoder LM at granite-3-8b's full published width cut to
+    GRANITE_LAYERS layers, bfloat16, with the reference's weights for key 0
+    (``init_params``, drawn on the card): its prefill/decode consistency, the
+    Engine, the head-fitting path on its features (rows 2 and 11), then, with
+    the model freed, the launcher on the whole model."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import layers, lm
     from repro_torch.utils import prng
 
-    cfg = get_config(LM_ARCH)
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=GRANITE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     model, seconds = host_s(lambda: lm.init_params(cfg, prng.prng_key(0), device=DEVICE))
     n_params = sum(p.numel() for p in model.parameters())
@@ -2803,12 +2821,13 @@ def phase_lm(rows: dict) -> None:
     k_un = prng.split(prng.prng_key(0), 6)[3]
     cpu_rows = layers.dense_init(k_un, (4, cfg.padded_vocab), cfg.d_model, lm.torch_dtype(cfg), "cpu")
     same = torch.equal(model.unembed.w[:4].cpu(), cpu_rows)
-    emit({"phase": "lm_init", "arch": cfg.name, "card": nvidia_smi_line(), "params": n_params,
+    emit({"phase": "lm_init", "arch": cfg.name, "layers": cfg.num_layers, "card": nvidia_smi_line(), "params": n_params,
           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()), "seconds": seconds,
           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "cpu_draw_bitwise": same,
           "bf16_reduced_precision_reduction": torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction})
     check(same, "lm_init: the card's weights differ from the same draw on the CPU")
-    check(abs(n_params - 8.37e9) < 0.01e9, f"lm_init: {n_params} parameters")
+    check(abs(n_params - config_params(cfg)) <= 1e-3 * config_params(cfg),
+          f"lm_init: {n_params} parameters, the config's {config_params(cfg)}")
     phase_lm_consistency(cfg, model)
     phase_lm_engine(cfg, model)
     phase_fit_head_lm(cfg, model, rows)
@@ -2825,8 +2844,14 @@ def cache_leaves(cache: dict) -> dict:
     return out
 
 
+# The consistency gaps each family is held to by default (``phase_lm_consistency``'s ``gates``).
+LM_GATES = ("prefill_vs_forward", "decode_vs_forward", "token_prefill_vs_batched")
+
+
 def phase_lm_consistency(cfg, model, label: str = "lm_granite_consistency", c: dict = LM_CONSISTENCY,
-                         stubs: Optional[dict] = None) -> None:
+                         stubs: Optional[dict] = None, *, bound: float = LM_LOGIT_BOUND,
+                         gates: tuple = LM_GATES, top1_gates: tuple = ("prefill", "decode", "token_prefill"),
+                         extra: Optional[dict] = None) -> dict:
     """forward_logits on B sequences of ``seq`` tokens (lm_batch, B = 4 × 1,025 for
     granite); batched_prefill of the first ``prefill`` (cache ``cache_len``)
     against the forward's position prefill − 1; one decode_step at ``prefill``
@@ -2835,7 +2860,13 @@ def phase_lm_consistency(cfg, model, label: str = "lm_granite_consistency", c: d
     encoder-decoder's cross ``xk`` and ``xv`` included). ``stubs`` (an
     encoder-decoder's frames, a VLM's patches, B rows) join every call's batch.
     An MoE's dropped assignments are counted (0 at the dropless capacity the
-    caller sets)."""
+    caller sets). The gaps named in ``gates`` (of the report's: the three
+    logit gaps and ``token_prefill_cache_vs_batched``, the largest over the
+    cache leaves) are held to ``bound``, the top-1 agreement past the margin
+    of those in ``top1_gates``; the others are reported. ``extra`` joins the
+    report. Returns the logits (B, V_pad) float32 by path: "prefill",
+    "decode", "token_prefill" and "batched_prefill" (of ``token_prefill``
+    tokens)."""
     import torch
 
     from repro_torch.data import tokens
@@ -2866,27 +2897,29 @@ def phase_lm_consistency(cfg, model, label: str = "lm_granite_consistency", c: d
         "prefill_vs_forward": err(lp, want_pre), "decode_vs_forward": err(ld, want_dec),
         "token_prefill_vs_batched": err(ltt, lb),
         "token_prefill_cache_vs_batched": max(by_entry), "token_prefill_cache_vs_batched_by_entry": by_entry,
+        "token_prefill_cache_vs_batched_by_leaf": {n: err(ctt[n].float(), cb[n].float()) for n in cb},
         "cache_rms": max(float(cb[n].float().pow(2).mean().sqrt()) for n in cb),
     }
-    agree = {"prefill": top1_agreement(lp, want_pre, LM_LOGIT_BOUND),
-             "decode": top1_agreement(ld, want_dec, LM_LOGIT_BOUND),
-             "token_prefill": top1_agreement(ltt, lb, LM_LOGIT_BOUND)}
+    agree = {"prefill": top1_agreement(lp, want_pre, bound), "decode": top1_agreement(ld, want_dec, bound),
+             "token_prefill": top1_agreement(ltt, lb, bound)}
     finite = all(bool(torch.isfinite(x).all()) for x in (full, lp, ld, ltt))
-    emit({"phase": label, "arch": cfg.name, "layers": cfg.num_layers, "card": nvidia_smi_line(), **c,
-          "stubs": {n: list(t.shape) for n, t in stubs.items()},
+    emit({"phase": label, "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype, "card": nvidia_smi_line(),
+          **c, "stubs": {n: list(t.shape) for n, t in stubs.items()},
           "window": cfg.window, "capacity_factor": cfg.capacity_factor if cfg.moe else None,
           "cache_shapes": cache_shapes, "moe_assignments": drops.assigned,
-          "moe_dropped": int(drops.dropped) if drops.calls else None, "bound": LM_LOGIT_BOUND, **report,
-          "top1": agree, "logit_rms": float(full.pow(2).mean().sqrt()), "finite": finite, "forward_s": fwd_s,
-          "batched_prefill_s": pre_s, "decode_step_s": dec_s, "token_prefill_s": tt_s,
-          "shapes": [list(full.shape), list(lp.shape), list(ld.shape)]})
+          "moe_dropped": int(drops.dropped) if drops.calls else None, "bound": bound, "gated": list(gates), **report,
+          "top1": agree, "top1_gated": list(top1_gates), "logit_rms": float(full.pow(2).mean().sqrt()),
+          "finite": finite, "forward_s": fwd_s, "batched_prefill_s": pre_s, "decode_step_s": dec_s,
+          "token_prefill_s": tt_s, "shapes": [list(full.shape), list(lp.shape), list(ld.shape)], **(extra or {})})
     check(finite and tuple(full.shape) == (c["batch"], c["seq"], cfg.padded_vocab), f"{label}: bad logits")
-    for name in ("prefill_vs_forward", "decode_vs_forward", "token_prefill_vs_batched"):
-        check(report[name] <= LM_LOGIT_BOUND, f"{label}: {name} {report[name]} > {LM_LOGIT_BOUND}")
-    for name, a in agree.items():
-        check(a["top1_disagree_past_margin"] == 0, f"{label}: {name} top-1 differs past the margin: {a}")
+    for name in gates:
+        check(report[name] <= bound, f"{label}: {name} {report[name]} > {bound}")
+    for name in top1_gates:
+        check(agree[name]["top1_disagree_past_margin"] == 0,
+              f"{label}: {name} top-1 differs past the margin: {agree[name]}")
     check(not drops.calls or int(drops.dropped) == 0, f"{label}: the dropless MoE dropped assignments")
     del full
+    return {"prefill": lp, "decode": ld, "token_prefill": ltt, "batched_prefill": lb}
 
 
 class StepTimer:
@@ -2932,10 +2965,15 @@ ATTENTION_CACHE = ("k", "v", "ckv", "krope", "xk", "xv")
 
 def mixer_matrix_params(cfg, *, encoder: bool = False) -> int:
     """Weights of a layer's token-mixing products a token passes through (GQA or
-    MLA, a hybrid layer's Mamba projections, an encoder-decoder's cross q and o:
-    its k and v run over the frames, ``frontend_flops``): 2 flops a token each.
-    ``encoder``: an encoder layer's (its GQA)."""
+    MLA, a hybrid or attention-free layer's Mamba projections, an
+    encoder-decoder's cross q and o: its k and v run over the frames,
+    ``frontend_flops``): 2 flops a token each. ``encoder``: an encoder layer's
+    (its GQA)."""
     d, H = cfg.d_model, cfg.num_heads
+    C, r, N = cfg.d_inner, cfg.resolved_dt_rank, cfg.ssm_state
+    mamba = d * 2 * C + C * (r + 2 * N) + r * C + C * d
+    if cfg.is_attention_free:
+        return mamba
     hd = cfg.resolved_head_dim
     gqa = d * H * hd + 2 * d * cfg.num_kv_heads * hd + H * hd * d
     if encoder:
@@ -2947,8 +2985,7 @@ def mixer_matrix_params(cfg, *, encoder: bool = False) -> int:
     else:
         n = gqa
     if cfg.hybrid:
-        C, r, N = cfg.d_inner, cfg.resolved_dt_rank, cfg.ssm_state
-        n += d * 2 * C + C * (r + 2 * N) + r * C + C * d
+        n += mamba
     if cfg.encdec:
         n += 2 * d * H * hd
     return n
@@ -3010,7 +3047,7 @@ def cache_bytes_a_token(cfg) -> int:
 def state_bytes_a_sequence(cfg) -> int:
     """A sequence's Mamba decode state over all layers, whatever its length: the
     float32 h (C × N) and the bf16 conv tail (K − 1 × C) a layer."""
-    if not cfg.hybrid:
+    if not (cfg.hybrid or cfg.is_attention_free):
         return 0
     return cfg.num_layers * (cfg.d_inner * cfg.ssm_state * 4 + (cfg.d_conv - 1) * cfg.d_inner * 2)
 
@@ -3314,6 +3351,7 @@ def phase_lm_serve_cli(label: str, args: tuple) -> None:
 # ------------------------------------------ training: the sketch-DP step on the dense decoder LM
 
 TRAIN_LAYERS = 4  # granite-3-8b's full width at a cut depth: D ≈ 1.20e9 parameters
+TRAIN_MIXTRAL_LAYERS = 1  # mixtral-8x7b's full width at 1 of 32 layers: D ≈ 1.71e9 parameters
 TRAIN = {"batch": 4, "seq": 2048, "steps": 3, "ratio": 0.1, "lr": 3e-4, "warmup": 1}
 TRAIN_LATENCY = {"mean_s": 1.0, "sigma": 0.35, "q": 8, "deadline_s": 1.5}
 # Row 12b at the step's D against the library's index_add_: the library adds in
@@ -3392,30 +3430,66 @@ def phase_train(rows: dict) -> None:
 
     torch.use_deterministic_algorithms(True)
     try:
-        phase_train_granite_sketch_dp(rows)
-        phase_train_small_card_vs_cpu(rows)
+        with clock("train_granite"):
+            phase_train_granite_sketch_dp(rows)
+        with clock("train_mixtral"):
+            phase_train_mixtral_sketch_dp(rows)
+        with clock("train_small"):
+            phase_train_small_card_vs_cpu(rows)
     finally:
         torch.use_deterministic_algorithms(False)
 
 
 def phase_train_granite_sketch_dp(rows: dict) -> None:
     """granite-3-8b's full width (d 4,096, 32/8 heads, d_ff 12,800, padded vocab
-    49,408, bf16) cut to TRAIN_LAYERS layers, the reference's weights for key 0:
+    49,408, bf16) cut to TRAIN_LAYERS layers: ``train_sketch_dp``."""
+    train_sketch_dp("granite", _train_cfg(), 40, rows)
+
+
+def phase_train_mixtral_sketch_dp(rows: dict) -> None:
+    """mixtral-8x7b's full width (d 4,096, 32/8 heads, 8 experts of d_ff 14,336,
+    top-2 at capacity 1.25, window 4,096, vocab 32,000, bf16) cut to
+    TRAIN_MIXTRAL_LAYERS layer: ``train_sketch_dp``, with the MoE's dropped
+    share and its auxiliary loss."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=TRAIN_MIXTRAL_LAYERS)
+    train_sketch_dp("mixtral", cfg, 32, rows)
+
+
+def train_flops(cfg, tokens: int, seq: int, D: int, kept: Optional[int] = None) -> int:
+    """A training step's flops: 6 a parameter and token and the attention's 12 · L ·
+    d · seq a token; an MoE's experts count their kept assignments (``kept``)
+    instead of every token."""
+    flops = 6 * D * tokens + 12 * cfg.num_layers * cfg.d_model * seq * tokens
+    if cfg.moe:
+        expert = 3 * cfg.d_model * cfg.d_ff
+        flops += 6 * expert * (kept - tokens * cfg.num_layers * cfg.num_experts)
+    return flops
+
+
+def train_sketch_dp(tag: str, cfg, of_layers: int, rows: dict) -> None:
+    """The reference's weights for key 0 at ``cfg``'s full width and cut depth:
     ``Trainer`` with ``make_sketch_dp_step`` (CountSketch at 0.1·D through row
     12b, its adjoint over the kept pairs; remat full; a seeded lognormal
     straggler mask; ``linear_warmup_cosine``), 3 steps of 4 × 2,048 tokens from
     ``lm_batch``, with each step split by the step's clock; then the whole run
-    again without the clock, bitwise. Then, on one more gradient of the
-    trained model, row 12b at this D against the library's ``index_add_`` and
-    its compression error² against (D − 1)/m."""
+    again without the clock, bitwise. An MoE's dropped share is counted over
+    the first run (the recomputed forward counts twice, the share once).
+    Then, on one more gradient of the trained model, row 12b at this D against
+    the library's ``index_add_``, its compression error² against (D − 1)/m and
+    the loss's MoE auxiliary term (``train_<tag>_row12b``)."""
     import math
 
     import torch
 
     from repro_torch.core import gradcomp
+    from repro_torch.models import moe
     from repro_torch.optim import AdamWConfig
 
-    cfg = _train_cfg()
+    label = f"train_{tag}_sketch_dp"
     opt = AdamWConfig(lr=TRAIN["lr"])
     comp = gradcomp.GradCompressionConfig(enabled=True, ratio=TRAIN["ratio"], kind="countsketch")
     card = nvidia_smi_line()
@@ -3426,7 +3500,7 @@ def phase_train_granite_sketch_dp(rows: dict) -> None:
         splits[-1][name] = time.perf_counter()
 
     runs = []
-    for label, clk in (("split", clock), ("rerun", None)):
+    for run, clk in (("split", clock), ("rerun", None)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -3443,11 +3517,13 @@ def phase_train_granite_sketch_dp(rows: dict) -> None:
 
             trainer.step_fn = timed
         reset_counts()
-        state = trainer.run(TRAIN["steps"], state=state)
+        with moe.count_drops() as drops:
+            state = trainer.run(TRAIN["steps"], state=state)
         counts = read_counts()
-        runs.append({"label": label, "init_seconds": init_s, "step_seconds": seconds, "history": trainer.history,
+        runs.append({"label": run, "init_seconds": init_s, "step_seconds": seconds, "history": trainer.history,
                      "launches": counts, "peak_bytes": torch.cuda.max_memory_allocated() - base,
-                     "report": trainer.straggler_report(), "host": _host_state(state)})
+                     "report": trainer.straggler_report(), "host": _host_state(state),
+                     "drop_share": drops.share if drops.calls else None})
         params = state["params"]
         del state, trainer
     D = sum(p.numel() for p in params.parameters())
@@ -3464,7 +3540,10 @@ def phase_train_granite_sketch_dp(rows: dict) -> None:
             t = sp[n]
         split.append(row)
     tokens = TRAIN["batch"] * TRAIN["seq"]
-    flops = 6 * D * tokens + 12 * cfg.num_layers * cfg.d_model * TRAIN["seq"] * tokens
+    kept = None
+    if cfg.moe:  # the assignments a step keeps, from the run's dropped share
+        kept = round(tokens * cfg.num_layers * cfg.top_k * (1.0 - first["drop_share"]))
+    flops = train_flops(cfg, tokens, TRAIN["seq"], D, kept)
     bound_s = flops / PEAK_BF16_FLOPS
     p_bytes = 2 * D
     reckon = {"params_bf16": p_bytes, "grads_bf16": p_bytes, "moments_f32": 8 * D, "grad_vector_f32": 4 * D,
@@ -3472,8 +3551,8 @@ def phase_train_granite_sketch_dp(rows: dict) -> None:
     mean_split = {n: sum(r[n] for r in split[1:]) / max(1, len(split) - 1) for n in names}
     steady_s = sum(second["step_seconds"][1:]) / max(1, len(second["step_seconds"]) - 1)
     report = {
-        "phase": "train_granite_sketch_dp", "card": card, "arch": cfg.name,
-        "depth": f"{cfg.num_layers} of 40 layers (full width)", "D": D, "m": m, "batch": TRAIN["batch"],
+        "phase": label, "card": card, "arch": cfg.name,
+        "depth": f"{cfg.num_layers} of {of_layers} layers (full width)", "D": D, "m": m, "batch": TRAIN["batch"],
         "seq": TRAIN["seq"], "steps": TRAIN["steps"], "tokens_per_step": tokens,
         "launches": first["launches"], "rerun_launches": second["launches"], "rerun_bitwise": bitwise,
         "history": first["history"], "rerun_history": second["history"], "straggler_report": first["report"],
@@ -3482,23 +3561,26 @@ def phase_train_granite_sketch_dp(rows: dict) -> None:
         "steady_split_mean_seconds": mean_split,
         "grad_mean_share": (mean_split["compress"] + mean_split["all_reduce"] + mean_split["decompress"])
         / sum(mean_split.values()),
+        "capacity_factor": cfg.capacity_factor if cfg.moe else None,
+        "moe_drop_share": [r["drop_share"] for r in runs], "moe_kept_assignments_per_step": kept,
         "tokens_per_s": tokens / steady_s, "flops_per_step": flops, "bf16_bound_s": bound_s,
         "bound_share": bound_s / steady_s, "peak_bytes": [r["peak_bytes"] for r in runs],
         "reckoning_bytes": reckon, "reckoning_total_bytes": sum(reckon.values())}
     emit(report)
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in first["history"]),
-          f"train_granite_sketch_dp: loss or grad norm not finite: {first['history']}")
-    check(bitwise and first["history"] == second["history"], "train_granite_sketch_dp: the rerun is not bitwise")
-    check_counts("train_granite_sketch_dp", first["launches"], {"sjlt_apply_long": TRAIN["steps"]})
-    check_counts("train_granite_sketch_dp rerun", second["launches"], {"sjlt_apply_long": TRAIN["steps"]})
+          f"{label}: loss or grad norm not finite: {first['history']}")
+    check(bitwise and first["history"] == second["history"], f"{label}: the rerun is not bitwise")
+    check_counts(label, first["launches"], {"sjlt_apply_long": TRAIN["steps"]})
+    check_counts(f"{label} rerun", second["launches"], {"sjlt_apply_long": TRAIN["steps"]})
+    check(not cfg.moe or 0.0 <= first["drop_share"] < 1.0, f"{label}: drop share {first['drop_share']}")
     row = rows["sjlt_apply_long"]
-    row.setdefault("launches_by_path", {})["train_granite_sketch_dp"] = first["launches"].get("sjlt_apply_long", 0)
+    row.setdefault("launches_by_path", {})[label] = first["launches"].get("sjlt_apply_long", 0)
     del first["host"], second["host"]
     # One more gradient of the trained model: row 12b at this D beside the
     # library, whose index_add_ is the ordinary (atomic) one.
     torch.use_deterministic_algorithms(False)
     try:
-        row["train"] = train_row12b(cfg, params, comp, D, m, card)
+        row[f"train_{tag}"] = train_row12b(tag, cfg, params, comp, D, m, card)
     finally:
         torch.use_deterministic_algorithms(True)
 
@@ -3514,11 +3596,14 @@ def _dist2(a, b=None, piece: int = 1 << 26) -> float:
     return tot
 
 
-def train_row12b(cfg, params, comp, D: int, m: int, card: str) -> dict:
+def train_row12b(tag: str, cfg, params, comp, D: int, m: int, card: str) -> dict:
     """Row 12b on one gradient of the trained model (batch ``TRAIN["steps"]``):
     its event ms against its bound and the library's ``index_add_`` over the
     same pairs (per bucket, TRAIN_LIB_TOL), a bitwise rerun, and the
-    compress + decompress error² · m/(D − 1)."""
+    compress + decompress error² · m/(D − 1); the loss's MoE auxiliary term
+    (non-zero for an MoE, 0 otherwise)."""
+    import math
+
     import torch
 
     from repro_torch.core import gradcomp
@@ -3530,9 +3615,10 @@ def train_row12b(cfg, params, comp, D: int, m: int, card: str) -> dict:
 
     torch.cuda.empty_cache()
     batch = lm_batch(0, TRAIN["steps"], batch=TRAIN["batch"], seq=TRAIN["seq"], vocab=cfg.vocab_size, device=DEVICE)
-    loss, _ = lm.lm_loss(params, cfg, batch, plan=lm.ExecPlan(remat="full"))
+    loss, parts = lm.lm_loss(params, cfg, batch, plan=lm.ExecPlan(remat="full"))
     loss.backward()
-    del loss
+    moe_aux = float(parts["moe_aux"].detach())
+    del loss, parts
     vec, _ = sketch_dp.flatten_grads(params)
     params.requires_grad_(False)
     X = vec[:, None]
@@ -3555,11 +3641,13 @@ def train_row12b(cfg, params, comp, D: int, m: int, card: str) -> dict:
     bound, by = bound_ms("sjlt", D, 1, m, 1, s=1, apply=True)
     out = {"ms": ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms, "library_per_bucket_rel_diff": lib_err,
            "tol": TRAIN_LIB_TOL, "max_abs_diff": max_abs, "rerun_bitwise": rerun, "rel_err": err,
-           "err2_m_over_D_minus_1": err ** 2 * m / (D - 1)}
-    emit({"phase": "train_granite_row12b", "card": card, "D": D, "m": m, **out})
-    check(lib_err <= TRAIN_LIB_TOL and rerun, f"train_granite_row12b: off the library by {lib_err}, rerun {rerun}")
+           "err2_m_over_D_minus_1": err ** 2 * m / (D - 1), "moe_aux": moe_aux}
+    label = f"train_{tag}_row12b"
+    emit({"phase": label, "card": card, "D": D, "m": m, **out})
+    check(lib_err <= TRAIN_LIB_TOL and rerun, f"{label}: off the library by {lib_err}, rerun {rerun}")
     check(0.9 <= out["err2_m_over_D_minus_1"] <= 1.1,
-          f"train_granite_row12b: compression error² · m/(D − 1) = {out['err2_m_over_D_minus_1']}")
+          f"{label}: compression error² · m/(D − 1) = {out['err2_m_over_D_minus_1']}")
+    check(math.isfinite(moe_aux) and (moe_aux > 0) == cfg.moe, f"{label}: the MoE auxiliary loss is {moe_aux}")
     return {"D": D, "m": m, **{k: out[k] for k in ("ms", "bound_ms", "bound_by", "library_ms")}}
 
 
@@ -3639,11 +3727,11 @@ def phase_train_small_card_vs_cpu(rows: dict) -> None:
 
 CHATGLM_ARCH = "chatglm3-6b"  # 28 layers, d_model 4,096, 32/2 heads, RoPE on half of each head, 6.24e9 parameters
 # Depth cuts (full width): mixtral's and grok's whole models do not fit one card; the
-# smoke also keeps under 900 s with the MLA and hybrid phase and the encoder-decoder
-# and VLM phase after it, so mixtral runs 2 of its 32 layers, gemma3 12 of its 48
-# in-process (two whole local:global periods; its launcher builds it whole) and
-# grok 1 of its 64 (6.53e9 parameters, 13.1 GB).
-MIXTRAL_LAYERS = 2
+# smoke also keeps under 900 s with the later LM phases, so chatglm3 runs 7 of its 28
+# layers, mixtral 1 of its 32, gemma3 6 of its 48 in-process (one whole local:global
+# period; its launcher builds it whole) and grok 1 of its 64 (6.53e9 parameters, 13.1 GB).
+CHATGLM_LAYERS = 7
+MIXTRAL_LAYERS = 1
 MIXTRAL_CONSISTENCY = {"batch": 2, "seq": 4609, "prefill": 4608, "cache_len": 4672, "token_prefill": 64}
 MIXTRAL_ENGINE = {"prompts": 8, "min_len": 4352, "max_len": 6144, "new": 32}
 # The prefill's float32 score and probability chunks are B·S·H·chunk·4 bytes: 1.6 GB
@@ -3651,7 +3739,7 @@ MIXTRAL_ENGINE = {"prompts": 8, "min_len": 4352, "max_len": 6144, "new": 32}
 # 512 the prefill's peak was 16.6 GB above the weights and cache).
 MIXTRAL_ATTN_CHUNK = 256
 GEMMA_ARCH = "gemma3-12b"  # 48 layers (40 local, window 1,024; 8 global), d_model 3,840, head_dim 240, vocab 262,144
-GEMMA_LAYERS = 12  # two whole local:global periods of 5 + 1
+GEMMA_LAYERS = 6  # one whole local:global period of 5 + 1
 GEMMA_CONSISTENCY = {"batch": 2, "seq": 2049, "prefill": 2048, "cache_len": 2112, "token_prefill": 64}
 GEMMA_ENGINE = {"prompts": 8, "min_len": 2048, "max_len": 3072, "new": 32}
 SERVE_GEMMA_CLI = ("--arch", GEMMA_ARCH)
@@ -3679,9 +3767,17 @@ def leaf_draw(cfg, name: str):
     return prng.split(ks, 4)[1], 1.0 / math.sqrt(cfg.d_model), False
 
 
+def config_params(cfg) -> int:
+    """The config's parameter count (``ArchConfig.param_count``, which leaves out
+    norms and biases) over the padded vocabulary the tables have."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, vocab_size=cfg.padded_vocab).param_count()
+
+
 def lm_build(label: str, cfg, leaf: str):
     """``init_params`` on the card (the reference's weights for key 0): seconds,
-    parameters (the meta model's, within 0.1% of the config's count), bytes,
+    parameters (the meta model's, within 0.1% of ``config_params``), bytes,
     peak, and the first and last two rows of ``leaf`` held bitwise against the
     same draw on the CPU. Returns the model."""
     import torch
@@ -3708,8 +3804,8 @@ def lm_build(label: str, cfg, leaf: str):
           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "leaf": leaf, "leaf_shape": list(t.shape),
           "leaf_rows_cpu_draw_bitwise": same})
     check(same, f"{label}: the card's {leaf} differs from the same draw on the CPU")
-    check(n_params == want and abs(n_params - cfg.param_count()) <= 1e-3 * cfg.param_count(),
-          f"{label}: {n_params} parameters, the config's {cfg.param_count()}")
+    check(n_params == want and abs(n_params - config_params(cfg)) <= 1e-3 * config_params(cfg),
+          f"{label}: {n_params} parameters, the config's {config_params(cfg)}")
     return model
 
 
@@ -3762,7 +3858,7 @@ def free_card() -> None:
 
 
 def phase_lm_families(rows: dict) -> None:
-    """chatglm3-6b's first run on the card (RoPE on half of each head), then the
+    """chatglm3-6b at CHATGLM_LAYERS layers (RoPE on half of each head), then the
     MoE, sliding-window and local:global decoders at full width, bfloat16, the
     reference's weights for key 0: mixtral-8x7b at MIXTRAL_LAYERS layers (the
     consistency dropless over 4,609 tokens, past its window of 4,096; the
@@ -3777,7 +3873,7 @@ def phase_lm_families(rows: dict) -> None:
 
     free_card()
     with clock("chatglm3"):
-        cfg = get_config(CHATGLM_ARCH)
+        cfg = dataclasses.replace(get_config(CHATGLM_ARCH), num_layers=CHATGLM_LAYERS)
         model = lm_build("lm_chatglm3_init", cfg, "unembed.w")
         phase_lm_consistency(cfg, model, "lm_chatglm3_consistency", LM_CONSISTENCY)
         del model
@@ -3817,6 +3913,9 @@ def phase_lm_families(rows: dict) -> None:
 
 MINICPM_ARCH = "minicpm3-4b"  # 62 layers, d_model 2,560, 40 heads, MLA: q_lora 768, kv_lora 256, nope 64, rope 32, v 64
 HYMBA_ARCH = "hymba-1.5b"  # 32 layers of GQA (25/5 heads, window 1,024) beside Mamba (d_inner 3,200), fused
+# Depth cuts for the smoke's 900-s budget (full width; every layer of each is the same kind).
+MINICPM_LAYERS = 8
+HYMBA_LAYERS = 4
 HYMBA_CONSISTENCY = {"batch": 2, "seq": 2049, "prefill": 2048, "cache_len": 2112, "token_prefill": 64}
 HYMBA_ENGINE = {"prompts": 8, "min_len": 2048, "max_len": 3072, "new": 32}
 HYMBA_HEAD_IDS = tuple(range(3, 3 + 16 * 1999, 1999))  # 16 fixed ids below hymba's vocabulary of 32,001
@@ -3832,19 +3931,21 @@ def latent_cache_report(cfg) -> dict:
 
 
 def phase_lm_mla_hybrid(rows: dict) -> None:
-    """MLA (minicpm3-4b) and the hybrid GQA+Mamba layer (hymba-1.5b), each whole
-    at its published size, bfloat16, the reference's weights for key 0, the
-    first freed before the second is built: the consistency (forward, batched
+    """MLA (minicpm3-4b) and the hybrid GQA+Mamba layer (hymba-1.5b), each at its
+    published width cut to MINICPM_LAYERS and HYMBA_LAYERS layers, bfloat16, the
+    reference's weights for key 0, the first freed before the second is built: the consistency (forward, batched
     prefill, decode, the token-by-token prefill against the batched one, every
     cache leaf) and the Engine on each; minicpm3's latent cache bytes; hymba's
     prompts past its window (the ring wraps while the SSM state carries on), its
     decode state a sequence, and head fitting on its features (rows 2 and 11
-    at 1,616 columns)."""
+    at 1,616 columns, with one worker's plain and library times)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
 
     free_card()
     with clock("minicpm3"):
-        cfg = get_config(MINICPM_ARCH)
+        cfg = dataclasses.replace(get_config(MINICPM_ARCH), num_layers=MINICPM_LAYERS)
         model = lm_build("lm_minicpm3_init", cfg, "unembed.w")
         phase_lm_consistency(cfg, model, "lm_minicpm3_consistency", LM_CONSISTENCY)
         phase_lm_engine_family("minicpm3", cfg, model, LM_ENGINE, extra=latent_cache_report(cfg))
@@ -3852,29 +3953,116 @@ def phase_lm_mla_hybrid(rows: dict) -> None:
         free_card()
 
     with clock("hymba"):
-        cfg = get_config(HYMBA_ARCH)
+        cfg = dataclasses.replace(get_config(HYMBA_ARCH), num_layers=HYMBA_LAYERS)
         model = lm_build("lm_hymba_init", cfg, "unembed.w")
         phase_lm_consistency(cfg, model, "lm_hymba_consistency", HYMBA_CONSISTENCY)
         phase_lm_engine_family("hymba", cfg, model, HYMBA_ENGINE,
                                extra={"decode_state_bytes_a_sequence": state_bytes_a_sequence(cfg)})
-        phase_fit_head_lm(cfg, model, rows, tag="hymba", ids=HYMBA_HEAD_IDS)
+        phase_fit_head_lm(cfg, model, rows, tag="hymba", ids=HYMBA_HEAD_IDS, yardsticks=True)
         del model
         free_card()
+
+
+# ------------------------------------------ the attention-free Mamba stack (falcon-mamba-7b)
+
+FALCON_ARCH = "falcon-mamba-7b"  # 64 Mamba layers, d_model 4,096 (d_inner 8,192, state 16, conv 4), vocab 65,024
+# The consistency's batch and the Engine's prompts are cut for the smoke's 900-s budget:
+# the scan's prefill takes ≈ 0.87 ms a token on the H100 (3.55 s for the forward over
+# 4 × 1,025 tokens), the consistency runs in both dtypes, and the Engine prefills three
+# times (two generations and the traced decode's).
+FALCON_CONSISTENCY = {"batch": 2, "seq": 1025, "prefill": 1024, "cache_len": 1088, "token_prefill": 64}
+FALCON_ENGINE = {"prompts": 8, "min_len": 256, "max_len": 512, "new": 32}
+SERVE_FALCON_CLI = ("--arch", FALCON_ARCH)
+# The bfloat16 stack's token-by-token prefill is not held to LM_LOGIT_BOUND, neither
+# its logits nor its decode state: over 64 recurrent steps and 64 layers its gap to
+# the batched prefill measures bfloat16 rounding, and the reference's own
+# arithmetic shows the same gap (``tests/ssm_gap.py``, the reference alone on the
+# CPU at 64 layers × d 512: its bfloat16 token and batched prefills 0.391 apart,
+# each as far from a float32 run of the same weights, 0.321 and 0.381, while its two
+# float32 paths agree to 3.4e-5; its decode state parts the same way, the "conv" leaf
+# (a layer's pre-conv inputs, rms 1) by 0.414 and "ssm" by 0.056, against 3.1e-5 and
+# 4.2e-6 in float32). On the H100 the bfloat16 gap of "conv" grows layer by layer,
+# from 0.006 at layer 0 to 0.34 at layer 63, as the logits' does. The correctness of the
+# recurrence is held in float32 instead: the same weights cast to float32 on the
+# card, every comparison (forward against the batched prefill, decode against the
+# forward, the token-by-token prefill against the batched one, each cache leaf)
+# within SSM_F32_BOUND, ten times tighter than LM_LOGIT_BOUND and about 700× the
+# reference's own float32 gap at 64 × 512. The bfloat16 forward against the batched
+# prefill and the decode against the forward stay under LM_LOGIT_BOUND, as for
+# every family.
+SSM_F32_BOUND = LM_LOGIT_BOUND / 10
+SSM_BF16_GATES = ("prefill_vs_forward", "decode_vs_forward")
+SSM_F32_GATES = LM_GATES + ("token_prefill_cache_vs_batched",)
+
+
+def phase_lm_ssm(rows: dict) -> None:
+    """The attention-free Mamba stack, falcon-mamba-7b whole at its published size,
+    bfloat16, the reference's weights for key 0 drawn on the card: the
+    consistency over 2 × 1,025 tokens with a 64-token token-by-token prefill
+    (the forward and decode held to LM_LOGIT_BOUND; the token prefill's logit
+    and cache-leaf gaps reported), the Engine on 8 prompts of 256–512 tokens,
+    32 new; then the same weights cast to float32 in place
+    (``A_log`` is float32 already) and the consistency again, all five
+    comparisons held to SSM_F32_BOUND, with each bfloat16 path's distance
+    from the float32 run; then, the model freed, ``--arch falcon-mamba-7b``
+    through the launcher."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    free_card()
+    with clock("falcon"):
+        cfg = get_config(FALCON_ARCH)
+        model = lm_build("lm_falcon_init", cfg, "unembed.w")
+        bf16 = phase_lm_consistency(cfg, model, "lm_falcon_consistency", FALCON_CONSISTENCY, gates=SSM_BF16_GATES,
+                                    top1_gates=("prefill", "decode"))
+        phase_lm_engine_family("falcon", cfg, model, FALCON_ENGINE,
+                               extra={"decode_state_bytes_a_sequence": state_bytes_a_sequence(cfg)})
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        _, cast_s = host_s(lambda: model.to(torch.float32))
+        f32_cfg = dataclasses.replace(cfg, dtype="float32")
+        check(all(p.dtype == torch.float32 for p in model.parameters()), "lm_falcon_f32: a leaf is not float32")
+        err = lambda a, b: float((a - b).abs().max())
+        f32 = phase_lm_consistency(f32_cfg, model, "lm_falcon_f32_consistency", FALCON_CONSISTENCY,
+                                   bound=SSM_F32_BOUND, gates=SSM_F32_GATES,
+                                   extra={"cast_s": cast_s, "param_bytes": sum(
+                                       p.numel() * p.element_size() for p in model.parameters()),
+                                          "cast_peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        truth = f32["batched_prefill"]
+        emit({"phase": "lm_falcon_bf16_vs_f32", "card": nvidia_smi_line(), "tokens": FALCON_CONSISTENCY["token_prefill"],
+              "batch": FALCON_CONSISTENCY["batch"],
+              "bf16_token_vs_batched": err(bf16["token_prefill"], bf16["batched_prefill"]),
+              "bf16_batched_vs_f32": err(bf16["batched_prefill"], truth),
+              "bf16_token_vs_f32": err(bf16["token_prefill"], truth),
+              "f32_token_vs_batched": err(f32["token_prefill"], truth),
+              "bf16_prefill_vs_f32": err(bf16["prefill"], f32["prefill"]),
+              "bf16_decode_vs_f32": err(bf16["decode"], f32["decode"]),
+              "lm_logit_bound": LM_LOGIT_BOUND, "ssm_f32_bound": SSM_F32_BOUND})
+        del model, bf16, f32, truth
+        free_card()
+    with clock("falcon_serve_cli"):
+        phase_lm_serve_cli("lm_falcon_serve_cli", SERVE_FALCON_CLI)
 
 
 # ------------------------------------------ the encoder-decoder (whisper-small) and the VLM (pixtral-12b)
 
 WHISPER_ARCH = "whisper-small"  # 12 encoder + 12 decoder layers, d_model 768, 12 heads, 1,500 frames, vocab 51,865
+# Depth cut for the smoke's 900-s budget: 6 of 12 encoder and 6 of 12 decoder layers in
+# process (every layer of each stack is the same kind); its launcher builds it whole.
+WHISPER_LAYERS = 6
 WHISPER_CONSISTENCY = {"batch": 4, "seq": 385, "prefill": 384, "cache_len": 448, "token_prefill": 64}
 # 448 is whisper's decoder context (its config's own long_context_note): prompts and new tokens within it.
 WHISPER_ENGINE = {"prompts": 8, "min_len": 4, "max_len": 224, "new": 224}
 SERVE_WHISPER_CLI = ("--arch", WHISPER_ARCH)  # the reference launcher's frames
 PIXTRAL_ARCH = "pixtral-12b"  # 40 layers, d_model 5,120, 32/8 heads of 160, vocab 131,072, 256 patches of 1,024
-# Full width at half depth (7.06e9 parameters, 14.1 GB): whole (40 layers, 25.6 GB) the
-# phase took 78.5 s of a smoke of 854 s on one host, which leaves no room on a slower
-# one. The patch prefix runs before layer 0, and its layers are the dense layer that
-# granite-3-8b runs whole.
-PIXTRAL_LAYERS = 20
+# Full width at 5 of its 40 layers: whole (25.6 GB) the phase took 78.5 s of a smoke of
+# 854 s on one host, which leaves no room on a slower one. The patch prefix runs before
+# layer 0, and its layers are the dense layer that granite-3-8b runs whole in its
+# launcher.
+PIXTRAL_LAYERS = 5
 # The token-by-token prefill runs past the 256 patch slots into 16 text tokens.
 PIXTRAL_CONSISTENCY = {"batch": 2, "seq": 1025, "prefill": 1024, "cache_len": 1088, "token_prefill": 272}
 PIXTRAL_ENGINE = {"prompts": 8, "min_len": 1536, "max_len": 2048, "new": 32}
@@ -3911,7 +4099,8 @@ def encoder_report(cfg, model, frames) -> dict:
 def phase_lm_encdec_vlm(rows: dict) -> None:
     """The encoder-decoder and the VLM at full width, bfloat16, the reference's
     weights for key 0, the first freed before the second is built.
-    whisper-small whole: the consistency over 4 × 385 decoder tokens with
+    whisper-small at WHISPER_LAYERS encoder and decoder layers: the
+    consistency over 4 × 385 decoder tokens with
     frames (4, 1,500, 768), every cache leaf (the cross xk and xv included);
     the encoder alone on the Engine's frames; the Engine on 8 prompts of
     4–224 tokens, 224 new (whisper's decoder context of 448), frames (8,
@@ -3929,7 +4118,7 @@ def phase_lm_encdec_vlm(rows: dict) -> None:
 
     free_card()
     with clock("whisper"):
-        cfg = get_config(WHISPER_ARCH)
+        cfg = dataclasses.replace(get_config(WHISPER_ARCH), num_layers=WHISPER_LAYERS, enc_layers=WHISPER_LAYERS)
         model = lm_build("lm_whisper_init", cfg, "unembed.w")
         phase_lm_consistency(cfg, model, "lm_whisper_consistency", WHISPER_CONSISTENCY,
                              stubs=draw_stubs(cfg, WHISPER_CONSISTENCY["batch"], SEED + 47))
@@ -4033,7 +4222,7 @@ def main() -> int:
         timed(phase_fig3a_student_t, FIG3A, rows)
         for phase in (phase_fig2_emnist, phase_adjoint_kernel, phase_ln_apply, phase_least_norm, phase_gradcomp,
                       phase_fit_head, phase_lm, phase_train, phase_lm_families, phase_serverless,
-                      phase_row_sharded_and_groups, phase_lm_mla_hybrid, phase_lm_encdec_vlm):
+                      phase_row_sharded_and_groups, phase_lm_mla_hybrid, phase_lm_encdec_vlm, phase_lm_ssm):
             timed(phase, rows)
         emit({"phase": "seconds", "of": "main", "seconds": time.perf_counter() - t0})
         for name, row in rows.items():

@@ -3,9 +3,7 @@
 The port's own copy of ``repro.configs.base``. Every ported architecture
 registers an ``ArchConfig`` (full published size) and can produce a
 ``reduced()`` copy for CPU tests. The dataclass keeps every field of the
-reference's, also those of families whose models are not ported yet, so a
-config of any family can be described (and refused by ``models.lm``). Input
-shapes are global.
+reference's. Input shapes are global.
 """
 from __future__ import annotations
 

@@ -4,9 +4,11 @@ Port of ``repro.models.lm`` for the decoder families: dense (SwiGLU; RoPE at
 any ``rope_fraction``: granite-3-8b, chatglm3-6b), MoE (``models.moe``:
 mixtral-8x7b, grok-1-314b), sliding-window attention (mixtral's ``window``),
 gemma3's local:global pattern (``local_global_ratio`` windowed layers, then one
-global), MLA (``attention.mla_*``: minicpm3-4b) and the hybrid layer
-(hymba-1.5b: GQA with a window beside a Mamba branch of ``models.ssm``, both
-reading the same normed input, fused as rmsnorm(a)·β_a + rmsnorm(s)·β_s), the
+global), MLA (``attention.mla_*``: minicpm3-4b), the hybrid layer (hymba-1.5b:
+GQA with a window beside a Mamba branch of ``models.ssm``, both reading the
+same normed input, fused as rmsnorm(a)·β_a + rmsnorm(s)·β_s), the
+attention-free SSM stack (falcon-mamba-7b: each layer x + mamba(norm1(x)),
+no attention, ``norm2`` or FFN), the
 encoder-decoder (whisper-small: a bidirectional :class:`EncoderLayer` stack
 over precomputed frame embeddings, ``encoder_forward``, and in every decoder
 layer a cross-attention block, ``norm_x`` and ``xattn``, after the self
@@ -38,12 +40,11 @@ windowed layers' rings and the G global layers' full caches (layer l of group
 g = l // (R + 1) is local entry g·R + r or global entry g); for MLA the latent
 {"ckv" (L, B, S_c, kv_lora), "krope" (L, B, S_c, rope_d)}; for the hybrid's
 Mamba branch {"conv" (L, B, K − 1, C) in the model dtype, "ssm" (L, B, C, N)
-float32} beside its ring; for the encoder-decoder, beside "k" and "v", the
-cross keys and values {"xk", "xv"} of (L, B, enc_seq, KV, hd), written once
-by the prefill and only read by the decode. Every attention cache is the
-reference's ring, slot p mod S_c for position p. Configs of the
-attention-free SSM family (falcon-mamba-7b) raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+float32} beside its ring, and for the attention-free stack those two alone;
+for the encoder-decoder, beside "k" and "v", the cross keys and values {"xk",
+"xv"} of (L, B, enc_seq, KV, hd), written once by the prefill and only read by
+the decode. Every attention cache is the reference's ring, slot p mod S_c for
+position p. Every config of the reference's registry is accepted.
 """
 from __future__ import annotations
 
@@ -61,21 +62,14 @@ from repro_torch.models import attention, layers, moe as moe_lib, ssm as ssm_lib
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
-# Features of the reference's other families, each with the ROADMAP Queue 1 slice
-# of item 9 that ports it.
-_UNPORTED = (
-    (lambda c: c.family == "ssm", "the attention-free SSM family", "9d"),
-)
+# The families ``ArchConfig.family`` names; each is built from the flags its config sets.
+FAMILIES = ("decoder", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the ported decoder families."""
-    missing = [(what, item) for test, what, item in _UNPORTED if test(cfg)]
-    if missing:
-        parts = ", ".join(f"{what} (ROADMAP Queue 1 item {item})" for what, item in missing)
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): {parts} is not ported to repro_torch yet; "
-                                  "only the families with attention (dense, MoE, MLA, hybrid, encoder-decoder and "
-                                  "VLM) are")
+    """Raise ``ValueError`` for a config whose family is none of ``FAMILIES``."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is none of {', '.join(FAMILIES)}")
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -135,17 +129,18 @@ class DecoderLayer(nn.Module):
     ffn(norm2(·)), the FFN a SwiGLU (``ffn``) or a mixture of experts
     (``moe``). A hybrid layer's mixer is ``fuse``(attn(h), mamba(h)); other
     layers have no ``mamba`` and ``fuse``, and a decoder-only layer no
-    ``norm_x`` and ``xattn`` (None)."""
+    ``norm_x`` and ``xattn`` (None). The attention-free SSM layer is x +
+    mamba(h) alone: ``attn``, ``norm2`` and the FFN are None."""
 
-    def __init__(self, norm1: layers.RMSNorm, attn: nn.Module, norm2: layers.RMSNorm, ffn: nn.Module, *,
-                 mamba: Optional[ssm_lib.Mamba] = None, fuse: Optional[Fuse] = None,
+    def __init__(self, norm1: layers.RMSNorm, attn: Optional[nn.Module], norm2: Optional[layers.RMSNorm],
+                 ffn: Optional[nn.Module], *, mamba: Optional[ssm_lib.Mamba] = None, fuse: Optional[Fuse] = None,
                  norm_x: Optional[layers.RMSNorm] = None, xattn: Optional[attention.GQA] = None):
         super().__init__()
         self.norm1, self.attn, self.mamba, self.fuse, self.norm2 = norm1, attn, mamba, fuse, norm2
         self.norm_x, self.xattn = norm_x, xattn
         if isinstance(ffn, moe_lib.MoE):
             self.moe = ffn
-        else:
+        elif ffn is not None:
             self.ffn = ffn
 
     def _ffn(self, h: torch.Tensor, cfg: ArchConfig):
@@ -175,6 +170,13 @@ class DecoderLayer(nn.Module):
         cross attention's unrotated "xk", "xv"."""
         h = self.norm1(x, cfg.norm_eps)
         piece = {}
+        if self.attn is None:
+            s = ssm_lib.mamba_forward(self.mamba, h, chunk=plan.ssm_chunk, return_state=return_kv,
+                                      **self._ssm_args(cfg))
+            if return_kv:
+                s, (piece["conv"], piece["ssm"]) = s
+                return x + s, None, piece
+            return x + s, None
         fwd, names = (attention.mla_forward, ("ckv", "krope")) if cfg.mla else (
             functools.partial(attention.gqa_forward, window=window), ("k", "v"))
         a = fwd(self.attn, h, rope_theta=cfg.rope_theta, chunk=plan.attn_chunk, return_kv=return_kv,
@@ -206,6 +208,11 @@ class DecoderLayer(nn.Module):
         read); ``tables`` is ``attention.decode_tables`` of the position for the
         attention's cache."""
         h = self.norm1(x, cfg.norm_eps)
+        if self.attn is None:
+            s, conv, state = ssm_lib.mamba_decode(self.mamba, h, lc["conv"], lc["ssm"], **self._ssm_args(cfg))
+            lc["conv"].copy_(conv)
+            lc["ssm"].copy_(state)
+            return x + s
         if cfg.mla:
             a = attention.mla_decode(self.attn, h, lc["ckv"], lc["krope"], tables, **self._attn_args(cfg))
         else:
@@ -283,10 +290,19 @@ class LM(nn.Module):
 # ===================================================================== init
 
 
+def _init_mamba(key: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype, device) -> ssm_lib.Mamba:
+    return ssm_lib.init_mamba(key, cfg.d_model, d_inner=cfg.d_inner, state=cfg.ssm_state, d_conv=cfg.d_conv,
+                              dt_rank=cfg.resolved_dt_rank, dtype=dtype, device=device)
+
+
 def _init_layer(key: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype, device) -> DecoderLayer:
-    # The reference's per-layer split: attn ks[0], a hybrid's mamba ks[1], xattn ks[2], ffn or moe ks[3].
+    # The reference's per-layer split: attn ks[0], a hybrid's mamba ks[1], xattn ks[2], ffn or moe ks[3]; the
+    # attention-free layer's mamba ks[0].
     ks = prng.split(key, 8)
     d = cfg.d_model
+    if cfg.is_attention_free:
+        return DecoderLayer(layers.init_rmsnorm(d, dtype, device), None, None, None,
+                            mamba=_init_mamba(ks[0], cfg, dtype, device))
     if cfg.mla:
         attn = attention.init_mla(ks[0], d, cfg.num_heads, q_lora=cfg.q_lora_rank, kv_lora=cfg.kv_lora_rank,
                                   nope=cfg.qk_nope_dim, rope_d=cfg.qk_rope_dim, v_dim=cfg.v_head_dim, dtype=dtype,
@@ -295,8 +311,7 @@ def _init_layer(key: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype, device) 
         attn = attention.init_gqa(ks[0], d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, dtype, device)
     mamba = fuse = None
     if cfg.hybrid:
-        mamba = ssm_lib.init_mamba(ks[1], d, d_inner=cfg.d_inner, state=cfg.ssm_state, d_conv=cfg.d_conv,
-                                   dt_rank=cfg.resolved_dt_rank, dtype=dtype, device=device)
+        mamba = _init_mamba(ks[1], cfg, dtype, device)
         half = lambda: torch.full((d,), 0.5, dtype=dtype, device=device)
         fuse = Fuse(layers.init_rmsnorm(d, dtype, device), layers.init_rmsnorm(d, dtype, device), half(), half())
     norm_x = xattn = None
@@ -370,11 +385,13 @@ def _layer_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     """A decoder layer's leaves by their names in the layer."""
     d, f = cfg.d_model, cfg.d_ff
     shapes = {"norm1.scale": (d,)}
-    if cfg.hybrid:
+    if cfg.hybrid or cfg.is_attention_free:
         C, N, r, K = cfg.d_inner, cfg.ssm_state, cfg.resolved_dt_rank, cfg.d_conv
         shapes.update({"mamba.in_proj": (d, 2 * C), "mamba.conv_w": (K, C), "mamba.conv_b": (C,),
                        "mamba.x_proj": (C, r + 2 * N), "mamba.dt_proj_w": (r, C), "mamba.dt_proj_b": (C,),
                        "mamba.A_log": (C, N), "mamba.D": (C,), "mamba.out_proj": (C, d)})
+    if cfg.is_attention_free:
+        return shapes
     H = cfg.num_heads
     if cfg.mla:
         nope, rope_d, v = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -436,10 +453,13 @@ def _assemble(cfg: ArchConfig, leaf) -> LM:
 
     def layer(l):
         g = lambda n: leaf(f"layers.{n}", l)
+        mamba = lambda: ssm_lib.Mamba(**{n: g(f"mamba.{n}") for n in ssm_lib.Mamba.LEAVES})
+        if cfg.is_attention_free:
+            return DecoderLayer(layers.RMSNorm(g("norm1.scale")), None, None, None, mamba=mamba())
         attn = attention.MLA(**{n: g(f"attn.{n}") for n in attention.MLA.LEAVES}) if cfg.mla else gqa(g, "attn")
-        mamba = fuse = norm_x = xattn = None
+        branch = fuse = norm_x = xattn = None
         if cfg.hybrid:
-            mamba = ssm_lib.Mamba(**{n: g(f"mamba.{n}") for n in ssm_lib.Mamba.LEAVES})
+            branch = mamba()
             fuse = Fuse(layers.RMSNorm(g("fuse.norm_a.scale")), layers.RMSNorm(g("fuse.norm_s.scale")),
                         g("fuse.beta_a"), g("fuse.beta_s"))
         if cfg.encdec:
@@ -449,7 +469,7 @@ def _assemble(cfg: ArchConfig, leaf) -> LM:
         else:
             ffn = layers.SwiGLU(g("ffn.w_gate"), g("ffn.w_up"), g("ffn.w_down"))
         return DecoderLayer(layers.RMSNorm(g("norm1.scale")), attn, layers.RMSNorm(g("norm2.scale")), ffn,
-                            mamba=mamba, fuse=fuse, norm_x=norm_x, xattn=xattn)
+                            mamba=branch, fuse=fuse, norm_x=norm_x, xattn=xattn)
 
     def enc_layer(l):
         g = lambda n: leaf(f"enc_layers.{n}", l)
@@ -660,14 +680,18 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, dtype: Optional[tor
     seq_len) and {"global": {"k", "v"}} of G caches of seq_len (G = L // (R + 1));
     for MLA {"ckv" (L, batch, seq_len, kv_lora), "krope" (…, rope_d)}; for the
     hybrid's Mamba branch, beside its ring, "conv" (L, batch, K − 1, C) and
-    "ssm" (L, batch, C, N), the latter float32 always; for the
-    encoder-decoder, beside "k" and "v", "xk" and "xv" (L, batch, enc_seq, KV,
-    hd)."""
+    "ssm" (L, batch, C, N), the latter float32 always, and for the
+    attention-free stack those two alone; for the encoder-decoder, beside "k"
+    and "v", "xk" and "xv" (L, batch, enc_seq, KV, hd)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
     L = cfg.num_layers
     zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)
+    mamba = lambda: {"conv": zeros(L, batch, cfg.d_conv - 1, cfg.d_inner),
+                     "ssm": zeros(L, batch, cfg.d_inner, cfg.ssm_state, dt=torch.float32)}
+    if cfg.is_attention_free:
+        return mamba()
 
     def kv(n: int, s: int) -> Dict[str, torch.Tensor]:
         shape = (n, batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -683,8 +707,7 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, dtype: Optional[tor
         swa = cfg.attn_kind == "swa" and cfg.window > 0
         cache = kv(L, min(cfg.window, seq_len) if swa else seq_len)
     if cfg.hybrid:
-        cache.update(conv=zeros(L, batch, cfg.d_conv - 1, cfg.d_inner),
-                     ssm=zeros(L, batch, cfg.d_inner, cfg.ssm_state, dt=torch.float32))
+        cache.update(mamba())
     if cfg.encdec:
         cross = (L, batch, cfg.enc_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
         cache.update(xk=zeros(*cross), xv=zeros(*cross))
@@ -715,20 +738,20 @@ def layer_caches(cfg: ArchConfig, cache: dict) -> List[Dict[str, torch.Tensor]]:
 @torch.inference_mode()
 def decode_step(params: LM, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, pos: int, *,
                 x_embed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
-    """One-token decode at position ``pos`` (an int). tokens: (B,) ids, or
-    ``x_embed`` (B, d) pre-embedded inputs in their place. Writes each layer's
-    k, v (MLA: c_kv, k_rope) into its ring of ``cache`` and its Mamba states
-    over theirs, in place (``layer_caches``). Returns (logits (B, V_pad)
-    float32, cache)."""
+    """One-token decode at position ``pos`` (an int; the attention-free stack's
+    recurrence does not read it). tokens: (B,) ids, or ``x_embed`` (B, d)
+    pre-embedded inputs in their place. Writes each layer's k, v (MLA: c_kv,
+    k_rope) into its ring of ``cache`` and its Mamba states over theirs, in
+    place (``layer_caches``). Returns (logits (B, V_pad) float32, cache)."""
     x = params.embed(tokens[:, None]) if x_embed is None else x_embed[:, None, :]
     rot = cfg.qk_rope_dim if cfg.mla else int(cfg.resolved_head_dim * cfg.rope_fraction) & ~1
     seq_leaf = "ckv" if cfg.mla else "k"
     tables = {}  # by ring length: the local rings and the global caches of gemma3
     for layer, lc in zip(params.layers, layer_caches(cfg, cache)):
-        s_cache = lc[seq_leaf].shape[1]
-        if s_cache not in tables:
+        s_cache = lc[seq_leaf].shape[1] if seq_leaf in lc else None  # None: the attention-free stack
+        if s_cache is not None and s_cache not in tables:
             tables[s_cache] = attention.decode_tables(int(pos), s_cache, rot, cfg.rope_theta, x.device)
-        x = layer.decode(x, lc, tables[s_cache], cfg)
+        x = layer.decode(x, lc, tables.get(s_cache), cfg)
     h = params.final_norm(x, cfg.norm_eps)
     return layers.unembed(params.unembed_w(), h)[:, 0].to(torch.float32), cache
 

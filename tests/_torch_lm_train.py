@@ -1,6 +1,6 @@
 """Shared pieces of the LM training parity tests: the reference's tiny test config
-(``tests/test_train_loop.py``: 2 layers, d 32, vocab 97, float32) in both
-packages, the port's train state from the reference's, and the lookup of a port
+(``tests/test_train_loop.py``: 2 layers, d 32, vocab 97, float32) and the
+reduced mixtral-8x7b (float32) in both packages, the port's train state from the reference's, and the lookup of a port
 parameter name in a reference tree. Imports JAX: tests only."""
 import dataclasses
 
@@ -23,6 +23,13 @@ def configs():
     """(reference cfg, port cfg) of the tiny test model."""
     return (dataclasses.replace(jget("granite-3-8b").reduced(), **TINY),
             dataclasses.replace(tget("granite-3-8b").reduced(), **TINY))
+
+
+def moe_configs():
+    """(reference cfg, port cfg) of the reduced mixtral-8x7b in float32: 2 layers,
+    d 64, 4 experts, top-2 at capacity 1.25, window 8."""
+    return (dataclasses.replace(jget("mixtral-8x7b").reduced(), dtype="float32"),
+            dataclasses.replace(tget("mixtral-8x7b").reduced(), dtype="float32"))
 
 
 def ref_leaf(tree, name: str) -> np.ndarray:

@@ -15,7 +15,9 @@ same weights cast to float32 (``A_log`` is float32 in both). On ``--batch`` ×
 at the last position: ``repro.models.lm.prefill`` (one ``decode_step`` a token)
 against ``batched_prefill`` in bfloat16 (the gap the smoke's ``LM_LOGIT_BOUND``
 gates for the families the port serves), each bfloat16 path against the float32
-batched prefill, and the float32 paths against each other.
+batched prefill, and the float32 paths against each other; and the same four
+gaps of the decode state's leaves ("conv", "ssm": the largest over all layers,
+then the last layer's).
 """
 from __future__ import annotations
 
@@ -50,18 +52,28 @@ def main() -> int:
     p32 = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), p16)
     batch = {"tokens": tokens.lm_batch(20260 + 40, 0, batch=args.batch, seq=args.tokens,
                                        vocab=cfg.vocab_size)["tokens"]}
-    out = {}
+    out, caches = {}, {}
     for name, c, p in (("bf16", c16, p16), ("f32", c32, p32)):
-        out[name, "batched"], _ = lm.batched_prefill(p, c, batch)
-        out[name, "token"], _ = lm.prefill(p, c, batch, lm.init_cache(c, args.batch, args.tokens))
+        out[name, "batched"], caches[name, "batched"] = lm.batched_prefill(p, c, batch)
+        out[name, "token"], caches[name, "token"] = lm.prefill(p, c, batch, lm.init_cache(c, args.batch, args.tokens))
     gap = lambda a, b: float(np.abs(np.asarray(out[a], np.float64) - np.asarray(out[b], np.float64)).max())
     truth = ("f32", "batched")
+
+    def leaf_gaps(a, b):
+        """Largest |Δ| of each decode-state leaf (all layers) and of the last layer's."""
+        f = lambda x: np.asarray(jnp.asarray(x).astype(jnp.float32), np.float64)
+        return {n: [float(np.abs(f(caches[a][n]) - f(caches[b][n])).max()),
+                    float(np.abs(f(caches[a][n][-1]) - f(caches[b][n][-1])).max())] for n in ("conv", "ssm")}
     print(json.dumps({"layers": cfg.num_layers, "d_model": cfg.d_model, "batch": args.batch, "tokens": args.tokens,
                       "bf16_token_vs_batched": gap(("bf16", "token"), ("bf16", "batched")),
                       "bf16_batched_vs_f32": gap(("bf16", "batched"), truth),
                       "bf16_token_vs_f32": gap(("bf16", "token"), truth),
                       "f32_token_vs_batched": gap(("f32", "token"), truth),
-                      "logit_rms_f32": float(np.sqrt(np.mean(np.asarray(out[truth], np.float64) ** 2)))}))
+                      "logit_rms_f32": float(np.sqrt(np.mean(np.asarray(out[truth], np.float64) ** 2))),
+                      "cache_bf16_token_vs_batched": leaf_gaps(("bf16", "token"), ("bf16", "batched")),
+                      "cache_bf16_batched_vs_f32": leaf_gaps(("bf16", "batched"), truth),
+                      "cache_bf16_token_vs_f32": leaf_gaps(("bf16", "token"), truth),
+                      "cache_f32_token_vs_batched": leaf_gaps(("f32", "token"), truth)}))
     return 0
 
 

@@ -12,7 +12,8 @@ single-key launches. The dense decoder LM (reduced configs, float32, TF32 off)
 gives the CPU's weights and tokens bitwise, its logits within 1e-5 of the
 largest, and the Engine the CPU's tokens; the MoE layer the CPU's expert ids
 and drops, and the MoE, sliding-window and local:global models the CPU's
-logits and ring caches within 1e-5.
+logits and ring caches within 1e-5; the MoE model's gradient bitwise run to
+run on the card and within 1e-4 of the CPU's.
 """
 import dataclasses
 
@@ -1446,6 +1447,37 @@ def test_moe_layer_on_the_card_against_the_cpu(cuda, G, T, cf):
     assert torch.equal(got, again)
 
 
+def test_moe_backward_on_the_card_is_bitwise_and_the_cpus(cuda):
+    """The reduced mixtral (float32, 4 experts, top-2, capacity 1.25: slots
+    dropped, so the dispatch gathers repeat tokens and writes the scratch
+    row) through ``lm_loss`` with remat full and its backward, twice on the
+    card and once on the CPU: the card's two gradients bitwise equal (the
+    backward of the dispatch's gathers and index writes adds no float atomics
+    in another order), the loss's MoE term non-zero, and every gradient leaf
+    within 1e-4 of the CPU's largest entry."""
+    from repro_torch.data import tokens
+    from repro_torch.models import lm, moe
+
+    cfg = _lm_cfg("mixtral-8x7b")
+    plan = lm.ExecPlan(remat="full", loss_chunk=16)
+
+    def grads(dev):
+        model = lm.init_params(cfg, prng.prng_key(11), device=dev)
+        model.requires_grad_(True)
+        batch = tokens.lm_batch(0, 0, batch=3, seq=40, vocab=cfg.vocab_size, device=dev)
+        with moe.count_drops() as dc:
+            loss, parts = lm.lm_loss(model, cfg, batch, plan=plan)
+        loss.backward()
+        assert dc.share > 0 and float(parts["moe_aux"]) > 0
+        return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    first, second, want = grads(cuda), grads(cuda), grads(torch.device("cpu"))
+    assert first.keys() == want.keys()
+    for n, g in want.items():
+        assert torch.equal(first[n], second[n]), n
+        assert float((first[n] - g).abs().max()) <= 1e-4 * float(g.abs().max()), n
+
+
 def _lm_card_against_cpu(cuda, arch: str, plan=None) -> None:
     """forward, batched prefill of 39 tokens and three decode steps, card against
     CPU, float32 with TF32 off: logits and every cache leaf within 1e-5 of the
@@ -1486,11 +1518,12 @@ def test_ring_and_moe_lm_on_the_card_against_the_cpu(cuda, arch):
 # ------------------------------------------------------------------ MLA and the hybrid attention+SSM layer
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "hymba-1.5b", "falcon-mamba-7b"])
 def test_mla_and_hybrid_lm_on_the_card_against_the_cpu(cuda, arch):
     """``_lm_card_against_cpu`` at a scan chunk of 16: the prompt of 39 tokens
     spans three chunks, the last padded; hymba's ring of 8 wraps; MLA's latent
-    cache and the Mamba conv and ssm states are held leaf by leaf."""
+    cache and the Mamba conv and ssm states (falcon-mamba-7b's attention-free
+    stack: those alone) are held leaf by leaf."""
     from repro_torch.models import lm
 
     _lm_card_against_cpu(cuda, arch, lm.ExecPlan(ssm_chunk=16))

@@ -6,7 +6,7 @@
 * Every module imports on CPU-only PyTorch without building anything.
 * The entry points run on CUDA by default and raise when it is absent (the LM's
   ``init_params``, ``init_cache``, ``lm_batch``, ``Engine`` and the launcher's
-  LM mode too, for the MoE, windowed, MLA and hybrid configs as well; the training state,
+  LM mode too, for the MoE, windowed, MLA, hybrid and attention-free configs as well; the training state,
   ``Trainer`` and the training launcher).
 * ``chip_smoke.py`` exits non-zero, printing no result, without CUDA and outside
   a checkout.
@@ -153,10 +153,10 @@ def test_moe_and_windowed_modules_are_scanned():
 
 def test_mla_and_ssm_modules_are_scanned():
     scanned = {str(p.relative_to(PORT)) for p in PORT_FILES if PORT in p.parents}
-    assert {"models/ssm.py", "configs/minicpm3_4b.py", "configs/hymba_1_5b.py"} <= scanned
+    assert {"models/ssm.py", "configs/minicpm3_4b.py", "configs/hymba_1_5b.py", "configs/falcon_mamba_7b.py"} <= scanned
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "hymba-1.5b", "falcon-mamba-7b"])
 def test_mla_and_hybrid_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, arch):
     _lm_entry_points_default_to_cuda(monkeypatch, arch)
 

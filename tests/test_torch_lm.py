@@ -1,11 +1,13 @@
 """The port's decoder LM against the JAX reference (CPU, reduced configs).
 
 Configs: every field of granite-3-8b, chatglm3-6b, mixtral-8x7b, gemma3-12b,
-grok-1-314b, minicpm3-4b, hymba-1.5b, whisper-small and pixtral-12b, full and
+grok-1-314b, minicpm3-4b, hymba-1.5b, whisper-small, pixtral-12b and
+falcon-mamba-7b, full and
 ``reduced()``, and the shape specs, equal the reference's (reduced: mixtral 2
 layers and 4 experts, gemma3 6 layers, one full local:global period, grok 2
 layers, windows 8; minicpm3's MLA at q_lora = kv_lora = 16, nope = rope = 8, v
-= 16; hymba's Mamba at d_inner 128, state 8, dt_rank 8; whisper 2 encoder and
+= 16; hymba's and falcon's Mamba at d_inner 128, state 8, dt_rank 8 (falcon 2
+layers of it alone); whisper 2 encoder and
 2 decoder layers over 16 frames, 4 heads on 2 kv heads; pixtral 4 patches of
 vit_dim 32). Layers (float32): ``rmsnorm``,
 ``rope_angles``, ``apply_rope`` (fraction 1.0 and 0.5), ``swiglu``, ``embed``,
@@ -27,8 +29,8 @@ in another order than jax's ``associative_scan``), the MoE archs at their config
 capacity (assignments dropped), the caches leaf by leaf (the SWA ring, gemma3's
 local rings and global caches, MLA's latent ``ckv`` and ``krope``, the Mamba
 ``conv`` and ``ssm`` states, hymba's ring beside them; prompts past the window,
-so the rings wrap, and caches shorter than the window); hymba also at a scan
-chunk of 8, so the prompts span several chunks and the last is padded;
+so the rings wrap, and caches shorter than the window); hymba and falcon also
+at a scan chunk of 8, so the prompts span several chunks and the last is padded;
 ``lm_loss`` with its MoE aux loss; whisper fed frames (the cross ``xk`` and
 ``xv`` leaf by leaf) and pixtral patches (its prompts at least as long as the
 patches) throughout. bfloat16
@@ -40,9 +42,10 @@ equal and those tokens' outputs within ``BF16_TOL``; the tokens under the margin
 are counted and bounded. The port's own forward = batched prefill = token
 prefill = decode (MoE at dropless capacity, as ``tests/test_decode_consistency.py``
 holds the reference). Tokens (``lm_batch``, ``lm_eval_batch``) are bitwise the
-reference's; the family still unported (the attention-free SSM stack) raises
-``NotImplementedError``, the MLA, hybrid, encoder-decoder and VLM configs are
-accepted.
+reference's; every config the reference registers is accepted (the MLA,
+hybrid, encoder-decoder, VLM and attention-free ones also with their reduced
+models and caches), and a family the config system does not name raises
+``ValueError``.
 """
 import dataclasses
 
@@ -65,7 +68,7 @@ from repro_torch.utils import prng
 torch.set_num_threads(1)
 
 ARCHS = ["granite-3-8b", "chatglm3-6b", "mixtral-8x7b", "gemma3-12b", "grok-1-314b", "minicpm3-4b", "hymba-1.5b",
-         "whisper-small", "pixtral-12b"]
+         "whisper-small", "pixtral-12b", "falcon-mamba-7b"]
 WINDOWED = ["mixtral-8x7b", "gemma3-12b", "hymba-1.5b"]
 MLA_HYBRID = ["minicpm3-4b", "hymba-1.5b"]
 ENCDEC_VLM = ["whisper-small", "pixtral-12b"]
@@ -507,18 +510,30 @@ def test_lm_batch_p_pattern_is_the_reference():
 @pytest.mark.parametrize("seq", [1, 7, 4096, 40_000])
 @pytest.mark.parametrize("arch", jbase.list_archs())
 def test_layer_windows_and_cache_lengths_match_the_reference(arch, seq):
-    """Every reference config, also those of the families the port still refuses."""
+    """Every reference config."""
     cfg = tbase.ArchConfig(**{f.name: getattr(jget(arch), f.name) for f in dataclasses.fields(tbase.ArchConfig)})
     assert np.array_equal(tlm.layer_windows(cfg).numpy(), np.asarray(jlm.layer_windows(jget(arch))))
     assert np.array_equal(tlm.cache_lengths(cfg, seq).numpy(), np.asarray(jlm.cache_lengths(jget(arch), seq)))
 
 
-@pytest.mark.parametrize("arch,item", [("falcon-mamba-7b", "9d")])
-def test_other_families_are_refused(arch, item):
-    cfg = tbase.ArchConfig(**dataclasses.asdict(jget(arch).reduced()))
-    for call in (lambda: tlm.init_params(cfg, prng.prng_key(0), device=CPU),
+@pytest.mark.parametrize("arch", jbase.list_archs())
+def test_every_reference_config_is_accepted(arch):
+    """Every config the reference registers, its fields as they are: accepted, its
+    reduced model built with the meta model's shapes and the reference's cache
+    layout."""
+    cfg = tbase.ArchConfig(**dataclasses.asdict(jget(arch)))
+    tlm.check_supported(cfg)
+    small = tbase.ArchConfig(**dataclasses.asdict(jget(arch).reduced()))
+    sd = tlm.init_params(small, prng.prng_key(0), device=CPU).state_dict()
+    assert {k: t.shape for k, t in sd.items()} == tlm.param_shapes(small)
+    _assert_caches_match(tlm.init_cache(small, 1, 8, device=CPU), jlm.init_cache(jget(arch).reduced(), 1, 8))
+
+
+def test_a_family_the_config_system_does_not_name_is_refused():
+    cfg = dataclasses.replace(tget("granite-3-8b").reduced(), family="rnn")
+    for call in (lambda: tlm.check_supported(cfg), lambda: tlm.init_params(cfg, prng.prng_key(0), device=CPU),
                  lambda: tlm.init_cache(cfg, 1, 8, device=CPU), lambda: tlm.param_shapes(cfg)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+        with pytest.raises(ValueError, match="family 'rnn'"):
             call()
 
 
@@ -550,7 +565,17 @@ def test_hymba_across_scan_chunks_matches_the_reference(S):
     """ssm_chunk 8 in both packages: the prompt spans two or three chunks, the
     last one padded at S = 21; forward, batched prefill (logits and the conv
     and ssm states beside the ring) and a decode step after it."""
-    jc, tc, jp, tp = _models("hymba-1.5b", seed=6)
+    _across_scan_chunks("hymba-1.5b", S)
+
+
+@pytest.mark.parametrize("S", [16, 21])
+def test_falcon_across_scan_chunks_matches_the_reference(S):
+    """As for hymba, on the attention-free stack: the conv and ssm states alone."""
+    _across_scan_chunks("falcon-mamba-7b", S)
+
+
+def _across_scan_chunks(arch: str, S: int) -> None:
+    jc, tc, jp, tp = _models(arch, seed=6)
     jb, tb = _batch(jc.vocab_size, 2, S, 19)
     jplan, tplan = jlm.ExecPlan(ssm_chunk=8), tlm.ExecPlan(ssm_chunk=8)
     assert _rel(tlm.forward_logits(tp, tc, tb, plan=tplan), jlm.forward_logits(jp, jc, jb, plan=jplan)) <= MODEL_TOL
@@ -565,7 +590,7 @@ def test_hymba_across_scan_chunks_matches_the_reference(S):
     _assert_caches_match(tcache, jcache)
 
 
-@pytest.mark.parametrize("arch", MLA_HYBRID)
+@pytest.mark.parametrize("arch", MLA_HYBRID + ["falcon-mamba-7b"])
 def test_bfloat16_mla_and_hybrid_forward_matches_the_reference(arch):
     jc, tc, jp, tp = _models(arch, "bfloat16", seed=1)
     jb, tb = _batch(jc.vocab_size, 2, 20, 12)

@@ -3,7 +3,7 @@
 ``train.solvers.extract_features`` (final-norm hidden states, (B·S, d) float32)
 within ``FEATURE_TOL`` of ``repro.train.solvers.extract_features`` on the same
 weights and ``lm_batch`` tokens, granite, chatglm, mixtral, gemma3, grok,
-minicpm3, hymba, whisper (with frames) and pixtral (with patches) reduced
+minicpm3, hymba, whisper (with frames), pixtral (with patches) and falcon reduced
 (float32 through two to six layers, sums in other orders: relative to the
 largest feature). Then the
 smoke's head-fitting problem at a small size: Y = H·U[:, ids] + 0.1·noise with U
@@ -65,7 +65,7 @@ def _features(arch, B=8, S=96):
 
 
 @pytest.mark.parametrize("arch", ["granite-3-8b", "chatglm3-6b", "mixtral-8x7b", "gemma3-12b", "grok-1-314b",
-                                  "minicpm3-4b", "hymba-1.5b", "whisper-small", "pixtral-12b"])
+                                  "minicpm3-4b", "hymba-1.5b", "whisper-small", "pixtral-12b", "falcon-mamba-7b"])
 def test_extract_features_matches_the_reference(arch):
     tc, _, got, want = _features(arch, B=2, S=24)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (48, tc.d_model)

@@ -14,7 +14,8 @@ the decode's batch-wide groups drop assignments; sliding window 8) and
 gemma3-12b (local:global, window 8) with prompts past the window, so the rings
 wrap in the prefill and again in decode, and on the reduced hymba-1.5b (GQA
 with window 8 beside Mamba: the left-padding runs through the SSM's recurrence
-as ordinary tokens, as in the reference); and on the reduced whisper-small fed
+as ordinary tokens, as in the reference) and falcon-mamba-7b (the
+attention-free Mamba stack: the same, with no attention at all); and on the reduced whisper-small fed
 frames and pixtral-12b fed patches (more rows than the batch: each engine batch
 takes the first B, as in the reference; the patches take the first positions
 of the left-padded rectangle). The port's own determinism, batched = single,
@@ -131,7 +132,7 @@ NEW_ARCHS = ["mixtral-8x7b", "gemma3-12b"]
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
-@pytest.mark.parametrize("arch", NEW_ARCHS + ["hymba-1.5b"])
+@pytest.mark.parametrize("arch", NEW_ARCHS + ["hymba-1.5b", "falcon-mamba-7b"])
 def test_generate_matches_the_reference_on_moe_and_windowed_archs(arch, temperature):
     jc, tc = jget(arch).reduced(), tget(arch).reduced()
     jp = jlm.init_params(jc, jax.random.PRNGKey(1))

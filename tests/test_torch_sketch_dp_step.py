@@ -8,14 +8,18 @@ key 0, ``lm_batch`` of 4 × 32 tokens a step, keys ``fold_in(PRNGKey(1), step)``
   the CountSketch (ratio 0.1) and the Gaussian (ratio 0.002: m = 70, the port's
   CPU S is m·D threefry draws), and the
   CountSketch with this worker's mask 0 (a straggler: a zero gradient, decay
-  alone moves the weights). Losses within LOSS_TOL, parameters after each step
+  alone moves the weights); and the CountSketch on the reduced mixtral-8x7b
+  (float32, 4 experts, top-2 at capacity 1.25: its loss carries the MoE
+  auxiliary term, and its gradient the backward of the expert dispatch). Losses within LOSS_TOL, parameters after each step
   within STEP_TOL of each leaf's largest entry. Both packages draw the same S
   (the counter RNG), so the sketch adds no difference of its own; AdamW's eps
   is 1e-4, so the update is Lipschitz in the gradient.
 * The flat gradient vector: ``.grad`` values written by ``flatten_grads``
   equal the reference's ``tree_flatten_to_vector`` of the same values bit for
-  bit (its coordinate order: sorted paths, stacked layers one after another),
-  and every ``.grad`` is freed.
+  bit (its coordinate order: sorted paths, stacked layers one after another;
+  an MoE tree's ``moe.router``, ``w_down``, ``w_gate``, ``w_up`` between ``attn``
+  and ``norm1``), on the tiny model and the reduced mixtral, and every
+  ``.grad`` is freed.
 * Two gloo ranks (``tests/_torch_train_worker.py``) against the reference's
   2-device mesh in a subprocess: two CountSketch steps with masks (1, 1) and
   (1, 0); both ranks hold the same parameters bit for bit, within STEP_TOL of
@@ -52,9 +56,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_TOL = 1e-6
 STEP_TOL = 2e-5
 LR, EPS = lt.LR, lt.EPS
-CASES = {"off": (dict(enabled=False), 1.0), "countsketch": (dict(enabled=True, ratio=0.1), 1.0),
-         "gaussian": (dict(enabled=True, ratio=0.002, kind="gaussian"), 1.0),
-         "countsketch_straggler": (dict(enabled=True, ratio=0.1), 0.0)}
+CASES = {"off": (dict(enabled=False), 1.0, "tiny"), "countsketch": (dict(enabled=True, ratio=0.1), 1.0, "tiny"),
+         "gaussian": (dict(enabled=True, ratio=0.002, kind="gaussian"), 1.0, "tiny"),
+         "countsketch_straggler": (dict(enabled=True, ratio=0.1), 0.0, "tiny"),
+         "moe_countsketch": (dict(enabled=True, ratio=0.1), 1.0, "moe")}
 SPAWN_TIMEOUT_S = 300
 
 
@@ -64,10 +69,16 @@ def tiny():
     return jcfg, tcfg, jlm.init_params(jcfg, jax.random.PRNGKey(0))
 
 
+@pytest.fixture(scope="module")
+def moe():
+    jcfg, tcfg = lt.moe_configs()
+    return jcfg, tcfg, jlm.init_params(jcfg, jax.random.PRNGKey(0))
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_sketch_dp_steps_match_reference(tiny, case):
-    jcfg, tcfg, jparams = tiny
-    comp, m0 = CASES[case]
+def test_sketch_dp_steps_match_reference(request, case):
+    comp, m0, model = CASES[case]
+    jcfg, tcfg, jparams = request.getfixturevalue(model)
     mask = np.array([m0, 1.0, 0.0, 1.0], np.float32)
     jopt, topt = JAdamW(lr=LR, eps=EPS), TAdamW(lr=LR, eps=EPS)
     jstep = lt.reference_sketch_dp_step(jcfg, jopt, jgc.GradCompressionConfig(**comp))
@@ -86,8 +97,9 @@ def test_sketch_dp_steps_match_reference(tiny, case):
     assert int(st["step"]) == 2 and int(st["opt"]["count"]) == 2
 
 
-def test_flat_gradient_vector_is_the_reference_order_bitwise(tiny):
-    jcfg, tcfg, jparams = tiny
+@pytest.mark.parametrize("model", ["tiny", "moe"])
+def test_flat_gradient_vector_is_the_reference_order_bitwise(request, model):
+    jcfg, tcfg, jparams = request.getfixturevalue(model)
     st = lt.port_state(tcfg, jparams, TAdamW())
     rs = np.random.default_rng(9)
     gtree = jax.tree_util.tree_map(lambda a: rs.standard_normal(a.shape).astype(np.float32), jparams)

@@ -17,6 +17,16 @@ bfloat16 within ``BF16_TOL`` (an activation's bfloat16 rounding flips where two
 float32 values differ by an ulp), and ``mamba_decode`` over several steps
 continuing that state, each step against the reference's decode on the same
 state, within the same tolerances.
+
+The attention-free stack (falcon-mamba-7b, reduced: 2 layers of x +
+mamba(norm1(x))), its weights carried over from the reference's tree: the
+forward, the batched prefill, the token-by-token prefill and a decode step in
+bfloat16 within ``BF16_TOL`` of the reference's, logits and the ``conv`` and
+``ssm`` cache leaves (the reference's outputs once, in a module fixture;
+``tests/test_torch_lm.py`` holds the float32 paths); the carried weights bitwise
+the port's own draw for key 0 in both dtypes; and, the port alone in float32 at
+16 layers × d 128, the token-by-token prefill within ``F32_CONSISTENCY_TOL`` of
+the batched one.
 """
 import jax
 import jax.numpy as jnp
@@ -222,3 +232,125 @@ def test_mamba_decode_continues_the_state_as_the_reference(blocks, length, dtype
         assert o.dtype == tdt and conv.dtype == tdt and ssm.dtype == torch.float32
         assert _rel(_np(o), o_want) <= tol and _rel(_np(ssm), ssm_want) <= tol
         assert np.array_equal(_np(conv), conv_want)  # the last K − 1 pre-conv inputs, as they are
+
+
+# ------------------------------------------------------------------ the attention-free stack (falcon-mamba-7b)
+
+STACK_PATHS = ("forward", "batched_prefill", "token_prefill", "decode")
+STACK_B, STACK_S = 2, 21  # the reduced stack's default scan chunk of 128 takes the prompt in one chunk
+# The port's float32 token-by-token prefill against its batched prefill at a depth
+# where the recurrence matters (16 layers × d 128, 40 tokens over chunks of 8):
+# float32 sums in other orders, 4.6e-6 at most measured; the bfloat16 stack parts
+# by 0.07 at the same depth.
+F32_CONSISTENCY_TOL = 1e-4
+
+
+def _stack_cfgs(dtype: str, **changes):
+    import dataclasses
+
+    from repro.configs import get_config as jget
+    from repro_torch.configs import get_config as tget
+
+    return (dataclasses.replace(jget("falcon-mamba-7b").reduced(), dtype=dtype, **changes),
+            dataclasses.replace(tget("falcon-mamba-7b").reduced(), dtype=dtype, **changes))
+
+
+@pytest.fixture(scope="module")
+def stack():
+    """The reduced falcon-mamba-7b in both packages, the port's carried over from
+    the reference's tree, for each dtype; in bfloat16 also the reference's
+    outputs: the forward over S + 1 tokens, the batched prefill of S (logits
+    and cache), the token-by-token prefill of S (logits and cache), and one
+    decode step after the batched prefill (``tests/test_torch_lm.py`` holds the
+    same paths in float32)."""
+    from repro.models import lm as jlm
+    from repro_torch.models import lm as tlm
+
+    out = {}
+    toks = np.random.default_rng(31).integers(0, 256, (STACK_B, STACK_S + 1)).astype(np.int32)
+    for dtype in ("float32", "bfloat16"):
+        jc, tc = _stack_cfgs(dtype)
+        jp = jlm.init_params(jc, jax.random.PRNGKey(0))
+        tp = tlm.params_from_reference(tc, jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+        out[dtype] = dict(jc=jc, tc=tc, jp=jp, tp=tp, toks=toks)
+        if dtype == "float32":
+            continue
+        head = {"tokens": jnp.asarray(toks[:, :STACK_S])}
+        fwd = jlm.forward_logits(jp, jc, {"tokens": jnp.asarray(toks)})
+        bl, bc = jlm.batched_prefill(jp, jc, head, cache_len=STACK_S + 4)
+        tl, tcache = jlm.prefill(jp, jc, head, jlm.init_cache(jc, STACK_B, STACK_S + 4))
+        dl, dc = jlm.decode_step(jp, jc, jnp.asarray(toks[:, STACK_S]), bc, jnp.int32(STACK_S))
+        caches = lambda c: {n: _np(c[n]) for n in ("conv", "ssm")}
+        out[dtype].update(forward=(_np(fwd), None), batched_prefill=(_np(bl), caches(bc)),
+                          token_prefill=(_np(tl), caches(tcache)), decode=(_np(dl), caches(dc)))
+    return out
+
+
+def _port_stack_path(r, path: str):
+    """The port's (logits, {"conv", "ssm"} or None) of one path on the fixture's tokens."""
+    from repro_torch.models import lm as tlm
+
+    tc, tp, toks = r["tc"], r["tp"], torch.from_numpy(r["toks"]).long()
+    head = {"tokens": toks[:, :STACK_S]}
+    if path == "forward":
+        return tlm.forward_logits(tp, tc, {"tokens": toks}), None
+    if path == "token_prefill":
+        logits, cache = tlm.prefill(tp, tc, head, tlm.init_cache(tc, STACK_B, STACK_S + 4, device="cpu"))
+        return logits, cache
+    logits, cache = tlm.batched_prefill(tp, tc, head, cache_len=STACK_S + 4)
+    if path == "decode":
+        logits, cache = tlm.decode_step(tp, tc, toks[:, STACK_S], cache, STACK_S)
+    return logits, cache
+
+
+@pytest.mark.parametrize("path", STACK_PATHS)
+def test_attention_free_stack_matches_the_reference_in_bfloat16(stack, path):
+    """Each path of the reduced stack in bfloat16 (2 layers of x + mamba(norm1(x)),
+    no attention, norm2 or FFN) against the reference's within BF16_TOL of the
+    largest reference value; the cache's "conv" (bfloat16) and "ssm" (float32)
+    leaf by leaf, and no other leaf."""
+    r = stack["bfloat16"]
+    want_logits, want_cache = r[path]
+    logits, cache = _port_stack_path(r, path)
+    assert logits.dtype == torch.float32 and tuple(logits.shape) == want_logits.shape
+    assert _rel(_np(logits), want_logits) <= BF16_TOL
+    if want_cache is not None:
+        assert set(cache) == {"conv", "ssm"} and cache["ssm"].dtype == torch.float32
+        assert cache["conv"].dtype == torch.bfloat16
+        for name, want in want_cache.items():
+            assert tuple(cache[name].shape) == want.shape and _rel(_np(cache[name]), want) <= BF16_TOL, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_free_weights_from_the_reference_are_the_ports_own_draw(stack, dtype):
+    """The weights carried over from the reference's tree (key 0) are bitwise the
+    port's own ``init_params`` for key 0: the same names, dtypes (``A_log``
+    float32) and values."""
+    from repro_torch.models import lm as tlm
+
+    r = stack[dtype]
+    own = tlm.init_params(r["tc"], prng.prng_key(0), device="cpu").state_dict()
+    carried = r["tp"].state_dict()
+    assert carried.keys() == own.keys()
+    assert not any(".attn." in n or ".ffn." in n or "norm2" in n for n in own)
+    for name, t in own.items():
+        assert t.dtype == carried[name].dtype and torch.equal(t, carried[name]), name
+
+
+def test_attention_free_float32_token_prefill_is_the_batched_prefill_at_depth():
+    """The port alone, float32, 16 layers × d 128 over 40 tokens in scan chunks of 8:
+    the token-by-token prefill (one recurrent decode step a token) and the
+    batched prefill (the chunked scan) give the same logits and states within
+    F32_CONSISTENCY_TOL, and the forward's last position is the batched prefill's."""
+    from repro_torch.models import lm as tlm
+
+    _, tc = _stack_cfgs("float32", num_layers=16, d_model=128, dt_rank=8)
+    model = tlm.init_params(tc, prng.prng_key(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, tc.vocab_size, (2, 40)))
+    plan = tlm.ExecPlan(ssm_chunk=8)
+    lb, cb = tlm.batched_prefill(model, tc, {"tokens": toks}, plan=plan)
+    lt, ct = tlm.prefill(model, tc, {"tokens": toks}, tlm.init_cache(tc, 2, 40, device="cpu"))
+    full = tlm.forward_logits(model, tc, {"tokens": toks}, plan=plan)
+    assert float((lt - lb).abs().max()) <= F32_CONSISTENCY_TOL
+    assert all(float((ct[n] - cb[n]).abs().max()) <= F32_CONSISTENCY_TOL for n in ("conv", "ssm"))
+    assert float((full[:, -1] - lb).abs().max()) <= F32_CONSISTENCY_TOL

@@ -7,7 +7,9 @@ a short last chunk). ``lm_loss`` and its gradient, for each ``remat``, against
 ``jax.value_and_grad(lm.lm_loss)`` under the same plan: the loss within
 LOSS_TOL, each gradient leaf within GRAD_TOL of that leaf's largest reference
 entry (float32 through two layers and their backward, sums in other orders).
-The port's three ``remat`` values give bitwise the same loss and gradient.
+The port's three ``remat`` values give bitwise the same loss and gradient. The
+same for the reduced mixtral (float32, 4 experts, top-2 at capacity 1.25) with
+its non-zero MoE auxiliary term, each ``remat``.
 ``make_train_step`` with ``accum_steps`` 1 and 2 (microbatches summed in
 float32) against the reference's jitted step: the loss within LOSS_TOL, the
 parameters after the step within STEP_TOL of each leaf's largest entry. AdamW's
@@ -81,6 +83,44 @@ def test_lm_loss_and_grad_match_reference(ref, port_grads, remat):
     for name in grads:
         assert torch.equal(grads[name], port_grads["none"][2][name]), name
     assert torch.equal(loss, port_grads["none"][0])
+
+
+@pytest.fixture(scope="module")
+def moe_ref():
+    """The reduced mixtral (float32, 2 layers, 4 experts, top-2 at capacity 1.25),
+    its weights for key 0 and one lm_batch of 4 × 32 tokens in both packages, and
+    the reference's jitted ``value_and_grad`` of ``lm_loss`` on them (remat none:
+    the reference's remat policies change what is stored, not the gradient)."""
+    jcfg, tcfg = lt.moe_configs()
+    jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    jbatch = jtok.lm_batch(0, 0, batch=lt.BATCH, seq=lt.SEQ, vocab=jcfg.vocab_size)
+    tbatch = ttok.lm_batch(0, 0, batch=lt.BATCH, seq=lt.SEQ, vocab=tcfg.vocab_size, device="cpu")
+    plan = jlm.ExecPlan(attn_chunk=16, loss_chunk=8, remat="none")
+    want = jax.jit(jax.value_and_grad(lambda p, b: jlm.lm_loss(p, jcfg, b, plan=plan), has_aux=True))(jparams, jbatch)
+    return jcfg, tcfg, jparams, tbatch, want
+
+
+@pytest.mark.parametrize("remat", REMATS)
+def test_moe_lm_loss_and_grad_match_reference(moe_ref, remat):
+    """``lm_loss`` of the MoE model with its non-zero auxiliary term and its
+    gradient through the router, the experts and the dispatch's gathers and
+    index writes (slots dropped at capacity 1.25), under each of the port's
+    ``remat`` values, against ``jax.value_and_grad`` of the reference's loss:
+    the loss, its CE and MoE terms within LOSS_TOL, each gradient leaf within
+    GRAD_TOL of its largest entry."""
+    jcfg, tcfg, jparams, tbatch, ((jloss, jaux), jgrads) = moe_ref
+    st = lt.port_state(tcfg, jparams, TAdamW())
+    loss, aux = tlm.lm_loss(st["params"], tcfg, tbatch, plan=tlm.ExecPlan(attn_chunk=16, loss_chunk=8, remat=remat))
+    loss.backward()
+    assert float(jaux["moe_aux"]) > 0
+    for got, want in ((loss, jloss), (aux["ce"], jaux["ce"]), (aux["moe_aux"], jaux["moe_aux"])):
+        assert abs(float(got.detach()) - float(want)) <= LOSS_TOL * abs(float(want))
+    grads = tstep.take_grads(st["params"])
+    assert any(".moe.router" in n for n in grads)
+    for name, g in grads.items():
+        want = lt.ref_leaf(jgrads, name)
+        err = np.abs(g.numpy() - want).max() / max(np.abs(want).max(), 1e-30)
+        assert err <= GRAD_TOL, (name, err)
 
 
 def test_lm_loss_refuses_an_unknown_remat(ref):

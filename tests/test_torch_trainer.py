@@ -10,7 +10,8 @@
 * The launcher: ``python -m repro_torch.launch.train --arch granite-3-8b
   --reduced --device cpu`` (4 steps, a checkpoint at step 2) logs the
   reference launcher's losses and gradient norms within LAUNCH_TOL and leaves
-  its checkpoints.
+  its checkpoints; the same for the reduced mixtral-8x7b, with its MoE
+  auxiliary loss.
 """
 import contextlib
 import io
@@ -97,10 +98,20 @@ def _metrics(text: str) -> list:
 
 
 def test_launcher_trains_on_cpu_like_the_reference(tmp_path):
+    _launcher_like_the_reference(tmp_path, "granite-3-8b")
+
+
+def test_moe_launcher_trains_on_cpu_like_the_reference(tmp_path):
+    """The reduced mixtral-8x7b: its metrics carry the MoE auxiliary term."""
+    got = _launcher_like_the_reference(tmp_path, "mixtral-8x7b")
+    assert all(m["moe_aux"] > 0 for m in got)
+
+
+def _launcher_like_the_reference(tmp_path, arch: str) -> list:
     from repro.launch import train as jlaunch
     from repro_torch.launch import train as tlaunch
 
-    argv = ["--arch", "granite-3-8b", "--reduced", "--steps", "4", "--ckpt-every", "2"]
+    argv = ["--arch", arch, "--reduced", "--steps", "4", "--ckpt-every", "2"]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         assert tlaunch.main(argv + ["--device", "cpu", "--ckpt-dir", str(tmp_path / "port")]) == 0
@@ -113,10 +124,11 @@ def test_launcher_trains_on_cpu_like_the_reference(tmp_path):
     finally:
         sys.argv = old
     got, want = _metrics(out.getvalue()), _metrics(ref.getvalue())
-    assert out.getvalue().startswith("arch=granite-3-8b steps=4 wall=")
+    assert out.getvalue().startswith(f"arch={arch} steps=4 wall=")
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):
         assert g.keys() == w.keys()
         for k in w:
             assert abs(g[k] - w[k]) <= LAUNCH_TOL, (k, g[k], w[k])
     assert sorted(os.listdir(tmp_path / "port")) == ["step_00000002", "step_00000004"]
+    return got

@@ -7,10 +7,11 @@ Run from the root of a checkout, on a machine with one CUDA card and ``nvcc``:
 
 Builds the kernels (``phase_build``), then runs ``phase_train``
 (``train_granite_sketch_dp``, ``train_granite_row12b``,
+``train_mixtral_sketch_dp``, ``train_mixtral_row12b``,
 ``train_small_card_vs_cpu``) with the smoke's settings: TF32 off, bf16 products
 reduced in float32, ``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS starts. Prints
 the card's name and power limit, the phases' JSON lines, and exits non-zero
-when a check fails (about 2 minutes on an H100).
+when a check fails (about 3 minutes on an H100).
 """
 from __future__ import annotations
 
