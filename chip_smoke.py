@@ -78,7 +78,7 @@ pass: ``tools/sjlt_long_profile.py``); and
 ``train.solvers.fit_head`` at whisper-small's width (262,144 × 768 features, 16
 outputs, q = 16, 12 arriving) through rows 2 and 11, on Theorem 1. Then the
 dense decoder LM at granite-3-8b's full published width (d_model 4,096,
-bfloat16, the reference's weights for key 0 drawn on the card) cut to 5 of
+bfloat16, the reference's weights for key 0 drawn on the card) cut to 3 of
 its 40 layers (its launcher builds it whole): the
 forward against the batched prefill and one decode step at 1,024 tokens, and
 the token-by-token prefill against the batched one, within ``LM_LOGIT_BOUND``
@@ -95,7 +95,7 @@ granite-3-8b's width at 4 layers, mixtral-8x7b's at 1 layer (D = 1.71e9, the
 MoE's dropped share and auxiliary loss), and the reduced config on the card
 against the CPU. After the training phases, the other decoder families, bfloat16
 with the reference's weights for key 0, each model freed before the next:
-chatglm3-6b at full width cut to 7 of 28 layers (RoPE on half of each head; the
+chatglm3-6b at full width cut to 4 of 28 layers (RoPE on half of each head; the
 same consistency checks); mixtral-8x7b at full width cut to 1 of 32 layers (8
 experts, top-2, sliding window 4,096: the consistency dropless over 4,609
 tokens, so the batched prefill's ring wraps; the Engine at the config's capacity
@@ -116,19 +116,19 @@ group of one rank in this process, each result bitwise the one without a group;
 and two spawned ranks in a gloo group, both on the card, running the replicated
 and row-sharded worker mode (4 workers a rank) and the masked, compressed
 gradient mean, each within 1e-6 of the one-process result and bitwise on a
-rerun. Then two more decoder families at full width, minicpm3-4b at 8 of 62
-layers and hymba-1.5b at 4 of 32, the same way: minicpm3-4b (MLA: the absorbed
+rerun. Then two more decoder families at full width, minicpm3-4b at 4 of 62
+layers and hymba-1.5b at 2 of 32, the same way: minicpm3-4b (MLA: the absorbed
 decode over a latent cache of 288 values a position and layer; consistency at 4
 × 1,025 tokens, the Engine on 8 prompts of 1,536-2,048) and hymba-1.5b (GQA with
 a window of 1,024 beside Mamba in every layer: consistency over 2 × 2,049
 tokens, the Engine on 8 prompts of 2,048-3,072 with its decode state a sequence,
 ``fit_head`` on its features through rows 2 and 11 at 1,616 columns, with one
 worker's plain and library times). Then the encoder-decoder and the VLM:
-whisper-small at 6 of its 12 encoder and 6 of its 12 decoder layers (over frames
+whisper-small at 3 of its 12 encoder and 3 of its 12 decoder layers (over frames
 of 1,500 × 768: consistency at 4 × 385 tokens with the cross caches leaf by
 leaf, the encoder alone beside its bound, the Engine on 8 prompts of 4-224
 tokens with 224 new; whole through its launcher as a subprocess) and pixtral-12b
-at full width cut to 5 of 40 layers (256 patches of 1,024 in the first
+at full width cut to 3 of 40 layers (256 patches of 1,024 in the first
 positions: consistency over 2 × 1,025 tokens with the token-by-token prefill
 over 272 positions, the Engine on 8 prompts of 1,536-2,048, ``fit_head`` on its
 features through rows 2 and 11 at 5,136 columns). Last, the attention-free Mamba
@@ -136,7 +136,16 @@ stack, falcon-mamba-7b whole (64 layers, d_model 4,096): the consistency at 2 ×
 1,025 tokens in bfloat16 (the forward and decode within ``LM_LOGIT_BOUND``; the
 token-by-token prefill's gaps reported) and, the same weights cast to float32 on
 the card, every gap within ``SSM_F32_BOUND``; the Engine on 8 prompts of 256-512
-tokens; its launcher as a subprocess. Each phase of ``main``, and each model of
+tokens; its launcher as a subprocess. Then the LM's sharding (``phase_sharding``):
+granite-3-8b at full width cut to 1 layer, one sketch-DP step, its state saved
+and restored by ``elastic_restore`` onto a (1, 1) CUDA mesh in a one-rank NCCL
+group under the production rules' placements, every leaf bitwise, and one more
+step from the restored state and from the original, bitwise, row 12b once a
+step; and the one-rank dry run of ``train_granite_sketch_dp``'s forward and
+backward (a subprocess on meta tensors in a fake group) held against the card:
+its flops exactly ``FlopCounterMode``'s, its argument bytes within 1% of the
+bytes allocated, its predicted live peak and step time printed beside the
+card's. Each phase of ``main``, and each model of
 the decoder families' phases, prints its wall seconds (``{"phase": "seconds",
 ...}``).
 
@@ -208,18 +217,21 @@ CHECK_Q = 2  # workers in the kernel-against-plain phase
 SIDE_Q = 8  # workers in the worker-side and Rademacher phases
 SJLT_S = 20  # FIG3A's nonzeros per data row (RegressionConfig.s)
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): 67 TFLOP/s float32 outside the
-# tensor cores, 3.35 TB/s HBM. INT32: 64 lanes per SM (half the 128 FP32 lanes,
-# Hopper white paper) at the same clock, so 67/4 = 16.7 T integer ops/s.
-PEAK_FP32_FLOPS = 67e12
-# Dense TF32 on the tensor cores (same data sheet). The dense S·A and Gram kernels'
-# products are fp32-accurate in 3xTF32 form: 3 TF32 products per Gaussian flop
-# pair, 2 for the ±1 signs of the Rademacher and the SRHT (exact in TF32, scaled
-# after the sum).
-PEAK_TF32_FLOPS = 495e12
+# The H100's peaks come from the port's roofline module (``repro_torch.roofline.hw``:
+# NVIDIA's data sheet, SXM, dense, 700 W): float32 FFMA, TF32 on the tensor cores,
+# INT32 and HBM bytes a second. The dense S·A and Gram kernels' products are
+# fp32-accurate in 3xTF32 form: 3 TF32 products per Gaussian flop pair, 2 for the
+# ±1 signs of the Rademacher and the SRHT (exact in TF32, scaled after the sum).
 TF32_PASSES = {"gaussian": 3, "rademacher": 2, "srht": 2}
-PEAK_INT32_OPS = 16.7e12
-PEAK_BYTES = 3.35e12
+
+
+def h100():
+    """The card's data-sheet figures, ``repro_torch.roofline.hw.H100_SXM``."""
+    from repro_torch.roofline.hw import H100_SXM
+
+    return H100_SXM
+
+
 # Shared memory: one 128-byte wavefront a cycle on each of 132 SMs at the
 # 1,980 MHz boost clock (nvidia-smi's clocks.max.sm on an H100 SXM). The SJLT
 # scatter's floor: each (pair, 32 columns) reads and writes an accumulator row
@@ -281,7 +293,7 @@ def bound_ms(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20,
     2·n·s·dx flops (s nonzeros per data row) and one threefry, a remainder and a
     sign per (row, t) pair."""
     out_floats = q * (m * dx if apply else dx * dx)
-    bytes_ms = 4 * (n * dx + out_floats) / PEAK_BYTES * 1e3
+    bytes_ms = 4 * (n * dx + out_floats) / h100().hbm_bw * 1e3
     gram_flops = 0 if apply else 2 * m * dx * dx * q
     if family == "sjlt":
         flops = 2 * n * s * dx * q + gram_flops
@@ -291,8 +303,8 @@ def bound_ms(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20,
         per_entry = {"gaussian": threefry_ops(rounds), "rademacher": threefry_ops(20) / 32,
                      "srht": 3}[family]
         int_ops = m * n * q * per_entry + (n * q * threefry_ops(20) if family == "srht" else 0)
-    fp_ms = flops / PEAK_FP32_FLOPS * 1e3
-    int_ms = int_ops / PEAK_INT32_OPS * 1e3
+    fp_ms = flops / h100().peak_flops_fp32 * 1e3
+    int_ms = int_ops / h100().peak_int32_ops * 1e3
     ops_ms = max(fp_ms, int_ms)
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -307,10 +319,10 @@ def apply_bound(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20) 
     if family not in TF32_PASSES:
         return {"bound_ms": ffma_ms, "bound_by": ffma_by, "ffma_bound_ms": ffma_ms,
                 "smem_floor_ms": sjlt_smem_floor_ms(n, dx, q)}
-    bytes_ms = 4 * (n * dx + q * m * dx) / PEAK_BYTES * 1e3
-    tensor_ms = TF32_PASSES[family] * 2 * m * n * dx * q / PEAK_TF32_FLOPS * 1e3
+    bytes_ms = 4 * (n * dx + q * m * dx) / h100().hbm_bw * 1e3
+    tensor_ms = TF32_PASSES[family] * 2 * m * n * dx * q / h100().peak_flops_tf32 * 1e3
     per_entry = threefry_ops(rounds) if family == "gaussian" else threefry_ops(20) / 32
-    int_ms = m * n * q * per_entry / PEAK_INT32_OPS * 1e3
+    int_ms = m * n * q * per_entry / h100().peak_int32_ops * 1e3
     ops_ms = max(tensor_ms, int_ms)
     by = "bytes" if bytes_ms > ops_ms else "operations"
     return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": by, "ffma_bound_ms": ffma_ms,
@@ -331,12 +343,12 @@ def gram_bound(family: str, n: int, dx: int, m: int, q: int, rounds: int = 20) -
     if family not in TF32_PASSES:
         return {"bound_ms": ffma_ms, "bound_by": ffma_by, "ffma_bound_ms": ffma_ms,
                 "smem_floor_ms": sjlt_smem_floor_ms(n, dx, q)}
-    bytes_ms = 4 * (n * dx + q * dx * dx) / PEAK_BYTES * 1e3
-    tensor_ms = (TF32_PASSES[family] * 2 * m * n * dx * q / PEAK_TF32_FLOPS
-                 + 2 * m * dx * dx * q / PEAK_FP32_FLOPS) * 1e3
+    bytes_ms = 4 * (n * dx + q * dx * dx) / h100().hbm_bw * 1e3
+    tensor_ms = (TF32_PASSES[family] * 2 * m * n * dx * q / h100().peak_flops_tf32
+                 + 2 * m * dx * dx * q / h100().peak_flops_fp32) * 1e3
     per_entry = {"gaussian": threefry_ops(rounds), "rademacher": threefry_ops(20) / 32, "srht": 3 / 32}[family]
     int_ops = m * n * q * per_entry + (n * q * threefry_ops(20) if family == "srht" else 0)
-    int_ms = int_ops / PEAK_INT32_OPS * 1e3
+    int_ms = int_ops / h100().peak_int32_ops * 1e3
     ops_ms = max(tensor_ms, int_ms)
     by = "bytes" if bytes_ms > ops_ms else "operations"
     return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": by, "ffma_bound_ms": ffma_ms,
@@ -387,8 +399,8 @@ def apply_plan(family: str, n: int, dx: int, m: int) -> dict:
 def fwht_bound_ms(n: int, k: int) -> tuple[float, str]:
     """Least time for H·x, x (n, k) float32: x read once and H·x written once, or
     the log2(n) stages of one add or subtract per element each, at the fp32 peak."""
-    bytes_ms = 8 * n * k / PEAK_BYTES * 1e3
-    ops_ms = n * k * (n.bit_length() - 1) / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = 8 * n * k / h100().hbm_bw * 1e3
+    ops_ms = n * k * (n.bit_length() - 1) / h100().peak_flops_fp32 * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -398,8 +410,8 @@ def srht_forward_bound_ms(n: int, k: int, m: int, n_pad: int) -> tuple[float, st
     written once, or the operations: the log2(n_pad) stages of one add or
     subtract per element of the padding at the fp32 peak, one threefry a row of
     A (its sign) at the int32 rate."""
-    bytes_ms = 4 * (n * k + m + m * k) / PEAK_BYTES * 1e3
-    ops_ms = max(n_pad * k * (n_pad.bit_length() - 1) / PEAK_FP32_FLOPS, n * threefry_ops(20) / PEAK_INT32_OPS) * 1e3
+    bytes_ms = 4 * (n * k + m + m * k) / h100().hbm_bw * 1e3
+    ops_ms = max(n_pad * k * (n_pad.bit_length() - 1) / h100().peak_flops_fp32, n * threefry_ops(20) / h100().peak_int32_ops) * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -414,15 +426,15 @@ def srht_forward_floor_ms(n: int, k: int, m: int, n_pad: int) -> float:
     for t in cuda.plan_fwht(n_pad)[:-1]:
         done += t
         rows += -(-n // (1 << done)) * (1 << done)
-    return 4 * (n * k + 2 * rows * k + m + m * k) / PEAK_BYTES * 1e3
+    return 4 * (n * k + 2 * rows * k + m + m * k) / h100().hbm_bw * 1e3
 
 
 def adjoint_bound_ms(m: int, n: int, k: int, rounds: int = 20) -> tuple[float, str]:
     """Least time for Sᵀ·Y, Y (m, k) float32, S (m, n) Gaussian drawn in-core: Y read
     once and the (n, k) output written once, or the operations: one threefry per S
     entry at the int32 rate and 2·m·n·k FFMA flops at the fp32 rate."""
-    bytes_ms = 4 * (m * k + n * k) / PEAK_BYTES * 1e3
-    ops_ms = max(m * n * threefry_ops(rounds) / PEAK_INT32_OPS, 2 * m * n * k / PEAK_FP32_FLOPS) * 1e3
+    bytes_ms = 4 * (m * k + n * k) / h100().hbm_bw * 1e3
+    ops_ms = max(m * n * threefry_ops(rounds) / h100().peak_int32_ops, 2 * m * n * k / h100().peak_flops_fp32) * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -582,7 +594,7 @@ def phase_tensor_cores() -> None:
     emit({"phase": "tensor_cores", "mma_3xtf32_rel_err": err3, "mma_tf32_rel_err": err1,
           "clusters_of_8_resident": clusters, "gram_clusters_resident": gram_clusters,
           "gram_cluster": cuda.GRAM_MAX_CLUSTER, "no_sync_call": no_sync,
-          "mma_sync_tf32_tflops": flops / rate_ms / 1e9, "peak_tf32_tflops": PEAK_TF32_FLOPS / 1e12})
+          "mma_sync_tf32_tflops": flops / rate_ms / 1e9, "peak_tf32_tflops": h100().peak_flops_tf32 / 1e12})
     check(err3 <= 1e-6, f"3xTF32 mma probe off a float64 product by {err3}")
     check(err1 > 1e-5, f"one TF32 mma equals the 3xTF32 form ({err1}): the split is not applied")
     check(all(c > 0 for c in clusters.values()), f"a cluster of 8 does not fit the card: {clusters}")
@@ -1669,8 +1681,8 @@ ADJOINT_SHAPES = ((4000, 11_556, 1), (4000, 8000, 1), (200, 1000, 1), (200, 500,
 def kept_bound_ms(m: int, n: int, k: int) -> tuple[float, str]:
     """Least time for Sᵀ·Y over a kept S (m, n) float32: S and Y read once and the
     (n, k) output written once, or 2·m·n·k FFMA flops at the fp32 rate."""
-    bytes_ms = 4 * (m * n + m * k + n * k) / PEAK_BYTES * 1e3
-    ops_ms = 2 * m * n * k / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = 4 * (m * n + m * k + n * k) / h100().hbm_bw * 1e3
+    ops_ms = 2 * m * n * k / h100().peak_flops_fp32 * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -2765,9 +2777,9 @@ def phase_fit_head(rows: dict) -> None:
 
 LM_ARCH = "granite-3-8b"  # 40 layers, d_model 4,096, 32 heads, 8 kv heads, d_ff 12,800, vocab 49,155 (49,408 padded)
 # Depth cut for the smoke's 900-s budget: the consistency, the Engine and the head
-# fit run granite-3-8b's full width at 5 of its 40 (identical) layers; its
+# fit run granite-3-8b's full width at 3 of its 40 (identical) layers; its
 # launcher builds it whole.
-GRANITE_LAYERS = 5
+GRANITE_LAYERS = 3
 LM_CONSISTENCY = {"batch": 4, "seq": 1025, "prefill": 1024, "cache_len": 1088, "token_prefill": 64}
 # Bound on |Δlogit| between two bfloat16 runs of the same model that differ only in
 # the shapes of their products (M = 4·1025 against 4·1024 or 4 rows, one key chunk
@@ -2783,7 +2795,6 @@ LM_LOGIT_BOUND = 0.25
 LM_ENGINE = {"prompts": 8, "min_len": 1536, "max_len": 2048, "new": 32, "temperature": 0.7}
 LM_HEAD = {"batch": 16, "seq": 2048, "k": 16, "q": 16, "m": 8192, "reg": 1e-4, "arrived": 12, "noise": 0.1}
 LM_HEAD_IDS = tuple(range(3, 3 + 16 * 3001, 3001))  # 16 fixed token ids of the re-fit lm-head
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet, 700 W)
 SERVE_LM_CLI = ("--arch", LM_ARCH)  # the reference launcher's defaults otherwise
 
 
@@ -3132,7 +3143,7 @@ def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = Fals
     kv_bytes = B * cache_bytes_a_token(cfg) * sum(min(pos_med + 1, w) if w > 0 else pos_med + 1 for w in windows)
     kv_bytes += cross_cache_bytes(cfg, B)
     state_bytes = 2 * B * state_bytes_a_sequence(cfg)  # the Mamba states, read and written a step
-    floor_ms = (weight_bytes + kv_bytes + state_bytes) / PEAK_BYTES * 1e3
+    floor_ms = (weight_bytes + kv_bytes + state_bytes) / h100().hbm_bw * 1e3
     dec_med = statistics.median(dec_ms)
 
     # One decode step traced, at the median step's position, on a fresh prefill.
@@ -3158,8 +3169,8 @@ def run_engine(tag: str, cfg, model, c: dict, *, plan=None, margins: bool = Fals
         "attn_chunk": engine.plan.attn_chunk, "cache_shapes": cache_shapes, "generate_s": [gen_s, gen2_s],
         "prefill_s": pre_ms[1] / 1e3, "prefill_s_first": pre_ms[0] / 1e3, "prefill_tokens": sum(lens),
         "prefill_tokens_padded": tokens_in, "prefill_tok_per_s": tokens_in / (pre_ms[1] / 1e3),
-        "prefill_flops": flops, "prefill_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
-        "prefill_bound_share": flops / PEAK_BF16_FLOPS * 1e3 / pre_ms[1], "decode_steps": len(dec_ms),
+        "prefill_flops": flops, "prefill_bound_ms": flops / h100().peak_flops_bf16 * 1e3,
+        "prefill_bound_share": flops / h100().peak_flops_bf16 * 1e3 / pre_ms[1], "decode_steps": len(dec_ms),
         "decode_ms_median": dec_med, "decode_ms_median_first_run": statistics.median(dec_all[:steps]),
         "decode_ms_min": min(dec_ms), "decode_ms_max": max(dec_ms), "decode_tok_per_s": B / (dec_med / 1e3),
         "decode_floor_ms": floor_ms, "decode_weight_bytes": weight_bytes, "decode_kv_bytes": kv_bytes,
@@ -3544,7 +3555,7 @@ def train_sketch_dp(tag: str, cfg, of_layers: int, rows: dict) -> None:
     if cfg.moe:  # the assignments a step keeps, from the run's dropped share
         kept = round(tokens * cfg.num_layers * cfg.top_k * (1.0 - first["drop_share"]))
     flops = train_flops(cfg, tokens, TRAIN["seq"], D, kept)
-    bound_s = flops / PEAK_BF16_FLOPS
+    bound_s = flops / h100().peak_flops_bf16
     p_bytes = 2 * D
     reckon = {"params_bf16": p_bytes, "grads_bf16": p_bytes, "moments_f32": 8 * D, "grad_vector_f32": 4 * D,
               "row12b_22B_a_pair": 22 * D, "decompressed_f32": 4 * D}
@@ -3727,10 +3738,10 @@ def phase_train_small_card_vs_cpu(rows: dict) -> None:
 
 CHATGLM_ARCH = "chatglm3-6b"  # 28 layers, d_model 4,096, 32/2 heads, RoPE on half of each head, 6.24e9 parameters
 # Depth cuts (full width): mixtral's and grok's whole models do not fit one card; the
-# smoke also keeps under 900 s with the later LM phases, so chatglm3 runs 7 of its 28
+# smoke also keeps under 900 s with the later LM phases, so chatglm3 runs 4 of its 28
 # layers, mixtral 1 of its 32, gemma3 6 of its 48 in-process (one whole local:global
 # period; its launcher builds it whole) and grok 1 of its 64 (6.53e9 parameters, 13.1 GB).
-CHATGLM_LAYERS = 7
+CHATGLM_LAYERS = 4
 MIXTRAL_LAYERS = 1
 MIXTRAL_CONSISTENCY = {"batch": 2, "seq": 4609, "prefill": 4608, "cache_len": 4672, "token_prefill": 64}
 MIXTRAL_ENGINE = {"prompts": 8, "min_len": 4352, "max_len": 6144, "new": 32}
@@ -3914,8 +3925,8 @@ def phase_lm_families(rows: dict) -> None:
 MINICPM_ARCH = "minicpm3-4b"  # 62 layers, d_model 2,560, 40 heads, MLA: q_lora 768, kv_lora 256, nope 64, rope 32, v 64
 HYMBA_ARCH = "hymba-1.5b"  # 32 layers of GQA (25/5 heads, window 1,024) beside Mamba (d_inner 3,200), fused
 # Depth cuts for the smoke's 900-s budget (full width; every layer of each is the same kind).
-MINICPM_LAYERS = 8
-HYMBA_LAYERS = 4
+MINICPM_LAYERS = 4
+HYMBA_LAYERS = 2
 HYMBA_CONSISTENCY = {"batch": 2, "seq": 2049, "prefill": 2048, "cache_len": 2112, "token_prefill": 64}
 HYMBA_ENGINE = {"prompts": 8, "min_len": 2048, "max_len": 3072, "new": 32}
 HYMBA_HEAD_IDS = tuple(range(3, 3 + 16 * 1999, 1999))  # 16 fixed ids below hymba's vocabulary of 32,001
@@ -4050,19 +4061,19 @@ def phase_lm_ssm(rows: dict) -> None:
 # ------------------------------------------ the encoder-decoder (whisper-small) and the VLM (pixtral-12b)
 
 WHISPER_ARCH = "whisper-small"  # 12 encoder + 12 decoder layers, d_model 768, 12 heads, 1,500 frames, vocab 51,865
-# Depth cut for the smoke's 900-s budget: 6 of 12 encoder and 6 of 12 decoder layers in
+# Depth cut for the smoke's 900-s budget: 3 of 12 encoder and 3 of 12 decoder layers in
 # process (every layer of each stack is the same kind); its launcher builds it whole.
-WHISPER_LAYERS = 6
+WHISPER_LAYERS = 3
 WHISPER_CONSISTENCY = {"batch": 4, "seq": 385, "prefill": 384, "cache_len": 448, "token_prefill": 64}
 # 448 is whisper's decoder context (its config's own long_context_note): prompts and new tokens within it.
 WHISPER_ENGINE = {"prompts": 8, "min_len": 4, "max_len": 224, "new": 224}
 SERVE_WHISPER_CLI = ("--arch", WHISPER_ARCH)  # the reference launcher's frames
 PIXTRAL_ARCH = "pixtral-12b"  # 40 layers, d_model 5,120, 32/8 heads of 160, vocab 131,072, 256 patches of 1,024
-# Full width at 5 of its 40 layers: whole (25.6 GB) the phase took 78.5 s of a smoke of
+# Full width at 3 of its 40 layers: whole (25.6 GB) the phase took 78.5 s of a smoke of
 # 854 s on one host, which leaves no room on a slower one. The patch prefix runs before
 # layer 0, and its layers are the dense layer that granite-3-8b runs whole in its
 # launcher.
-PIXTRAL_LAYERS = 5
+PIXTRAL_LAYERS = 3
 # The token-by-token prefill runs past the 256 patch slots into 16 text tokens.
 PIXTRAL_CONSISTENCY = {"batch": 2, "seq": 1025, "prefill": 1024, "cache_len": 1088, "token_prefill": 272}
 PIXTRAL_ENGINE = {"prompts": 8, "min_len": 1536, "max_len": 2048, "new": 32}
@@ -4089,7 +4100,7 @@ def encoder_report(cfg, model, frames) -> dict:
     with torch.inference_mode():
         ms, out = cuda_ms(lambda: lm.encoder_forward(model, cfg, frames), 3)
     flops = encoder_flops(cfg, frames.shape[0])
-    bound_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bound_ms = flops / h100().peak_flops_bf16 * 1e3
     check(tuple(out.shape) == tuple(frames.shape) and bool(torch.isfinite(out).all()),
           "lm_whisper_encoder: bad encoder output")
     return {"encoder_frames": list(frames.shape), "encoder_ms": ms, "encoder_flops": flops,
@@ -4143,6 +4154,263 @@ def phase_lm_encdec_vlm(rows: dict) -> None:
         del model
         free_card()
 
+
+RESTORE_LAYERS = 1  # granite-3-8b's full width at 1 of 40 layers: placements are per leaf
+DRYRUN_TIMEOUT_S = 300
+
+
+def phase_sharding(rows: dict) -> None:
+    """The LM's sharding on the card: ``dryrun_card_check`` (its dry run in a
+    subprocess of its own: a fake group cannot share this process, whose NCCL
+    phases open real ones; it overlaps only the card's untimed work) and then
+    ``elastic_restore_card``, under ``torch.use_deterministic_algorithms``
+    (restored after)."""
+    import torch
+
+    proc, out_dir = start_dryrun_card_check()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with clock("dryrun_card_check"):
+            phase_dryrun_card_check(proc, out_dir)
+        with clock("elastic_restore_card"):
+            phase_elastic_restore_card(rows)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_elastic_restore_card(rows: dict) -> None:
+    """granite-3-8b at full width cut to RESTORE_LAYERS layer: one sketch-DP
+    step on the card (row 12b) and its state saved under a temporary
+    directory; in a one-rank NCCL group, the state restored by
+    ``elastic_restore`` onto the (1, 1) CUDA mesh with the production rules'
+    placements (``train_state_shardings``), every leaf bitwise the saved one;
+    then one more step from the restored state's local tensors and one from
+    the original, bitwise equal, each launching row 12b once."""
+    import dataclasses
+    import math
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.core import gradcomp
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.fault_tolerance import elastic_restore
+    from repro_torch.launch import mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import sketch_dp, state as tstate
+    from repro_torch.utils import prng, tree as tu
+
+    label = "elastic_restore_card"
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=RESTORE_LAYERS)
+    opt = AdamWConfig(lr=TRAIN["lr"])
+    comp = gradcomp.GradCompressionConfig(enabled=True, ratio=TRAIN["ratio"], kind="countsketch")
+    step = sketch_dp.make_sketch_dp_step(cfg, opt, comp=comp, remat="full")
+    base = prng.fold_in(prng.prng_key(SEED), 31)
+    mask = torch.ones(TRAIN_LATENCY["q"])
+    batch = lambda i: lm_batch(0, i, batch=TRAIN["batch"], seq=TRAIN["seq"], vocab=cfg.vocab_size, device=DEVICE)
+    torch.cuda.empty_cache()
+    state, init_s = host_s(lambda: tstate.init_train_state(cfg, opt, prng.prng_key(SEED), device=DEVICE))
+    reset_counts()
+    state, _ = step(state, batch(0), prng.fold_in(base, 0), mask)
+    first = read_counts()
+    report = {"phase": label, "card": nvidia_smi_line(), "arch": cfg.name,
+              "depth": f"{cfg.num_layers} of 40 layers (full width)",
+              "D": sum(p.numel() for p in state["params"].parameters()), "init_seconds": init_s}
+    tree = tstate.checkpoint_tree(state)
+    need = sum(math.prod(x.shape) * x.dtype.itemsize for x in tu.tree_leaves(tree))
+    with tempfile.TemporaryDirectory(prefix="elastic_restore_", dir=_roomiest(need)) as tmp:
+        _, report["save_seconds"] = host_s(lambda: store.save_checkpoint(tmp, 1, tree))
+        report["checkpoint_bytes"] = sum(os.path.getsize(os.path.join(tmp, "step_00000001", f))
+                                         for f in os.listdir(os.path.join(tmp, "step_00000001")))
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        mesh.init_worker_group(device=DEVICE, rank=0, world_size=1, init_method=f"tcp://localhost:{_free_port()}")
+        try:
+            m = mesh.make_smoke_mesh(device_type=torch.device(DEVICE).type)
+            rules = mesh.production_rules()
+            like = tstate.checkpoint_tree(tstate.train_state_shapes(cfg, opt))
+            restored, report["restore_seconds"] = host_s(
+                lambda: elastic_restore(tmp, 1, like, m, tstate.train_state_pspecs(cfg, opt, rules)))
+            want_pl = sharding.spec_leaves(tstate.train_state_shardings(cfg, opt, m, rules))
+            got, saved = tu.tree_flatten_with_path(restored)[0], tu.tree_flatten_with_path(tree)[0]
+            leaves = bitwise = placed = 0
+            for (path, r), (_, w) in zip(got, saved):
+                ps = tu.path_str(path)
+                rs = r.parts if isinstance(r, tu.Stacked) else (r,)
+                ws = w.parts if isinstance(w, tu.Stacked) else (w,)
+                for a, b in zip(rs, ws):
+                    leaves += 1
+                    bitwise += bool(torch.equal(a.to_local(), b.detach()))
+                    whole = tuple(want_pl[ps])
+                    if isinstance(r, tu.Stacked):
+                        from torch.distributed.tensor import Shard
+
+                        whole = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p for p in whole)
+                    placed += tuple(a.placements) == whole
+            report.update({"mesh": list(m.shape), "leaves": leaves, "leaves_bitwise": bitwise,
+                           "leaves_placed_as_the_rules": placed})
+            local = _local_tree(restored)
+            del restored
+        finally:
+            dist.destroy_process_group()
+    state2 = tstate.state_from_tree(cfg, local, device=DEVICE)
+    del local
+    key = prng.fold_in(base, 1)
+    reset_counts()
+    state2, m2 = step(state2, batch(1), key, mask)
+    from_restored = read_counts()
+    reset_counts()
+    state, m1 = step(state, batch(1), key, mask)
+    from_original = read_counts()
+    a, b = tstate.checkpoint_tree(state2), tstate.checkpoint_tree(state)
+    same = all(torch.equal(x, y) for (_, lx), (_, ly) in zip(tu.tree_flatten_with_path(a)[0],
+                                                             tu.tree_flatten_with_path(b)[0])
+               for x, y in zip(lx.parts if isinstance(lx, tu.Stacked) else (lx,),
+                               ly.parts if isinstance(ly, tu.Stacked) else (ly,)))
+    report.update({"launches_first_step": first, "launches_from_restored": from_restored,
+                   "launches_from_original": from_original, "step_bitwise": same,
+                   "loss": [float(m2["loss"]), float(m1["loss"])]})
+    del state, state2, a, b
+    torch.cuda.empty_cache()
+    emit(report)
+    check(report["leaves_bitwise"] == report["leaves"] > 0, f"{label}: restored leaves not bitwise the saved ones")
+    check(report["leaves_placed_as_the_rules"] == report["leaves"], f"{label}: a leaf's placements are not the rules'")
+    check(same and report["loss"][0] == report["loss"][1], f"{label}: the step from the restored state is not bitwise")
+    for name, counts in (("first step", first), ("from restored", from_restored), ("from original", from_original)):
+        check_counts(f"{label} {name}", counts, {"sjlt_apply_long": 1})
+    rows["sjlt_apply_long"].setdefault("launches_by_path", {})[label] = from_restored.get("sjlt_apply_long", 0)
+
+
+def _roomiest(need: int) -> str:
+    """Of ``TMPDIR`` and the checkout's ``build/``, the one whose disk has the most
+    free bytes; raises when neither holds ``need`` bytes."""
+    import shutil
+    import tempfile
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    free = {d: shutil.disk_usage(d).free for d in (tempfile.gettempdir(), str(build))}
+    best = max(free, key=free.get)
+    check(free[best] > need, f"no disk holds the {need} bytes of the checkpoint: {free}")
+    return best
+
+
+def _local_tree(tree):
+    """Each DTensor leaf of a restored tree (Stacked parts too) as its local tensor."""
+    from repro_torch.utils import tree as tu
+
+    def local(x):
+        if isinstance(x, tu.Stacked):
+            return tu.Stacked(tuple(p.to_local() for p in x.parts))
+        return x.to_local()
+
+    leaves, spec = tu.tree_flatten(tree)
+    return tu.tree_unflatten(spec, [local(x) for x in leaves])
+
+
+def start_dryrun_card_check():
+    """The one-rank dry run of ``phase_train_granite_sketch_dp``'s forward and
+    backward (granite-3-8b at TRAIN_LAYERS, TRAIN's batch × seq), started in a
+    subprocess: (the process, its output directory)."""
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="dryrun_card_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LM_ARCH, "--mesh", "smoke", "--layers",
+           str(TRAIN_LAYERS), "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--out", out_dir]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    with open(os.path.join(out_dir, "log.txt"), "w") as log:  # a file, not a pipe nobody reads while it runs
+        proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT)
+    return proc, out_dir
+
+
+def phase_dryrun_card_check(proc, out_dir: str) -> None:
+    """The dry run's one-rank record against the card: its flops exactly
+    ``FlopCounterMode``'s count of the same forward and backward on the card
+    (granite-3-8b at TRAIN_LAYERS, full width, TRAIN's batch, remat full), its
+    argument bytes within DRYRUN_ARG_TOL of ``torch.cuda.memory_allocated()``
+    once the state and the batch are built; its predicted live peak beside
+    ``max_memory_allocated()`` and its predicted step time beside the measured
+    forward and backward (neither gated), timed once the dry run has ended."""
+    import dataclasses
+    import json
+    import shutil
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import state as tstate
+    from repro_torch.utils import prng
+
+    label = "dryrun_card_check"
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state = tstate.init_train_state(cfg, AdamWConfig(lr=TRAIN["lr"]), prng.prng_key(SEED), device=DEVICE)
+    batch = lm_batch(0, 0, batch=TRAIN["batch"], seq=TRAIN["seq"], vocab=cfg.vocab_size, device=DEVICE)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base
+    params, plan = state["params"], lm.ExecPlan(remat="full")
+
+    def fwd_bwd():
+        loss, _ = lm.lm_loss(params, cfg, batch, plan=plan)
+        loss.backward()
+        for p in params.parameters():
+            p.grad = None
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        fwd_bwd()
+    card_flops = counter.get_total_flops()
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    torch.cuda.reset_peak_memory_stats()
+    ms, _ = cuda_ms(fwd_bwd, 2)
+    peak = torch.cuda.max_memory_allocated() - base
+    recs = [json.load(open(os.path.join(out_dir, f))) for f in sorted(os.listdir(out_dir)) if f.endswith(".json")]
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        log = f.read()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    del state, params, batch
+    torch.cuda.empty_cache()
+    check(proc.returncode == 0 and len(recs) == 1 and recs[0]["status"] == "OK",
+          f"{label}: the dry run failed (rc {proc.returncode}): {log[-2000:]}")
+    rec = recs[0]
+    predicted = rec["memory"]["peak_bytes"]
+    report = {"phase": label, "card": nvidia_smi_line(), "arch": cfg.name,
+              "depth": f"{cfg.num_layers} of 40 layers (full width)", "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+              "dryrun_seconds": rec["run_s"], "depths": rec["depths"], "dryrun_flops": rec["cost"]["flops"],
+              "card_flops": card_flops, "dryrun_argument_bytes": rec["memory"]["argument_bytes"],
+              "card_allocated_bytes": allocated,
+              "argument_rel_diff": abs(rec["memory"]["argument_bytes"] - allocated) / allocated,
+              "predicted_peak_bytes": predicted, "card_max_allocated_bytes": peak,
+              "peak_ratio_predicted_over_card": predicted / peak,
+              "predicted_step_s": rec["roofline"]["step_s"], "predicted_bottleneck": rec["roofline"]["bottleneck"],
+              "predicted_terms_s": [rec["roofline"][k] for k in ("compute_s", "memory_s", "collective_s")],
+              "card_forward_backward_s": ms / 1e3, "dryrun_bytes_accessed": rec["cost"]["bytes accessed"],
+              "card_total_memory": torch.cuda.get_device_properties(0).total_memory,
+              "hw_hbm_bytes": h100().hbm_bytes}
+    emit(report)
+    check(rec["cost"]["flops"] == card_flops, f"{label}: dry-run flops {rec['cost']['flops']} against the card's "
+          f"{card_flops}")
+    check(report["argument_rel_diff"] <= DRYRUN_ARG_TOL, f"{label}: argument bytes {rec['memory']['argument_bytes']} "
+          f"against {allocated} allocated")
+
+
+DRYRUN_ARG_TOL = 0.01
 
 def phase_trace(label: str, solve) -> None:
     """One more run of a path under ``torch.profiler``: device time by kernel and the
@@ -4222,7 +4490,8 @@ def main() -> int:
         timed(phase_fig3a_student_t, FIG3A, rows)
         for phase in (phase_fig2_emnist, phase_adjoint_kernel, phase_ln_apply, phase_least_norm, phase_gradcomp,
                       phase_fit_head, phase_lm, phase_train, phase_lm_families, phase_serverless,
-                      phase_row_sharded_and_groups, phase_lm_mla_hybrid, phase_lm_encdec_vlm, phase_lm_ssm):
+                      phase_row_sharded_and_groups, phase_lm_mla_hybrid, phase_lm_encdec_vlm, phase_lm_ssm,
+                      phase_sharding):
             timed(phase, rows)
         emit({"phase": "seconds", "of": "main", "seconds": time.perf_counter() - t0})
         for name, row in rows.items():

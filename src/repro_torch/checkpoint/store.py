@@ -15,8 +15,11 @@ checkpoint written by either package is read by the other:
 * async: :class:`AsyncCheckpointer` copies the tree to host memory before
   ``save`` returns and writes it on a thread.
 * restore validates paths and shapes against the expected tree and fails
-  loudly. Elastic restore onto another sharding waits for
-  ``distributed/sharding.py`` (ROADMAP Queue 1 item 9g).
+  loudly. With ``mesh`` and ``placements`` it restores onto a device mesh
+  (``distributed.fault_tolerance.elastic_restore``): each rank reads only its
+  own slice of each leaf file (``np.memmap`` over the raw C-order bytes) and
+  builds the DTensor from it (``DTensor.from_local``). The reference reads
+  each array whole and then places it; the result is the same, leaf for leaf.
 """
 from __future__ import annotations
 
@@ -99,17 +102,68 @@ def _from_raw(raw: bytes, shape: list, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.frombuffer(raw, np.dtype(dtype)).reshape(shape).copy())
 
 
-def restore_checkpoint(directory: str, step: int, like, *, device=None):
+def _np_dtype(dtype: str):
+    return np.dtype(np.uint16) if dtype == "bfloat16" else np.dtype(dtype)
+
+
+def _to_torch(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    t = torch.from_numpy(np.array(arr, order="C", copy=True))
+    return t.view(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def _restore_sharded(path: str, entry: dict, leaf, mesh, placements, device):
+    """This rank's DTensor of one leaf file: its slice read through a memmap (a
+    Stacked leaf: one DTensor a layer, the placements of the stacked array
+    without its leading L axis, which must not be sharded)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed import sharding
+
+    shape = tuple(entry["shape"])
+    placements = tuple(placements)
+    slices = sharding.local_slices(shape, mesh, placements)
+    mm = np.memmap(path, dtype=_np_dtype(entry["dtype"]), mode="r", shape=shape or (1,))
+    if not isinstance(leaf, tu.Stacked):
+        arr = np.array(mm[slices]) if shape else np.array(mm).reshape(())
+        local = _to_torch(arr, entry["dtype"]).to(device)
+        return sharding.from_local(local, mesh, placements, shape)
+    if any(isinstance(p, Shard) and p.dim == 0 for p in placements):
+        raise ValueError(f"placements {placements} shard the layer axis of a stacked leaf of shape {shape}")
+    part = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p for p in placements)
+    return tu.Stacked(tuple(
+        sharding.from_local(_to_torch(np.array(mm[l][slices[1:]]), entry["dtype"]).to(device), mesh, part, shape[1:])
+        for l in range(shape[0])))
+
+
+def restore_checkpoint(directory: str, step: int, like, *, device=None, mesh=None, placements=None):
     """Load ``step`` into the structure of ``like`` (tensors, meta tensors or
     anything with a ``shape``; a :class:`~repro_torch.utils.tree.Stacked` leaf
     comes back as a Stacked of per-layer tensors). Leaves keep the stored
     dtype and land on ``device`` (default: the CPU). A missing path raises
-    KeyError, a shape other than ``like``'s ValueError."""
+    KeyError, a shape other than ``like``'s ValueError.
+
+    ``mesh`` and ``placements`` (a tree of nested dicts like ``like``'s, each
+    leaf the DTensor placements of that leaf's whole array) restore onto the
+    mesh: every leaf a DTensor whose local shard this rank read alone, on
+    ``device`` (default: the mesh's device). DTensor's split is
+    ``torch.chunk``'s: an uneven dimension gives the first shards ⌈n/k⌉ and
+    the last what is left, where jax pads each shard to ⌈n/k⌉. Placements
+    that do not fit a leaf (their count, a dimension it lacks, a sharded layer
+    axis) raise ValueError."""
     d = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
     pairs, spec = tu.tree_flatten_with_path(like)
+    if (mesh is None) != (placements is None):
+        raise ValueError("a restore onto a mesh takes both mesh= and placements=")
+    if mesh is not None:
+        from repro_torch.distributed import sharding
+
+        by_leaf = sharding.spec_leaves(placements)
+        if device is None:
+            device = (torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda"
+                      else torch.device(mesh.device_type))
     out = []
     for path, leaf in pairs:
         ps = tu.path_str(path)
@@ -118,6 +172,11 @@ def restore_checkpoint(directory: str, step: int, like, *, device=None):
         entry = by_path[ps]
         if list(leaf.shape) != entry["shape"]:
             raise ValueError(f"shape mismatch for {ps}: ckpt {entry['shape']} vs expected {list(leaf.shape)}")
+        if mesh is not None:
+            if ps not in by_leaf:
+                raise KeyError(f"no placements for leaf {ps!r}")
+            out.append(_restore_sharded(os.path.join(d, entry["file"]), entry, leaf, mesh, by_leaf[ps], device))
+            continue
         with open(os.path.join(d, entry["file"]), "rb") as f:
             t = _from_raw(f.read(), entry["shape"], entry["dtype"])
         if device is not None:

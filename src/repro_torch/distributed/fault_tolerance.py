@@ -1,10 +1,8 @@
 """Straggler policies and worker heartbeats: the systems contract behind the paper's claims.
 
-Port of ``repro.distributed.fault_tolerance``'s ``StragglerPolicy`` and
-``HeartbeatMonitor``. Its ``elastic_restore`` takes the reference's
-``PartitionSpec``s and waits for the port of ``distributed/sharding.py``
-(ROADMAP Queue 1 item 9g); ``checkpoint.restore_checkpoint`` restores onto one
-device.
+Port of ``repro.distributed.fault_tolerance``: ``StragglerPolicy``,
+``HeartbeatMonitor`` and ``elastic_restore`` (a checkpoint onto a device mesh
+of any shape, each rank reading only its own shards).
 
   * ``StragglerPolicy``  — deadline-based masks for any averaged quantity. The
     mask is drawn from the key ``fold_in(prng_key(seed), step)``, bitwise the
@@ -24,7 +22,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import restore_checkpoint
 from repro_torch.core.averaging import simulate_straggler_mask
+from repro_torch.distributed import sharding
 from repro_torch.utils import prng
 
 
@@ -124,3 +124,14 @@ class HeartbeatMonitor:
             "timeouts": float(self.timeouts),
             "retries": float(self.retries),
         }
+
+
+def elastic_restore(directory: str, step: int, like, mesh, pspecs):
+    """Restore a checkpoint onto ``mesh`` (any shape or size: an elastic
+    rescale). ``like``: the checkpoint's tree (``train.state.checkpoint_tree``
+    of ``train_state_shapes``, for instance); ``pspecs``: its specs as nested
+    dicts (``train_state_pspecs``). Every leaf comes back a DTensor placed by
+    its spec (``sharding.to_placements``), each rank having read only its own
+    slice of the leaf's file; placements that do not fit raise."""
+    placements = sharding.map_specs(lambda s: sharding.to_placements(s, mesh), pspecs)
+    return restore_checkpoint(directory, step, like, mesh=mesh, placements=placements)

@@ -3,7 +3,9 @@
 Port of the reference's mesh constructors (``repro.launch.mesh``) for the solver: its
 mesh axes become one ``torch.distributed`` process group, a rank per process,
 each rank running a slice of the q workers (``core.distributed``, ``group=``).
-The reference's LM production meshes (data × model axes) wait for the LM port.
+For the LM, the reference's production meshes become ``DeviceMesh``es over
+the process group that is up (``make_production_mesh``, ``make_smoke_mesh``),
+with the reference's ``production_rules`` (``distributed.sharding``).
 
 Under ``torchrun --nproc_per_node=N`` every process calls ``init_worker_group()``
 and gets NCCL on ``cuda:LOCAL_RANK``. Without torchrun the caller names its
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.utils import env as envcfg
 from repro_torch.utils.device import resolve_device
 
@@ -62,3 +65,48 @@ def init_worker_group(backend: str | None = None, device=None, *, rank: int | No
     else:
         dist.init_process_group(backend, init_method=init_method or "env://", rank=rank, world_size=world_size)
     return dist.group.WORLD, dev
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The reference's production mesh over the process group that is up: (16, 16)
+    over ("data", "model"), or (2, 16, 16) over ("pod", "data", "model"), one rank
+    a device (256 or 512 ranks). "model" carries Megatron TP, "data" FSDP and the
+    batch, "pod" the batch only. Raises without a group of that size, and for a
+    CUDA mesh without CUDA."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(dist, init_device_mesh, device_type, shape, axes)
+
+
+def production_rules(*, multi_pod: bool = False) -> ShardingRules:
+    dp = ("pod", "data") if multi_pod else ("data",)
+    return ShardingRules(dp=dp, fsdp="data", tensor="model")
+
+
+def make_smoke_mesh(n_devices: int = 0, *, device_type: str = "cuda"):
+    """A small ("data", "model") mesh over the group's ranks (the reference's
+    choice: "model" the first of 4, 2, 1 that divides n; one rank is (1, 1))."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = n_devices or (dist.get_world_size() if dist.is_initialized() else 0)
+    model = next(c for c in (4, 2, 1) if n % c == 0 and c <= max(n, 1))
+    return _mesh(dist, init_device_mesh, device_type, (max(n, 1) // model, model), ("data", "model"))
+
+
+def _mesh(dist, init_device_mesh, device_type: str, shape: tuple, axes: tuple):
+    if not dist.is_initialized():
+        raise RuntimeError(f"a {'x'.join(map(str, shape))} mesh needs a process group of that many ranks; "
+                           "none is up")
+    size = 1
+    for n in shape:
+        size *= n
+    if dist.get_world_size() != size:
+        raise RuntimeError(f"a {'x'.join(map(str, shape))} mesh needs {size} ranks; the group has "
+                           f"{dist.get_world_size()}")
+    if device_type == "cuda":
+        resolve_device("cuda")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)

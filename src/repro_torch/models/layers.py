@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.utils import prng
 
 # Elements of one float32 piece of a weight draw: bounds the draw's int64
@@ -159,7 +160,39 @@ def init_embedding(key: torch.Tensor, vocab: int, d: int, dtype: torch.dtype, de
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    if sharding.is_dtensor(table):
+        return _sharded_embed(table, tokens)
     return table[tokens.to(device=table.device, dtype=torch.int64)]
+
+
+def _sharded_embed(table, tokens):
+    """The lookup on a DTensor table, by hand on each rank's shards (Megatron's
+    vocab-parallel embedding): whole rows of the rank's vocabulary shard, the
+    tokens batch-sharded where the vocabulary is not, each rank's lookup of
+    the tokens outside its shard zeroed, and the result a partial sum over the
+    vocabulary's mesh dimensions. The table's gradient is a partial sum where
+    the tokens are batch-sharded. (DTensor's own rule for the lookup's
+    backward, an accumulating ``index_put``, fails on some torch versions.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    vocab = [p == Shard(0) for p in table.placements]
+    tok = sharding.as_dtensor(tokens.to(dtype=torch.int64), mesh)
+    batch = [p == Shard(0) and not v for p, v in zip(tok.placements, vocab)]
+    rows_pl = tuple(Shard(0) if v else Replicate() for v in vocab)
+    grad_pl = tuple(Shard(0) if v else Partial() if b else Replicate() for v, b in zip(vocab, batch))
+    out_pl = tuple(Partial() if v else Shard(0) if b else Replicate() for v, b in zip(vocab, batch))
+    t_l = table.redistribute(mesh, rows_pl).to_local(grad_placements=grad_pl)
+    idx = tok.redistribute(mesh, tuple(Shard(0) if b else Replicate() for b in batch)).to_local()
+    held = sharding.local_slices(table.shape, mesh, rows_pl)[0]
+    if held.stop == held.start:
+        raise ValueError(f"a rank holds no rows of the {table.shape[0]}-row table")
+    idx = idx - held.start
+    inside = (idx >= 0) & (idx < held.stop - held.start)
+    out = t_l[torch.clamp(idx, 0, held.stop - held.start - 1)]
+    if any(vocab):
+        out = torch.where(inside[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    return sharding.from_local(out, mesh, out_pl, tuple(tokens.shape) + (table.shape[1],))
 
 
 class Unembed(nn.Module):

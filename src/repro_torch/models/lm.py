@@ -21,7 +21,20 @@ RoPE rotates only the decoder's causal self attention: the encoder's self
 attention and cross attention have no positions (the frame stub carries none).
 Weights keep the reference's (in, out) orientation; the functions mirror the
 reference's (``forward_logits(params, cfg, batch)`` and so on) with ``params``
-the module. Inference runs under ``torch.inference_mode()``.
+the module. Inference runs under ``torch.inference_mode()`` (``torch.no_grad()``
+for a sharded model: a DTensor weight's view is not an inference tensor).
+
+Sharding: every entry point takes the reference's ``rules``
+(``distributed.sharding``) and calls ``constrain`` at the reference's points
+(each layer's input, the MoE block's input and output, the encoder layer's
+input, the queries, the loss chunk's and the decode's and prefill's logits).
+With ``rules=None``, or plain tensors, ``constrain`` is the identity and every
+result is what it is without it. A model whose parameters are DTensors runs
+its entry points under ``implicit_replication``, so the tables the forward
+makes as plain tensors (RoPE, positions, masks) join the DTensor ops
+replicated; the loss's gold logit over a vocab-sharded chunk is a masked sum
+(an exact one: one term and zeros), for which DTensor has a rule and for
+``torch.gather`` it has none.
 
 Training (``lm_loss``) differentiates the same forward: ``trunk`` wraps each
 layer in ``torch.utils.checkpoint`` by ``ExecPlan.remat`` (``full``: only the
@@ -48,6 +61,7 @@ position p. Every config of the reference's registry is accepted.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -58,6 +72,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention, layers, moe as moe_lib, ssm as ssm_lib
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
@@ -76,6 +92,53 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def is_sharded(t) -> bool:
+    """Whether ``t`` (a tensor, or a module's first parameter) is a DTensor."""
+    if isinstance(t, nn.Module):
+        t = next(t.parameters(), None)
+    return sharding.is_dtensor(t)
+
+
+@contextlib.contextmanager
+def sharded_region(t):
+    """For a sharded model or tensor, DTensor's implicit replication (plain
+    tensors made inside join its ops replicated), restored to what it was on
+    exit (``implicit_replication()`` itself turns it off, which would end an
+    enclosing region); else nothing."""
+    if not is_sharded(t):
+        yield
+        return
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
+
+
+def _whole_seq(x: torch.Tensor, rules) -> torch.Tensor:
+    """x (B, S, …) gathered whole on the sequence, batch-sharded: what a
+    projection reads (a DTensor product cannot flatten a sharded sequence)."""
+    return constrain(x, rules, "dp", None, None)
+
+
+def _inference(fn):
+    """Run an entry point ``fn(params, ...)`` under ``torch.inference_mode()``, or
+    ``torch.no_grad()`` and :func:`sharded_region` for a sharded model."""
+    @functools.wraps(fn)
+    def run(params, *args, **kwargs):
+        if not is_sharded(params):
+            with torch.inference_mode():
+                return fn(params, *args, **kwargs)
+        with torch.no_grad(), sharded_region(params):
+            return fn(params, *args, **kwargs)
+
+    return run
+
+
 @dataclasses.dataclass(frozen=True)
 class ExecPlan:
     """Execution knobs, orthogonal to the architecture config."""
@@ -84,6 +147,12 @@ class ExecPlan:
     loss_chunk: int = 512       # CE vocab-matmul sequence chunk
     ssm_chunk: int = 128        # Mamba scan chunk: its float32 tiles are (B, ssm_chunk, C, N)
     remat: str = "full"         # none | full | dots (applies where autograd records)
+
+
+def analysis_plan(seq_len: int, *, remat: str = "full") -> ExecPlan:
+    """The reference's analysis plan: every chunk one trip (attention, loss, scan)."""
+    big = max(seq_len, 1)
+    return ExecPlan(attn_chunk=big, loss_chunk=big, ssm_chunk=big, remat=remat)
 
 
 # ===================================================================== layer windows
@@ -143,11 +212,15 @@ class DecoderLayer(nn.Module):
         elif ffn is not None:
             self.ffn = ffn
 
-    def _ffn(self, h: torch.Tensor, cfg: ArchConfig):
-        """(G, T, d) -> (out, MoE aux loss or None); an MoE groups by the first axis."""
+    def _ffn(self, h: torch.Tensor, cfg: ArchConfig, rules=None):
+        """(G, T, d) -> (out, MoE aux loss or None); an MoE groups by the first axis.
+        Under ``rules`` an MoE block's sequence axis is local (the dispatch sorts
+        along it) and its output goes back to the layer boundary's spec."""
         if cfg.moe:
-            return self.moe(h, num_experts=cfg.num_experts, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
-        return self.ffn(h), None
+            f, aux = self.moe(constrain(h, rules, "dp", None, None), num_experts=cfg.num_experts, top_k=cfg.top_k,
+                              capacity_factor=cfg.capacity_factor, rules=rules)
+            return constrain(f, rules, "dp", "sp", None), aux
+        return constrain(self.ffn(h), rules, "dp", "sp", None), None
 
     def _attn_args(self, cfg: ArchConfig) -> dict:
         if cfg.mla:
@@ -160,26 +233,29 @@ class DecoderLayer(nn.Module):
         return dict(state=cfg.ssm_state, dt_rank=cfg.resolved_dt_rank)
 
     def forward(self, x: torch.Tensor, cfg: ArchConfig, window: int, plan: ExecPlan, *, return_kv: bool = False,
-                enc_out: Optional[torch.Tensor] = None):
+                enc_out: Optional[torch.Tensor] = None, rules=None):
         """(B, S, d) -> (x (B, S, d), MoE aux or None, each sequence an MoE group);
         ``enc_out`` (B, enc_seq, d) is what the cross attention reads (without
         it, as in the reference, the cross block attends over its own input,
         bidirectionally). With ``return_kv`` also this layer's cache piece by
         the cache's names: the post-RoPE "k", "v"; MLA's "ckv", "krope"; a Mamba
         branch's "conv" (the last K − 1 pre-conv inputs) and "ssm" (h_T); the
-        cross attention's unrotated "xk", "xv"."""
-        h = self.norm1(x, cfg.norm_eps)
+        cross attention's unrotated "xk", "xv". Under ``rules`` the layer's input
+        is sequence-parallel (dp, sp), and each normed input is gathered whole on
+        the sequence before its projections (Megatron's sequence parallelism)."""
+        x = constrain(x, rules, "dp", "sp", None)
+        h = _whole_seq(self.norm1(x, cfg.norm_eps), rules)
         piece = {}
         if self.attn is None:
             s = ssm_lib.mamba_forward(self.mamba, h, chunk=plan.ssm_chunk, return_state=return_kv,
                                       **self._ssm_args(cfg))
             if return_kv:
                 s, (piece["conv"], piece["ssm"]) = s
-                return x + s, None, piece
-            return x + s, None
+                return x + constrain(s, rules, "dp", "sp", None), None, piece
+            return x + constrain(s, rules, "dp", "sp", None), None
         fwd, names = (attention.mla_forward, ("ckv", "krope")) if cfg.mla else (
             functools.partial(attention.gqa_forward, window=window), ("k", "v"))
-        a = fwd(self.attn, h, rope_theta=cfg.rope_theta, chunk=plan.attn_chunk, return_kv=return_kv,
+        a = fwd(self.attn, h, rope_theta=cfg.rope_theta, chunk=plan.attn_chunk, return_kv=return_kv, rules=rules,
                 **self._attn_args(cfg))
         if return_kv:
             a, kv = a
@@ -189,20 +265,21 @@ class DecoderLayer(nn.Module):
                                       **self._ssm_args(cfg))
             if return_kv:
                 s, (piece["conv"], piece["ssm"]) = s
-            a = self.fuse(a, s, cfg.norm_eps)
-        x = x + a
+            # Whole on the sequence, so that the scan's products take their gradient so placed.
+            a = self.fuse(a, constrain(s, rules, "dp", None, None), cfg.norm_eps)
+        x = x + constrain(a, rules, "dp", "sp", None)
         if self.xattn is not None:
-            xa = attention.gqa_forward(self.xattn, self.norm_x(x, cfg.norm_eps), heads=cfg.num_heads,
+            xa = attention.gqa_forward(self.xattn, _whole_seq(self.norm_x(x, cfg.norm_eps), rules), heads=cfg.num_heads,
                                        kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
                                        rope_theta=cfg.rope_theta, causal=False, chunk=plan.attn_chunk,
-                                       kv_source=enc_out, return_kv=return_kv)
+                                       kv_source=enc_out, return_kv=return_kv, rules=rules)
             if return_kv:
                 xa, (piece["xk"], piece["xv"]) = xa
-            x = x + xa
-        f, aux = self._ffn(self.norm2(x, cfg.norm_eps), cfg)
+            x = x + constrain(xa, rules, "dp", "sp", None)
+        f, aux = self._ffn(_whole_seq(self.norm2(x, cfg.norm_eps), rules), cfg, rules)
         return (x + f, aux, piece) if return_kv else (x + f, aux)
 
-    def decode(self, x: torch.Tensor, lc: Dict[str, torch.Tensor], tables, cfg: ArchConfig) -> torch.Tensor:
+    def decode(self, x: torch.Tensor, lc: Dict[str, torch.Tensor], tables, cfg: ArchConfig, rules=None) -> torch.Tensor:
         """One token (B, 1, d) against this layer's cache views ``lc``
         (:func:`layer_caches`), written in place (the cross "xk" and "xv" only
         read); ``tables`` is ``attention.decode_tables`` of the position for the
@@ -210,23 +287,24 @@ class DecoderLayer(nn.Module):
         h = self.norm1(x, cfg.norm_eps)
         if self.attn is None:
             s, conv, state = ssm_lib.mamba_decode(self.mamba, h, lc["conv"], lc["ssm"], **self._ssm_args(cfg))
-            lc["conv"].copy_(conv)
-            lc["ssm"].copy_(state)
+            sharding.copy_into(lc["conv"], conv)
+            sharding.copy_into(lc["ssm"], state)
             return x + s
         if cfg.mla:
-            a = attention.mla_decode(self.attn, h, lc["ckv"], lc["krope"], tables, **self._attn_args(cfg))
+            a = attention.mla_decode(self.attn, h, lc["ckv"], lc["krope"], tables, rules=rules,
+                                     **self._attn_args(cfg))
         else:
-            a = attention.gqa_decode(self.attn, h, lc["k"], lc["v"], tables, **self._attn_args(cfg))
+            a = attention.gqa_decode(self.attn, h, lc["k"], lc["v"], tables, rules=rules, **self._attn_args(cfg))
         if self.mamba is not None:
             s, conv, state = ssm_lib.mamba_decode(self.mamba, h, lc["conv"], lc["ssm"], **self._ssm_args(cfg))
-            lc["conv"].copy_(conv)
-            lc["ssm"].copy_(state)
+            sharding.copy_into(lc["conv"], conv)
+            sharding.copy_into(lc["ssm"], state)
             a = self.fuse(a, s, cfg.norm_eps)
         x = x + a
         if self.xattn is not None:
             x = x + attention.cross_decode(self.xattn, self.norm_x(x, cfg.norm_eps), lc["xk"], lc["xv"],
                                            heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
-                                           head_dim=cfg.resolved_head_dim)
+                                           head_dim=cfg.resolved_head_dim, rules=rules)
         B, d = x.shape[0], x.shape[2]
         f, _ = self._ffn(self.norm2(x, cfg.norm_eps).reshape(1, B, d), cfg)  # the batch is the MoE group
         return x + f.reshape(B, 1, d)
@@ -240,12 +318,14 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.norm1, self.attn, self.norm2, self.ffn = norm1, attn, norm2, ffn
 
-    def forward(self, x: torch.Tensor, cfg: ArchConfig, plan: ExecPlan) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cfg: ArchConfig, plan: ExecPlan, rules=None) -> torch.Tensor:
+        x = constrain(x, rules, "dp", None, None)
         h = self.norm1(x, cfg.norm_eps)
-        x = x + attention.gqa_forward(self.attn, h, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
-                                      head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, causal=False,
-                                      chunk=plan.attn_chunk)
-        return x + self.ffn(self.norm2(x, cfg.norm_eps))
+        a = attention.gqa_forward(self.attn, h, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                                  head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, causal=False,
+                                  chunk=plan.attn_chunk, rules=rules)
+        x = x + constrain(a, rules, "dp", None, None)
+        return x + constrain(self.ffn(self.norm2(x, cfg.norm_eps)), rules, "dp", None, None)
 
 
 class VitProj(nn.Module):
@@ -530,7 +610,7 @@ def params_from_reference(cfg: ArchConfig, tree, *, device=None) -> LM:
 # ===================================================================== forward (prefill)
 
 
-def embed_inputs(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+def embed_inputs(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *, rules=None,
                  plan: ExecPlan = ExecPlan()) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Token embedding and the frontend stubs. Returns (x (B, S, d), loss_mask
     (B, S) float32, enc_out (B, enc_seq, d) or None).
@@ -556,18 +636,19 @@ def embed_inputs(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
         x = torch.cat([proj, x[:, P:]], dim=1)
         mask = torch.cat([torch.zeros((B, P), dtype=torch.float32, device=x.device), mask.to(x.device)[:, P:]], dim=1)
     if cfg.encdec and "frames" in batch:
-        enc_out = encoder_forward(params, cfg, batch["frames"].to(x.device), plan=plan)
+        enc_out = encoder_forward(params, cfg, batch["frames"].to(x.device), rules=rules, plan=plan)
     return x, mask, enc_out
 
 
-def encoder_forward(params: LM, cfg: ArchConfig, frames: torch.Tensor, *, plan: ExecPlan = ExecPlan()) -> torch.Tensor:
+def encoder_forward(params: LM, cfg: ArchConfig, frames: torch.Tensor, *, rules=None,
+                    plan: ExecPlan = ExecPlan()) -> torch.Tensor:
     """The bidirectional encoder over precomputed frame embeddings (whisper's
     stub), cast to the model dtype first: ``enc_layers`` in order, each
     rematerialized where autograd records (the reference checkpoints every
     encoder layer), then ``enc_norm``. (B, enc_seq, d) -> (B, enc_seq, d)."""
     x = frames.to(torch_dtype(cfg))
     for layer in params.enc_layers:
-        x = _remat(lambda x, layer=layer: layer(x, cfg, plan), "full", x)
+        x = _remat(lambda x, layer=layer: layer(x, cfg, plan, rules), "full", x)
     return params.enc_norm(x, cfg.norm_eps)
 
 
@@ -596,41 +677,48 @@ def _remat(fn, remat: str, *args):
     raise ValueError(f"remat must be none, full or dots, not {remat!r}")
 
 
-def trunk(params: LM, cfg: ArchConfig, x: torch.Tensor, *, enc_out: Optional[torch.Tensor] = None,
+def trunk(params: LM, cfg: ArchConfig, x: torch.Tensor, *, rules=None, enc_out: Optional[torch.Tensor] = None,
           plan: ExecPlan = ExecPlan()) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layers over x: (B, S, d), each under ``plan.remat``, the cross
     attention reading ``enc_out``. Returns (the final-norm hidden states, the
     MoE aux loss summed over the layers in float32; 0 for a dense model)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, window in zip(params.layers, layer_windows(cfg).tolist()):
-        x, a = _remat(lambda x, layer=layer, window=window: layer(x, cfg, window, plan, enc_out=enc_out), plan.remat,
-                      x)
+        x, a = _remat(lambda x, layer=layer, window=window: layer(x, cfg, window, plan, enc_out=enc_out, rules=rules),
+                      plan.remat, x)
         if a is not None:
             aux = aux + a
     return params.final_norm(x, cfg.norm_eps), aux
 
 
-@torch.inference_mode()
-def forward_logits(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+@_inference
+def forward_logits(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *, rules=None,
                    plan: ExecPlan = ExecPlan()) -> torch.Tensor:
     """Full (B, S, V_pad) float32 logits (no chunking over the sequence)."""
-    x, _, enc_out = embed_inputs(params, cfg, batch, plan=plan)
-    return layers.unembed(params.unembed_w(), trunk(params, cfg, x, enc_out=enc_out, plan=plan)[0]).to(torch.float32)
+    x, _, enc_out = embed_inputs(params, cfg, batch, rules=rules, plan=plan)
+    h = _whole_seq(trunk(params, cfg, x, rules=rules, enc_out=enc_out, plan=plan)[0], rules)
+    return layers.unembed(params.unembed_w(), h).to(torch.float32)
 
 
 # ===================================================================== loss
 
 
-def _ce_chunk(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
-    """(Σ masked nll, Σ mask) of one chunk: logits in h's dtype, then float32."""
-    logits = (h @ w).to(torch.float32)
+def _ce_chunk(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, rules=None):
+    """(Σ masked nll, Σ mask) of one chunk: logits in h's dtype, then float32
+    (vocab-sharded under ``rules``)."""
+    logits = constrain((h @ w).to(torch.float32), rules, "dp", None, "tensor")
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    ids = labels.to(torch.int64)[..., None]
+    if is_sharded(logits):
+        hit = ids == torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+    else:
+        gold = torch.gather(logits, -1, ids)[..., 0]
     return torch.sum((logz - gold) * mask), torch.sum(mask)
 
 
 def chunked_ce_loss(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, *,
-                    chunk: int = 512) -> torch.Tensor:
+                    chunk: int = 512, rules=None) -> torch.Tensor:
     """Masked mean next-token CE of hidden states h (B, S, d) against the (d, V)
     unembedding w, without (B, S, V) logits: the sequence in chunks of
     ``chunk``, each chunk's logits made, reduced to two float32 sums and
@@ -641,7 +729,7 @@ def chunked_ce_loss(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, mask
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     mask = mask.to(torch.float32)
     for j in range(0, S, chunk):
-        args = (h[:, j : j + chunk], w, labels[:, j : j + chunk], mask[:, j : j + chunk])
+        args = (h[:, j : j + chunk], w, labels[:, j : j + chunk], mask[:, j : j + chunk], rules)
         if torch.is_grad_enabled():
             from torch.utils import checkpoint as ckpt
 
@@ -652,16 +740,19 @@ def chunked_ce_loss(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, mask
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def lm_loss(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+def lm_loss(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *, rules=None,
             plan: ExecPlan = ExecPlan()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token CE (position t predicts token t + 1) + the MoE aux loss,
-    and {"ce", "moe_aux"}: the single entry point of training."""
-    x, mask, enc_out = embed_inputs(params, cfg, batch, plan=plan)
-    h, aux = trunk(params, cfg, x, enc_out=enc_out, plan=plan)
-    labels = batch["labels"].to(h.device)
-    ce = chunked_ce_loss(h[:, :-1], params.unembed_w(), labels[:, 1:], mask[:, 1:].to(h.device),
-                         chunk=plan.loss_chunk)
-    return ce + cfg.router_aux_coef * aux, {"ce": ce, "moe_aux": aux}
+    and {"ce", "moe_aux"}: the single entry point of training. A sharded
+    model's backward pass runs inside :func:`sharded_region` too."""
+    with sharded_region(params):
+        x, mask, enc_out = embed_inputs(params, cfg, batch, rules=rules, plan=plan)
+        h, aux = trunk(params, cfg, x, rules=rules, enc_out=enc_out, plan=plan)
+        h = _whole_seq(h, rules)
+        labels = batch["labels"].to(h.device)
+        ce = chunked_ce_loss(h[:, :-1], params.unembed_w(), labels[:, 1:], mask[:, 1:].to(h.device),
+                             chunk=plan.loss_chunk, rules=rules)
+        return ce + cfg.router_aux_coef * aux, {"ce": ce, "moe_aux": aux}
 
 
 # ===================================================================== KV cache
@@ -714,6 +805,26 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, dtype: Optional[tor
     return cache
 
 
+def cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """:func:`init_cache`'s tree as ``meta`` tensors: every shape and dtype,
+    nothing allocated."""
+    return init_cache(cfg, batch, seq_len, device="meta")
+
+
+def sharded_cache(cfg: ArchConfig, batch: int, seq_len: int, mesh, rules, *, batch_sharded: bool = True,
+                  device=None) -> dict:
+    """:func:`init_cache`'s zeros as DTensors on ``mesh``, placed by the
+    reference's ``cache_pspecs``, each rank allocating its own shard on
+    ``device`` (``meta`` for the dry run)."""
+    if rules is None:
+        raise ValueError("a sharded cache is placed by the sharding rules; pass rules=")
+    shapes = cache_shapes(cfg, batch, seq_len)
+    specs = sharding.cache_pspecs(shapes, rules, batch_sharded=batch_sharded)
+    return sharding.map_specs(
+        lambda spec, t: sharding.zeros(t.shape, t.dtype, mesh, sharding.to_placements(spec, mesh), device), specs,
+        shapes)
+
+
 def layer_caches(cfg: ArchConfig, cache: dict) -> List[Dict[str, torch.Tensor]]:
     """Each decoded layer's cache views by name ("k", "v"; "ckv", "krope";
     "conv", "ssm"; "xk", "xv"), layer l's entry of each leaf. With the local:global split,
@@ -735,8 +846,8 @@ def layer_caches(cfg: ArchConfig, cache: dict) -> List[Dict[str, torch.Tensor]]:
 # ===================================================================== decode
 
 
-@torch.inference_mode()
-def decode_step(params: LM, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, pos: int, *,
+@_inference
+def decode_step(params: LM, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, pos: int, *, rules=None,
                 x_embed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
     """One-token decode at position ``pos`` (an int; the attention-free stack's
     recurrence does not read it). tokens: (B,) ids, or ``x_embed`` (B, d)
@@ -744,6 +855,7 @@ def decode_step(params: LM, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, 
     k_rope) into its ring of ``cache`` and its Mamba states over theirs, in
     place (``layer_caches``). Returns (logits (B, V_pad) float32, cache)."""
     x = params.embed(tokens[:, None]) if x_embed is None else x_embed[:, None, :]
+    x = constrain(x, rules, "dp", None, None)
     rot = cfg.qk_rope_dim if cfg.mla else int(cfg.resolved_head_dim * cfg.rope_fraction) & ~1
     seq_leaf = "ckv" if cfg.mla else "k"
     tables = {}  # by ring length: the local rings and the global caches of gemma3
@@ -751,9 +863,9 @@ def decode_step(params: LM, cfg: ArchConfig, tokens: torch.Tensor, cache: dict, 
         s_cache = lc[seq_leaf].shape[1] if seq_leaf in lc else None  # None: the attention-free stack
         if s_cache is not None and s_cache not in tables:
             tables[s_cache] = attention.decode_tables(int(pos), s_cache, rot, cfg.rope_theta, x.device)
-        x = layer.decode(x, lc, tables.get(s_cache), cfg)
+        x = layer.decode(x, lc, tables.get(s_cache), cfg, rules)
     h = params.final_norm(x, cfg.norm_eps)
-    return layers.unembed(params.unembed_w(), h)[:, 0].to(torch.float32), cache
+    return constrain(layers.unembed(params.unembed_w(), h)[:, 0].to(torch.float32), rules, "dp", "tensor"), cache
 
 
 # ===================================================================== prefill
@@ -764,7 +876,10 @@ def _pad_seq(dst: torch.Tensor, src: torch.Tensor) -> None:
     reference's ``_pad_seq`` places it: at slots 0..S-1, or its last cache_len
     positions when S > cache_len."""
     S, cache_len = src.shape[1], dst.shape[1]
-    if S > cache_len:
+    if is_sharded(dst):
+        first = max(S - cache_len, 0)
+        sharding.write_slots(dst, src, list(range(S - first)), list(range(first, S)))
+    elif S > cache_len:
         dst.copy_(src[:, S - cache_len :])
     else:
         dst[:, :S] = src
@@ -776,13 +891,16 @@ def _ring_place(dst: torch.Tensor, src: torch.Tensor) -> None:
     the other slots stay zero)."""
     S, s_cache = src.shape[1], dst.shape[1]
     take = min(s_cache, S)
+    if is_sharded(dst):
+        sharding.write_slots(dst, src, [p % s_cache for p in range(S - take, S)], list(range(S - take, S)))
+        return
     slots = torch.arange(S - take, S, device=dst.device) % s_cache
     dst[:, slots] = src[:, S - take :]
 
 
-@torch.inference_mode()
+@_inference
 def batched_prefill(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *, cache_len: Optional[int] = None,
-                    plan: ExecPlan = ExecPlan()) -> Tuple[torch.Tensor, dict]:
+                    rules=None, plan: ExecPlan = ExecPlan()) -> Tuple[torch.Tensor, dict]:
     """Flash prefill: one batched pass over the prompt. Returns (last-token logits
     (B, V_pad) float32, a decode cache of ``cache_len`` positions (default S)
     positioned at pos = S). A windowed layer's k, v go to its ring at slots
@@ -792,23 +910,25 @@ def batched_prefill(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     are copied whole: enc_seq entries, neither a ring nor padded."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x, _, enc_out = embed_inputs(params, cfg, batch, plan=plan)
-    cache = init_cache(cfg, B, cache_len or S, device=x.device)
+    x, _, enc_out = embed_inputs(params, cfg, batch, rules=rules, plan=plan)
+    cache = (sharded_cache(cfg, B, cache_len or S, x.device_mesh, rules, device=x.to_local().device)
+             if is_sharded(x) else init_cache(cfg, B, cache_len or S, device=x.device))
     slots = layer_caches(cfg, cache)
     for l, (layer, window) in enumerate(zip(params.layers, layer_windows(cfg).tolist())):
-        x, _, piece = layer(x, cfg, window, plan, return_kv=True, enc_out=enc_out)
+        x, _, piece = layer(x, cfg, window, plan, return_kv=True, enc_out=enc_out, rules=rules)
         if l < len(slots):
             for name, t in piece.items():
                 if name in ("conv", "ssm", "xk", "xv"):
-                    slots[l][name].copy_(t)
+                    sharding.copy_into(slots[l][name], t)
                 else:
                     (_ring_place if window > 0 else _pad_seq)(slots[l][name], t)
-    h = params.final_norm(x[:, -1:], cfg.norm_eps)
-    return layers.unembed(params.unembed_w(), h)[:, 0].to(torch.float32), cache
+    h = params.final_norm(_whole_seq(x, rules)[:, -1:], cfg.norm_eps)
+    return constrain(layers.unembed(params.unembed_w(), h)[:, 0].to(torch.float32), rules, "dp", "tensor"), cache
 
 
-@torch.inference_mode()
-def prefill(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cache: dict) -> Tuple[torch.Tensor, dict]:
+@_inference
+def prefill(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cache: dict, *,
+            rules=None) -> Tuple[torch.Tensor, dict]:
     """Fill the cache from a prompt by stepping ``decode_step`` over its positions
     (one code path for the cache's semantics). An encoder-decoder's frames go
     through the encoder once, up front, and every layer's cross keys and values
@@ -819,13 +939,13 @@ def prefill(params: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cache: 
     tokens = batch["tokens"]
     B, S = tokens.shape
     if cfg.encdec and "frames" in batch:
-        enc_out = encoder_forward(params, cfg, batch["frames"].to(cache["xk"].device))
+        enc_out = encoder_forward(params, cfg, batch["frames"].to(cache["xk"].device), rules=rules)
         shape = (B, cfg.enc_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
         for l, layer in enumerate(params.layers):
             cache["xk"][l] = (enc_out @ layer.xattn.wk).reshape(shape).to(cache["xk"].dtype)
             cache["xv"][l] = (enc_out @ layer.xattn.wv).reshape(shape).to(cache["xv"].dtype)
-    x_all, _, _ = embed_inputs(params, cfg, {k: v for k, v in batch.items() if k != "frames"})
+    x_all, _, _ = embed_inputs(params, cfg, {k: v for k, v in batch.items() if k != "frames"}, rules=rules)
     logits = torch.zeros((B, cfg.padded_vocab), dtype=torch.float32, device=x_all.device)
     for i in range(S):
-        logits, cache = decode_step(params, cfg, tokens[:, i], cache, i, x_embed=x_all[:, i])
+        logits, cache = decode_step(params, cfg, tokens[:, i], cache, i, rules=rules, x_embed=x_all[:, i])
     return logits, cache

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import layers
 from repro_torch.utils import prng
 
@@ -103,8 +104,16 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor, init_state=N
 def _scan_within(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inclusive scan along axis 1 of the maps h ↦ a_t·h + b_t: returns the
     composed (a, b) of steps 0…t at each t, by doubling (⌈log₂ T⌉ steps). Each
-    step writes into the other of two buffer pairs; the inputs are not written."""
+    step writes into the other of two buffer pairs; the inputs are not written.
+    Where autograd records (training) or the tiles are DTensors, each step
+    makes new tensors instead, of the same values."""
     T, s = a.shape[1], 1
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad) or is_dtensor(a):
+        while s < T:
+            a, b = (torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1),
+                    torch.cat([b[:, :s], torch.addcmul(b[:, s:], a[:, s:], b[:, :-s])], dim=1))
+            s *= 2
+        return a, b
     out, spare = (torch.empty_like(a), torch.empty_like(b)), None
     while s < T:
         na, nb = out
@@ -116,6 +125,7 @@ def _scan_within(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.
         (a, b), out = out, spare
         s *= 2
     return a, b
+
 
 
 def _pad_steps(x: torch.Tensor, t_pad: int, value: float = 0.0) -> torch.Tensor:

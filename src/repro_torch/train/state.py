@@ -6,14 +6,16 @@ with the moments as dicts by parameter name, ``step`` an int32 0-d tensor.
 :func:`checkpoint_tree` lays the state out as the reference's tree (layer
 leaves stacked on a leading L axis, :class:`~repro_torch.utils.tree.Stacked`),
 which is what a checkpoint stores, and :func:`state_from_tree` reads it back.
-``train_state_pspecs`` and ``train_state_shardings`` wait for the port of
-``distributed/sharding.py`` (ROADMAP Queue 1 item 9g).
+:func:`train_state_pspecs` gives that tree's specs (``distributed.sharding``:
+the moments take their parameter's spec, ``count`` and ``step`` replicated),
+:func:`train_state_shardings` its DTensor placements on a mesh.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.utils import tree as tu
@@ -36,6 +38,20 @@ def train_state_shapes(cfg: ArchConfig, opt_cfg: AdamWConfig) -> dict:
     """The state's structure, shapes and dtypes on the ``meta`` device: nothing
     is allocated (a checkpoint's ``like``)."""
     return _state(lm.meta_params(cfg), opt_cfg, torch.zeros((), dtype=torch.int32, device="meta"))
+
+
+def train_state_pspecs(cfg: ArchConfig, opt_cfg: AdamWConfig, rules: sharding.ShardingRules) -> dict:
+    """Specs of the whole state as :func:`checkpoint_tree` lays it out (stacked
+    layer leaves keep their leading L entry): the moments inherit their
+    parameter's spec."""
+    shapes = checkpoint_tree(train_state_shapes(cfg, opt_cfg))
+    pspecs = sharding.param_pspecs(shapes["params"], rules)
+    return {"params": pspecs, "opt": {"mu": pspecs, "nu": pspecs, "count": ()}, "step": ()}
+
+
+def train_state_shardings(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh, rules: sharding.ShardingRules) -> dict:
+    """The DTensor placements of every leaf of :func:`train_state_pspecs` on ``mesh``."""
+    return sharding.map_specs(lambda s: sharding.to_placements(s, mesh), train_state_pspecs(cfg, opt_cfg, rules))
 
 
 def checkpoint_tree(state: dict) -> dict:

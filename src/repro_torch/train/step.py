@@ -2,11 +2,14 @@
 
 Port of ``repro.train.step``. The reference's step is jitted and its
 data-parallel mean is inserted by GSPMD; here one process takes the gradient
-of its whole batch (``loss.backward()``) and updates in place. The
-reference's ``_constrain_like_params`` pins gradients to their parameters'
-sharding; without sharding rules it is the identity, and so it is here until
-``distributed/sharding.py`` is ported (ROADMAP Queue 1 item 9g). The
-sketch-compressed, straggler-masked step lives in ``sketch_dp.py``.
+of its whole batch (``loss.backward()``) and updates in place. With
+``rules`` and DTensor parameters (``distributed.sharding``) the step is the
+sharded program: the forward's ``constrain`` points redistribute its
+activations and :func:`_constrain_like_params` redistributes each gradient to
+its parameter's placements (the reference pins them to their parameters'
+sharding, so the data-parallel sum becomes a reduce-scatter to the owning
+shard); without rules both are the identity. The sketch-compressed,
+straggler-masked step lives in ``sketch_dp.py``.
 """
 from __future__ import annotations
 
@@ -15,15 +18,35 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig, adamw_update
 
 
-def make_loss_fn(cfg: ArchConfig, *, plan: Optional[lm.ExecPlan] = None):
+def _constrain_like_params(grads: dict, rules: Optional[sharding.ShardingRules]) -> dict:
+    """Each gradient (by parameter name) redistributed to its parameter's
+    placements: the identity without rules or for plain tensors."""
+    if rules is None:
+        return grads
+    specs = sharding.named_pspecs(grads, rules)
+    return {name: _to_spec(g, specs[name]) for name, g in grads.items()}
+
+
+def _to_spec(g, spec):
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(g, DTensor):
+        return g
+    placements = sharding.to_placements(spec, g.device_mesh)
+    return g if tuple(g.placements) == placements else g.redistribute(g.device_mesh, placements)
+
+
+def make_loss_fn(cfg: ArchConfig, *, rules: Optional[sharding.ShardingRules] = None,
+                 plan: Optional[lm.ExecPlan] = None):
     plan = plan or lm.ExecPlan()
 
     def loss_fn(params, batch):
-        return lm.lm_loss(params, cfg, batch, plan=plan)
+        return lm.lm_loss(params, cfg, batch, rules=rules, plan=plan)
 
     return loss_fn
 
@@ -37,7 +60,8 @@ def take_grads(params: lm.LM) -> dict:
     return grads
 
 
-def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, schedule: Optional[Callable] = None,
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, rules: Optional[sharding.ShardingRules] = None,
+                    schedule: Optional[Callable] = None,
                     plan: Optional[lm.ExecPlan] = None, remat: str = "full", accum_steps: int = 1,
                     accum_dtype: str = "float32") -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``, the state updated
@@ -49,12 +73,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, schedule: Optional
     reference's scan does: peak activation memory divides by accum_steps."""
     plan = plan or lm.ExecPlan(remat=remat)
     acc_dt = torch.bfloat16 if accum_dtype == "bfloat16" else torch.float32
-    loss_fn = make_loss_fn(cfg, plan=plan)
+    loss_fn = make_loss_fn(cfg, rules=rules, plan=plan)
 
     def grad_fn(params, batch):
-        loss, aux = loss_fn(params, batch)
-        loss.backward()
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}, take_grads(params)
+        with lm.sharded_region(params):
+            loss, aux = loss_fn(params, batch)
+            loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, _constrain_like_params(take_grads(params), rules)
 
     def compute_grads(params, batch):
         if accum_steps <= 1:

@@ -1632,3 +1632,60 @@ def test_engine_with_frames_on_the_card_gives_the_cpus_tokens(cuda):
     want = cpu.generate(prompts, max_new_tokens=10, frames=frames)
     assert min(margins) > 10 * 1e-5 * 4
     assert card.generate(prompts, max_new_tokens=10, frames=frames.to(cuda)) == want
+
+
+@pytest.fixture
+def nccl_one_rank(cuda, tmp_path):
+    """This process as the one rank of an NCCL group (destroyed after) and its
+    (1, 1) CUDA smoke mesh."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    mesh.init_worker_group(device="cuda:0", rank=0, world_size=1, init_method=f"file://{tmp_path / 'rdv'}")
+    try:
+        yield mesh.make_smoke_mesh(device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_elastic_restore_onto_a_cuda_mesh_is_bitwise(nccl_one_rank, tmp_path, dtype):
+    """A reduced granite-3-8b train state (random moments) saved by the port,
+    restored by ``elastic_restore`` onto the (1, 1) CUDA mesh under the
+    production rules: every leaf a DTensor on the card, bitwise the saved one;
+    a spec naming an axis the mesh lacks raises."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import store
+    from repro_torch.distributed.fault_tolerance import elastic_restore
+    from repro_torch.launch.mesh import production_rules
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import state as tstate
+    from repro_torch.utils import tree as tu
+
+    cfg = dataclasses.replace(_lm_cfg("granite-3-8b"), dtype=dtype)
+    opt = AdamWConfig()
+    st = tstate.init_train_state(cfg, opt, prng.prng_key(3), device="cpu")
+    g = torch.Generator().manual_seed(4)
+    for moments in (st["opt"]["mu"], st["opt"]["nu"]):
+        for t in moments.values():
+            t.copy_(torch.randn(t.shape, generator=g))
+    tree = tstate.checkpoint_tree(st)
+    store.save_checkpoint(str(tmp_path / "ckpt"), 1, tree)
+    like = tstate.checkpoint_tree(tstate.train_state_shapes(cfg, opt))
+    specs = tstate.train_state_pspecs(cfg, opt, production_rules())
+    got = elastic_restore(str(tmp_path / "ckpt"), 1, like, nccl_one_rank, specs)
+    want = tu.tree_flatten_with_path(tree)[0]
+    for (path, w), (_, t) in zip(want, tu.tree_flatten_with_path(got)[0]):
+        ws = w.parts if isinstance(w, tu.Stacked) else (w,)
+        ts = t.parts if isinstance(t, tu.Stacked) else (t,)
+        for a, b in zip(ws, ts):
+            assert isinstance(b, DTensor) and b.to_local().device.type == "cuda", tu.path_str(path)
+            assert torch.equal(b.to_local().cpu(), a.detach()), tu.path_str(path)
+    pod_fsdp = dataclasses.replace(production_rules(multi_pod=True), fsdp=("pod", "data"))  # "pod": not this mesh's
+    with pytest.raises(ValueError):
+        elastic_restore(str(tmp_path / "ckpt"), 1, like, nccl_one_rank, tstate.train_state_pspecs(cfg, opt, pod_fsdp))
